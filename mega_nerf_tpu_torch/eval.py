@@ -1,0 +1,33 @@
+"""Eval entry point: `python -m mega_nerf_tpu_torch.eval --config_file ...
+--dataset_path ... --ckpt_path ... --exp_name ...`.
+
+Counterpart of the JAX package's `eval.py`. Runs on `--device` (default
+cuda; cuda without a card raises).
+"""
+
+from __future__ import annotations
+
+from argparse import Namespace
+from typing import Dict
+
+from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.runtime.runner import Runner
+
+
+def get_eval_opts(args=None) -> Namespace:
+    parser = get_opts_base()
+    parser.add_argument('--exp_name', type=str, required=True,
+                        help='experiment name')
+    parser.add_argument('--dataset_path', type=str, required=True)
+    return parse_opts(parser, args)
+
+
+def main(hparams: Namespace) -> Dict[str, float]:
+    """Render and score every val view; returns the averaged metrics."""
+    if hparams.ckpt_path is None:
+        raise ValueError("eval needs --ckpt_path")
+    return Runner(hparams).eval()
+
+
+if __name__ == '__main__':
+    main(get_eval_opts())

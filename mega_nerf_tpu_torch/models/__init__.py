@@ -1,0 +1,33 @@
+"""Model layer: the NeRF MLP, its factory and weight carry-over."""
+
+from mega_nerf_tpu_torch.models.factory import (
+    ModelBundle,
+    make_bg_nerf,
+    make_nerf,
+    nerf_config_from_hparams,
+)
+from mega_nerf_tpu_torch.models.nerf import (
+    NeRF,
+    NeRFConfig,
+    frequency_encode,
+    init_weights,
+)
+from mega_nerf_tpu_torch.models.weights import (
+    flax_params_from_state,
+    state_from_flax_params,
+    strip_module_prefix,
+)
+
+__all__ = [
+    "ModelBundle",
+    "make_bg_nerf",
+    "make_nerf",
+    "nerf_config_from_hparams",
+    "NeRF",
+    "NeRFConfig",
+    "frequency_encode",
+    "init_weights",
+    "flax_params_from_state",
+    "state_from_flax_params",
+    "strip_module_prefix",
+]

@@ -1,0 +1,74 @@
+"""Weight carry-over between the JAX package's Flax params and the port.
+
+The port's `NeRF` uses the reference torch naming; the JAX package names
+its Flax modules `trunk_{i}`, `sigma`, `trunk_final`, `dir_a`, `rgb` and
+`appearance`. torch `Linear` stores weight as (out, in), a Flax Dense kernel
+as (in, out): kernels are transposed on the way through. Embedding tables
+agree on (count, dim). The entry table is the port's own copy of the one in
+the JAX package's `models/torch_interop.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from mega_nerf_tpu_torch.models.nerf import NeRFConfig
+
+# (flax_module, flax_param, torch_key, transpose)
+_Entry = Tuple[str, str, str, bool]
+
+
+def _entries(cfg: NeRFConfig) -> List[_Entry]:
+    entries: List[_Entry] = []
+    for i in range(cfg.layers):
+        entries.append((f"trunk_{i}", "kernel", f"xyz_encodings.{i}.0.weight", True))
+        entries.append((f"trunk_{i}", "bias", f"xyz_encodings.{i}.0.bias", False))
+    entries.append(("sigma", "kernel", "sigma.weight", True))
+    entries.append(("sigma", "bias", "sigma.bias", False))
+    if cfg.uses_dir_branch:
+        entries.append(("trunk_final", "kernel", "xyz_encoding_final.weight", True))
+        entries.append(("trunk_final", "bias", "xyz_encoding_final.bias", False))
+        entries.append(("dir_a", "kernel", "dir_a_encoding.0.weight", True))
+        entries.append(("dir_a", "bias", "dir_a_encoding.0.bias", False))
+    entries.append(("rgb", "kernel", "rgb.weight", True))
+    entries.append(("rgb", "bias", "rgb.bias", False))
+    if cfg.appearance_dim > 0:
+        entries.append(("appearance", "embedding", "embedding_a.weight", False))
+    return entries
+
+
+def state_from_flax_params(
+    cfg: NeRFConfig, params_np: Dict
+) -> Dict[str, torch.Tensor]:
+    """Flax params tree (numpy leaves) -> the port's state dict."""
+    state: Dict[str, torch.Tensor] = {}
+    for mod, name, key, transpose in _entries(cfg):
+        arr = np.asarray(params_np[mod][name], dtype=np.float32)
+        if transpose:
+            arr = arr.T
+        state[key] = torch.from_numpy(np.array(arr, copy=True))
+    return state
+
+
+def flax_params_from_state(
+    cfg: NeRFConfig, state: Dict[str, torch.Tensor]
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's state dict -> Flax params tree of numpy arrays."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for mod, name, key, transpose in _entries(cfg):
+        arr = state[key].detach().cpu().float().numpy()
+        if transpose:
+            arr = arr.T
+        params.setdefault(mod, {})[name] = np.ascontiguousarray(arr)
+    return params
+
+
+def strip_module_prefix(state: Dict) -> Dict:
+    """Drop DDP's 'module.' prefix from state-dict keys."""
+    return {
+        (k[len("module."):] if k.startswith("module.") else k): v
+        for k, v in state.items()
+    }
