@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                    # all phases
-    python3 chip_smoke.py --phases build,compare
+    python3 chip_smoke.py
 
-Phases:
+Runs every phase, in order:
 1. build    - compile every CUDA kernel of the port for sm_90a from the
               sources in this checkout (one nvcc per source, all at once).
 2. compare  - each kernel against its plain PyTorch version on the same
@@ -31,7 +30,6 @@ port is not beside this script.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -43,7 +41,6 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-2
-PHASES = ("build", "compare", "serve", "time")
 
 
 def log(msg: str) -> None:
@@ -95,6 +92,17 @@ def mlp_inputs(cfg, m: int, seed: int, device):
     idx = torch.randint(0, max(cfg.appearance_count, 1), (m,), generator=gen)
     to = lambda t: None if t is None else t.to(device).contiguous()  # noqa: E731
     return to(xyz), to(dirs), to(idx)
+
+
+def phase_build(device, report):
+    from mega_nerf_tpu_torch.render import _build
+
+    logs = _build.build_all()
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name}: {line.strip()}")
+    return True
 
 
 def compare_case(name, hp, bg, m, seed, device):
@@ -294,30 +302,24 @@ def phase_time(device, report):
         f"{plain_ms:.3f} ms; bound {report['bound_ms']:.3f} ms "
         f"({report['bound_by']}: {flops:.4g} FLOP, {nbytes:.4g} B)")
 
-    runner = report.get("runner")
-    if runner is not None:
-        meta = runner.val_items[0]
-        runner.render_image(meta)  # warm
-        torch.cuda.synchronize()
-        reps = 3
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            runner.render_image(meta)
-        torch.cuda.synchronize()
-        s_view = (time.perf_counter() - t0) / reps
-        rays = meta.W * meta.H
-        report.update(s_per_view=s_view, rays_per_s=rays / s_view)
-        log(f"  serving path: {meta.W}x{meta.H} view, {s_view:.4f} s/view, "
-            f"{rays / s_view:.1f} rays/s (paper fg+bg, 256+512 samples)")
+    runner = report["runner"]
+    meta = runner.val_items[0]
+    runner.render_image(meta)  # warm
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.render_image(meta)
+    torch.cuda.synchronize()
+    s_view = (time.perf_counter() - t0) / reps
+    rays = meta.W * meta.H
+    report.update(s_per_view=s_view, rays_per_s=rays / s_view)
+    log(f"  serving path: {meta.W}x{meta.H} view, {s_view:.4f} s/view, "
+        f"{rays / s_view:.1f} rays/s (paper fg+bg, 256+512 samples)")
     return True
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES))
-    args = ap.parse_args(argv)
-    phases = args.phases.split(",")
-
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -329,7 +331,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from mega_nerf_tpu_torch.render import _build
+        import mega_nerf_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -347,24 +349,16 @@ def main(argv=None) -> int:
     report = {}
     ok = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        for phase in phases:
+        phases = (
+            ("build", lambda: phase_build(device, report)),
+            ("compare", lambda: phase_compare(device, report)),
+            ("serve", lambda: phase_serve(device, report, Path(tmp))),
+            ("time", lambda: phase_time(device, report)),
+        )
+        for phase, run in phases:
             log(f"[{phase}]")
             t0 = time.perf_counter()
-            if phase == "build":
-                logs = _build.build_all()
-                for name, text in logs.items():
-                    for line in text.splitlines():
-                        if "registers" in line or "spill" in line or "error" in line:
-                            log(f"  {name}: {line.strip()}")
-                good = True
-            elif phase == "compare":
-                good = phase_compare(device, report)
-            elif phase == "serve":
-                good = phase_serve(device, report, Path(tmp))
-            elif phase == "time":
-                good = phase_time(device, report)
-            else:
-                raise SystemExit(f"unknown phase {phase}")
+            good = run()
             log(f"[{phase}] {'ok' if good else 'FAILED'} in "
                 f"{time.perf_counter() - t0:.1f} s")
             ok &= good
@@ -377,16 +371,16 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mega_nerf_tpu_torch/render/csrc/fused_mlp.cu",
         "replaces": "mega_nerf_tpu/render/pallas_mlp.py:401",
-        "launches": report.get("launches"),
-        "max_abs_err": report.get("max_abs_err"),
-        "ms": report.get("ms"),
-        "plain_ms": report.get("plain_ms"),
-        "bound_ms": report.get("bound_ms"),
-        "bound_by": report.get("bound_by"),
+        "launches": report["launches"],
+        "max_abs_err": report["max_abs_err"],
+        "ms": report["ms"],
+        "plain_ms": report["plain_ms"],
+        "bound_ms": report["bound_ms"],
+        "bound_by": report["bound_by"],
         "library_ms": None,
     }
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
-                                      "render_rgb_diff") if k in report}
+                                      "render_rgb_diff")}
     log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": [kernel]}))
     log(smi_line)

@@ -121,7 +121,7 @@ def get_opts_base() -> argparse.ArgumentParser:
                         choices=['bfloat16', 'float32'],
                         help='matmul operand precision (params stay float32)')
     parser.add_argument('--remat', default=False, action='store_true')
-    parser.add_argument('--no_pallas', dest='use_pallas', default='auto',
+    parser.add_argument('--no_pallas', dest='use_fused_kernel', default=True,
                         action='store_false',
                         help='evaluate the MLP with the eager NeRF module '
                              'instead of the fused eval kernel')

@@ -51,7 +51,7 @@ class RenderSettings:
     fine_samples: int = 512
     # False = evaluate the MLP with the eager NeRF module (--no_pallas);
     # otherwise the fused kernel wherever the architecture is covered.
-    use_pallas: object = "auto"
+    use_fused_kernel: bool = True
     # Reproduce the reference's bg fine-sampling quirk: bg coarse weights
     # are computed in descending-z order but paired with ascending bins
     # when the fine CDF is built. The default flips them back into bin
@@ -65,7 +65,7 @@ class RenderSettings:
         kw = dict(
             coarse_samples=getattr(hparams, "coarse_samples", 256),
             fine_samples=getattr(hparams, "fine_samples", 512),
-            use_pallas=getattr(hparams, "use_pallas", "auto"),
+            use_fused_kernel=getattr(hparams, "use_fused_kernel", True),
             ref_bg_sampling=getattr(hparams, "ref_bg_sampling", False),
         )
         kw.update(overrides)
@@ -84,7 +84,7 @@ def _log_mlp_path(message: str) -> None:
 
 def fused_gate(bundle: ModelBundle, settings: RenderSettings) -> Tuple[bool, str]:
     """Does this bundle's MLP go through the fused eval kernel wrapper?"""
-    if not settings.use_pallas:
+    if not settings.use_fused_kernel:
         return False, "disabled (--no_pallas)"
     return supports_fused_kernel(bundle.config)
 

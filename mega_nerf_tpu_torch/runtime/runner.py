@@ -227,8 +227,8 @@ class Runner:
         )
 
     def render_image(self, metadata: ImageMetadata) -> Dict[str, np.ndarray]:
-        """Render a full image in fixed-size chunks (the last one padded
-        with copies of the final ray) -> numpy arrays of H*W rows."""
+        """Render a full image in chunks (the last one shorter) -> numpy
+        arrays of H*W rows."""
         hp = self.hparams
         rays = generate_image_rays(
             metadata, self.near, self.far, self.ray_altitude_range,
@@ -236,24 +236,23 @@ class Runner:
         )
         n = rays.shape[0]
         chunk = min(hp.image_pixel_batch_size, n, _eval_chunk_cap(hp))
-        n_padded = -(-n // chunk) * chunk
-        rays = torch.cat([rays, rays[-1:].expand(n_padded - n, 8)])
-        image_indices = None
-        if hp.appearance_dim > 0:
-            image_indices = torch.full(
-                (chunk,), metadata.image_index, dtype=torch.long,
-                device=self.device,
-            )
         settings = self.render_settings()
         results: Dict[str, List[torch.Tensor]] = {}
-        for start in range(0, n_padded, chunk):
+        for start in range(0, n, chunk):
+            chunk_rays = rays[start:start + chunk]
+            image_indices = None
+            if hp.appearance_dim > 0:
+                image_indices = torch.full(
+                    (chunk_rays.shape[0],), metadata.image_index,
+                    dtype=torch.long, device=self.device,
+                )
             out = render_rays(
-                self.fg, self.bg, rays[start:start + chunk], image_indices,
+                self.fg, self.bg, chunk_rays, image_indices,
                 settings, self.sphere_center, self.sphere_radius,
             )
             for k, v in out.items():
                 results.setdefault(k, []).append(v.cpu())
-        return {k: torch.cat(v)[:n].numpy() for k, v in results.items()}
+        return {k: torch.cat(v).numpy() for k, v in results.items()}
 
     # ------------------------------------------------------------------- viz
 

@@ -95,6 +95,24 @@ def test_eval_matches_jax(tmp_path, bg):
     np.testing.assert_allclose(got["rgb_fine"], want["rgb_fine"], atol=1e-4)
 
 
+def test_render_image_ragged_last_chunk(tmp_path):
+    """A view split into chunks with a shorter last one renders exactly as
+    in one chunk."""
+    ds = make_synthetic_dataset(tmp_path / "ds", n_train=2, n_val=1, hw=(16, 16))
+    hp = port_eval.get_eval_opts(_args(ds, tmp_path / "exp", True)
+                                 + ["--device", "cpu"])
+    runner = TRunner(hp, set_experiment_path=False)
+    meta = runner.val_items[0]
+    whole = runner.render_image(meta)
+    hp.image_pixel_batch_size = 100  # 256 rays -> 100 + 100 + 56
+    chunked = runner.render_image(meta)
+    assert set(chunked) == set(whole)
+    for key, value in whole.items():
+        assert chunked[key].shape == value.shape == (256,) + value.shape[1:]
+        np.testing.assert_allclose(chunked[key], value, rtol=1e-6, atol=1e-6,
+                                   err_msg=key)
+
+
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port, and chip_smoke, import without jax or
     mega_nerf_tpu (run in a fresh interpreter)."""

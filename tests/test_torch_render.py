@@ -65,7 +65,7 @@ def test_render_rays_matches_jax(mlp, ref_bg_sampling, fine):
                             jnp.asarray(idx), jset, jnp.asarray(CENTER),
                             jnp.asarray(RADIUS), train=False)
     tset = RenderSettings(coarse_samples=coarse, fine_samples=fine,
-                          use_pallas=(mlp == "fused"),
+                          use_fused_kernel=(mlp == "fused"),
                           ref_bg_sampling=ref_bg_sampling,
                           get_depth=True, get_bg_fg_rgb=True)
     got = render_rays(tfg, tbg, torch.from_numpy(rays),
