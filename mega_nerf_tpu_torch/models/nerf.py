@@ -99,7 +99,9 @@ class NeRF(nn.Module):
     """Skip-connection MLP emitting (rgb, sigma).
 
     forward(xyz (..., xyz_dim), dirs (..., 3) or None, image_indices (...,)
-    int or None) -> (..., 4): sigmoid rgb and shifted-softplus sigma."""
+    int or None, sigma_noise (...,) f32 or None) -> (..., 4): sigmoid rgb
+    and shifted-softplus sigma; the training noise is added to the sigma
+    pre-activation."""
 
     def __init__(self, config: NeRFConfig):
         super().__init__()
@@ -137,16 +139,19 @@ class NeRF(nn.Module):
 
     def appearance(self, image_indices: torch.Tensor) -> torch.Tensor:
         """Embedding rows in the compute dtype; out-of-range indices clamp
-        to the nearest row (like the JAX package's take(mode="clip"))."""
+        to the nearest row (like the JAX package's take(mode="clip")). The
+        rows are gathered from the f32 table and then rounded, so the
+        gradient scatter into the table adds in f32."""
         table = self.embedding_a.weight
         idx = torch.clamp(image_indices.long(), 0, table.shape[0] - 1)
-        return table.to(self.config.dtype)[idx]
+        return table[idx].to(self.config.dtype)
 
     def forward(
         self,
         xyz: torch.Tensor,
         dirs: Optional[torch.Tensor] = None,
         image_indices: Optional[torch.Tensor] = None,
+        sigma_noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         cfg = self.config
         dt = cfg.dtype
@@ -158,6 +163,8 @@ class NeRF(nn.Module):
             h = torch.relu(dense(h, layer[0], dt))
 
         sigma = dense(h, self.sigma, dt).float()
+        if sigma_noise is not None:
+            sigma = sigma + sigma_noise.float()[..., None]
         if cfg.shifted_softplus:
             sigma = F.softplus(sigma - 1.0)
         else:

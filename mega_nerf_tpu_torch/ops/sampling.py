@@ -3,8 +3,9 @@
 Port of the JAX package's `ops/sampling.py`. The JAX version brackets each
 uniform with masked reductions (a TPU form); on the GPU `torch.searchsorted`
 does the same lookup, followed by the same index clamps. Parity is on
-outputs. Eval is deterministic (u = linspace); the sorted-uniform random
-mode belongs to training.
+outputs. Eval is deterministic (u = linspace); training draws sorted
+uniforms from a `torch.Generator` (or takes them explicitly, so tests can
+feed both packages the same numbers).
 """
 
 from __future__ import annotations
@@ -32,20 +33,42 @@ def expand_and_perturb_z_vals(
     return lower + (upper - lower) * u
 
 
+def sorted_uniforms(n_rays: int, fine_samples: int, generator: torch.Generator,
+                    device=None, dtype=torch.float32) -> torch.Tensor:
+    """(N, fs) ascending uniforms via exponential spacings: cumulative sums
+    of iid Exp(1) normalised by the (fs+1)-th partial sum are the order
+    statistics of fs iid U(0, 1) draws (the JAX package's form)."""
+    r = torch.rand((n_rays, fine_samples + 1), generator=generator,
+                   device=device, dtype=dtype)
+    s = torch.cumsum(-torch.log1p(-r), dim=-1)
+    return s[:, :-1] / s[:, -1:]
+
+
 def sample_cdf(
     bins: torch.Tensor,
     cdf: torch.Tensor,
     fine_samples: int,
+    det: bool = True,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Deterministic inverse-transform sampling of `fine_samples` depths.
+    """Inverse-transform sampling of `fine_samples` depths.
 
     bins: (N, S+1) bin edges; cdf: (N, S) cumulative weights in (0, 1].
-    u is an even linspace over [0, 1]; the returned depths ascend."""
+    u: explicit (N, fs) ascending uniforms; else an even linspace over
+    [0, 1] when `det` or without a generator, else `sorted_uniforms`.
+    The returned depths ascend."""
     n_rays = cdf.shape[0]
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1).contiguous()
-    u = torch.linspace(0.0, 1.0, fine_samples, dtype=cdf.dtype,
-                       device=cdf.device)
-    u = u.expand(n_rays, fine_samples).contiguous()
+    if u is None:
+        if det or generator is None:
+            u = torch.linspace(0.0, 1.0, fine_samples, dtype=cdf.dtype,
+                               device=cdf.device)
+            u = u.expand(n_rays, fine_samples)
+        else:
+            u = sorted_uniforms(n_rays, fine_samples, generator, cdf.device,
+                                cdf.dtype)
+    u = u.contiguous()
 
     idx = torch.searchsorted(cdf, u, right=True)
     below = torch.clamp(idx - 1, min=0)
@@ -64,10 +87,13 @@ def sample_pdf(
     bins: torch.Tensor,
     weights: torch.Tensor,
     fine_samples: int,
+    det: bool = True,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Hierarchical resampling: draw fine depths proportional to the
     (detached) coarse weights. bins: (N, S+1); weights: (N, S)."""
     weights = weights + 1e-8
     pdf = weights / torch.sum(weights, -1, keepdim=True)
     cdf = torch.cumsum(pdf, -1)
-    return sample_cdf(bins, cdf, fine_samples)
+    return sample_cdf(bins, cdf, fine_samples, det, generator, u)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,56 +72,80 @@ class PackedMLP:
         return self.config.uses_dir_branch
 
 
-def pack_params(module: NeRF) -> PackedMLP:
-    """A `NeRF` module's weights -> the kernel's layout, on its device."""
-    cfg = module.config
-    ok, why = supports_fused_kernel(cfg)
-    if not ok:
-        raise NotImplementedError(f"fused eval kernel does not cover: {why}")
-    dt = cfg.dtype
+# (weight name, bias name, column pieces [(src, dst, n)]) per matmul layer:
+# columns src .. src+n of the module's weight land at dst .. dst+n of the
+# packed matrix, whose width is the last piece's end rounded up to 16.
+MatLayout = List[Tuple[str, str, List[Tuple[int, int, int]]]]
+
+
+def mat_layout(cfg: NeRFConfig) -> MatLayout:
+    """Where each module weight sits in the kernel's packed matrices."""
     d = cfg.layer_dim
     ep = _round_up(cfg.enc_in, MMA_K)
     dp = _round_up(cfg.dir_in, MMA_K)
-    ap = _round_up(cfg.appearance_dim, MMA_K)
+    out: MatLayout = []
+    for i in range(cfg.layers):
+        if i == 0:
+            pieces = [(0, 0, cfg.enc_in)]
+        elif i in cfg.skip_layers:
+            pieces = [(0, 0, cfg.enc_in), (cfg.enc_in, ep, d)]
+        else:
+            pieces = [(0, 0, d)]
+        out.append((f"xyz_encodings.{i}.0.weight", f"xyz_encodings.{i}.0.bias",
+                    pieces))
+    if cfg.uses_dir_branch:
+        out.append(("xyz_encoding_final.weight", "xyz_encoding_final.bias",
+                    [(0, 0, d)]))
+        pieces = [(0, 0, d)]
+        if cfg.dir_in:
+            pieces.append((d, d, cfg.dir_in))
+        if cfg.appearance_dim:
+            pieces.append((d + cfg.dir_in, d + dp, cfg.appearance_dim))
+        out.append(("dir_a_encoding.0.weight", "dir_a_encoding.0.bias", pieces))
+    return out
 
-    def place(w: torch.Tensor, pieces) -> torch.Tensor:
-        """Copy column ranges of w into a zero matrix: [(src0, dst0, n)]."""
-        width = max(dst + n for _, dst, n in pieces)
-        out = w.new_zeros((w.shape[0], _round_up(width, MMA_K)))
-        for src, dst, n in pieces:
-            out[:, dst:dst + n] = w[:, src:src + n]
-        return out
 
+def mlp_param_names(cfg: NeRFConfig) -> List[str]:
+    """The module parameters the fused kernels read (all but the
+    appearance table, whose rows the caller gathers)."""
+    names = []
+    for w, b, _ in mat_layout(cfg):
+        names += [w, b]
+    return names + ["sigma.weight", "sigma.bias", "rgb.weight", "rgb.bias"]
+
+
+def pack_tensors(cfg: NeRFConfig, params: Dict[str, torch.Tensor]) -> PackedMLP:
+    """Module parameters (by name) -> the kernel's layout, detached, on
+    their device."""
+    ok, why = supports_fused_kernel(cfg)
+    if not ok:
+        raise NotImplementedError(f"fused kernel does not cover: {why}")
+    dt = cfg.dtype
     with torch.no_grad():
         mats, biases = [], []
-        for i, layer in enumerate(module.xyz_encodings):
-            w = layer[0].weight.float()
-            if i == 0:
-                w = place(w, [(0, 0, cfg.enc_in)])
-            elif i in cfg.skip_layers:
-                w = place(w, [(0, 0, cfg.enc_in), (cfg.enc_in, ep, d)])
-            mats.append(w)
-            biases.append(layer[0].bias.float())
-        if cfg.uses_dir_branch:
-            mats.append(module.xyz_encoding_final.weight.float())
-            biases.append(module.xyz_encoding_final.bias.float())
-            w = module.dir_a_encoding[0].weight.float()
-            pieces = [(0, 0, d)]
-            if cfg.dir_in:
-                pieces.append((d, d, cfg.dir_in))
-            if cfg.appearance_dim:
-                pieces.append((d + cfg.dir_in, d + dp, cfg.appearance_dim))
-            mats.append(place(w, pieces))
-            biases.append(module.dir_a_encoding[0].bias.float())
+        for wname, bname, pieces in mat_layout(cfg):
+            w = params[wname].detach()
+            width = _round_up(max(dst + n for _, dst, n in pieces), MMA_K)
+            mat = w.new_zeros((w.shape[0], width), dtype=dt)
+            for src, dst, n in pieces:
+                mat[:, dst:dst + n] = w[:, src:src + n]
+            mats.append(mat)
+            biases.append(params[bname].detach().float().contiguous())
         return PackedMLP(
-            config=cfg, ep=ep, dp=dp, ap=ap,
-            mats=[m.detach().to(dt).contiguous() for m in mats],
-            biases=[b.detach().contiguous() for b in biases],
-            sigma_w=module.sigma.weight[0].detach().to(dt).contiguous(),
-            sigma_b=module.sigma.bias.detach().float().contiguous(),
-            rgb_w=module.rgb.weight.detach().to(dt).contiguous(),
-            rgb_b=module.rgb.bias.detach().float().contiguous(),
+            config=cfg, ep=_round_up(cfg.enc_in, MMA_K),
+            dp=_round_up(cfg.dir_in, MMA_K),
+            ap=_round_up(cfg.appearance_dim, MMA_K),
+            mats=mats, biases=biases,
+            sigma_w=params["sigma.weight"].detach()[0].to(dt).contiguous(),
+            sigma_b=params["sigma.bias"].detach().float().contiguous(),
+            rgb_w=params["rgb.weight"].detach().to(dt).contiguous(),
+            rgb_b=params["rgb.bias"].detach().float().contiguous(),
         )
+
+
+def pack_params(module: NeRF) -> PackedMLP:
+    """A `NeRF` module's weights -> the kernel's layout, on its device."""
+    return pack_tensors(module.config, dict(module.named_parameters()))
 
 
 def encode(x: torch.Tensor, num_freqs: int, width: int) -> torch.Tensor:
@@ -142,14 +166,35 @@ def encode(x: torch.Tensor, num_freqs: int, width: int) -> torch.Tensor:
     return F.pad(enc, (0, width - live))
 
 
-def fused_nerf_eval_plain(
+@dataclasses.dataclass
+class ForwardTrace:
+    """The plain forward's intermediates, in the kernels' rounding."""
+
+    enc: torch.Tensor  # (M, EP) compute dtype
+    branch_in: Optional[torch.Tensor]  # (M, D + DP + AP) [final | dir enc | app]
+    hs: List[torch.Tensor]  # trunk outputs, compute dtype
+    sigma_pre: torch.Tensor  # (M,) f32, noise included
+    branch: Optional[torch.Tensor]  # (M, D / 2) compute dtype
+    rgb_pre: torch.Tensor  # (M, 3) f32
+
+    def output(self, shifted_softplus: bool) -> torch.Tensor:
+        """(M, 4) f32 [sigmoid rgb, activated sigma]."""
+        s = self.sigma_pre
+        sigma = F.softplus(s - 1.0) if shifted_softplus else torch.relu(s)
+        return torch.cat([torch.sigmoid(self.rgb_pre), sigma[:, None]], -1)
+
+
+def forward_trace(
     packed: PackedMLP,
-    xyz: torch.Tensor,  # (M, xyz_dim)
-    dirs: Optional[torch.Tensor] = None,  # (M, 3) direction coordinates
-    app: Optional[torch.Tensor] = None,  # (M, appearance_dim)
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel -> (M, 4) f32 [rgb, sigma]."""
-    fused_nerf_eval_plain.calls += 1
+    xyz: torch.Tensor,
+    dirs: Optional[torch.Tensor],
+    app: Optional[torch.Tensor],
+    noise: Optional[torch.Tensor] = None,
+) -> ForwardTrace:
+    """The kernels' forward arithmetic in PyTorch: the same encode form
+    (cos as sin(x 2^k + pi/2)), operands rounded to the compute dtype,
+    float32 accumulation and bias, rounding after each layer; `noise`
+    (M,) f32 is added to the sigma pre-activation."""
     cfg = packed.config
     dt = cfg.dtype
 
@@ -158,13 +203,17 @@ def fused_nerf_eval_plain(
 
     enc = encode(xyz, cfg.pos_xyz_dim, packed.ep).to(dt)
     h = enc
+    hs = []
     for i, (w, b) in enumerate(zip(packed.mats[:cfg.layers], packed.biases)):
         inp = torch.cat([enc, h], -1) if i in cfg.skip_layers else h
         h = torch.relu(lin(inp, w, b)).to(dt)
+        hs.append(h)
 
-    sigma = h.float() @ packed.sigma_w.float() + packed.sigma_b
-    sigma = F.softplus(sigma - 1.0) if cfg.shifted_softplus else torch.relu(sigma)
+    sigma_pre = h.float() @ packed.sigma_w.float() + packed.sigma_b
+    if noise is not None:
+        sigma_pre = sigma_pre + noise.float()
 
+    branch_in = branch = None
     if packed.has_branch:
         final = lin(h, packed.mats[cfg.layers], packed.biases[cfg.layers]).to(dt)
         parts = [final]
@@ -172,10 +221,24 @@ def fused_nerf_eval_plain(
             parts.append(encode(dirs, cfg.pos_dir_dim, packed.dp).to(dt))
         if packed.ap:
             parts.append(F.pad(app.to(dt), (0, packed.ap - app.shape[1])))
-        h = torch.relu(lin(torch.cat(parts, -1), packed.mats[cfg.layers + 1],
-                           packed.biases[cfg.layers + 1])).to(dt)
-    rgb = torch.sigmoid(lin(h, packed.rgb_w, packed.rgb_b))
-    return torch.cat([rgb, sigma[:, None]], -1)
+        branch_in = torch.cat(parts, -1)
+        branch = torch.relu(lin(branch_in, packed.mats[cfg.layers + 1],
+                                packed.biases[cfg.layers + 1])).to(dt)
+        h = branch
+    rgb_pre = lin(h, packed.rgb_w, packed.rgb_b)
+    return ForwardTrace(enc, branch_in, hs, sigma_pre, branch, rgb_pre)
+
+
+def fused_nerf_eval_plain(
+    packed: PackedMLP,
+    xyz: torch.Tensor,  # (M, xyz_dim)
+    dirs: Optional[torch.Tensor] = None,  # (M, 3) direction coordinates
+    app: Optional[torch.Tensor] = None,  # (M, appearance_dim)
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> (M, 4) f32 [rgb, sigma]."""
+    fused_nerf_eval_plain.calls += 1
+    trace = forward_trace(packed, xyz, dirs, app)
+    return trace.output(packed.config.shifted_softplus)
 
 
 fused_nerf_eval_plain.calls = 0
@@ -208,10 +271,36 @@ def fused_nerf_eval(
         return fused_nerf_eval_plain(packed, xyz, dirs, app)
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_nerf_eval: unsupported device {xyz.device}")
+    m = xyz.shape[0]
+    check_inputs(packed, xyz, dirs, app)
+
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library("fused_mlp")
+    _bind(lib)
+    out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
+    if m == 0:
+        return out
+    c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    err = lib.fused_nerf_eval_launch(c_ptrs, c_dims, ctypes.c_void_p(stream))
+    fused_nerf_eval.launches += 1
+    if err != 0:
+        raise RuntimeError(
+            "fused_nerf_eval kernel launch failed: "
+            + lib.fused_nerf_eval_error_string(err).decode()
+        )
+    return out
+
+
+def check_inputs(packed: PackedMLP, xyz, dirs, app) -> None:
+    """Raise unless the inputs are what the forward kernels take: bf16
+    compute, contiguous f32 xyz/dirs and bf16 appearance rows, weights on
+    the points' device."""
     cfg = packed.config
     if cfg.dtype != torch.bfloat16:
         raise NotImplementedError(
-            "the fused eval kernel computes in bfloat16; pass "
+            "the fused kernels compute in bfloat16; pass "
             "--compute_dtype bfloat16 or --no_pallas"
         )
     m = xyz.shape[0]
@@ -224,35 +313,28 @@ def fused_nerf_eval(
         if t.device != xyz.device:
             raise ValueError("packed weights live on another device than xyz")
 
-    from mega_nerf_tpu_torch.render._build import load_library
 
-    lib = load_library("fused_mlp")
-    _bind(lib)
-    out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
-    if m == 0:
-        return out
+def launch_tables(packed: PackedMLP, xyz, dirs, app, out):
+    """The forward kernels' pointer and int tables (read by
+    `fused_nerf_eval_launch` in fused_mlp.cu and by `fill_params` in
+    fused_train.cu) as ctypes arrays."""
+    cfg = packed.config
     ptrs = [xyz.data_ptr(), dirs.data_ptr() if packed.dp else 0,
             app.data_ptr() if packed.ap else 0, out.data_ptr(),
             packed.sigma_w.data_ptr(), packed.sigma_b.data_ptr(),
             packed.rgb_w.data_ptr(), packed.rgb_b.data_ptr()]
     for w, b in zip(packed.mats, packed.biases):
         ptrs += [w.data_ptr(), b.data_ptr()]
-    skip_mask = sum(1 << i for i in cfg.skip_layers if i < cfg.layers)
-    dims = [m, cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim, cfg.layers,
-            cfg.layer_dim, cfg.appearance_dim, skip_mask,
+    dims = [xyz.shape[0], cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim,
+            cfg.layers, cfg.layer_dim, cfg.appearance_dim, skip_mask(cfg),
             int(packed.has_branch), int(cfg.shifted_softplus),
             packed.ep, packed.dp, packed.ap]
-    c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = lib.fused_nerf_eval_launch(c_ptrs, c_dims, ctypes.c_void_p(stream))
-    fused_nerf_eval.launches += 1
-    if err != 0:
-        raise RuntimeError(
-            "fused_nerf_eval kernel launch failed: "
-            + lib.fused_nerf_eval_error_string(err).decode()
-        )
-    return out
+    return ((ctypes.c_longlong * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(dims))(*dims))
+
+
+def skip_mask(cfg: NeRFConfig) -> int:
+    return sum(1 << i for i in cfg.skip_layers if i < cfg.layers)
 
 
 fused_nerf_eval.launches = 0
@@ -297,7 +379,8 @@ def io_bytes_per_point(cfg: NeRFConfig) -> int:
 
 
 __all__ = [
-    "PackedMLP", "pack_params", "supports_fused_kernel", "encode",
+    "PackedMLP", "pack_params", "pack_tensors", "mat_layout",
+    "mlp_param_names", "supports_fused_kernel", "encode", "forward_trace",
     "fused_nerf_eval", "fused_nerf_eval_plain", "flops_per_point",
     "io_bytes_per_point",
 ]

@@ -1,10 +1,17 @@
-"""The eval orchestrator: the serving subset of the JAX package's `Runner`.
+"""The orchestrator: the JAX package's `Runner` for one process.
 
 - scene space (`coordinates.pt`, near/far, altitude range) and the
   foreground ellipsoid fitted over the cameras and their copies pinned to
   the altitude bounds;
 - the metadata scan (val images join the train set; appearance indices
   follow the sorted file names);
+- `train` runs the epoch loop over the in-memory dataset (a fresh
+  shuffle per epoch from `np.random.default_rng((seed, epoch))`), one
+  `TrainStep` per batch, a non-finite check and throughput every 100 steps,
+  `{iter}.pt` checkpoints at `--ckpt_interval` and at the end,
+  `--val_interval` validation, and the final validation plus `metrics.txt`
+  without a cluster mask; `--ckpt_path` resumes weights, Adam states and
+  the iteration count;
 - `make_eval_state` loads a reference-format `{iter}.pt` (--ckpt_path);
 - `render_image` renders a whole view in chunks bounded by an 8M-point
   budget per MLP pass;
@@ -12,14 +19,16 @@
   (the half excluded from training) and writes gt | pred | depth panels.
 
 Everything runs on `--device` (default cuda). Asking for cuda without a
-card raises; nothing falls back to the CPU. Not ported yet: training,
-LPIPS, TensorBoard logging, occupancy bounds, culling, routing, mixtures
-and multi-process validation.
+card raises; nothing falls back to the CPU. Not ported yet: the filesystem
+dataset, mid-epoch resume of the batch stream, LPIPS, TensorBoard logging,
+profiler hooks, occupancy bounds, culling, routing, mixtures and
+multi-process training and validation.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from argparse import Namespace
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -29,12 +38,18 @@ import torch
 
 from mega_nerf_tpu_torch.data.image_metadata import ImageMetadata
 from mega_nerf_tpu_torch.data.torch_io import load_coordinates, load_pt
+from mega_nerf_tpu_torch.data.memory_dataset import MemoryDataset
 from mega_nerf_tpu_torch.models.factory import ModelBundle, make_bg_nerf, make_nerf
+from mega_nerf_tpu_torch.models.nerf import init_weights
 from mega_nerf_tpu_torch.models.weights import strip_module_prefix
 from mega_nerf_tpu_torch.ops.metrics import psnr as psnr_metric
 from mega_nerf_tpu_torch.ops.metrics import ssim as ssim_metric
 from mega_nerf_tpu_torch.ops.rays import generate_image_rays
+from mega_nerf_tpu_torch.parallel.train_step import TrainStep
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
+from mega_nerf_tpu_torch.runtime import checkpoints
+
+METRICS_CHECK_INTERVAL = 100  # steps between non-finite checks
 
 # Point budget of one MLP pass during eval: 8M points at fine_samples=512
 # gives 16,384-ray chunks, the JAX package's eval chunk.
@@ -147,6 +162,104 @@ class Runner:
             if b is not None:
                 b.module.to(self.device).eval()
 
+    # ----------------------------------------------------------------- train
+
+    def train(self) -> Dict[str, float]:
+        """Train; returns the final validation metrics ({} with a cluster
+        mask)."""
+        hp = self.hparams
+        self._setup_experiment_dir()
+        init_weights(self.fg.module, torch.Generator().manual_seed(hp.random_seed))
+        if self.bg is not None:
+            init_weights(self.bg.module,
+                         torch.Generator().manual_seed(hp.random_seed + 1))
+        step = TrainStep(
+            self.fg, self.bg, RenderSettings.from_hparams(hp), hp.lr,
+            hp.lr_decay_factor, hp.train_iterations, self.sphere_center,
+            self.sphere_radius, use_appearance=hp.appearance_dim > 0)
+        train_iterations = 0
+        if hp.ckpt_path is not None:
+            loaded = self._load_weights(hp.ckpt_path)
+            step.load_optimizer_states(loaded.get("optimizers", {}))
+            train_iterations = int(loaded.get("iteration", 0))
+            print(f"Resumed from {hp.ckpt_path} at iteration {train_iterations}")
+        self.train_step = step
+
+        dataset = self._make_dataset()
+        generator = torch.Generator(device=self.device).manual_seed(hp.random_seed)
+        epoch = 0
+        t0, step0 = time.perf_counter(), train_iterations
+        while train_iterations < hp.train_iterations:
+            epoch_rng = np.random.default_rng((hp.random_seed, epoch))
+            for host_batch in dataset.batches(hp.batch_size, epoch_rng):
+                batch = {
+                    "rgbs": torch.from_numpy(host_batch["rgbs"]),
+                    "rays": torch.from_numpy(host_batch["rays"]),
+                    "img_indices": torch.from_numpy(
+                        host_batch["img_indices"]).long(),
+                }
+                batch = {k: v.to(self.device, non_blocking=True)
+                         for k, v in batch.items()}
+                metrics = step(batch, generator)
+                train_iterations += 1
+
+                if (train_iterations % METRICS_CHECK_INTERVAL == 0
+                        or train_iterations >= hp.train_iterations):
+                    host = {k: float(v) for k, v in metrics.items()}
+                    self.check_finite(host)
+                    now = time.perf_counter()
+                    rate = (train_iterations - step0) * hp.batch_size / (now - t0)
+                    t0, step0 = now, train_iterations
+                    print(f"step {train_iterations}: "
+                          + " ".join(f"{k}={v:.5g}" for k, v in host.items())
+                          + f" rays/s={rate:.1f}", flush=True)
+
+                if train_iterations % hp.ckpt_interval == 0:
+                    self._save_checkpoint(train_iterations)
+                if train_iterations % hp.val_interval == 0:
+                    self._run_validation(train_iterations)
+                    t0, step0 = time.perf_counter(), train_iterations
+                if train_iterations >= hp.train_iterations:
+                    break
+            else:
+                epoch += 1
+                continue
+            break
+
+        self._save_checkpoint(train_iterations)
+        val_metrics: Dict[str, float] = {}
+        if hp.cluster_mask_path is None:
+            val_metrics = self._run_validation(train_iterations)
+            self._write_final_metrics(val_metrics)
+        return val_metrics
+
+    @staticmethod
+    def check_finite(metrics: Dict[str, float]) -> None:
+        """psnr may be +/-inf (a perfectly fit batch), never NaN; every
+        other metric must be finite."""
+        for k, v in metrics.items():
+            if not (np.isfinite(v) or (k == "psnr" and np.isinf(v))):
+                raise RuntimeError(f"Train metrics not finite in {k}: {v}")
+
+    def _make_dataset(self) -> MemoryDataset:
+        hp = self.hparams
+        if hp.dataset_type != "memory":
+            raise NotImplementedError(
+                f"--dataset_type {hp.dataset_type} is not ported yet "
+                "(ROADMAP.md A.6); use --dataset_type memory")
+        return MemoryDataset(
+            self.train_items, self.near, self.far, self.ray_altitude_range,
+            hp.center_pixels, np.random.default_rng(hp.random_seed),
+        )
+
+    def _save_checkpoint(self, iteration: int) -> None:
+        if self.experiment_path is None:
+            return
+        checkpoints.save_checkpoint(
+            self.experiment_path / "models" / f"{iteration}.pt",
+            self.fg.module, None if self.bg is None else self.bg.module,
+            self.train_step.optimizer_states(), iteration)
+
     # ------------------------------------------------------------------ eval
 
     def eval(self) -> Dict[str, float]:
@@ -162,17 +275,20 @@ class Runner:
         hp = self.hparams
         if hp.ckpt_path is None:
             raise ValueError("eval needs --ckpt_path")
-        loaded = torch.load(hp.ckpt_path, map_location="cpu", weights_only=False)
+        loaded = self._load_weights(hp.ckpt_path)
+        print(f"Loaded {hp.ckpt_path} (iteration {loaded.get('iteration', 0)})")
+
+    def _load_weights(self, path) -> Dict:
+        """Load a `{iter}.pt`'s weights into the modules -> the whole dict."""
+        loaded = checkpoints.load_checkpoint(path)
         self.fg.module.load_state_dict(
             strip_module_prefix(loaded["model_state_dict"]))
-        self.fg.packed = None
         if self.bg is not None:
             if "bg_model_state_dict" not in loaded:
-                raise ValueError(f"{hp.ckpt_path} has no bg_model_state_dict")
+                raise ValueError(f"{path} has no bg_model_state_dict")
             self.bg.module.load_state_dict(
                 strip_module_prefix(loaded["bg_model_state_dict"]))
-            self.bg.packed = None
-        print(f"Loaded {hp.ckpt_path} (iteration {loaded.get('iteration', 0)})")
+        return loaded
 
     # ------------------------------------------------------------ validation
 
@@ -246,10 +362,11 @@ class Runner:
                     (chunk_rays.shape[0],), metadata.image_index,
                     dtype=torch.long, device=self.device,
                 )
-            out = render_rays(
-                self.fg, self.bg, chunk_rays, image_indices,
-                settings, self.sphere_center, self.sphere_radius,
-            )
+            with torch.no_grad():
+                out, _ = render_rays(
+                    self.fg, self.bg, chunk_rays, image_indices,
+                    settings, self.sphere_center, self.sphere_radius,
+                )
             for k, v in out.items():
                 results.setdefault(k, []).append(v.cpu())
         return {k: torch.cat(v).numpy() for k, v in results.items()}
@@ -284,6 +401,7 @@ class Runner:
         if self.experiment_path is None:
             return
         self.experiment_path.mkdir(parents=True)
+        (self.experiment_path / "models").mkdir()
         with (self.experiment_path / "hparams.txt").open("w") as f:
             for key, val in vars(self.hparams).items():
                 f.write(f"{key}: {val}\n")

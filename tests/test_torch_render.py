@@ -68,9 +68,10 @@ def test_render_rays_matches_jax(mlp, ref_bg_sampling, fine):
                           use_fused_kernel=(mlp == "fused"),
                           ref_bg_sampling=ref_bg_sampling,
                           get_depth=True, get_bg_fg_rgb=True)
-    got = render_rays(tfg, tbg, torch.from_numpy(rays),
-                      torch.from_numpy(idx).long(), tset,
-                      torch.from_numpy(CENTER), torch.from_numpy(RADIUS))
+    with torch.no_grad():
+        got, _ = render_rays(tfg, tbg, torch.from_numpy(rays),
+                             torch.from_numpy(idx).long(), tset,
+                             torch.from_numpy(CENTER), torch.from_numpy(RADIUS))
     typ = "fine" if fine else "coarse"
     for key in (f"rgb_{typ}", f"fg_rgb_{typ}", f"bg_rgb_{typ}"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
