@@ -15,7 +15,8 @@ Runs every phase, in order:
               the forward kernel's saved rows) and weight-gradient (from the
               backward-data kernel's rows): relative norm <= 1e-2 per
               layer's gradient rows, d_app and every gradient tensor (bf16
-              operands, another summation order).
+              operands, another summation order); two weight-gradient
+              launches on the same inputs give the same bits.
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -39,7 +40,10 @@ Runs every phase, in order:
               kernel's FLOP - forward, dX or dW products - at 989 TFLOP/s
               against the training function's boundary bytes at 3.35 TB/s;
               the saved rows the kernels pass each other are printed
-              beside it as the design's own cost); the serving
+              beside it as the design's own cost, with the weight-gradient
+              kernel's achieved rate over them); the weight gradient's
+              library time (cuBLAS through torch.mm of the same bf16 column
+              views, one call per job); the serving
               path's s/view and rays/s; train step ms and rays/s over 20
               chained steps; the card's name and power limit beside them.
 
@@ -71,7 +75,7 @@ KERNELS = (
      "mega_nerf_tpu/render/pallas_train.py:138"),
     ("train_bwd_data", "mega_nerf_tpu_torch/render/csrc/fused_train.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
-    ("weight_grad", "mega_nerf_tpu_torch/render/csrc/fused_train.cu",
+    ("weight_grad", "mega_nerf_tpu_torch/render/csrc/weight_grad.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
 )
 
@@ -210,19 +214,23 @@ def compare_train_case(name, hp, bg, m, seed, device):
         bwd_err = (grad.float() - p_grad.float()).abs().max().item()
         del p_grad
         flat = ft.weight_grad(packed, act, grad)
+        again = ft.weight_grad(packed, act, grad)
         p_flat = ft.weight_grad_plain(packed, act, grad)
         torch.cuda.synchronize()
+        same_bits = torch.equal(flat, again)
+        del again
         offs = ft._offsets(ft.packed_shapes(packed))
         w_rel = max(rel_err(flat[offs[i]:offs[i + 1]], p_flat[offs[i]:offs[i + 1]])
                     for i in range(len(offs) - 1))
         wg_err = (flat - p_flat).abs().max().item()
     finite = bool(torch.isfinite(out).all() and torch.isfinite(flat).all())
     ok = (finite and fwd_rgb <= TOL and fwd_sig <= TOL and act_rel <= TOL
-          and rows_rel <= TOL and w_rel <= TOL)
+          and rows_rel <= TOL and w_rel <= TOL and same_bits)
     log(f"  train {name}: M={m} fwd rgb max|err|={fwd_rgb:.3e} sigma "
         f"max|err|/(1+|s|)={fwd_sig:.3e} rows rel={act_rel:.3e}; bwd-data "
-        f"worst rel={rows_rel:.3e}; weight-grad worst rel={w_rel:.3e}; "
-        f"finite={finite} -> {'ok' if ok else 'FAIL'}")
+        f"worst rel={rows_rel:.3e}; weight-grad worst rel={w_rel:.3e}, two "
+        f"launches bitwise equal={same_bits}; finite={finite} -> "
+        f"{'ok' if ok else 'FAIL'}")
     del act, grad, flat, p_flat
     torch.cuda.empty_cache()
     return {"fused_nerf_train_fwd": fwd_err, "train_bwd_data": bwd_err,
@@ -520,6 +528,29 @@ def phase_train(device, report, tmp: Path):
     return bool(ok)
 
 
+def weight_grad_boxes(plan, c: int) -> int:
+    """64-column boxes one point row of cluster c brings in through TMA
+    (weight_grad.cu's producer: a shared operand's boxes are loaded once for
+    both CTAs)."""
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    counts = []
+    for j, n0, k0 in plan.tiles[2 * c:2 * c + 2]:
+        if j < 0:
+            counts.append((0, 0))
+            continue
+        d_col, n, _, k, *_ = plan.jobs[j]
+        shift = (d_col + n0) % 8
+        counts.append((-(-(shift + min(ft.WG_TILE_N, n - n0)) // 64),
+                       -(-min(ft.WG_TILE_K, k - k0) // 64)))
+    (a0, b0), (a1, b1) = counts
+    if plan.share[c] == ft.WG_SHARE_X:
+        return a0 + a1 + b0
+    if plan.share[c] == ft.WG_SHARE_A:
+        return a0 + b0 + b1
+    return a0 + b0 + a1 + b1
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -553,6 +584,29 @@ def dx_flops_per_point(cfg) -> int:
     else:
         macs += d * 3
     return 2 * macs
+
+
+def library_weight_grad(packed, act, grad):
+    """The weight gradient through cuBLAS: torch.mm of the same bf16 column
+    views as the kernel's jobs, f32 output where torch.mm takes out_dtype
+    (else bf16), bias sums left out -> (callable, output dtype name)."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    jobs = ft.weight_grad_jobs(packed)
+    a, b = grad[:, :8], act[:, :8]
+    try:
+        torch.mm(a.T, b, out_dtype=torch.float32)
+        kw, dtype = {"out_dtype": torch.float32}, "float32"
+    except (TypeError, RuntimeError):
+        kw, dtype = {}, "bfloat16"
+
+    def run():
+        for d_col, n, x_col, k, *_ in jobs:
+            torch.mm(grad[:, d_col:d_col + n].T, act[:, x_col:x_col + k], **kw)
+
+    return run, dtype
 
 
 def time_train_kernels(device, report):
@@ -599,7 +653,12 @@ def time_train_kernels(device, report):
         fwd_b = (fused_mlp.io_bytes_per_point(cfg) + 4) * m
         bwd_b = fwd_b + 4 * cfg.appearance_dim * m + 4 * n_params
         act_b, grad_b = act.numel() * 2, grad.numel() * 2
+        lib_run, lib_dtype = library_weight_grad(packed, act, grad)
         with torch.no_grad():
+            lib_wg = cuda_ms(lib_run, 5)
+            kernels["weight_grad"]["library_ms"] = lib_wg
+            log(f"  weight_grad library (torch.mm per job, {lib_dtype} out, no "
+                f"bias sums) at fg fine: {lib_wg:.3f} ms")
             p_fwd = cuda_ms(lambda: ft.fused_nerf_train_fwd_plain(packed, xyz, dirs, app, noise), 2, 1)
             p_bwd = cuda_ms(lambda: ft.train_bwd_data_plain(packed, act, g, noise), 2, 1)
             p_wg = cuda_ms(lambda: ft.weight_grad_plain(packed, act, grad), 2, 1)
@@ -614,7 +673,15 @@ def time_train_kernels(device, report):
             log(f"  {k} at fg fine: {ms:.3f} ms/launch = {fl / ms / 1e9:.1f} "
                 f"TFLOP/s; plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: "
                 f"{fl:.4g} FLOP, {nb:.4g} B); saved rows moved {rows_b:.4g} B "
-                f"= {rows_b / PEAK_HBM_BYTES * 1e3:.3f} ms at the memory rate")
+                f"= {rows_b / PEAK_HBM_BYTES * 1e3:.3f} ms at the memory rate "
+                f"(achieved {rows_b / ms / 1e9:.3f} TB/s over them)")
+        plan = ft.weight_grad_plan(packed, m, ft._resident_ctas(ft._wg_library(), act.device))
+        boxes = sum(weight_grad_boxes(plan, c) for c in range(len(plan.share)))
+        log(f"  weight_grad plan at fg fine: {len(plan.tiles)} tiles in "
+            f"{len(plan.share)} clusters of two (share {plan.share}), "
+            f"{plan.splits} splits of {plan.split_len} points; TMA requests "
+            f"{boxes * 128 * m:.4g} B ({boxes * 128} B per point against "
+            f"{(act_b + grad_b) // m} B of rows)")
         report["training"]["fg_fine_saved_row_bytes"] = {"act": act_b, "grad": grad_b}
         del act, grad
         torch.cuda.empty_cache()

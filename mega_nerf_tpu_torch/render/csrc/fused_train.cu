@@ -1,5 +1,5 @@
-// Fused NeRF training MLP for Hopper (sm_90a), written by hand: forward,
-// backward-data and weight-gradient kernels.
+// Fused NeRF training MLP for Hopper (sm_90a), written by hand: forward and
+// backward-data kernels (the weight-gradient kernel is in weight_grad.cu).
 //
 // Replaces the TPU kernels `mega_nerf_tpu/render/pallas_train.py::
 // _train_fwd_kernel` (the eval forward plus the pre-activation sigma noise)
@@ -44,14 +44,9 @@
 //      and d_app (f32) per point; each layer's activation tile (for the
 //      ReLU mask) comes in, and each d_pre tile goes out, as 16-byte
 //      vector copies through shared memory;
-//   2. `weight_grad_kernel`: dW = d_pre^T . input for every layer as
-//      split-K mma.sync GEMMs over points (128 x 128 output tiles, so each
-//      row chunk is read by half as many CTAs as with 64 x 64; f32 partials
-//      per split; the next 32-point chunk is prefetched into registers
-//      while the current one is multiplied); the last CTA of each tile (an
-//      atomic counter) adds the splits in a fixed order, so results do not
-//      depend on scheduling. Bias gradients are the column sums of d_pre
-//      taken while its chunks are loaded.
+//   2. `weight_grad_kernel` (weight_grad.cu): dW = d_pre^T . input and the
+//      bias sums for every layer, split-K over points with a fixed-order
+//      reduction.
 // - Rounding follows `_train_bwd_kernel`: the output cotangent is rounded
 //   to bf16; activation derivatives run in f32; every matmul operand is
 //   bf16 with f32 accumulation; ReLU masks come from the bf16 activations.
@@ -715,200 +710,6 @@ train_bwd_data_kernel(const BwdParams p) {
   }
 }
 
-// ---------------------------------------------------------------- dW, db
-
-constexpr int WN = 128;       // output tile: 128 (n) x 128 (k)
-constexpr int WK = 128;
-constexpr int MC = 32;        // points per shared-memory chunk
-constexpr int SMC = MC + 8;   // chunk row stride (elements)
-constexpr int TILE_ELEMS = WN * WK + WN;  // partial dW tile + bias row
-constexpr int MAX_JOBS = 24;
-
-// dW[n][k] = sum_m grad[m][d_col + n] * act[m][x_col + k] for n < N, k < K,
-// written to out[out_off + n * out_stride + k]; with bias_off >= 0 also
-// db[n] = sum_m grad[m][d_col + n] to out[bias_off + n].
-struct Job {
-  int d_col, n, x_col, k, out_off, out_stride, bias_off;
-};
-
-struct WgradParams {
-  const bf16* act;
-  const bf16* grad;
-  float* out;
-  float* scratch;  // (splits, tiles, TILE_ELEMS)
-  int* counters;   // (tiles,), zero at launch
-  int M, njobs, tiles, splits, split_len, act_stride, grad_stride;
-  Job jobs[MAX_JOBS];
-};
-
-// Two neighbouring bf16 of row m starting at column c (c < limit), as one
-// word; columns at or past `limit` and rows past `me` read as zero.
-__device__ __forceinline__ uint32_t ld_pair(const bf16* base, int stride, int m,
-                                            int me, int c, int limit,
-                                            bool aligned) {
-  if (m >= me || c >= limit) return 0u;
-  const bf16* q = base + (size_t)m * stride + c;
-  if (aligned && c + 1 < limit) return ld_global_u32(q);
-  const unsigned short lo = __bfloat16_as_ushort(q[0]);
-  const unsigned short hi = c + 1 < limit ? __bfloat16_as_ushort(q[1]) : 0;
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-weight_grad_kernel(const WgradParams p) {
-  __shared__ __align__(16) bf16 sD[WN * SMC];  // [n][m]
-  __shared__ __align__(16) bf16 sX[WK * SMC];  // [k][m]
-  __shared__ float sb[4][WN];
-  __shared__ int s_last;
-
-  int t = blockIdx.x, j = 0, n0 = 0, k0 = 0;
-  for (; j < p.njobs; ++j) {
-    const int nt = (p.jobs[j].n + WN - 1) / WN;
-    const int kt = (p.jobs[j].k + WK - 1) / WK;
-    if (t < nt * kt) {
-      n0 = (t / kt) * WN;
-      k0 = (t % kt) * WK;
-      break;
-    }
-    t -= nt * kt;
-  }
-  const Job jb = p.jobs[j];
-  const int tile = blockIdx.x;
-  const int mb = blockIdx.y * p.split_len;
-  const int me = min(p.M, mb + p.split_len);
-  const bool do_bias = jb.bias_off >= 0 && k0 == 0;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wn = (warp >> 2) * 64;  // this warp's 64 output rows (n)
-  const int wk = (warp & 3) * 32;   // and 32 output columns (k)
-  // Loads: each thread takes two neighbouring columns and 8 points.
-  const int lc = (threadIdx.x & 63) * 2;
-  const int lm = (threadIdx.x >> 6) * 8;
-  const bf16* dbase = p.grad + jb.d_col + n0;
-  const bf16* xbase = p.act + jb.x_col + k0;
-  const int dlim = jb.n - n0, xlim = jb.k - k0;
-  const bool d_al = ((jb.d_col + n0) & 1) == 0;
-  const bool x_al = ((jb.x_col + k0) & 1) == 0;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  float bsum0 = 0.f, bsum1 = 0.f;
-
-  uint32_t pd[8], px[8];  // the next chunk, prefetched into registers
-  auto fetch = [&](int mbase) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int m = mbase + lm + e;
-      pd[e] = ld_pair(dbase, p.grad_stride, m, me, lc, dlim, d_al);
-      px[e] = ld_pair(xbase, p.act_stride, m, me, lc, xlim, x_al);
-    }
-  };
-  // Rows lm .. lm+7 of columns lc, lc+1 -> sT[lc][lm..], sT[lc+1][lm..].
-  auto stage = [&](bf16* sT, const uint32_t* v) {
-    uint32_t lo[4], hi[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo[e] = __byte_perm(v[2 * e], v[2 * e + 1], 0x5410);
-      hi[e] = __byte_perm(v[2 * e], v[2 * e + 1], 0x7632);
-    }
-    *reinterpret_cast<uint4*>(sT + lc * SMC + lm) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    *reinterpret_cast<uint4*>(sT + (lc + 1) * SMC + lm) =
-        make_uint4(hi[0], hi[1], hi[2], hi[3]);
-  };
-
-  if (mb < me) fetch(mb);
-  for (int mbase = mb; mbase < me; mbase += MC) {
-    stage(sD, pd);
-    stage(sX, px);
-    if (do_bias) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {  // bf16 -> f32 is a 16-bit shift
-        bsum0 += __uint_as_float(pd[e] << 16);
-        bsum1 += __uint_as_float(pd[e] & 0xffff0000u);
-      }
-    }
-    __syncthreads();
-    if (mbase + MC < me) fetch(mbase + MC);
-#pragma unroll
-    for (int kk = 0; kk < MC; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* p0 = sD + (wn + mt * 16 + g) * SMC + kk + 2 * t4;
-        const bf16* p1 = p0 + 8 * SMC;
-        a[mt][0] = ld_smem_u32(p0);
-        a[mt][1] = ld_smem_u32(p1);
-        a[mt][2] = ld_smem_u32(p0 + 8);
-        a[mt][3] = ld_smem_u32(p1 + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bp = sX + (wk + nt * 8 + g) * SMC + kk + 2 * t4;
-        const uint32_t b0 = ld_smem_u32(bp);
-        const uint32_t b1 = ld_smem_u32(bp + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  // This split's partial tile.
-  float* part = p.scratch + ((size_t)blockIdx.y * p.tiles + tile) * TILE_ELEMS;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = wn + mt * 16 + g;
-      const int col = wk + nt * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(part + row * WK + col) =
-          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(part + (row + 8) * WK + col) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-  if (do_bias) {
-    sb[threadIdx.x >> 6][lc] = bsum0;
-    sb[threadIdx.x >> 6][lc + 1] = bsum1;
-    __syncthreads();
-    if (threadIdx.x < WN)
-      part[WN * WK + threadIdx.x] =
-          ((sb[0][threadIdx.x] + sb[1][threadIdx.x]) + sb[2][threadIdx.x]) +
-          sb[3][threadIdx.x];
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(p.counters + tile, 1) == p.splits - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  // The last split of this tile sums every split's partial in split order.
-  const int nelem = do_bias ? TILE_ELEMS : WN * WK;
-  for (int e = threadIdx.x; e < nelem; e += NTHREADS) {
-    float s = 0.f;
-    for (int sp = 0; sp < p.splits; ++sp)
-      s += __ldcg(p.scratch + ((size_t)sp * p.tiles + tile) * TILE_ELEMS + e);
-    if (e < WN * WK) {
-      const int n = n0 + e / WK;
-      const int k = k0 + e % WK;
-      if (n < jb.n && k < jb.k) p.out[jb.out_off + (size_t)n * jb.out_stride + k] = s;
-    } else {
-      const int n = n0 + e - WN * WK;
-      if (n < jb.n) p.out[jb.bias_off + n] = s;
-    }
-  }
-}
-
 // Shared memory bytes of one forward CTA (the layout at the top of
 // fused_nerf_train_fwd_kernel).
 int forward_smem_bytes(int EP, int DP, int AP, int D) {
@@ -1017,35 +818,6 @@ int train_bwd_data_launch(const long long* ptrs, const int* dims, void* stream) 
   if (err != cudaSuccess) return (int)err;
   train_bwd_data_kernel<<<(p.M + TM - 1) / TM, NTHREADS, smem,
                           reinterpret_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// ptrs: act, grad, out, scratch, counters.
-// dims: M, njobs, tiles, splits, split_len, act_stride, grad_stride.
-// jobs: njobs x 7 ints (Job fields in order).
-int weight_grad_launch(const long long* ptrs, const int* dims, const int* jobs,
-                       void* stream) {
-  WgradParams p;
-  p.act = reinterpret_cast<const bf16*>(ptrs[0]);
-  p.grad = reinterpret_cast<const bf16*>(ptrs[1]);
-  p.out = reinterpret_cast<float*>(ptrs[2]);
-  p.scratch = reinterpret_cast<float*>(ptrs[3]);
-  p.counters = reinterpret_cast<int*>(ptrs[4]);
-  p.M = dims[0];
-  p.njobs = dims[1];
-  p.tiles = dims[2];
-  p.splits = dims[3];
-  p.split_len = dims[4];
-  p.act_stride = dims[5];
-  p.grad_stride = dims[6];
-  if (p.njobs > MAX_JOBS || p.split_len % MC) return (int)cudaErrorInvalidValue;
-  for (int j = 0; j < p.njobs; ++j) {
-    const int* f = jobs + 7 * j;
-    p.jobs[j] = {f[0], f[1], f[2], f[3], f[4], f[5], f[6]};
-  }
-  if (p.tiles <= 0) return 0;
-  weight_grad_kernel<<<dim3(p.tiles, p.splits), NTHREADS, 0,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 kernel wrappers.
 
 Counterpart of the JAX package's `render/pallas_train.py`. The hand-written
-Hopper kernels are in `csrc/fused_train.cu`; they replace
+Hopper kernels are in `csrc/fused_train.cu` (forward, backward-data) and
+`csrc/weight_grad.cu` (weight gradient); they replace
 `mega_nerf_tpu/render/pallas_train.py::_train_fwd_kernel` and
 `::_train_bwd_kernel`.
 
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,11 +53,16 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     skip_mask,
 )
 
-WG_TILE = 128  # weight-gradient output tile side (fused_train.cu WN, WK)
-WG_CHUNK = 32  # points per weight-gradient chunk (fused_train.cu MC)
-WG_TILE_ELEMS = WG_TILE * WG_TILE + WG_TILE
-WG_TARGET_CTAS = 132 * 8  # ~4 waves of an H100 at two CTAs per SM
+WG_TILE_N = 128  # weight-gradient output tile: 128 (n) x 256 (k) (weight_grad.cu TN, TK)
+WG_TILE_K = 256
+WG_STAGE = 64  # points per pipeline stage (weight_grad.cu SP)
+WG_TILE_ELEMS = WG_TILE_N * WG_TILE_K + WG_TILE_N  # partial tile + bias row
+WG_WAVES = 2  # CTAs per launch: up to two waves of the CTAs the card holds
 WG_MIN_SPLIT = 4096  # points per split at least
+# What the two CTAs of a cluster share (weight_grad.cu SHARE_*): nothing, the
+# X boxes (two n-tiles of a job) or the d_pre boxes (two k-tiles of a job).
+WG_SHARE_NONE, WG_SHARE_X, WG_SHARE_A = 0, 1, 2
+WG_IDLE = (-1, 0, 0)  # the tile of a CTA with no work
 
 
 # ------------------------------------------------------------------ layouts
@@ -249,20 +255,51 @@ def _library():
         lib.fused_nerf_train_fwd_launch.argtypes = [vp, vp, ctypes.c_longlong,
                                                     ctypes.c_longlong, ci, vp]
         lib.train_bwd_data_launch.argtypes = [vp, vp, vp]
-        lib.weight_grad_launch.argtypes = [vp, vp, vp, vp]
-        for fn in (lib.fused_nerf_train_fwd_launch, lib.train_bwd_data_launch,
-                   lib.weight_grad_launch):
+        for fn in (lib.fused_nerf_train_fwd_launch, lib.train_bwd_data_launch):
             fn.restype = ci
-        lib.fused_train_error_string.argtypes = [ci]
-        lib.fused_train_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.fused_train_error_string
+        lib.error_string.argtypes = [ci]
+        lib.error_string.restype = ctypes.c_char_p
         lib._train_bound = True
     return lib
+
+
+def _wg_library():
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library("weight_grad")
+    if not getattr(lib, "_wg_bound", False):
+        vp = ctypes.c_void_p
+        lib.weight_grad_launch.argtypes = [vp, vp, vp, vp, vp, vp]
+        lib.weight_grad_launch.restype = ctypes.c_int
+        lib.weight_grad_resident_ctas.argtypes = [vp]
+        lib.weight_grad_resident_ctas.restype = ctypes.c_int
+        lib.error_string = lib.weight_grad_error_string
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._wg_bound = True
+    return lib
+
+
+_RESIDENT: Dict[int, int] = {}
+
+
+def _resident_ctas(lib, device: torch.device) -> int:
+    """CTAs of the weight-gradient kernel the card holds at once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _RESIDENT:
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_if(lib, lib.weight_grad_resident_ctas(ctypes.byref(ctas)),
+                      "weight_grad occupancy")
+        _RESIDENT[index] = max(ctas.value, 2)
+    return _RESIDENT[index]
 
 
 def _raise_if(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.fused_train_error_string(err).decode())
+                           + lib.error_string(err).decode())
 
 
 def _stream(t: torch.Tensor):
@@ -401,8 +438,66 @@ def weight_grad_jobs(packed: PackedMLP) -> List[Tuple[int, ...]]:
     return jobs
 
 
-def _tiles(jobs) -> int:
-    return sum(-(-j[1] // WG_TILE) * -(-j[3] // WG_TILE) for j in jobs)
+class WeightGradPlan(NamedTuple):
+    """The weight-gradient kernel's work: `tiles` (job, n0, k0) output
+    tiles of WG_TILE_N x WG_TILE_K (or WG_IDLE), in pairs: tiles 2c and
+    2c + 1 run as one cluster of two CTAs sharing what `share[c]` says;
+    each tile is summed over `splits` ranges of `split_len` points (a
+    multiple of WG_STAGE; the last range ends at M). The CTA of split s and
+    tile t is s * len(tiles) + t, and the last CTA of a tile adds the
+    partials in split order 0, 1, ..., splits - 1."""
+    jobs: List[Tuple[int, ...]]
+    tiles: List[Tuple[int, int, int]]
+    share: List[int]
+    splits: int
+    split_len: int
+
+
+def _pair_tiles(jobs) -> Tuple[List[Tuple[int, int, int]], List[int]]:
+    """Tiles in cluster pairs: the n-tiles of a job at one k0 share X; a
+    job's leftover tiles at one n0 share d_pre; the rest pair up sharing
+    nothing (with an idle tile if their count is odd)."""
+    tiles: List[Tuple[int, int, int]] = []
+    share: List[int] = []
+    singles: Dict[Tuple[int, int], List[Tuple[int, int, int]]] = {}
+    for j, job in enumerate(jobs):
+        for k0 in range(0, job[3], WG_TILE_K):
+            ns = list(range(0, job[1], WG_TILE_N))
+            for i in range(0, len(ns) - 1, 2):
+                tiles += [(j, ns[i], k0), (j, ns[i + 1], k0)]
+                share.append(WG_SHARE_X)
+            if len(ns) % 2:
+                singles.setdefault((j, ns[-1]), []).append((j, ns[-1], k0))
+    rest = []
+    for group in singles.values():
+        for i in range(0, len(group) - 1, 2):
+            tiles += group[i:i + 2]
+            share.append(WG_SHARE_A)
+        if len(group) % 2:
+            rest.append(group[-1])
+    if len(rest) % 2:
+        rest.append(WG_IDLE)
+    for i in range(0, len(rest), 2):
+        tiles += rest[i:i + 2]
+        share.append(WG_SHARE_NONE)
+    return tiles, share
+
+
+def weight_grad_plan(packed: PackedMLP, m: int, resident: int = 132) -> WeightGradPlan:
+    """Tiles and splits of one launch over m points on a card that holds
+    `resident` CTAs at once (one per SM, in clusters of two): as many splits
+    as fill WG_WAVES waves, at least WG_MIN_SPLIT points each."""
+    jobs = weight_grad_jobs(packed)
+    for d_col, n, x_col, _, _, _, _ in jobs:
+        # The kernel's TMA boxes start on 16 B: X columns always, d_pre
+        # columns up to `d_col % 8` rows into one output tile.
+        if x_col % 8 or (d_col % 8 and n + d_col % 8 > WG_TILE_N):
+            raise ValueError(f"weight_grad: job at columns {d_col}/{x_col} "
+                             "does not fit the kernel's tiles")
+    tiles, share = _pair_tiles(jobs)
+    splits = max(1, min(WG_WAVES * resident // len(tiles), -(-m // WG_MIN_SPLIT)))
+    split_len = _round_up(-(-m // splits), WG_STAGE)
+    return WeightGradPlan(jobs, tiles, share, -(-m // split_len), split_len)
 
 
 def weight_grad(packed: PackedMLP, act: torch.Tensor,
@@ -414,26 +509,29 @@ def weight_grad(packed: PackedMLP, act: torch.Tensor,
         return weight_grad_plain(packed, act, grad)
     _cuda_only("weight_grad", act)
     m = act.shape[0]
-    jobs = weight_grad_jobs(packed)
-    tiles = _tiles(jobs)
+    for name, t in (("act", act), ("grad", grad)):
+        if t.dtype != torch.bfloat16 or t.shape[0] != m or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous bf16 rows, one per point")
     total = _offsets(packed_shapes(packed))[-1]
     out = torch.empty(total, dtype=torch.float32, device=act.device)
     if m == 0:
         return out.zero_()
-    splits = max(1, min(-(-WG_TARGET_CTAS // tiles), -(-m // WG_MIN_SPLIT)))
-    split_len = _round_up(-(-m // splits), WG_CHUNK)
-    splits = -(-m // split_len)
-    scratch = torch.empty(splits * tiles * WG_TILE_ELEMS, dtype=torch.float32,
-                          device=act.device)
-    counters = torch.zeros(tiles, dtype=torch.int32, device=act.device)
-    lib = _library()
+    lib = _wg_library()
+    plan = weight_grad_plan(packed, m, _resident_ctas(lib, act.device))
+    ntiles = len(plan.tiles)
+    scratch = torch.empty(plan.splits * ntiles * WG_TILE_ELEMS,
+                          dtype=torch.float32, device=act.device)
+    counters = torch.zeros(ntiles, dtype=torch.int32, device=act.device)
     ptrs = [act.data_ptr(), grad.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), counters.data_ptr()]
-    dims = [m, len(jobs), tiles, splits, split_len, act.shape[1], grad.shape[1]]
-    flat = [v for j in jobs for v in j]
+    dims = [m, len(plan.jobs), ntiles, plan.splits, plan.split_len,
+            act.shape[1], grad.shape[1]]
+    jobs = [v for j in plan.jobs for v in j]
+    tiles = [v for t in plan.tiles for v in t]
     err = lib.weight_grad_launch(
         (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-        (ctypes.c_int * len(flat))(*flat), _stream(act))
+        (ctypes.c_int * len(jobs))(*jobs), (ctypes.c_int * len(tiles))(*tiles),
+        (ctypes.c_int * len(plan.share))(*plan.share), _stream(act))
     weight_grad.launches += 1
     _raise_if(lib, err, "weight_grad")
     return out
@@ -498,5 +596,5 @@ __all__ = [
     "fused_nerf_train_fwd_plain", "fused_nerf_train_bwd", "train_bwd_data",
     "train_bwd_data_plain", "weight_grad", "weight_grad_plain",
     "act_layout", "grad_layout", "packed_shapes", "unpack_grads",
-    "weight_grad_jobs",
+    "weight_grad_jobs", "weight_grad_plan",
 ]

@@ -253,3 +253,109 @@ def test_train_layouts_cover_packed_matrices():
     lay, gl = fused_train.act_layout(packed), fused_train.grad_layout(packed)
     assert lay["width"] % 8 == 0 and gl["width"] % 8 == 0
     assert all(v % 8 == 0 for v in lay.values())
+
+
+def _plan_packed(width):
+    from mega_nerf_tpu_torch.render import fused_mlp
+
+    if width == 48:
+        kw = {"pos_xyz_dim": 12, "pos_dir_dim": 0, "layers": 6, "skip_layers": [3],
+              "appearance_dim": 0}
+    else:
+        kw = {"pos_xyz_dim": 12, "pos_dir_dim": 4, "layers": 8, "skip_layers": [4],
+              "appearance_dim": 48}
+    hp = tiny_hparams(layer_dim=width, bg_layer_dim=width, **kw)
+    module = NeRF(nerf_config_from_hparams(hp, 6, width, 3))
+    return fused_mlp.pack_params(module)
+
+
+@pytest.mark.parametrize("width,m", [(256, 524_288), (256, 9_000), (16, 1_000),
+                                     (48, 50_003)])
+def test_weight_grad_plan_covers_every_output_once(width, m):
+    """The weight-gradient kernel's plan, mirrored in numpy: every (job,
+    n-tile, k-tile) is one tile; the splits partition [0, M) in whole
+    stages; the tiles pair into clusters that share what they say they
+    share; each tile's last CTA, whichever finishes last, sums the f32
+    partials in split order and writes each live weight and bias once. The
+    kernel allocates its output uninitialised. Paper width (the fg-fine
+    shape, plan only, and a small M), widths 16 and 48; no M is a multiple
+    of the 64-point stage. Numbers: the f32 sums match `weight_grad_plain`
+    to 1e-5 relative (another summation order), and two completion orders
+    give the same bits."""
+    ft = fused_train
+    packed = _plan_packed(width)
+    plan = ft.weight_grad_plan(packed, m)
+    want_tiles = [(j, n0, k0) for j, job in enumerate(plan.jobs)
+                  for n0 in range(0, job[1], ft.WG_TILE_N)
+                  for k0 in range(0, job[3], ft.WG_TILE_K)]
+    work = [t for t in plan.tiles if t != ft.WG_IDLE]
+    assert sorted(work) == sorted(want_tiles)
+    assert len(plan.tiles) - len(work) <= 1
+    assert len(plan.share) * 2 == len(plan.tiles)
+    for c, share in enumerate(plan.share):  # what a cluster's CTAs load once
+        (j0, n0, k0), (j1, n1, k1) = plan.tiles[2 * c:2 * c + 2]
+        if share == ft.WG_SHARE_X:
+            assert (j0, k0) == (j1, k1) and n1 == n0 + ft.WG_TILE_N
+        elif share == ft.WG_SHARE_A:
+            assert (j0, n0) == (j1, n1) and k1 == k0 + ft.WG_TILE_K
+        else:
+            assert share == ft.WG_SHARE_NONE
+    assert plan.split_len % ft.WG_STAGE == 0
+    ranges = [(s * plan.split_len, min(m, (s + 1) * plan.split_len))
+              for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(plan.splits - 1))
+    assert len(plan.tiles) * plan.splits <= max(ft.WG_WAVES * 132, len(plan.tiles))
+    if m > 100_000:
+        return
+
+    rng = np.random.default_rng(width)
+    aw, gw = ft.act_layout(packed)["width"], ft.grad_layout(packed)["width"]
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    act_t, grad_t = bf(rng.normal(size=(m, aw)).astype(np.float32)), \
+        bf(rng.normal(size=(m, gw)).astype(np.float32))
+    rows = -(-m // ft.WG_STAGE) * ft.WG_STAGE + ft.WG_TILE_K
+    act = np.zeros((rows, aw + ft.WG_TILE_K), np.float32)  # TMA's zero fill
+    grad = np.zeros((rows, gw + ft.WG_TILE_N), np.float32)
+    act[:m, :aw], grad[:m, :gw] = act_t.float().numpy(), grad_t.float().numpy()
+    total = ft._offsets(ft.packed_shapes(packed))[-1]
+
+    def run(order_seed):
+        out = np.full(total, np.nan, np.float32)
+        hits = np.zeros(total, np.int32)
+        order = np.random.default_rng(order_seed).permutation(plan.splits)
+        for j, n0, k0 in work:
+            d_col, n, x_col, k, out_off, stride, bias_off = plan.jobs[j]
+            parts = []
+            for s in order:  # the CTAs of this tile finish in any order
+                mb = s * plan.split_len
+                me = mb + -(-(min(m, mb + plan.split_len) - mb) // ft.WG_STAGE) * ft.WG_STAGE
+                d = grad[mb:me, d_col + n0:d_col + n0 + ft.WG_TILE_N]
+                x = act[mb:me, x_col + k0:x_col + k0 + ft.WG_TILE_K]
+                parts.append((s, d.T @ x, d.sum(0)))
+            parts.sort(key=lambda p: p[0])  # the last CTA sums in split order
+            dw = np.zeros_like(parts[0][1])
+            db = np.zeros_like(parts[0][2])
+            for _, pw, pb in parts:
+                dw += pw
+                db += pb
+            nr, nc = min(ft.WG_TILE_N, n - n0), min(ft.WG_TILE_K, k - k0)
+            for r in range(nr):
+                o = out_off + (n0 + r) * stride + k0
+                out[o:o + nc] = dw[r, :nc]
+                hits[o:o + nc] += 1
+            if bias_off >= 0 and k0 == 0:
+                out[bias_off + n0:bias_off + n0 + nr] = db[:nr]
+                hits[bias_off + n0:bias_off + n0 + nr] += 1
+        return out, hits
+
+    out, hits = run(0)
+    assert (hits == 1).all()
+    out2, _ = run(1)
+    assert np.array_equal(out, out2)
+    want = ft.weight_grad_plain(packed, act_t, grad_t).numpy()
+    offs = ft._offsets(ft.packed_shapes(packed))
+    for i in range(len(offs) - 1):
+        a, b = out[offs[i]:offs[i + 1]], want[offs[i]:offs[i + 1]]
+        assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), i
