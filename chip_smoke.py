@@ -5,11 +5,14 @@
 
 Runs every phase, in order:
 1. build    - compile every CUDA kernel of the port for sm_90a from the
-              sources in this checkout (one nvcc per source, all at once).
+              sources in this checkout (one nvcc per source, all at once);
+              prints ptxas registers and spills, and fails when ptxas
+              serialises a wgmma pipeline (warnings C7515, C7520, ...).
 2. compare  - each kernel against its plain PyTorch version on the same
               seeded inputs at the main paths' shapes (~1M points, paper fg
               and bg widths, bf16), plus narrower variants, variants without
-              dirs / appearance and M not a multiple of the 64-point tile.
+              dirs / appearance, a 512-wide one, and M not a multiple of
+              the 64- or 128-point tiles.
               Forward kernels (eval, train with sigma noise): rgb <= 1e-2
               absolute, sigma <= 1e-2 * (1 + |sigma|). Backward-data (from
               the forward kernel's saved rows) and weight-gradient (from the
@@ -71,7 +74,7 @@ TOL = 1e-2
 KERNELS = (
     ("fused_nerf_eval", "mega_nerf_tpu_torch/render/csrc/fused_mlp.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
-    ("fused_nerf_train_fwd", "mega_nerf_tpu_torch/render/csrc/fused_train.cu",
+    ("fused_nerf_train_fwd", "mega_nerf_tpu_torch/render/csrc/train_fwd.cu",
      "mega_nerf_tpu/render/pallas_train.py:138"),
     ("train_bwd_data", "mega_nerf_tpu_torch/render/csrc/fused_train.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
@@ -135,12 +138,15 @@ def phase_build(device, report):
     from mega_nerf_tpu_torch.render import _build
 
     logs = _build.build_all()
+    ok = True
     for name, text in logs.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line
-                    or "Function properties for" in line):
+                    or "Function properties for" in line or "serialized" in line):
                 log(f"  {name}: {line.strip()}")
-    return True
+            if "wgmma" in line and "serialized" in line:  # C7515, C7520, ...
+                ok = False
+    return ok
 
 
 def compare_case(name, hp, bg, m, seed, device):
@@ -249,6 +255,8 @@ def phase_compare(device, report):
                         "--skip_layers", "3"]), False, 1_000),
         ("bg 128-wide, appearance, dirs",
          paper_hparams(["--bg_layer_dim", "128"]), True, 70_001),
+        ("fg 512-wide, appearance, dirs",
+         paper_hparams(["--layer_dim", "512"]), False, 50_001),
     ]
     kernels = report["kernels"]
     worst = 0.0
@@ -675,6 +683,11 @@ def time_train_kernels(device, report):
                 f"{fl:.4g} FLOP, {nb:.4g} B); saved rows moved {rows_b:.4g} B "
                 f"= {rows_b / PEAK_HBM_BYTES * 1e3:.3f} ms at the memory rate "
                 f"(achieved {rows_b / ms / 1e9:.3f} TB/s over them)")
+        fplan = ft.train_fwd_plan(cfg)
+        log(f"  fused_nerf_train_fwd at fg fine: {flops / t_fwd / 1e9:.1f} TFLOP/s "
+            f"of {PEAK_BF16_FLOPS / 1e12:.0f}; row writes {act_b / t_fwd / 1e9:.3f} "
+            f"TB/s ({act_b:.4g} B); tile {fplan.tm} points, {fplan.stages} ring "
+            f"stages, {fplan.smem_bytes} B shared memory")
         plan = ft.weight_grad_plan(packed, m, ft._resident_ctas(ft._wg_library(), act.device))
         boxes = sum(weight_grad_boxes(plan, c) for c in range(len(plan.share)))
         log(f"  weight_grad plan at fg fine: {len(plan.tiles)} tiles in "

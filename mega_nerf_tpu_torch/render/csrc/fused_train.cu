@@ -1,37 +1,31 @@
-// Fused NeRF training MLP for Hopper (sm_90a), written by hand: forward and
-// backward-data kernels (the weight-gradient kernel is in weight_grad.cu).
+// Fused NeRF training MLP for Hopper (sm_90a), written by hand: the
+// backward-data kernel. The training forward is in train_fwd.cu, the
+// weight-gradient kernel in weight_grad.cu.
 //
-// Replaces the TPU kernels `mega_nerf_tpu/render/pallas_train.py::
-// _train_fwd_kernel` (the eval forward plus the pre-activation sigma noise)
-// and `_train_bwd_kernel` (the custom-VJP backward: sigmoid, softplus(x-1)
-// and ReLU derivatives, every weight and bias gradient summed in f32 over
-// all points, d_app per point).
+// Replaces the dX/d_app half of the TPU kernel `mega_nerf_tpu/render/
+// pallas_train.py::_train_bwd_kernel` (the custom-VJP backward: sigmoid,
+// softplus(x-1) and ReLU derivatives, d_app per point).
 //
-// What bounds it on an H100: at the paper width a point costs ~1.21 MFLOP
-// forward (fg; 1.24 bg); the backward's weight-gradient products cost the
-// same again and its data-gradient products a little less (no gradient
+// What bounds it on an H100: at the paper width the data-gradient products
+// of a point cost a little less than its ~1.21 MFLOP forward (no gradient
 // flows into the encodings). The function moves ~140-240 bytes per point
-// (points, noise, output cotangent, rgb/sigma, d_app), so it is
-// compute-bound: for the fg-fine launch of one 1024-ray step (524,288
-// points) the bounds at 989 TFLOP/s (dense bf16) are ~0.64 ms forward,
-// ~0.60 ms dX and ~0.64 ms dW (chip_smoke.py computes them from its
+// (points, noise, output cotangent, d_app), so it is compute-bound: for the
+// fg-fine launch of one 1024-ray step (524,288 points) the bound at 989
+// TFLOP/s (dense bf16) is ~0.60 ms (chip_smoke.py computes it from its
 // shapes).
-// This design adds traffic of its own, which the bound does not count: the
-// forward writes a saved activation row per point (5,184 B at the fg paper
-// width) that both backward kernels read, and backward-data writes a
-// gradient row per point (4,880 B) that weight-gradient reads; for the
-// fg-fine launch that is 2.7 GB and 2.6 GB, ~0.8 ms per pass over either
-// at 3.35 TB/s.
+// This design adds traffic of its own, which the bound does not count: it
+// reads the saved activation row the training forward writes per point
+// (5,184 B at the fg paper width) and writes a gradient row per point
+// (4,880 B) that weight-gradient reads; for the fg-fine launch that is 2.7
+// GB and 2.6 GB, ~0.8 ms per pass over either at 3.35 TB/s.
 //
 // Design (simple and correct first):
 // - The Pallas backward recomputes the forward per block with all eight
 //   trunk activations resident. A 64-point tile of them is 64 x 8 x 256 x 2 B
-//   = 256 KB, more than the 227 KB a CTA may use, so here the training
-//   forward (`fused_nerf_train_fwd_kernel`, the eval kernel of fused_mlp.cu
-//   plus the noise) writes every bf16 activation tile it makes to one row
-//   per point in device memory (ActLayout, ~5 KB per point). Its device code
-//   is a copy of fused_mlp.cu's rather than a shared header, so that the
-//   eval kernel compiles exactly as it was measured.
+//   = 256 KB, more than the 227 KB a CTA may use, so the training forward
+//   (train_fwd.cu) writes every bf16 activation tile it makes to one row
+//   per point in device memory (ActLayout, ~5 KB per point), which this
+//   kernel reads.
 // - The Pallas backward sums weight gradients over a sequential grid into
 //   resident accumulators; CUDA blocks run concurrently, and f32 atomics
 //   from every tile into ~606k weight scalars would be slow and change
@@ -55,9 +49,9 @@
 //   gradients use, where the Pallas kernel sums the f32 values (the plain
 //   version in fused_train.py does the same as this kernel).
 //
-// Left for later work: recomputing activations in a 32-point tile instead
-// of saving them, wgmma with TMA, fusing the weight-gradient GEMMs into the
-// backward-data sweep.
+// Left for later work: the layer chain of train_fwd.cu (wgmma over a
+// resident tile, weights through a TMA ring) run against the transposed
+// weights, fusing the weight-gradient GEMMs into the backward-data sweep.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,25 +67,6 @@ constexpr int MAX_LAYERS = 16;  // trunk layers + trunk_final + dir_a
 constexpr int MIN_BLOCKS = 2;
 
 typedef __nv_bfloat16 bf16;
-
-// Forward parameters: fused_mlp.cu's, plus the noise and the saved rows.
-struct Params {
-  const float* xyz;    // (M, xyz_dim)
-  const float* dirs;   // (M, 3) direction coordinates, or null
-  const bf16* app;     // (M, app_dim), or null
-  float* out;          // (M, 4)
-  const bf16* w_sigma; // (D,)
-  const float* b_sigma;
-  const bf16* w_rgb;   // (3, rgb_in)
-  const float* b_rgb;
-  const bf16* w[MAX_LAYERS];  // (N, Ktot) row-major, Ktot = sum of segments
-  const float* b[MAX_LAYERS];
-  int M, xyz_dim, nf_xyz, nf_dir, layers, D, app_dim, skip_mask, has_branch;
-  int shifted_softplus, EP, DP, AP;
-  const float* noise;  // (M,) pre-activation sigma noise, or null
-  bf16* save;          // (M, save_stride) activation rows
-  int save_stride;
-};
 
 // Column offsets of one point's saved activation row (bf16):
 // [enc EP | h_0 D | ... | h_{L-1} D | final D | dir enc DP | app AP | branch D/2]
@@ -204,117 +179,6 @@ __device__ void mma_gemm(const Seg* segs, int nseg, const bf16* __restrict__ W,
   }
 }
 
-// out[TM, N] = act(concat(segments) @ W^T + bias) in bf16 (a dense layer:
-// bias in f32, optional ReLU, then rounding to bf16): fused_mlp.cu's
-// mma_layer. With the epilogue written out here (biases loaded once per
-// column pair) the forward measured 6% faster on an H100 than through
-// mma_gemm's per-element epilogue.
-__device__ void mma_layer(const Seg* segs, int nseg, const bf16* __restrict__ W,
-                          const float* __restrict__ bias, int N, bf16* outs,
-                          int ostride, bool relu) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  int ktot = 0;
-  for (int s = 0; s < nseg; ++s) ktot += segs[s].K;
-
-  for (int n0 = warp * 32; n0 < N; n0 += NWARPS * 32) {
-    float acc[4][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-    int kw = 0;  // column offset of this segment inside W
-    for (int s = 0; s < nseg; ++s) {
-      const bf16* A = segs[s].a;
-      const int sa = segs[s].stride;
-      for (int k = 0; k < segs[s].K; k += 16) {
-        uint32_t af[4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const bf16* p0 = A + (mt * 16 + g) * sa + k + 2 * t;
-          const bf16* p1 = p0 + 8 * sa;
-          af[mt][0] = ld_smem_u32(p0);
-          af[mt][1] = ld_smem_u32(p1);
-          af[mt][2] = ld_smem_u32(p0 + 8);
-          af[mt][3] = ld_smem_u32(p1 + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (n0 + nt * 8 < N) {  // warp-uniform; N is a multiple of 8
-            const bf16* wp =
-                W + (size_t)(n0 + nt * 8 + g) * ktot + kw + k + 2 * t;
-            const uint32_t b0 = ld_global_u32(wp);
-            const uint32_t b1 = ld_global_u32(wp + 8);
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
-          }
-        }
-      }
-      kw += segs[s].K;
-    }
-
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      if (n0 + nt * 8 < N) {
-        const int col = n0 + nt * 8 + 2 * t;
-        const float bias0 = bias[col];
-        const float bias1 = bias[col + 1];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int row = mt * 16 + g;
-          float v0 = acc[mt][nt][0] + bias0;
-          float v1 = acc[mt][nt][1] + bias1;
-          float v2 = acc[mt][nt][2] + bias0;
-          float v3 = acc[mt][nt][3] + bias1;
-          if (relu) {
-            v0 = fmaxf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f);
-            v2 = fmaxf(v2, 0.f);
-            v3 = fmaxf(v3, 0.f);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(outs + row * ostride + col) =
-              __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(outs + (row + 8) * ostride + col) =
-              __floats2bfloat162_rn(v2, v3);
-        }
-      }
-    }
-  }
-}
-
-// Frequency encode of d coordinates with nf frequencies into a TM x width
-// bf16 tile: column c < d (1 + 2 nf) holds x[c % d] for block j = c / d = 0,
-// else sin(x * 2^k + phase) with k = (j - 1) / 2 and phase pi/2 on cos
-// blocks; columns past the live width are zero.
-__device__ void encode_tile(const float* __restrict__ src, int d, int nf,
-                            int width, int stride, int m0, int M, bf16* tile) {
-  const int live = d * (1 + 2 * nf);
-  for (int idx = threadIdx.x; idx < TM * width; idx += NTHREADS) {
-    const int r = idx / width;
-    const int c = idx - r * width;
-    const int m = m0 + r;
-    float v = 0.f;
-    if (m < M && c < live) {
-      const int j = c / d;
-      const float x = src[(size_t)m * d + (c - j * d)];
-      if (j == 0) {
-        v = x;
-      } else {
-        const int k = (j - 1) >> 1;
-        float arg = x * __int_as_float((k + 127) << 23);  // exact 2^k
-        if ((j - 1) & 1) arg = arg + 1.57079632679489661923f;
-        v = sinf(arg);
-      }
-    }
-    tile[r * stride + c] = __float2bfloat16_rn(v);
-  }
-}
-
 // Copy a TM x width bf16 shared-memory tile into columns [col0, col0 +
 // width) of the saved rows m0 .. m0 + TM - 1 (rows past M are skipped).
 // width, col0, the tile stride and the row stride are multiples of 8
@@ -345,149 +209,6 @@ __device__ void load_tile(bf16* tile, int stride, int width, const bf16* src,
       v = *reinterpret_cast<const uint4*>(src + (size_t)(m0 + r) * src_stride +
                                           col0 + c);
     *reinterpret_cast<uint4*>(tile + r * stride + c) = v;
-  }
-}
-
-// The training forward for the tile of points starting at blockIdx.x * TM:
-// fused_mlp.cu's eval kernel, plus the sigma noise before the density
-// activation, and every bf16 activation tile written into the saved rows.
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-fused_nerf_train_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int SE = p.EP + PAD, SD = p.DP + PAD, SA = p.AP + PAD, SH = p.D + PAD;
-  bf16* enc = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dirt = enc + TM * SE;
-  bf16* appt = dirt + (p.DP ? TM * SD : 0);
-  bf16* act0 = appt + (p.AP ? TM * SA : 0);
-  bf16* act1 = act0 + TM * SH;
-  float* sig = reinterpret_cast<float*>(act1 + TM * SH);
-
-  const int m0 = blockIdx.x * TM;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const ActLayout lay(p.EP, p.DP, p.AP, p.D, p.layers, p.has_branch);
-  auto save = [&](const bf16* tile, int stride, int width, int col0) {
-    save_tile(tile, stride, width, p.save, p.save_stride, col0, m0, p.M);
-  };
-
-  encode_tile(p.xyz, p.xyz_dim, p.nf_xyz, p.EP, SE, m0, p.M, enc);
-  if (p.DP) encode_tile(p.dirs, 3, p.nf_dir, p.DP, SD, m0, p.M, dirt);
-  if (p.AP) {
-    for (int idx = threadIdx.x; idx < TM * p.AP; idx += NTHREADS) {
-      const int r = idx / p.AP;
-      const int c = idx - r * p.AP;
-      const int m = m0 + r;
-      appt[r * SA + c] = (m < p.M && c < p.app_dim)
-                             ? p.app[(size_t)m * p.app_dim + c]
-                             : __float2bfloat16_rn(0.f);
-    }
-  }
-  __syncthreads();
-  save(enc, SE, p.EP, 0);
-  if (p.has_branch) {
-    if (p.DP) save(dirt, SD, p.DP, lay.dir);
-    if (p.AP) save(appt, SA, p.AP, lay.app);
-  }
-
-  bf16* bufs[2] = {act0, act1};
-  int pi = 0;
-  const bf16* h = enc;
-  for (int i = 0; i < p.layers; ++i) {
-    Seg segs[2];
-    int ns = 1;
-    if (i == 0) {
-      segs[0] = {enc, SE, p.EP};
-    } else if ((p.skip_mask >> i) & 1) {
-      segs[0] = {enc, SE, p.EP};
-      segs[1] = {h, SH, p.D};
-      ns = 2;
-    } else {
-      segs[0] = {h, SH, p.D};
-    }
-    mma_layer(segs, ns, p.w[i], p.b[i], p.D, bufs[pi], SH, true);
-    __syncthreads();
-    h = bufs[pi];
-    pi ^= 1;
-    save(h, SH, p.D, lay.h0 + i * p.D);
-  }
-
-  // Sigma head: one warp per point.
-  for (int r = warp; r < TM; r += NWARPS) {
-    float s = 0.f;
-    for (int c = 2 * lane; c < p.D; c += 64) {
-      const float2 hv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(h + r * SH + c));
-      const float2 wv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p.w_sigma + c));
-      s += hv.x * wv.x + hv.y * wv.y;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) {
-      s += p.b_sigma[0];
-      if (p.noise != nullptr && m0 + r < p.M) s += p.noise[m0 + r];
-      if (p.shifted_softplus) {
-        const float x = s - 1.f;
-        s = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-      } else {
-        s = fmaxf(s, 0.f);
-      }
-      sig[r] = s;
-    }
-  }
-
-  int rgb_in = p.D;
-  if (p.has_branch) {
-    Seg fseg[1] = {{h, SH, p.D}};
-    mma_layer(fseg, 1, p.w[p.layers], p.b[p.layers], p.D, bufs[pi], SH, false);
-    __syncthreads();  // also orders the sigma head's reads of h
-    const bf16* fin = bufs[pi];
-    pi ^= 1;
-    save(fin, SH, p.D, lay.final_);
-    Seg segs[3];
-    int ns = 0;
-    segs[ns++] = {fin, SH, p.D};
-    if (p.DP) segs[ns++] = {dirt, SD, p.DP};
-    if (p.AP) segs[ns++] = {appt, SA, p.AP};
-    mma_layer(segs, ns, p.w[p.layers + 1], p.b[p.layers + 1], p.D / 2, bufs[pi],
-              SH, true);
-    __syncthreads();
-    h = bufs[pi];
-    rgb_in = p.D / 2;
-    save(h, SH, p.D / 2, lay.branch);
-  }
-
-  // Rgb head + output: one warp per point (the same warp wrote sig[r]).
-  for (int r = warp; r < TM; r += NWARPS) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int c = 2 * lane; c < rgb_in; c += 64) {
-      const float2 hv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(h + r * SH + c));
-      const float2 w0 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p.w_rgb + c));
-      const float2 w1 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p.w_rgb + rgb_in + c));
-      const float2 w2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p.w_rgb + 2 * rgb_in + c));
-      a0 += hv.x * w0.x + hv.y * w0.y;
-      a1 += hv.x * w1.x + hv.y * w1.y;
-      a2 += hv.x * w2.x + hv.y * w2.y;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a0 += __shfl_xor_sync(0xffffffffu, a0, o);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, o);
-      a2 += __shfl_xor_sync(0xffffffffu, a2, o);
-    }
-    const int m = m0 + r;
-    if (lane == 0 && m < p.M) {
-      float4 o;
-      o.x = 1.f / (1.f + expf(-(a0 + p.b_rgb[0])));
-      o.y = 1.f / (1.f + expf(-(a1 + p.b_rgb[1])));
-      o.z = 1.f / (1.f + expf(-(a2 + p.b_rgb[2])));
-      o.w = sig[r];
-      reinterpret_cast<float4*>(p.out)[m] = o;
-    }
   }
 }
 
@@ -710,47 +431,6 @@ train_bwd_data_kernel(const BwdParams p) {
   }
 }
 
-// Shared memory bytes of one forward CTA (the layout at the top of
-// fused_nerf_train_fwd_kernel).
-int forward_smem_bytes(int EP, int DP, int AP, int D) {
-  int elems = TM * (EP + PAD) + (DP ? TM * (DP + PAD) : 0) +
-              (AP ? TM * (AP + PAD) : 0) + 2 * TM * (D + PAD);
-  return elems * 2 + TM * 4;
-}
-
-// Fill the forward Params from the pointer/int tables of
-// fused_mlp.py::launch_tables (the eval kernel's tables).
-int fill_params(Params& p, const long long* ptrs, const int* dims) {
-  p.xyz = reinterpret_cast<const float*>(ptrs[0]);
-  p.dirs = reinterpret_cast<const float*>(ptrs[1]);
-  p.app = reinterpret_cast<const bf16*>(ptrs[2]);
-  p.out = reinterpret_cast<float*>(ptrs[3]);
-  p.w_sigma = reinterpret_cast<const bf16*>(ptrs[4]);
-  p.b_sigma = reinterpret_cast<const float*>(ptrs[5]);
-  p.w_rgb = reinterpret_cast<const bf16*>(ptrs[6]);
-  p.b_rgb = reinterpret_cast<const float*>(ptrs[7]);
-  p.M = dims[0];
-  p.xyz_dim = dims[1];
-  p.nf_xyz = dims[2];
-  p.nf_dir = dims[3];
-  p.layers = dims[4];
-  p.D = dims[5];
-  p.app_dim = dims[6];
-  p.skip_mask = dims[7];
-  p.has_branch = dims[8];
-  p.shifted_softplus = dims[9];
-  p.EP = dims[10];
-  p.DP = dims[11];
-  p.AP = dims[12];
-  const int nmat = p.layers + (p.has_branch ? 2 : 0);
-  if (nmat > MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < MAX_LAYERS; ++i) {
-    p.w[i] = i < nmat ? reinterpret_cast<const bf16*>(ptrs[8 + 2 * i]) : nullptr;
-    p.b[i] = i < nmat ? reinterpret_cast<const float*>(ptrs[9 + 2 * i]) : nullptr;
-  }
-  return 0;
-}
-
 cudaError_t set_smem(const void* fn, int bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
@@ -759,26 +439,6 @@ cudaError_t set_smem(const void* fn, int bytes) {
 }  // namespace
 
 extern "C" {
-
-// The training forward: ptrs/dims as fused_nerf_eval_launch, plus the sigma
-// noise (or 0) and the saved-activation rows with their stride.
-int fused_nerf_train_fwd_launch(const long long* ptrs, const int* dims,
-                                long long noise, long long save, int save_stride,
-                                void* stream) {
-  Params p;
-  const int bad = fill_params(p, ptrs, dims);
-  if (bad) return bad;
-  p.noise = reinterpret_cast<const float*>(noise);
-  p.save = reinterpret_cast<bf16*>(save);
-  p.save_stride = save_stride;
-  if (p.M <= 0) return 0;
-  const int smem = forward_smem_bytes(p.EP, p.DP, p.AP, p.D);
-  cudaError_t err = set_smem((const void*)fused_nerf_train_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_nerf_train_fwd_kernel<<<(p.M + TM - 1) / TM, NTHREADS, smem,
-                                reinterpret_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
 
 // ptrs: act, grad, g, noise, d_app, w_sigma, b_sigma, w_rgb, b_rgb, then the
 //       transposed matmul weights (trunk layers, trunk_final, dir_a).

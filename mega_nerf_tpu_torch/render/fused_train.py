@@ -2,8 +2,8 @@
 kernel wrappers.
 
 Counterpart of the JAX package's `render/pallas_train.py`. The hand-written
-Hopper kernels are in `csrc/fused_train.cu` (forward, backward-data) and
-`csrc/weight_grad.cu` (weight gradient); they replace
+Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/fused_train.cu`
+(backward-data) and `csrc/weight_grad.cu` (weight gradient); they replace
 `mega_nerf_tpu/render/pallas_train.py::_train_fwd_kernel` and
 `::_train_bwd_kernel`.
 
@@ -32,6 +32,7 @@ Hopper kernels are in `csrc/fused_train.cu` (forward, backward-data) and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -51,6 +52,7 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     mlp_param_names,
     pack_tensors,
     skip_mask,
+    supports_fused_kernel,
 )
 
 WG_TILE_N = 128  # weight-gradient output tile: 128 (n) x 256 (k) (weight_grad.cu TN, TK)
@@ -63,6 +65,14 @@ WG_MIN_SPLIT = 4096  # points per split at least
 # X boxes (two n-tiles of a job) or the d_pre boxes (two k-tiles of a job).
 WG_SHARE_NONE, WG_SHARE_X, WG_SHARE_A = 0, 1, 2
 WG_IDLE = (-1, 0, 0)  # the tile of a CTA with no work
+# The training forward (train_fwd.cu): tiles of 64-column blocks, TM rows x
+# 128 B each; weight boxes of 64 columns x up to 256 rows; row stores of 64
+# columns x 64 points.
+FWD_SMEM_LIMIT = 232_448  # shared memory one CTA may use on an H100
+FWD_BLOCK = 64
+FWD_BOX_ROWS = 256
+FWD_MAX_STAGES = 4
+FWD_ALIGN = 1024  # the kernel aligns its base to the swizzle period
 
 
 # ------------------------------------------------------------------ layouts
@@ -73,16 +83,19 @@ def branch_k(cfg: NeRFConfig) -> int:
     return _round_up(cfg.layer_dim // 2, MMA_K)
 
 
-def act_layout(packed: PackedMLP) -> Dict[str, int]:
-    """Column offsets of a saved activation row (fused_train.cu ActLayout)."""
-    cfg = packed.config
+def _act_columns(cfg: NeRFConfig, ep: int, dp: int, ap: int) -> Dict[str, int]:
     d, n = cfg.layer_dim, cfg.layers
-    lay = {"h0": packed.ep, "final": packed.ep + n * d}
+    lay = {"h0": ep, "final": ep + n * d}
     lay["dir"] = lay["final"] + d
-    lay["app"] = lay["dir"] + packed.dp
-    lay["branch"] = lay["app"] + packed.ap
-    lay["width"] = lay["branch"] + d // 2 if packed.has_branch else lay["final"]
+    lay["app"] = lay["dir"] + dp
+    lay["branch"] = lay["app"] + ap
+    lay["width"] = lay["branch"] + d // 2 if cfg.uses_dir_branch else lay["final"]
     return lay
+
+
+def act_layout(packed: PackedMLP) -> Dict[str, int]:
+    """Column offsets of a saved activation row (train_fwd.cu ActLayout)."""
+    return _act_columns(packed.config, packed.ep, packed.dp, packed.ap)
 
 
 def grad_layout(packed: PackedMLP) -> Dict[str, int]:
@@ -252,11 +265,8 @@ def _library():
     lib = load_library("fused_train")
     if not getattr(lib, "_train_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fused_nerf_train_fwd_launch.argtypes = [vp, vp, ctypes.c_longlong,
-                                                    ctypes.c_longlong, ci, vp]
         lib.train_bwd_data_launch.argtypes = [vp, vp, vp]
-        for fn in (lib.fused_nerf_train_fwd_launch, lib.train_bwd_data_launch):
-            fn.restype = ci
+        lib.train_bwd_data_launch.restype = ci
         lib.error_string = lib.fused_train_error_string
         lib.error_string.argtypes = [ci]
         lib.error_string.restype = ctypes.c_char_p
@@ -311,11 +321,122 @@ def _cuda_only(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
 
 
+class TrainFwdPlan(NamedTuple):
+    """The training forward kernel's tile and shared memory (train_fwd.cu).
+
+    `tm` points per CTA (two consumer warpgroups: 64 points each at 128,
+    the same 64 points and split output columns at 64); `offsets` (enc,
+    dir, app, act, ring, bar, sig) in bytes from the kernel's 1024-aligned
+    base; `smem_bytes` includes the alignment slack. `mats` (N, Ktot) per
+    packed matrix; `weight_boxes` (matrix, column, row) in ring order;
+    `row_stores` (column, width) of every saved-row store of a tile (64-wide
+    TMA boxes and the narrower tails)."""
+    tm: int
+    stages: int
+    stage_bytes: int
+    offsets: Dict[str, int]
+    smem_bytes: int
+    row_width: int
+    mats: List[Tuple[int, int]]
+    weight_boxes: List[Tuple[int, int, int]]
+    row_stores: List[Tuple[int, int]]
+
+
+def _fwd_segments(cfg: NeRFConfig, ep: int, dp: int, ap: int):
+    """(N, [(K, first column in the packed matrix)]) per matmul layer, as
+    train_fwd.cu make_layer."""
+    d = cfg.layer_dim
+    out = []
+    for i in range(cfg.layers):
+        segs = []
+        if i == 0 or i in cfg.skip_layers:
+            segs.append((ep, 0))
+        if i > 0:
+            segs.append((d, ep if i in cfg.skip_layers else 0))
+        out.append((d, segs))
+    if cfg.uses_dir_branch:
+        out.append((d, [(d, 0)]))
+        segs = [(d, 0)] + ([(dp, d)] if dp else []) + ([(ap, d + dp)] if ap else [])
+        out.append((d // 2, segs))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def train_fwd_plan(cfg: NeRFConfig) -> TrainFwdPlan:
+    """The training forward's tile for `cfg`: 128 points when D <= 256 and
+    at least two ring stages fit, else 64; as many stages (up to 4) as the
+    shared memory holds. Raises NotImplementedError where the fused kernels
+    do not cover the architecture, ValueError where the tile does not fit."""
+    ok, why = supports_fused_kernel(cfg)
+    if not ok:
+        raise NotImplementedError(f"fused kernel does not cover: {why}")
+    d = cfg.layer_dim
+    ep, dp = _round_up(cfg.enc_in, MMA_K), _round_up(cfg.dir_in, MMA_K)
+    ap = _round_up(cfg.appearance_dim, MMA_K)
+    segments = _fwd_segments(cfg, ep, dp, ap)
+    mats = [(n, _round_up(max(k + c for k, c in segs), MMA_K)) for n, segs in segments]
+    # A stage holds the rows a warpgroup's wgmma reads: its output columns
+    # in slices of 64, past N when N is not a multiple of 64.
+    stage_bytes = 128 * min(FWD_BOX_ROWS, _round_up(max(n for n, _ in mats), FWD_BLOCK))
+    widths = {"enc": ep, "dir": dp, "app": ap, "act": d}
+    for tm in ((128, 64) if d <= 256 else (64,)):
+        offsets, o = {}, 0
+        for name, w in widths.items():
+            offsets[name] = o
+            o += -(-w // FWD_BLOCK) * tm * 128
+        fixed = o + 4 * tm + FWD_ALIGN
+        stages = min(FWD_MAX_STAGES, (FWD_SMEM_LIMIT - fixed) // (stage_bytes + 16))
+        if stages >= 2:
+            break
+    else:
+        raise ValueError(f"train_fwd: no tile fits {FWD_SMEM_LIMIT} B of shared "
+                         f"memory for {cfg}")
+    offsets["ring"] = o
+    offsets["bar"] = o + stages * stage_bytes
+    offsets["sig"] = offsets["bar"] + 16 * stages
+    smem = offsets["sig"] + 4 * tm + FWD_ALIGN
+    boxes = []
+    for i, (n, segs) in enumerate(segments):
+        for k, col in segs:
+            for j in range(-(-k // FWD_BLOCK)):
+                for h in range(-(-n // FWD_BOX_ROWS)):
+                    boxes.append((i, col + FWD_BLOCK * j, FWD_BOX_ROWS * h))
+    lay = _act_columns(cfg, ep, dp, ap)
+    tiles = [(0, ep)] + [(lay["h0"] + i * d, d) for i in range(cfg.layers)]
+    if cfg.uses_dir_branch:
+        tiles += [(lay["final"], d), (lay["dir"], dp), (lay["app"], ap),
+                  (lay["branch"], d // 2)]
+    stores = []
+    for col0, w in tiles:
+        full = w // FWD_BLOCK
+        stores += [(col0 + FWD_BLOCK * b, FWD_BLOCK) for b in range(full)]
+        if w > FWD_BLOCK * full:
+            stores.append((col0 + FWD_BLOCK * full, w - FWD_BLOCK * full))
+    return TrainFwdPlan(tm, stages, stage_bytes, offsets, smem, lay["width"], mats,
+                        boxes, sorted(stores))
+
+
+def _fwd_library():
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library("train_fwd")
+    if not getattr(lib, "_fwd_bound", False):
+        vp = ctypes.c_void_p
+        lib.train_fwd_launch.argtypes = [vp, vp, vp, vp, vp, vp]
+        lib.train_fwd_launch.restype = ctypes.c_int
+        lib.error_string = lib.train_fwd_error_string
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._fwd_bound = True
+    return lib
+
+
 def fused_nerf_train_fwd(packed: PackedMLP, xyz, dirs, app, noise):
     """Training forward -> ((M, 4) f32, saved rows (M, act width)).
 
     CPU tensors run `fused_nerf_train_fwd_plain`; CUDA tensors launch the
-    kernel, which also writes the bf16 rows the backward reads, or raise.
+    kernel of `csrc/train_fwd.cu`, which also writes the bf16 rows the
+    backward reads, or raise.
     app: (M, appearance_dim) rows (any float dtype, bf16-exact values);
     noise: (M,) f32 or None."""
     if xyz.device.type == "cpu":
@@ -329,16 +450,25 @@ def fused_nerf_train_fwd(packed: PackedMLP, xyz, dirs, app, noise):
         if noise.dtype != torch.float32 or noise.shape != (m,) \
                 or not noise.is_contiguous():
             raise ValueError("noise: expected contiguous f32 (M,)")
-    lib = _library()
-    width = act_layout(packed)["width"]
+    plan = train_fwd_plan(packed.config)
+    if plan.mats != [tuple(w.shape) for w in packed.mats]:
+        raise ValueError("train_fwd: packed matrices do not match the plan")
+    lib = _fwd_library()
     out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
-    act = torch.empty((m, width), dtype=torch.bfloat16, device=xyz.device)
+    act = torch.empty((m, plan.row_width), dtype=torch.bfloat16, device=xyz.device)
     if m == 0:
         return out, act
     c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
-    err = lib.fused_nerf_train_fwd_launch(
-        c_ptrs, c_dims, 0 if noise is None else noise.data_ptr(),
-        act.data_ptr(), width, _stream(xyz))
+    extra = [0 if noise is None else noise.data_ptr(), act.data_ptr()]
+    o = plan.offsets
+    ints = [plan.row_width, plan.tm, plan.stages, plan.stage_bytes, o["enc"],
+            o["dir"], o["app"], o["act"], o["ring"], o["bar"], o["sig"],
+            plan.smem_bytes]
+    shapes = [v for s in plan.mats for v in s]
+    err = lib.train_fwd_launch(
+        c_ptrs, c_dims, (ctypes.c_longlong * 2)(*extra),
+        (ctypes.c_int * len(ints))(*ints), (ctypes.c_int * len(shapes))(*shapes),
+        _stream(xyz))
     fused_nerf_train_fwd.launches += 1
     _raise_if(lib, err, "fused_nerf_train_fwd")
     return out, act
@@ -596,5 +726,5 @@ __all__ = [
     "fused_nerf_train_fwd_plain", "fused_nerf_train_bwd", "train_bwd_data",
     "train_bwd_data_plain", "weight_grad", "weight_grad_plain",
     "act_layout", "grad_layout", "packed_shapes", "unpack_grads",
-    "weight_grad_jobs", "weight_grad_plan",
+    "weight_grad_jobs", "weight_grad_plan", "train_fwd_plan",
 ]

@@ -113,6 +113,8 @@ def _rel(a, b):
     {"appearance_dim": 0},
     {"appearance_dim": 0, "pos_dir_dim": 0},
     {"appearance_dim": 48, "layer_dim": 256},
+    {"appearance_dim": 48, "layer_dim": 512},
+    {"appearance_dim": 0, "pos_dir_dim": 0, "layer_dim": 48},
 ])
 def test_fused_train_kernels_match_plain(cuda_device, bg, kw):
     """Each training kernel against its plain version on the same inputs.
@@ -120,8 +122,11 @@ def test_fused_train_kernels_match_plain(cuda_device, bg, kw):
     Backward-data (from the kernel forward's rows) and weight-gradient (from
     the kernel's gradient rows): relative norm 1e-2 per layer's rows, per
     gradient tensor and d_app (bf16 operands, another summation order).
-    20,011 points, not a multiple of the 64-point tile: enough points that
-    a single flipped bf16 rounding moves no tensor's relative norm far."""
+    20,011 points, not a multiple of the 64- or 128-point tiles: enough
+    points that a single flipped bf16 rounding moves no tensor's relative
+    norm far. Widths 64, 256 and 512 (every tile the forward's plan picks:
+    128 points, or 64 points with the output columns split) and 48 (not a
+    multiple of the 64-column blocks)."""
     ft, packed, xyz, dirs, app, noise, g = _train_case(cuda_device, bg, kw, 20_011)
     launches = (ft.fused_nerf_train_fwd.launches, ft.train_bwd_data.launches,
                 ft.weight_grad.launches)
@@ -185,7 +190,8 @@ def test_train_step_skips_bg_without_bg_rays_on_card(cuda_device):
 
 
 @pytest.mark.parametrize("bg", [False, True])
-@pytest.mark.parametrize("width,m", [(256, 131_101), (64, 20_011), (16, 1_000)])
+@pytest.mark.parametrize("width,m", [(512, 20_011), (256, 131_101), (64, 20_011),
+                                     (16, 1_000)])
 def test_weight_grad_kernel_matches_plain_and_repeats(cuda_device, bg, width, m):
     """The weight-gradient kernel (TMA + wgmma, split-K over points with a
     fixed-order reduction) against `weight_grad_plain` on the kernels' own
