@@ -76,7 +76,7 @@ KERNELS = (
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("fused_nerf_train_fwd", "mega_nerf_tpu_torch/render/csrc/train_fwd.cu",
      "mega_nerf_tpu/render/pallas_train.py:138"),
-    ("train_bwd_data", "mega_nerf_tpu_torch/render/csrc/fused_train.cu",
+    ("train_bwd_data", "mega_nerf_tpu_torch/render/csrc/train_bwd.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
     ("weight_grad", "mega_nerf_tpu_torch/render/csrc/weight_grad.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
@@ -661,6 +661,12 @@ def time_train_kernels(device, report):
         fwd_b = (fused_mlp.io_bytes_per_point(cfg) + 4) * m
         bwd_b = fwd_b + 4 * cfg.appearance_dim * m + 4 * n_params
         act_b, grad_b = act.numel() * 2, grad.numel() * 2
+        # Backward-data reads the h columns of the rows for its masks (and
+        # h_{L-1} once more for the heads with the branch), and writes the
+        # gradient rows.
+        bplan = ft.train_bwd_plan(cfg)
+        heads_cols = cfg.layer_dim if cfg.uses_dir_branch else 0
+        bwd_rows_b = (sum(w for _, w in bplan.mask_loads) + heads_cols) * 2 * m + grad_b
         lib_run, lib_dtype = library_weight_grad(packed, act, grad)
         with torch.no_grad():
             lib_wg = cuda_ms(lib_run, 5)
@@ -672,7 +678,7 @@ def time_train_kernels(device, report):
             p_wg = cuda_ms(lambda: ft.weight_grad_plain(packed, act, grad), 2, 1)
         rows = {  # name: (ms, plain ms, FLOP, bytes, saved-row bytes moved)
             "fused_nerf_train_fwd": (t_fwd, p_fwd, flops, fwd_b, act_b),
-            "train_bwd_data": (t_bwd, p_bwd, dx_flops, bwd_b, act_b + grad_b),
+            "train_bwd_data": (t_bwd, p_bwd, dx_flops, bwd_b, bwd_rows_b),
             "weight_grad": (t_wg, p_wg, flops, bwd_b, act_b + grad_b),
         }
         for k, (ms, plain_ms, fl, nb, rows_b) in rows.items():
@@ -688,6 +694,12 @@ def time_train_kernels(device, report):
             f"of {PEAK_BF16_FLOPS / 1e12:.0f}; row writes {act_b / t_fwd / 1e9:.3f} "
             f"TB/s ({act_b:.4g} B); tile {fplan.tm} points, {fplan.stages} ring "
             f"stages, {fplan.smem_bytes} B shared memory")
+        log(f"  train_bwd_data at fg fine: {dx_flops / t_bwd / 1e9:.1f} TFLOP/s of "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f}; rows read and written "
+            f"{bwd_rows_b / t_bwd / 1e9:.3f} TB/s ({bwd_rows_b:.4g} B); tile "
+            f"{bplan.tm} points, {bplan.stages} ring stages, {bplan.smem_bytes} B "
+            f"shared memory, {len(bplan.products)} products, "
+            f"{len(bplan.weight_boxes)} weight boxes")
         plan = ft.weight_grad_plan(packed, m, ft._resident_ctas(ft._wg_library(), act.device))
         boxes = sum(weight_grad_boxes(plan, c) for c in range(len(plan.share)))
         log(f"  weight_grad plan at fg fine: {len(plan.tiles)} tiles in "

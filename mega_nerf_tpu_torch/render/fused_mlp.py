@@ -316,8 +316,8 @@ def check_inputs(packed: PackedMLP, xyz, dirs, app) -> None:
 
 def launch_tables(packed: PackedMLP, xyz, dirs, app, out):
     """The forward kernels' pointer and int tables (read by
-    `fused_nerf_eval_launch` in fused_mlp.cu and by `fill_params` in
-    fused_train.cu) as ctypes arrays."""
+    `fused_nerf_eval_launch` in fused_mlp.cu and by `train_fwd_launch` in
+    train_fwd.cu) as ctypes arrays."""
     cfg = packed.config
     ptrs = [xyz.data_ptr(), dirs.data_ptr() if packed.dp else 0,
             app.data_ptr() if packed.ap else 0, out.data_ptr(),

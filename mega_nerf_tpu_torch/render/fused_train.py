@@ -2,7 +2,7 @@
 kernel wrappers.
 
 Counterpart of the JAX package's `render/pallas_train.py`. The hand-written
-Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/fused_train.cu`
+Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/train_bwd.cu`
 (backward-data) and `csrc/weight_grad.cu` (weight gradient); they replace
 `mega_nerf_tpu/render/pallas_train.py::_train_fwd_kernel` and
 `::_train_bwd_kernel`.
@@ -73,6 +73,12 @@ FWD_BLOCK = 64
 FWD_BOX_ROWS = 256
 FWD_MAX_STAGES = 4
 FWD_ALIGN = 1024  # the kernel aligns its base to the swizzle period
+# The backward-data kernel's products (train_bwd.cu): what each epilogue
+# does with its accumulators.
+BWD_APP = 0  # d_app columns, f32 to global memory
+BWD_FINAL = 1  # d_final: bf16 into the gradient tile, no mask
+BWD_MASK = 2  # d_pre: masked by the mask tile, bf16 into the gradient tile
+BWD_MASK_SIGMA = 3  # the same after adding g_sigma * w_sigma
 
 
 # ------------------------------------------------------------------ layouts
@@ -98,14 +104,20 @@ def act_layout(packed: PackedMLP) -> Dict[str, int]:
     return _act_columns(packed.config, packed.ep, packed.dp, packed.ap)
 
 
-def grad_layout(packed: PackedMLP) -> Dict[str, int]:
-    """Column offsets of a gradient row (fused_train.cu GradLayout)."""
-    cfg = packed.config
+def _grad_columns(cfg: NeRFConfig) -> Dict[str, int]:
     d, n = cfg.layer_dim, cfg.layers
     lay = {"dfinal": n * d, "da": n * d + d}
-    lay["heads"] = lay["da"] + branch_k(cfg) if packed.has_branch else n * d
+    lay["heads"] = lay["da"] + branch_k(cfg) if cfg.uses_dir_branch else n * d
     lay["width"] = lay["heads"] + 8
     return lay
+
+
+def grad_layout(packed: PackedMLP) -> Dict[str, int]:
+    """Column offsets of a gradient row (train_bwd.cu writes them):
+    [d_pre_0 D | ... | d_pre_{L-1} D | d_final D | d_a KB | heads 8], the
+    d_final and d_a segments only with the branch; heads = [g_sigma, g_r,
+    g_g, g_b, 0, 0, 0, 0]."""
+    return _grad_columns(packed.config)
 
 
 def packed_shapes(packed: PackedMLP) -> List[Tuple[int, ...]]:
@@ -259,21 +271,6 @@ weight_grad_plain.calls = 0
 # ------------------------------------------------------------ kernel wrappers
 
 
-def _library():
-    from mega_nerf_tpu_torch.render._build import load_library
-
-    lib = load_library("fused_train")
-    if not getattr(lib, "_train_bound", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.train_bwd_data_launch.argtypes = [vp, vp, vp]
-        lib.train_bwd_data_launch.restype = ci
-        lib.error_string = lib.fused_train_error_string
-        lib.error_string.argtypes = [ci]
-        lib.error_string.restype = ctypes.c_char_p
-        lib._train_bound = True
-    return lib
-
-
 def _wg_library():
     from mega_nerf_tpu_torch.render._build import load_library
 
@@ -319,6 +316,21 @@ def _stream(t: torch.Tensor):
 def _cuda_only(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
+
+
+def _blocks(w: int) -> int:
+    return -(-w // FWD_BLOCK)
+
+
+def _stores(segments) -> List[Tuple[int, int]]:
+    """(column, width) stores of segments: 64-column blocks, then the tail."""
+    stores = []
+    for col0, w in segments:
+        full = w // FWD_BLOCK
+        stores += [(col0 + FWD_BLOCK * b, FWD_BLOCK) for b in range(full)]
+        if w > FWD_BLOCK * full:
+            stores.append((col0 + FWD_BLOCK * full, w - FWD_BLOCK * full))
+    return stores
 
 
 class TrainFwdPlan(NamedTuple):
@@ -383,7 +395,7 @@ def train_fwd_plan(cfg: NeRFConfig) -> TrainFwdPlan:
         offsets, o = {}, 0
         for name, w in widths.items():
             offsets[name] = o
-            o += -(-w // FWD_BLOCK) * tm * 128
+            o += _blocks(w) * tm * 128
         fixed = o + 4 * tm + FWD_ALIGN
         stages = min(FWD_MAX_STAGES, (FWD_SMEM_LIMIT - fixed) // (stage_bytes + 16))
         if stages >= 2:
@@ -398,7 +410,7 @@ def train_fwd_plan(cfg: NeRFConfig) -> TrainFwdPlan:
     boxes = []
     for i, (n, segs) in enumerate(segments):
         for k, col in segs:
-            for j in range(-(-k // FWD_BLOCK)):
+            for j in range(_blocks(k)):
                 for h in range(-(-n // FWD_BOX_ROWS)):
                     boxes.append((i, col + FWD_BLOCK * j, FWD_BOX_ROWS * h))
     lay = _act_columns(cfg, ep, dp, ap)
@@ -406,14 +418,8 @@ def train_fwd_plan(cfg: NeRFConfig) -> TrainFwdPlan:
     if cfg.uses_dir_branch:
         tiles += [(lay["final"], d), (lay["dir"], dp), (lay["app"], ap),
                   (lay["branch"], d // 2)]
-    stores = []
-    for col0, w in tiles:
-        full = w // FWD_BLOCK
-        stores += [(col0 + FWD_BLOCK * b, FWD_BLOCK) for b in range(full)]
-        if w > FWD_BLOCK * full:
-            stores.append((col0 + FWD_BLOCK * full, w - FWD_BLOCK * full))
     return TrainFwdPlan(tm, stages, stage_bytes, offsets, smem, lay["width"], mats,
-                        boxes, sorted(stores))
+                        boxes, sorted(_stores(tiles)))
 
 
 def _fwd_library():
@@ -488,11 +494,128 @@ def transposed_weights(packed: PackedMLP) -> List[torch.Tensor]:
     return out
 
 
+class TrainBwdPlan(NamedTuple):
+    """The backward-data kernel's tile and shared memory (train_bwd.cu).
+
+    `tm` points per CTA, as the forward's plan picks them; `offsets` (grad,
+    mask, ring, bar, heads) in bytes from the kernel's 1024-aligned base:
+    the resident gradient tile, the mask tile, the ring, the barriers and
+    the per-point head derivatives. `mats` (Ktot, N) per transposed matrix
+    (`transposed_weights`). `first` (column, width): the gradient-row
+    segment the elementwise start writes (d_a with the branch, else
+    d_pre_{L-1}). `products` (matrix, first row, N, K, kind, column) in the
+    order the kernel runs them: A is the gradient tile's first K columns, B
+    rows [first row, + N) of the matrix; `column` is where the output goes
+    in the gradient row (for BWD_APP, the first d_app column).
+    `mask_loads` (column, width) of the saved rows the mask tile holds, in
+    order: the first for the elementwise start, then one per masked
+    product. `weight_boxes` (product, column, row) in ring order;
+    `row_stores` (column, width) of every gradient-row store of a tile."""
+    tm: int
+    stages: int
+    stage_bytes: int
+    offsets: Dict[str, int]
+    smem_bytes: int
+    row_width: int
+    mats: List[Tuple[int, int]]
+    first: Tuple[int, int]
+    products: List[Tuple[int, int, int, int, int, int]]
+    mask_loads: List[Tuple[int, int]]
+    weight_boxes: List[Tuple[int, int, int]]
+    row_stores: List[Tuple[int, int]]
+
+
+@functools.lru_cache(maxsize=None)
+def train_bwd_plan(cfg: NeRFConfig) -> TrainBwdPlan:
+    """The backward-data kernel's tile for `cfg`: 128 points when D <= 256
+    and at least two ring stages fit, else 64; as many stages (up to 4) as
+    the shared memory holds. Raises NotImplementedError where the fused
+    kernels do not cover the architecture, ValueError where the tile does
+    not fit."""
+    ok, why = supports_fused_kernel(cfg)
+    if not ok:
+        raise NotImplementedError(f"fused kernel does not cover: {why}")
+    d, n_layers = cfg.layer_dim, cfg.layers
+    ep, dp = _round_up(cfg.enc_in, MMA_K), _round_up(cfg.dir_in, MMA_K)
+    ap = _round_up(cfg.appearance_dim, MMA_K)
+    kb = branch_k(cfg)
+    mats = [(_round_up(max(k + c for k, c in segs), MMA_K), n)
+            for n, segs in _fwd_segments(cfg, ep, dp, ap)]
+    al = _act_columns(cfg, ep, dp, ap)
+    has_branch = cfg.uses_dir_branch
+    if has_branch:  # dir_a's columns pad to KB
+        mats[-1] = (mats[-1][0], kb)
+    gl = _grad_columns(cfg)
+    h_col = [al["h0"] + i * d for i in range(n_layers)]
+    products, masks = [], []
+    if has_branch:
+        a = n_layers + 1
+        for c in range(0, ap, FWD_BOX_ROWS):
+            products.append((a, d + dp + c, min(FWD_BOX_ROWS, ap - c), kb, BWD_APP, c))
+        products.append((a, 0, d, kb, BWD_FINAL, gl["dfinal"]))
+        products.append((n_layers, 0, d, d, BWD_MASK_SIGMA, (n_layers - 1) * d))
+        first = (gl["da"], kb)
+        masks += [(al["branch"], d // 2), (h_col[-1], d)]
+    else:
+        first = ((n_layers - 1) * d, d)
+        masks.append((h_col[-1], d))
+    for i in reversed(range(1, n_layers)):
+        row0 = ep if i in cfg.skip_layers else 0
+        products.append((i, row0, d, d, BWD_MASK, (i - 1) * d))
+        masks.append((h_col[i - 1], d))
+    box_rows = max(min(n, FWD_BOX_ROWS) for _, _, n, _, _, _ in products)
+    stage_bytes = 128 * _round_up(box_rows, FWD_BLOCK)
+    tile = _blocks(d) * 128  # bytes of one row of the gradient or mask tile
+    for tm in ((128, 64) if d <= 256 else (64,)):
+        offsets = {"grad": 0, "mask": tile * tm, "ring": 2 * tile * tm}
+        fixed = offsets["ring"] + 8 * tm + 32 + FWD_ALIGN
+        stages = min(FWD_MAX_STAGES, (FWD_SMEM_LIMIT - fixed) // (stage_bytes + 16))
+        if stages >= 2:
+            break
+    else:
+        raise ValueError(f"train_bwd: no tile fits {FWD_SMEM_LIMIT} B of shared "
+                         f"memory for {cfg}")
+    offsets["bar"] = offsets["ring"] + stages * stage_bytes
+    offsets["heads"] = offsets["bar"] + 16 * stages + 32
+    smem = offsets["heads"] + 8 * tm + FWD_ALIGN
+    boxes = [(p, FWD_BLOCK * j, row0 + FWD_BOX_ROWS * h)
+             for p, (_, row0, n, k, _, _) in enumerate(products)
+             for j in range(_blocks(k)) for h in range(-(-n // FWD_BOX_ROWS))]
+    segments = [(i * d, d) for i in range(n_layers)]
+    if has_branch:
+        segments += [(gl["dfinal"], d), (gl["da"], kb)]
+    segments.append((gl["heads"], 8))
+    return TrainBwdPlan(tm, stages, stage_bytes, offsets, smem, gl["width"],
+                        mats, first, products, masks, boxes,
+                        sorted(_stores(segments)))
+
+
+def _bwd_library():
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library("train_bwd")
+    if not getattr(lib, "_bwd_bound", False):
+        vp = ctypes.c_void_p
+        lib.train_bwd_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp]
+        lib.train_bwd_launch.restype = ctypes.c_int
+        lib.error_string = lib.train_bwd_error_string
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._bwd_bound = True
+    return lib
+
+
+def _ints(values) -> ctypes.Array:
+    values = list(values)
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
 def train_bwd_data(packed: PackedMLP, act: torch.Tensor, g: torch.Tensor,
                    noise: Optional[torch.Tensor]):
     """The backward-data kernel -> (gradient rows (M, grad width) bf16,
     d_app (M, appearance_dim) f32 or None). CPU tensors run
-    `train_bwd_data_plain`."""
+    `train_bwd_data_plain`; CUDA tensors launch the kernel of
+    `csrc/train_bwd.cu`, or raise."""
     if act.device.type == "cpu":
         return train_bwd_data_plain(packed, act, g, noise)
     _cuda_only("train_bwd_data", act)
@@ -500,29 +623,46 @@ def train_bwd_data(packed: PackedMLP, act: torch.Tensor, g: torch.Tensor,
     m = act.shape[0]
     if g.dtype != torch.float32 or g.shape != (m, 4) or not g.is_contiguous():
         raise ValueError("g: expected contiguous f32 (M, 4)")
-    lib = _library()
-    gl = grad_layout(packed)
-    grad = torch.empty((m, gl["width"]), dtype=torch.bfloat16, device=act.device)
+    if noise is not None and (noise.dtype != torch.float32 or noise.shape != (m,)
+                              or not noise.is_contiguous()):
+        raise ValueError("noise: expected contiguous f32 (M,)")
+    al = act_layout(packed)
+    if act.dtype != torch.bfloat16 or act.shape[1] != al["width"] \
+            or not act.is_contiguous():
+        raise ValueError("act: expected the contiguous bf16 saved rows")
+    plan = train_bwd_plan(cfg)
+    wts = transposed_weights(packed)
+    if plan.mats != [tuple(w.shape) for w in wts]:
+        raise ValueError("train_bwd: packed matrices do not match the plan")
+    grad = torch.empty((m, plan.row_width), dtype=torch.bfloat16, device=act.device)
     d_app = None
     if packed.ap:
         d_app = torch.empty((m, cfg.appearance_dim), dtype=torch.float32,
                             device=act.device)
     if m == 0:
         return grad, d_app
-    wts = transposed_weights(packed)
+    lib = _bwd_library()
     ptrs = [act.data_ptr(), grad.data_ptr(), g.data_ptr(),
             0 if noise is None else noise.data_ptr(),
             0 if d_app is None else d_app.data_ptr(),
             packed.sigma_w.data_ptr(), packed.sigma_b.data_ptr(),
             packed.rgb_w.data_ptr(), packed.rgb_b.data_ptr()]
     ptrs += [w.data_ptr() for w in wts]
-    dims = [m, cfg.layers, cfg.layer_dim, skip_mask(cfg),
-            int(packed.has_branch), int(cfg.shifted_softplus), packed.ep,
-            packed.dp, packed.ap, cfg.appearance_dim, branch_k(cfg),
-            act.shape[1], gl["width"]]
-    err = lib.train_bwd_data_launch(
-        (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-        _stream(act))
+    d = cfg.layer_dim
+    h_last = al["h0"] + (cfg.layers - 1) * d
+    dims = [m, d, int(packed.has_branch), int(cfg.shifted_softplus),
+            cfg.appearance_dim, al["width"], plan.row_width, h_last,
+            al["branch"] if packed.has_branch else h_last,
+            d // 2 if packed.has_branch else d, *plan.first]
+    o = plan.offsets
+    ints = [plan.tm, plan.stages, plan.stage_bytes, o["grad"], o["mask"], o["ring"],
+            o["bar"], o["heads"], plan.smem_bytes, len(plan.products),
+            len(plan.mask_loads), len(plan.mats)]
+    err = lib.train_bwd_launch(
+        (ctypes.c_longlong * len(ptrs))(*ptrs), _ints(dims), _ints(ints),
+        _ints(v for pr in plan.products for v in pr),
+        _ints(v for ml in plan.mask_loads for v in ml),
+        _ints(v for s in plan.mats for v in s), _stream(act))
     train_bwd_data.launches += 1
     _raise_if(lib, err, "train_bwd_data")
     return grad, d_app
@@ -532,7 +672,7 @@ train_bwd_data.launches = 0
 
 
 def weight_grad_jobs(packed: PackedMLP) -> List[Tuple[int, ...]]:
-    """The weight-gradient kernel's jobs (fused_train.cu Job): (d_col, n,
+    """The weight-gradient kernel's jobs (weight_grad.cu Job): (d_col, n,
     x_col, k, out_off, out_stride, bias_off) per GEMM, offsets into the
     flat f32 gradient buffer in `packed_shapes` order."""
     cfg = packed.config
@@ -726,5 +866,5 @@ __all__ = [
     "fused_nerf_train_fwd_plain", "fused_nerf_train_bwd", "train_bwd_data",
     "train_bwd_data_plain", "weight_grad", "weight_grad_plain",
     "act_layout", "grad_layout", "packed_shapes", "unpack_grads",
-    "weight_grad_jobs", "weight_grad_plan", "train_fwd_plan",
+    "weight_grad_jobs", "weight_grad_plan", "train_fwd_plan", "train_bwd_plan",
 ]

@@ -115,6 +115,7 @@ def _rel(a, b):
     {"appearance_dim": 48, "layer_dim": 256},
     {"appearance_dim": 48, "layer_dim": 512},
     {"appearance_dim": 0, "pos_dir_dim": 0, "layer_dim": 48},
+    {"appearance_dim": 48, "layer_dim": 16},
 ])
 def test_fused_train_kernels_match_plain(cuda_device, bg, kw):
     """Each training kernel against its plain version on the same inputs.
@@ -126,7 +127,8 @@ def test_fused_train_kernels_match_plain(cuda_device, bg, kw):
     points that a single flipped bf16 rounding moves no tensor's relative
     norm far. Widths 64, 256 and 512 (every tile the forward's plan picks:
     128 points, or 64 points with the output columns split) and 48 (not a
-    multiple of the 64-column blocks)."""
+    multiple of the 64-column blocks) and 16 (a branch of 16 columns, KB
+    = 16, narrower than every box)."""
     ft, packed, xyz, dirs, app, noise, g = _train_case(cuda_device, bg, kw, 20_011)
     launches = (ft.fused_nerf_train_fwd.launches, ft.train_bwd_data.launches,
                 ft.weight_grad.launches)
@@ -213,3 +215,47 @@ def test_weight_grad_kernel_matches_plain_and_repeats(cuda_device, bg, width, m)
     offs = ft._offsets(ft.packed_shapes(packed))
     for i in range(len(offs) - 1):
         assert _rel(flat[offs[i]:offs[i + 1]], want[offs[i]:offs[i + 1]]) <= 1e-2, i
+
+
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [16, 48, 256, 512])
+def test_train_bwd_data_kernel_repeats_bitwise(cuda_device, bg, width):
+    """The backward-data kernel (wgmma chain over a resident gradient tile,
+    TMA weight ring and mask tiles) writes every gradient-row column and
+    d_app with the same bits on two launches over the same rows: it has no
+    atomics and no run-to-run order. Its rows and d_app stay finite."""
+    ft, packed, xyz, dirs, app, noise, g = _train_case(
+        cuda_device, bg, {"appearance_dim": 48, "layer_dim": width}, 20_011)
+    with torch.no_grad():
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        launches = ft.train_bwd_data.launches
+        grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+        grad2, d_app2 = ft.train_bwd_data(packed, act, g, noise)
+    torch.cuda.synchronize()
+    assert ft.train_bwd_data.launches == launches + 2
+    assert torch.isfinite(grad.float()).all() and torch.isfinite(d_app).all()
+    assert torch.equal(grad.view(torch.int16), grad2.view(torch.int16))
+    assert torch.equal(d_app, d_app2)
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_train_kernel_chain_stress_at_width_16(cuda_device, bg):
+    """The chain a training step runs, forward -> backward-data ->
+    weight-gradient twice, at width 16 on 1,000 points, 200 times with a
+    sync after each: no device error, every output finite and each run's
+    the same bits as the first."""
+    ft, packed, xyz, dirs, app, noise, g = _train_case(
+        cuda_device, bg, {"appearance_dim": 48, "layer_dim": 16}, 1_000)
+    first = None
+    with torch.no_grad():
+        for it in range(200):
+            out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+            grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+            flat = ft.weight_grad(packed, act, grad)
+            again = ft.weight_grad(packed, act, grad)
+            torch.cuda.synchronize()
+            now = (out, act, grad, d_app, flat, again)
+            if first is None:
+                first = now
+                assert all(torch.isfinite(t.float()).all() for t in now)
+            assert all(torch.equal(a, b) for a, b in zip(first, now)), it
