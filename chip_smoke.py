@@ -19,7 +19,9 @@ Runs every phase, in order:
               backward-data kernel's rows): relative norm <= 1e-2 per
               layer's gradient rows, d_app and every gradient tensor (bf16
               operands, another summation order); two weight-gradient
-              launches on the same inputs give the same bits.
+              launches on the same inputs give the same bits; at the fg and
+              bg paper shapes the eval kernel's output equals the training
+              forward's without noise bit for bit (the same layer chain).
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -36,8 +38,10 @@ Runs every phase, in order:
               plain call, and a finite-PSNR `eval.main` on the final
               `{iter}.pt`; then one step from the same weights and batch
               through the kernels and through the plain versions.
-5. time     - eval kernel ms per launch at the fg-fine eval shape (16,384 x
-              512 points); training kernels ms per launch at each of the
+5. time     - eval kernel ms per launch and its persistent grid at the
+              serving path's four shapes (fg 16,384 x 256 and x 512, bg
+              16,384 x 128 and x 256 points), its TFLOP/s, plain ms and bound
+              at fg fine; training kernels ms per launch at each of the
               step's four shapes (fg-fine: 1024 x 512 points); the plain
               versions' ms and the bounds at the fg-fine shapes (each
               kernel's FLOP - forward, dX or dW products - at 989 TFLOP/s
@@ -72,7 +76,7 @@ PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-2
 # (name, source, the TPU kernel it replaces)
 KERNELS = (
-    ("fused_nerf_eval", "mega_nerf_tpu_torch/render/csrc/fused_mlp.cu",
+    ("fused_nerf_eval", "mega_nerf_tpu_torch/render/csrc/eval_fwd.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("fused_nerf_train_fwd", "mega_nerf_tpu_torch/render/csrc/train_fwd.cu",
      "mega_nerf_tpu/render/pallas_train.py:138"),
@@ -149,11 +153,14 @@ def phase_build(device, report):
     return ok
 
 
-def compare_case(name, hp, bg, m, seed, device):
-    """Kernel vs plain on one configuration -> (max_abs_err, ok)."""
+def compare_case(name, hp, bg, m, seed, device, against_train=False):
+    """Kernel vs plain on one configuration -> (max_abs_err, ok). With
+    `against_train`, the eval kernel must also equal the training forward
+    without noise bit for bit."""
     import torch
 
     from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
 
     bundle = seeded_bundle(hp, 16, bg, seed, device)
     packed = fused_mlp.pack_params(bundle.module)
@@ -169,10 +176,22 @@ def compare_case(name, hp, bg, m, seed, device):
     sig_ratio = (err[:, 3] / (1 + want[:, 3].abs())).max().item()
     finite = bool(torch.isfinite(got).all())
     ok = finite and rgb_err <= TOL and sig_ratio <= TOL
+    same = ""
+    if against_train:
+        launches = ft.fused_nerf_train_fwd.launches
+        with torch.no_grad():
+            train_out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, None)
+            torch.cuda.synchronize()
+        ft.fused_nerf_train_fwd.launches = launches  # not a main-path launch
+        bits = torch.equal(got, train_out)
+        ok = ok and bits
+        same = f" equals the training forward without noise bit for bit={bits}"
+        del train_out, act
+        torch.cuda.empty_cache()
     log(f"  {name}: M={m} rgb max|err|={rgb_err:.3e} "
         f"sigma max|err|/(1+|s|)={sig_ratio:.3e} sigma range "
         f"[{want[:, 3].min().item():.3g}, {want[:, 3].max().item():.3g}] "
-        f"finite={finite} -> {'ok' if ok else 'FAIL'}")
+        f"finite={finite}{same} -> {'ok' if ok else 'FAIL'}")
     return err.max().item(), ok
 
 
@@ -262,7 +281,8 @@ def phase_compare(device, report):
     worst = 0.0
     all_ok = True
     for i, (name, hp, bg, m) in enumerate(cases):
-        err, ok = compare_case(name, hp, bg, m, 100 + i, device)
+        err, ok = compare_case(name, hp, bg, m, 100 + i, device,
+                               against_train=name in ("fg paper", "bg paper"))
         worst = max(worst, err)
         all_ok &= ok
     kernels["fused_nerf_eval"]["max_abs_err"] = worst
@@ -716,34 +736,51 @@ def time_train_kernels(device, report):
         getattr(ft, k).launches = saved[k]
 
 
+SERVING_SHAPES = (  # (name, bg, points, seed) of one 16,384-ray chunk
+    ("fg coarse", False, 16384 * 256, 13), ("fg fine", False, 16384 * 512, 11),
+    ("bg coarse", True, 16384 * 128, 15), ("bg fine", True, 16384 * 256, 17),
+)
+
+
 def phase_time(device, report):
     import torch
 
     from mega_nerf_tpu_torch.render import fused_mlp
 
     hp = paper_hparams()
-    bundle = seeded_bundle(hp, 16, False, 11, device)
-    cfg = bundle.config
-    packed = fused_mlp.pack_params(bundle.module)
-    m = 16384 * 512
-    xyz, dirs, idx = mlp_inputs(cfg, m, 12, device)
-    app = bundle.module.appearance(idx).contiguous()
-    with torch.no_grad():
-        saved = fused_mlp.fused_nerf_eval.launches
-        ms = cuda_ms(lambda: fused_mlp.fused_nerf_eval(packed, xyz, dirs, app), 10)
-        fused_mlp.fused_nerf_eval.launches = saved
-        plain_ms = cuda_ms(
-            lambda: fused_mlp.fused_nerf_eval_plain(packed, xyz, dirs, app), 3, 1)
-    flops = fused_mlp.flops_per_point(cfg) * m
-    nbytes = fused_mlp.io_bytes_per_point(cfg) * m
-    bms, by = bound(flops, nbytes)
-    report["kernels"]["fused_nerf_eval"].update(
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-    log(f"  fused eval kernel at {m} points (fg fine, 16384 x 512): "
-        f"{ms:.3f} ms/launch = {flops / ms / 1e9:.1f} TFLOP/s; plain "
-        f"{plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {flops:.4g} FLOP, "
-        f"{nbytes:.4g} B)")
-    del xyz, dirs, idx, app
+    saved = fused_mlp.fused_nerf_eval.launches
+    per_shape = {}
+    for name, bg, m, seed in SERVING_SHAPES:
+        bundle = seeded_bundle(hp, 16, bg, seed, device)
+        cfg = bundle.config
+        packed = fused_mlp.pack_params(bundle.module)
+        xyz, dirs, idx = mlp_inputs(cfg, m, seed + 1, device)
+        app = bundle.module.appearance(idx).contiguous()
+        grid = fused_mlp.launch_grid(packed, m, xyz.device)
+        tm = fused_mlp.eval_plan(packed).tm
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fused_mlp.fused_nerf_eval(packed, xyz, dirs, app), 10)
+        per_shape[name] = {"points": m, "ms": ms, "grid": grid, "tile": tm}
+        log(f"  eval kernel, {name} ({m} points): {ms:.3f} ms/launch, grid "
+            f"{grid} CTAs walking {-(-m // tm)} tiles of {tm} points")
+        if name != "fg fine":
+            continue
+        with torch.no_grad():
+            plain_ms = cuda_ms(
+                lambda: fused_mlp.fused_nerf_eval_plain(packed, xyz, dirs, app), 3, 1)
+        flops = fused_mlp.flops_per_point(cfg) * m
+        nbytes = fused_mlp.io_bytes_per_point(cfg) * m
+        bms, by = bound(flops, nbytes)
+        report["kernels"]["fused_nerf_eval"].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        log(f"  fused eval kernel at {m} points (fg fine, 16384 x 512): "
+            f"{ms:.3f} ms/launch = {flops / ms / 1e9:.1f} TFLOP/s; plain "
+            f"{plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {flops:.4g} FLOP, "
+            f"{nbytes:.4g} B)")
+    fused_mlp.fused_nerf_eval.launches = saved  # timing launches
+    chunk_ms = sum(v["ms"] for v in per_shape.values())
+    report.update(eval_kernel=per_shape, eval_chunk_ms=chunk_ms)
+    log(f"  eval kernel per 16,384-ray chunk (4 launches): {chunk_ms:.3f} ms")
 
     runner = report["runner"]
     meta = runner.val_items[0]
@@ -870,7 +907,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: entry[k] for k in keys} for entry in report["kernels"].values()]
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
-                                      "render_rgb_diff")}
+                                      "render_rgb_diff", "eval_chunk_ms",
+                                      "eval_kernel")}
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": report["training"]}))
     log(json.dumps({"kernels": kernels}))

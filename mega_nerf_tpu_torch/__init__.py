@@ -3,7 +3,7 @@
 A second package beside the JAX one, with the same subpackage names:
 `ops` (rays, sampling, compositing, metrics), `models` (the NeRF module,
 factory, weight carry-over), `render` (the renderer, the fused eval MLP
-kernel `render/csrc/fused_mlp.cu` and the fused training kernels
+kernel `render/csrc/eval_fwd.cu` and the fused training kernels
 `render/csrc/train_fwd.cu`, `train_bwd.cu` and `weight_grad.cu`, all for
 Hopper), `parallel` (the training
 step), `data`, `runtime`, and the `train` and `eval` entry points. It

@@ -1,8 +1,11 @@
 """Fused NeRF eval MLP: packing, the plain PyTorch version, the kernel wrapper.
 
 Counterpart of the JAX package's `render/pallas_mlp.py`. The hand-written
-Hopper kernel is `csrc/fused_mlp.cu` (it replaces
-`mega_nerf_tpu/render/pallas_mlp.py::_mlp_kernel`).
+Hopper kernel is `csrc/eval_fwd.cu` (it replaces
+`mega_nerf_tpu/render/pallas_mlp.py::_mlp_kernel`): the training forward's
+`wgmma` layer chain without noise or saved rows, one persistent CTA per SM
+walking the point tiles, its tile and shared memory from
+`fused_train.py::train_fwd_plan`.
 
 - `pack_params` lays a `NeRF` module's weights out for the kernel: one
   (out, in) matrix per matmul layer in the compute dtype, with zero columns
@@ -13,7 +16,9 @@ Hopper kernel is `csrc/fused_mlp.cu` (it replaces
   compute dtype, float32 accumulation and bias, rounding after each layer.
 - `fused_nerf_eval` is the wrapper: on a CPU tensor it runs the plain
   version; on a CUDA tensor it launches the kernel or raises. Each counts
-  its calls in a `launches` / `calls` attribute.
+  its calls in a `launches` / `calls` attribute. `eval_plan` checks the
+  packed weights against the plan; `eval_grid` says how many CTAs a launch
+  has (CTA b walks tiles b, b + grid, ...).
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import torch.nn.functional as F
 
 from mega_nerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 
-MMA_K = 16  # input segments pad to the mma.sync depth
-MAX_LAYER_DIM = 512  # 2 x 64 x 520 bf16 activation tiles: ~161 KB of shared memory
+MMA_K = 16  # input segments pad to the wgmma depth (16 bf16)
+# The widest layer whose tiles fit one CTA's shared memory in
+# fused_train.py::train_fwd_plan (64 points, output columns split in two).
+MAX_LAYER_DIM = 512
 MAX_MATRICES = 16  # trunk layers + trunk_final + dir_a (the kernel's table)
 
 
@@ -259,6 +266,8 @@ def fused_nerf_eval(
     xyz: torch.Tensor,
     dirs: Optional[torch.Tensor] = None,
     app: Optional[torch.Tensor] = None,
+    *,
+    grid: Optional[int] = None,
 ) -> torch.Tensor:
     """(M, 4) f32 [rgb, sigma] for M points.
 
@@ -266,31 +275,59 @@ def fused_nerf_eval(
     ref_packed_dirs swap) when the model reads directions; app
     (M, appearance_dim) per-point appearance rows when it has appearance.
     CPU tensors run `fused_nerf_eval_plain`; CUDA tensors launch the kernel
-    (bf16 compute only) or raise."""
+    of `csrc/eval_fwd.cu` (bf16 compute only) or raise. `grid` sets the
+    number of CTAs of the persistent walk (tests only; default: as many as
+    the card holds at once, at most one per tile)."""
     if xyz.device.type == "cpu":
         return fused_nerf_eval_plain(packed, xyz, dirs, app)
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_nerf_eval: unsupported device {xyz.device}")
     m = xyz.shape[0]
     check_inputs(packed, xyz, dirs, app)
-
-    from mega_nerf_tpu_torch.render._build import load_library
-
-    lib = load_library("fused_mlp")
-    _bind(lib)
+    plan = eval_plan(packed)
+    lib = _eval_library()
     out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
     if m == 0:
         return out
+    if grid is None:
+        grid = launch_grid(packed, m, xyz.device)
     c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
+    o = plan.offsets
+    ints = [plan.tm, plan.stages, plan.stage_bytes, o["enc"], o["dir"], o["app"],
+            o["act"], o["ring"], o["bar"], o["sig"], plan.smem_bytes]
+    shapes = [v for s in plan.mats for v in s]
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = lib.fused_nerf_eval_launch(c_ptrs, c_dims, ctypes.c_void_p(stream))
+    err = lib.eval_fwd_launch(
+        c_ptrs, c_dims, (ctypes.c_int * len(ints))(*ints),
+        (ctypes.c_int * len(shapes))(*shapes), int(grid), ctypes.c_void_p(stream))
     fused_nerf_eval.launches += 1
-    if err != 0:
-        raise RuntimeError(
-            "fused_nerf_eval kernel launch failed: "
-            + lib.fused_nerf_eval_error_string(err).decode()
-        )
+    _raise_if(lib, err, "fused_nerf_eval")
     return out
+
+
+def eval_plan(packed: PackedMLP):
+    """The eval kernel's tile and shared memory: the training forward's
+    plan (`fused_train.py::train_fwd_plan`; its saved-row fields are not
+    used). Raises ValueError unless the packed matrices are the plan's."""
+    from mega_nerf_tpu_torch.render.fused_train import train_fwd_plan
+
+    plan = train_fwd_plan(packed.config)
+    if plan.mats != [tuple(w.shape) for w in packed.mats]:
+        raise ValueError("eval_fwd: packed matrices do not match the plan")
+    return plan
+
+
+def eval_grid(m: int, tm: int, resident: int) -> int:
+    """CTAs of a persistent launch over m points: one per tile of tm
+    points, at most as many as the card holds at once."""
+    return max(1, min(-(-m // tm), resident))
+
+
+def launch_grid(packed: PackedMLP, m: int, device: torch.device) -> int:
+    """The grid `fused_nerf_eval` launches for m points on `device`."""
+    plan = eval_plan(packed)
+    return eval_grid(m, plan.tm, _resident_ctas(_eval_library(), device,
+                                                plan.smem_bytes))
 
 
 def check_inputs(packed: PackedMLP, xyz, dirs, app) -> None:
@@ -316,7 +353,7 @@ def check_inputs(packed: PackedMLP, xyz, dirs, app) -> None:
 
 def launch_tables(packed: PackedMLP, xyz, dirs, app, out):
     """The forward kernels' pointer and int tables (read by
-    `fused_nerf_eval_launch` in fused_mlp.cu and by `train_fwd_launch` in
+    `eval_fwd_launch` in eval_fwd.cu and by `train_fwd_launch` in
     train_fwd.cu) as ctypes arrays."""
     cfg = packed.config
     ptrs = [xyz.data_ptr(), dirs.data_ptr() if packed.dp else 0,
@@ -340,15 +377,48 @@ def skip_mask(cfg: NeRFConfig) -> int:
 fused_nerf_eval.launches = 0
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    if getattr(lib, "_fused_bound", False):
-        return
-    lib.fused_nerf_eval_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.fused_nerf_eval_launch.restype = ctypes.c_int
-    lib.fused_nerf_eval_error_string.argtypes = [ctypes.c_int]
-    lib.fused_nerf_eval_error_string.restype = ctypes.c_char_p
-    lib._fused_bound = True
+def _eval_library() -> ctypes.CDLL:
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library("eval_fwd")
+    if not getattr(lib, "_eval_bound", False):
+        vp = ctypes.c_void_p
+        lib.eval_fwd_launch.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp]
+        lib.eval_fwd_launch.restype = ctypes.c_int
+        lib.eval_fwd_resident_ctas.argtypes = [ctypes.c_int, vp]
+        lib.eval_fwd_resident_ctas.restype = ctypes.c_int
+        lib.error_string = lib.eval_fwd_error_string
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._eval_bound = True
+    return lib
+
+
+def _raise_if(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.error_string(err).decode())
+
+
+_RESIDENT: Dict[Tuple[int, int], int] = {}
+
+
+def _resident_ctas(lib: ctypes.CDLL, device: torch.device, smem: int) -> int:
+    """CTAs of the eval kernel with `smem` bytes of shared memory that the
+    card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+    SMs), cached per device and shared-memory size."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, smem)
+    if key not in _RESIDENT:
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_if(lib, lib.eval_fwd_resident_ctas(smem, ctypes.byref(ctas)),
+                      "eval_fwd occupancy")
+        if ctas.value < 1:
+            raise RuntimeError(f"eval_fwd: no CTA with {smem} B of shared "
+                               "memory fits an SM")
+        _RESIDENT[key] = ctas.value
+    return _RESIDENT[key]
 
 
 def flops_per_point(cfg: NeRFConfig) -> int:
@@ -381,6 +451,6 @@ def io_bytes_per_point(cfg: NeRFConfig) -> int:
 __all__ = [
     "PackedMLP", "pack_params", "pack_tensors", "mat_layout",
     "mlp_param_names", "supports_fused_kernel", "encode", "forward_trace",
-    "fused_nerf_eval", "fused_nerf_eval_plain", "flops_per_point",
-    "io_bytes_per_point",
+    "fused_nerf_eval", "fused_nerf_eval_plain", "eval_plan", "eval_grid",
+    "launch_grid", "flops_per_point", "io_bytes_per_point",
 ]

@@ -44,6 +44,7 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     MMA_K,
     ForwardTrace,
     PackedMLP,
+    _raise_if,
     _round_up,
     check_inputs,
     forward_trace,
@@ -301,12 +302,6 @@ def _resident_ctas(lib, device: torch.device) -> int:
                       "weight_grad occupancy")
         _RESIDENT[index] = max(ctas.value, 2)
     return _RESIDENT[index]
-
-
-def _raise_if(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.error_string(err).decode())
 
 
 def _stream(t: torch.Tensor):

@@ -33,17 +33,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
+NARROW = {"layers": 6, "skip_layers": [3], "pos_dir_dim": 0}  # the 48-wide model
+
+
+@pytest.mark.parametrize("m", [1000, 37, 0])
 @pytest.mark.parametrize("bg", [False, True])
 @pytest.mark.parametrize("kw", [
     {"appearance_dim": 48},
     {"appearance_dim": 0},
     {"appearance_dim": 0, "pos_dir_dim": 0},
+    {"appearance_dim": 48, "layer_dim": 16},
+    {"appearance_dim": 0, "layer_dim": 16},
+    {"appearance_dim": 48, "layer_dim": 48, **NARROW},
+    {"appearance_dim": 0, "layer_dim": 48, **NARROW},
+    {"appearance_dim": 48, "layer_dim": 256},
+    {"appearance_dim": 0, "layer_dim": 256},
+    {"appearance_dim": 48, "layer_dim": 512},
+    {"appearance_dim": 0, "layer_dim": 512},
 ])
-def test_fused_eval_kernel_matches_plain(cuda_device, bg, kw):
+def test_fused_eval_kernel_matches_plain(cuda_device, bg, kw, m):
     """bf16 compute; tolerance rgb 1e-2, sigma 1e-2 (1 + |sigma|): the sums
-    run in another order, which can flip one bf16 rounding."""
+    run in another order, which can flip one bf16 rounding. Widths 16, 48
+    (6 layers, no dirs), 64, 256 and 512 (every tile of the plan: 128
+    points, or 64 with the output columns split); M = 1,000 (not a
+    multiple of the tile), 37 (under one tile) and 0 (empty output, no
+    launch)."""
     hp = tiny_hparams(pos_xyz_dim=12, pos_dir_dim=kw.get("pos_dir_dim", 4),
-                      layers=8, skip_layers=[4], layer_dim=64, bg_layer_dim=64,
+                      layers=kw.get("layers", 8),
+                      skip_layers=kw.get("skip_layers", [4]),
+                      layer_dim=kw.get("layer_dim", 64),
+                      bg_layer_dim=kw.get("layer_dim", 64),
                       appearance_dim=kw["appearance_dim"],
                       compute_dtype="bfloat16")
     bundle = (make_bg_nerf if bg else make_nerf)(hp, 7)
@@ -52,7 +71,6 @@ def test_fused_eval_kernel_matches_plain(cuda_device, bg, kw):
     cfg = bundle.config
     packed = fused_mlp.pack_params(bundle.module)
     gen = torch.Generator().manual_seed(1)
-    m = 1000  # not a multiple of the kernel's 64-point tile
     xyz = torch.rand((m, cfg.xyz_dim), generator=gen).to(cuda_device)
     dirs = torch.nn.functional.normalize(
         torch.randn((m, 3), generator=gen), dim=-1).to(cuda_device)
@@ -66,8 +84,12 @@ def test_fused_eval_kernel_matches_plain(cuda_device, bg, kw):
         got = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
         want = fused_mlp.fused_nerf_eval_plain(packed, xyz, dirs, app)
     torch.cuda.synchronize()
-    assert fused_mlp.fused_nerf_eval.launches == launches + 1
+    assert fused_mlp.fused_nerf_eval.launches == launches + (m > 0)
+    assert got.shape == (m, 4)
+    if m == 0:
+        return
     err = (got - want).abs()
+    assert torch.isfinite(got).all()
     assert err[:, :3].max().item() <= 1e-2
     assert (err[:, 3] / (1 + want[:, 3].abs())).max().item() <= 1e-2
 
@@ -76,7 +98,9 @@ def _train_case(cuda_device, bg, kw, m):
     from mega_nerf_tpu_torch.render import fused_train
 
     hp = tiny_hparams(pos_xyz_dim=12, pos_dir_dim=kw.get("pos_dir_dim", 4),
-                      layers=8, skip_layers=[4], layer_dim=kw.get("layer_dim", 64),
+                      layers=kw.get("layers", 8),
+                      skip_layers=kw.get("skip_layers", [4]),
+                      layer_dim=kw.get("layer_dim", 64),
                       bg_layer_dim=kw.get("layer_dim", 64),
                       appearance_dim=kw["appearance_dim"],
                       compute_dtype="bfloat16")
@@ -259,3 +283,46 @@ def test_train_kernel_chain_stress_at_width_16(cuda_device, bg):
                 first = now
                 assert all(torch.isfinite(t.float()).all() for t in now)
             assert all(torch.equal(a, b) for a, b in zip(first, now)), it
+
+
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("kw", [
+    {"appearance_dim": 48, "layer_dim": 16},
+    {"appearance_dim": 0, "layer_dim": 48, **NARROW},
+    {"appearance_dim": 48, "layer_dim": 256},
+    {"appearance_dim": 48, "layer_dim": 512},
+])
+def test_eval_kernel_equals_train_forward_without_noise(cuda_device, bg, kw):
+    """The eval kernel and the training forward run the same layer chain
+    (the same boxes in the same K order, the same heads): without noise
+    their (M, 4) outputs have the same bits, at every tile of the plan."""
+    ft, packed, xyz, dirs, app, _, _ = _train_case(cuda_device, bg, kw, 20_011)
+    app = None if app is None else app.to(torch.bfloat16).contiguous()
+    with torch.no_grad():
+        got = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+        want, _ = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, None)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_eval_kernel_persistent_walk_repeats_bitwise(cuda_device, bg):
+    """A launch at the default grid (one CTA per SM at most) and launches
+    at grids of 1 and 7 CTAs, whose walks cross many tile boundaries with
+    the ring and barrier phases running on, give the same bits on 131,101
+    points at width 64 (the ragged last tile falls to a different CTA in
+    each)."""
+    ft, packed, xyz, dirs, app, _, _ = _train_case(
+        cuda_device, bg, {"appearance_dim": 48, "layer_dim": 64}, 131_101)
+    app = app.to(torch.bfloat16).contiguous()
+    launches = fused_mlp.fused_nerf_eval.launches
+    with torch.no_grad():
+        outs = [fused_mlp.fused_nerf_eval(packed, xyz, dirs, app, grid=g)
+                for g in (None, 1, 7)]
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_nerf_eval.launches == launches + 3
+    assert fused_mlp.launch_grid(packed, 131_101, xyz.device) > 7
+    assert torch.isfinite(outs[0]).all()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
