@@ -22,6 +22,14 @@ Runs every phase, in order:
               launches on the same inputs give the same bits; at the fg and
               bg paper shapes the eval kernel's output equals the training
               forward's without noise bit for bit (the same layer chain).
+2b. compare_wide - the wide route (layer_dim 513-2048, `csrc/eval_wide.cu`):
+              the encode, layer GEMM and heads kernels against their plain
+              versions at widths 640, 1024 and 2048 (every layer of the
+              chain fed the plain chain's input: the skip layer, and dir_a
+              with and without dirs and appearance), M not a multiple of the
+              128-point tile, and the whole wide eval at the dense fg and bg
+              shapes on 1,000,003 points. Encode and layers 1e-2 (1 + |y|),
+              rgb 1e-2 absolute, sigma 1e-2 (1 + |sigma|).
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -29,6 +37,12 @@ Runs every phase, in order:
               PSNR/SSIM, that the fused kernel launched (4 launches per
               16,384-ray chunk) and the plain version never ran, and renders
               one chunk again through the plain version for comparison.
+3b. serve_dense - the same at the `configs/mega-nerf-dense` width (fg and
+              bg 8x2048, seeded random weights): `eval.main` on cuda through
+              the wide kernels. Checks finite PSNR/SSIM, launches of each
+              wide kernel, no narrow eval launch, no eager-module or plain
+              call, peak device memory, and 1,024 rays rendered again
+              through the wide plain version (rgb <= 1e-2).
 4. train    - the training path end to end: `mega_nerf_tpu_torch.train.main`
               on cuda at the paper config (1024-ray batches, fg + bg 8x256,
               256 + 512 samples, Adam with per-step decay), 120 steps on a
@@ -53,8 +67,22 @@ Runs every phase, in order:
               views, one call per job); the serving
               path's s/view and rays/s; train step ms and rays/s over 20
               chained steps; the card's name and power limit beside them.
+6b. time_dense - the wide kernels at the dense width on one 524,288-point
+              sub-chunk (the layer GEMM at a 2048 x 2048 trunk layer, with
+              TFLOP/s, bound, plain ms and cuBLAS's F.linear on the same
+              bf16 operands); the whole wide eval at the fg-fine shape of one
+              chunk (8,388,608 points) against its bound, its plain version
+              and the cuBLAS chain over the same layers; the dense view's
+              s/view, rays/s and peak device memory, and a torch.profiler
+              window over one view: device time of each wide kernel and of
+              the rest (the renderer), and the card's busy share.
+7. eager_dense - a record, not a check: `eval.main --no_pallas` on the
+              dense checkpoint, i.e. the eager module, the route the port
+              took for this model before the wide kernels; prints its
+              s/view or its out-of-memory error (the phase fails only on
+              another error or non-finite metrics).
 
-Prints `{"serving": ...}` and `{"training": ...}` lines, a
+Prints `{"serving": ...}`, `{"serving_dense": ...}` and `{"training": ...}` lines, a
 `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
@@ -84,7 +112,16 @@ KERNELS = (
      "mega_nerf_tpu/render/pallas_train.py:171"),
     ("weight_grad", "mega_nerf_tpu_torch/render/csrc/weight_grad.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
+    # The wide route (layer_dim 513-2048): the same TPU kernel at those widths.
+    ("eval_wide_encode", "mega_nerf_tpu_torch/render/csrc/eval_wide.cu",
+     "mega_nerf_tpu/render/pallas_mlp.py:401"),
+    ("eval_wide_layer", "mega_nerf_tpu_torch/render/csrc/eval_wide.cu",
+     "mega_nerf_tpu/render/pallas_mlp.py:401"),
+    ("eval_wide_heads", "mega_nerf_tpu_torch/render/csrc/eval_wide.cu",
+     "mega_nerf_tpu/render/pallas_mlp.py:401"),
 )
+WIDE_KERNELS = ("eval_wide_encode", "eval_wide_layer", "eval_wide_heads")
+DENSE = ["--layer_dim", "2048", "--bg_layer_dim", "2048"]  # configs/mega-nerf-dense
 
 
 def log(msg: str) -> None:
@@ -404,6 +441,272 @@ def phase_serve(device, report, tmp: Path):
     ok = ok and diff <= TOL and bool(torch.isfinite(kern["rgb_fine"]).all())
     report["runner"] = runner
     return ok
+
+
+def close_ratio(got, want) -> float:
+    """max |got - want| / (1 + |want|) over all elements, in f32."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def compare_wide_case(name, hp, bg, m, m_full, seed, device):
+    """The wide kernels against their plain versions on one model's own
+    operands -> ({kernel: max_abs_err}, ok). Each layer of the chain (the
+    skip layer, trunk_final and dir_a where the model has the branch) is fed
+    the plain chain's input, so errors do not compound; the heads kernel
+    reads the plain chain's last trunk output and branch. With `m_full`, the
+    whole wide eval on m_full points against its plain version too."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    bundle = seeded_bundle(hp, 16, bg, seed, device)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    xyz, dirs, idx = mlp_inputs(cfg, m, seed + 1, device)
+    app = (bundle.module.appearance(idx).contiguous()
+           if cfg.appearance_dim else None)
+    errs = {k: 0.0 for k in WIDE_KERNELS}
+    worst = {k: 0.0 for k in WIDE_KERNELS}  # against each tolerance
+
+    def hold(kernel, got, want):
+        errs[kernel] = max(errs[kernel], (got.float() - want.float()).abs().max().item())
+        worst[kernel] = max(worst[kernel], close_ratio(got, want))
+
+    n_layers = cfg.layers + (2 if packed.has_branch else 0)
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+        hold("eval_wide_encode", enc, p_enc)
+        if p_dir is not None:
+            hold("eval_wide_encode", dir_enc, p_dir)
+        h = p_enc
+        for i in range(cfg.layers):
+            xs = [p_enc, h] if i in cfg.skip_layers else [h]
+            got = fw.eval_wide_layer(xs, packed.mats[i], packed.biases[i], True)
+            h = fw.eval_wide_layer_plain(xs, packed.mats[i], packed.biases[i], True)
+            hold("eval_wide_layer", got, h)
+        branch = None
+        if packed.has_branch:
+            w, b = packed.mats[cfg.layers], packed.biases[cfg.layers]
+            got = fw.eval_wide_layer([h], w, b, False)
+            final = fw.eval_wide_layer_plain([h], w, b, False)
+            hold("eval_wide_layer", got, final)
+            xs = [final] + ([p_dir] if packed.dp else []) + ([app] if packed.ap else [])
+            w, b = packed.mats[cfg.layers + 1], packed.biases[cfg.layers + 1]
+            got = fw.eval_wide_layer(xs, w, b, True)
+            branch = fw.eval_wide_layer_plain(xs, w, b, True)
+            hold("eval_wide_layer", got, branch)
+        got = fw.eval_wide_heads(packed, h, branch)
+        want = fw.eval_wide_heads_plain(packed, h, branch)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        errs["eval_wide_heads"] = err.max().item()
+        rgb_err = err[:, :3].max().item()
+        sig_ratio = (err[:, 3] / (1 + want[:, 3].abs())).max().item()
+        finite = bool(torch.isfinite(got).all())
+    ok = (finite and worst["eval_wide_encode"] <= TOL and worst["eval_wide_layer"] <= TOL
+          and rgb_err <= TOL and sig_ratio <= TOL)
+    log(f"  wide {name}: M={m}, {n_layers} layers; encode max|err|/(1+|x|)="
+        f"{worst['eval_wide_encode']:.3e}, layers worst max|err|/(1+|y|)="
+        f"{worst['eval_wide_layer']:.3e}, heads rgb max|err|={rgb_err:.3e} sigma "
+        f"max|err|/(1+|s|)={sig_ratio:.3e}; finite={finite} -> {'ok' if ok else 'FAIL'}")
+    if m_full:
+        xyz, dirs, idx = mlp_inputs(cfg, m_full, seed + 2, device)
+        app = (bundle.module.appearance(idx).contiguous()
+               if cfg.appearance_dim else None)
+        with torch.no_grad():
+            got = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+            torch.cuda.synchronize()
+            want = fw.fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
+        err = (got - want).abs()
+        rgb_err = err[:, :3].max().item()
+        sig_ratio = (err[:, 3] / (1 + want[:, 3].abs())).max().item()
+        finite = bool(torch.isfinite(got).all())
+        full_ok = finite and rgb_err <= TOL and sig_ratio <= TOL
+        log(f"  wide {name}, whole eval: M={m_full} ({-(-m_full // fw.wide_plan(cfg).sub_chunk)}"
+            f" sub-chunks) rgb max|err|={rgb_err:.3e} sigma max|err|/(1+|s|)="
+            f"{sig_ratio:.3e} sigma range [{want[:, 3].min().item():.3g}, "
+            f"{want[:, 3].max().item():.3g}] finite={finite} -> "
+            f"{'ok' if full_ok else 'FAIL'}")
+        ok = ok and full_ok
+        del got, want, err
+    torch.cuda.empty_cache()
+    return errs, ok
+
+
+def phase_compare_wide(device, report):
+    """The wide route (layer_dim 513-2048): its three kernels against their
+    plain versions at widths 640, 1024 and 2048, the skip layer and dir_a
+    with and without dirs and appearance, M not a multiple of the 128-point
+    tile; the whole wide eval at the dense fg and bg shapes."""
+    cases = [  # (name, hparams, bg, points per layer compare, whole-eval points)
+        ("fg 2048-wide (dense), dirs, appearance", paper_hparams(DENSE), False,
+         100_003, 1_000_003),
+        ("bg 2048-wide (dense), dirs, appearance", paper_hparams(DENSE), True,
+         100_003, 1_000_003),
+        ("fg 640-wide, dirs, no appearance",
+         paper_hparams(["--layer_dim", "640", "--appearance_dim", "0"]), False,
+         20_011, 20_011),
+        ("bg 1024-wide, appearance, no dirs",
+         paper_hparams(["--bg_layer_dim", "1024", "--pos_dir_dim", "0"]), True,
+         20_011, 20_011),
+        ("fg 1024-wide, no dirs, no appearance (no branch)",
+         paper_hparams(["--layer_dim", "1024", "--appearance_dim", "0",
+                        "--pos_dir_dim", "0", "--layers", "6", "--skip_layers", "3"]),
+         False, 4_097, 4_097),
+    ]
+    kernels = report["kernels"]
+    all_ok = True
+    for i, (name, hp, bg, m, m_full) in enumerate(cases):
+        errs, ok = compare_wide_case(name, hp, bg, m, m_full, 300 + i, device)
+        for k, v in errs.items():
+            kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err", 0.0), v)
+        all_ok &= ok
+    return all_ok
+
+
+def wide_counters():
+    """Launches of the eval kernels (wide and narrow) and calls of every
+    plain eval version."""
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    out = {k: getattr(fw, k).launches for k in WIDE_KERNELS}
+    out["fused_nerf_eval"] = fused_mlp.fused_nerf_eval.launches
+    out["plain"] = (fused_mlp.fused_nerf_eval_plain.calls
+                    + fw.fused_nerf_eval_wide_plain.calls
+                    + fw.eval_wide_encode_plain.calls + fw.eval_wide_layer_plain.calls
+                    + fw.eval_wide_heads_plain.calls)
+    return out
+
+
+def zero_wide_counters() -> None:
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    for k in WIDE_KERNELS:
+        getattr(fw, k).launches = 0
+    fused_mlp.fused_nerf_eval.launches = 0
+    for fn in (fused_mlp.fused_nerf_eval_plain, fw.fused_nerf_eval_wide_plain,
+               fw.eval_wide_encode_plain, fw.eval_wide_layer_plain,
+               fw.eval_wide_heads_plain):
+        fn.calls = 0
+
+
+class EagerCalls:
+    """Counts forward calls of the eager `NeRF` module while open."""
+
+    def __enter__(self):
+        import torch
+
+        from mega_nerf_tpu_torch.models.nerf import NeRF
+
+        self.count = 0
+
+        def hook(module, args, output):
+            if isinstance(module, NeRF):
+                self.count += 1
+
+        self._handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._handle.remove()
+
+
+DENSE_CMP_RAYS = 1024
+
+
+def phase_serve_dense(device, report, tmp: Path):
+    """The serving path at the `mega-nerf-dense` width: `eval.main` on cuda
+    with a 2048/2048 fg+bg checkpoint of seeded random weights on the
+    generated 128x128 val view. Checks finite PSNR/SSIM, launches of every
+    wide kernel, no launch of the narrow eval kernel, no call of the eager
+    module or of any plain version; then renders 1,024 rays again through
+    the wide plain version (rgb <= 1e-2 absolute)."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch.ops.rays import generate_image_rays
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+    from mega_nerf_tpu_torch.render import rendering
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    ds = tmp / "dataset"
+    if not (ds / "coordinates.pt").exists():
+        write_dataset(ds, hw=128, n_train=4, seed=7)
+    extra = ["--dataset_path", str(ds), "--exp_name", str(tmp / "exp_dense"),
+             "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+             "--val_scale_factor", "1", "--device", "cuda", *DENSE]
+    hp = paper_hparams(extra)
+    fg = seeded_bundle(hp, 5, False, 31, "cpu")
+    bg = seeded_bundle(hp, 5, True, 32, "cpu")
+    ckpt = tmp / "dense.pt"
+    torch.save({"model_state_dict": fg.module.state_dict(),
+                "bg_model_state_dict": bg.module.state_dict(),
+                "iteration": 0}, ckpt)
+    hp.ckpt_path = str(ckpt)
+    report["dense_hparams"] = hp
+    del fg, bg
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_wide_counters()
+    t0 = time.perf_counter()
+    with EagerCalls() as eager_calls:
+        metrics = port_eval.main(hp)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = wide_counters()
+    log(f"  eval.main at 2048/2048: {metrics} in {wall:.2f} s; peak device "
+        f"memory allocated {peak:.2f} GB; launches {counts}; eager module "
+        f"calls {eager_calls.count}")
+    finite = (all(np.isfinite(v) for v in metrics.values())
+              and {"val/psnr", "val/ssim"} <= set(metrics))
+    report["serving_dense"] = {"eval_main_s": wall, "peak_mem_gb": peak,
+                               "metrics": metrics,
+                               "launches": {k: counts[k] for k in WIDE_KERNELS},
+                               "eager_calls": eager_calls.count}
+    for k in WIDE_KERNELS:
+        report["kernels"][k]["launches"] = counts[k]
+    ok = (finite and all(counts[k] > 0 for k in WIDE_KERNELS)
+          and counts["fused_nerf_eval"] == 0 and counts["plain"] == 0
+          and eager_calls.count == 0)
+
+    # Some rays again, wide kernels vs the wide plain version, same weights.
+    hp.exp_name = str(tmp / "exp_dense_cmp")
+    runner = Runner(hp, set_experiment_path=False)
+    runner.make_eval_state()
+    meta = runner.val_items[0]
+    rays = generate_image_rays(meta, runner.near, runner.far,
+                               runner.ray_altitude_range, True,
+                               device=device)[:DENSE_CMP_RAYS]
+    idx = torch.full((rays.shape[0],), meta.image_index, device=device)
+    settings = runner.render_settings()
+    args = (runner.fg, runner.bg, rays, idx, settings,
+            runner.sphere_center, runner.sphere_radius)
+    with torch.no_grad():
+        kern, _ = rendering.render_rays(*args)
+        saved = rendering.fused_nerf_eval_wide
+        rendering.fused_nerf_eval_wide = fw.fused_nerf_eval_wide_plain
+        try:
+            plain, _ = rendering.render_rays(*args)
+        finally:
+            rendering.fused_nerf_eval_wide = saved
+    diff = (kern["rgb_fine"] - plain["rgb_fine"]).abs().max().item()
+    dd = ((kern["depth_fine"] - plain["depth_fine"]).abs()
+          / (1 + plain["depth_fine"].abs())).max().item()
+    log(f"  {DENSE_CMP_RAYS} rays at 2048/2048, wide kernels vs the wide plain "
+        f"version: rgb_fine max|diff|={diff:.3e}, depth_fine max|diff|/(1+|d|)="
+        f"{dd:.3e}")
+    report["serving_dense"]["render_rgb_diff"] = diff
+    ok = ok and diff <= TOL and bool(torch.isfinite(kern["rgb_fine"]).all())
+    report["dense_runner"] = runner
+    return bool(ok)
 
 
 TRAIN_STEPS = 120
@@ -821,26 +1124,205 @@ def phase_time(device, report):
     return True
 
 
-def profile_steps(step, batches, report) -> None:
-    """Device time by kernel over a few chained steps (torch.profiler) and
-    the device's busy share of the window."""
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def phase_time_dense(device, report):
+    """The wide route's times at the dense width (2048): each kernel per
+    launch on one sub-chunk of the fg-fine pass (524,288 points; the layer
+    kernel at a 2048 x 2048 trunk layer) with its plain version and bound,
+    the layer's cuBLAS yardstick (F.linear on the same bf16 operands, f32
+    accumulation); the whole wide eval at the fg-fine shape of one chunk
+    (8,388,608 points) against its bound, its plain version and the cuBLAS
+    chain over the same layers; the dense view's s/view, rays/s and peak
+    device memory, and where its device time goes."""
+    import torch
+    import torch.nn.functional as F
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    saved = wide_counters()
+    kernels = report["kernels"]
+    hp = paper_hparams(DENSE)
+    bundle = seeded_bundle(hp, 16, False, 41, device)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    plan = fw.wide_plan(cfg)
+    sub, d = plan.sub_chunk, cfg.layer_dim
+    xyz, dirs, idx = mlp_inputs(cfg, sub, 42, device)
+    gen = torch.Generator(device=device).manual_seed(43)
+    x = torch.rand((sub, d), generator=gen, device=device).to(torch.bfloat16)
+    branch = torch.rand((sub, d // 2), generator=gen, device=device).to(torch.bfloat16)
+    w, b = packed.mats[1], packed.biases[1]  # a 2048 x 2048 trunk layer
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    with torch.no_grad():
+        layer = lambda: fw.eval_wide_layer([x], w, b, True)  # noqa: E731
+        ms = cuda_ms(layer, 10)
+        plain_ms = cuda_ms(lambda: fw.eval_wide_layer_plain([x], w, b, True), 3, 1)
+        b16 = b.to(torch.bfloat16)  # F.linear takes the bias in the operands' type
+        lib_ms = cuda_ms(lambda: F.linear(x, w, b16), 10)
+        enc_ms = cuda_ms(lambda: fw.eval_wide_encode(packed, xyz, dirs), 10)
+        enc_plain = cuda_ms(lambda: fw.eval_wide_encode_plain(packed, xyz, dirs), 3, 1)
+        heads_ms = cuda_ms(lambda: fw.eval_wide_heads(packed, x, branch), 10)
+        heads_plain = cuda_ms(lambda: fw.eval_wide_heads_plain(packed, x, branch), 3, 1)
+    flops = 2.0 * sub * d * d
+    nbytes = 2.0 * sub * d * 2 + w.numel() * 2 + b.numel() * 4
+    bms, by = bound(flops, nbytes)
+    kernels["eval_wide_layer"].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                      bound_by=by, library_ms=lib_ms)
+    log(f"  eval_wide_layer, 2048 x 2048 trunk layer on {sub} points: {ms:.3f} "
+        f"ms/launch = {flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
+        f"cuBLAS (F.linear, bf16 operands and bias, f32 accumulation) {lib_ms:.3f} ms = "
+        f"{flops / lib_ms / 1e9:.1f} TFLOP/s; bound {bms:.3f} ms ({by}: "
+        f"{flops:.4g} FLOP, {nbytes:.4g} B)")
+    live = cfg.enc_in + cfg.dir_in
+    enc_bytes = sub * (4.0 * cfg.xyz_dim + 12 + 2 * (packed.ep + packed.dp))
+    enc_ops = 3.0 * live * sub  # scale, phase and sin per live column
+    heads_bytes = sub * (2.0 * d + d + 16) + 2 * (d + 3 * (d // 2))
+    heads_ops = 2.0 * sub * (d + 3 * (d // 2))
+    for name, t, tp, nb, ops in (("eval_wide_encode", enc_ms, enc_plain, enc_bytes, enc_ops),
+                                 ("eval_wide_heads", heads_ms, heads_plain, heads_bytes,
+                                  heads_ops)):
+        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        t_bytes = nb / PEAK_HBM_BYTES * 1e3
+        bms, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        kernels[name].update(ms=t, plain_ms=tp, bound_ms=bms, bound_by=by)
+        log(f"  {name} on {sub} points: {t:.3f} ms/launch ({nb / t / 1e9:.3f} TB/s); "
+            f"plain {tp:.3f} ms; bound {bms:.3f} ms ({by}: {nb:.4g} B, {ops:.4g} "
+            f"f32 operations)")
+    del x, branch, xyz, dirs
+
+    # The whole wide eval at the fg-fine shape of one 16,384-ray chunk.
+    m = 16384 * 512
+    xyz, dirs, idx = mlp_inputs(cfg, m, 44, device)
+    app = bundle.module.appearance(idx).contiguous()
+    with torch.no_grad():
+        whole = cuda_ms(lambda: fw.fused_nerf_eval_wide(packed, xyz, dirs, app), 2, 1)
+        whole_plain = cuda_ms(
+            lambda: fw.fused_nerf_eval_wide_plain(packed, xyz, dirs, app), 1, 0)
+        # cuBLAS over the same chain: F.linear on each layer's (concatenated)
+        # operand at the sub-chunk shape, once per sub-chunk.
+        ops_in = [torch.rand((sub, k), generator=gen, device=device).to(torch.bfloat16)
+                  for k in (mat.shape[1] for mat in packed.mats)]
+        biases16 = [bias.to(torch.bfloat16) for bias in packed.biases]
+
+        def chain():
+            for _ in range(-(-m // sub)):
+                for a, mat, bias in zip(ops_in, packed.mats, biases16):
+                    F.linear(a, mat, bias)
+
+        chain_ms = cuda_ms(chain, 1, 1)
+    flops = fused_mlp.flops_per_point(cfg) * m
+    nbytes = fused_mlp.io_bytes_per_point(cfg) * m
+    bms, by = bound(flops, nbytes)
+    per_chunk = len(fw.sub_chunks(m, sub))
+    log(f"  wide eval at {m} points (fg fine, 16384 x 512; {per_chunk} sub-chunks "
+        f"of {sub}, {per_chunk * (2 + cfg.layers + 2)} launches): {whole:.3f} ms = "
+        f"{flops / whole / 1e9:.1f} TFLOP/s; plain {whole_plain:.3f} ms; cuBLAS "
+        f"chain (F.linear per layer) {chain_ms:.3f} ms; bound {bms:.3f} ms ({by}: "
+        f"{flops:.4g} FLOP, {nbytes:.4g} B)")
+    report["serving_dense"].update(
+        fg_fine_points=m, fg_fine_ms=whole, fg_fine_plain_ms=whole_plain,
+        fg_fine_cublas_chain_ms=chain_ms, fg_fine_bound_ms=bms,
+        fg_fine_launches=per_chunk * (2 + cfg.layers + 2))
+    del xyz, dirs, app, ops_in
+    torch.cuda.empty_cache()
+
+    runner = report["dense_runner"]
+    meta = runner.val_items[0]
+    runner.render_image(meta)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.render_image(meta)
+    torch.cuda.synchronize()
+    s_view = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rays = meta.W * meta.H
+    report["serving_dense"].update(s_per_view=s_view, rays_per_s=rays / s_view,
+                                   view_peak_mem_gb=peak)
+    log(f"  dense serving path: {meta.W}x{meta.H} view, {s_view:.4f} s/view, "
+        f"{rays / s_view:.1f} rays/s (2048/2048 fg+bg, 256+512 samples); peak "
+        f"device memory allocated {peak:.2f} GB")
+    profile_dense_view(runner, meta, report)
+    for k in WIDE_KERNELS:  # timing launches are not main-path launches
+        getattr(fw, k).launches = saved[k]
+    return True
+
+
+def phase_eager_dense(device, report, tmp: Path):
+    """`eval.main --no_pallas` on serve_dense's checkpoint and view: the
+    eager module, where the port sent this model before the wide kernels.
+    Records its wall time and metrics, or its out-of-memory error; last of
+    the phases, so the error cannot affect another."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+
+    hp = copy.copy(report["dense_hparams"])
+    hp.use_fused_kernel = False
+    hp.exp_name = str(tmp / "exp_dense_eager")
+    report.pop("dense_runner", None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with EagerCalls() as eager_calls:
+        try:
+            metrics = port_eval.main(hp)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            first = str(e).splitlines()[0] if str(e) else repr(e)
+            log(f"  eval.main --no_pallas (eager module) at 2048/2048: out of "
+                f"device memory after {wall:.2f} s, {eager_calls.count} module "
+                f"calls (peak allocated {peak:.2f} GB): {first}")
+            report["serving_dense"]["eager"] = {"error": first, "seconds": wall,
+                                                "peak_mem_gb": peak}
+            return True
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  eval.main --no_pallas (eager module) at 2048/2048: {metrics} in "
+        f"{wall:.2f} s, {eager_calls.count} module calls, peak allocated "
+        f"{peak:.2f} GB")
+    report["serving_dense"]["eager"] = {"seconds": wall, "metrics": metrics,
+                                        "peak_mem_gb": peak}
+    return bool(all(np.isfinite(v) for v in metrics.values()))
+
+
+def kernel_times(run, reps: int):
+    """Device time by kernel over `run()`, which makes `reps` repetitions
+    (torch.profiler) -> (rows [(ms per rep, launches per rep, name)],
+    largest first; device busy ms; wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for b in batches:
-            step(b)
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total", 0.0) or 0.0
         if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev / 1e3 / len(batches), e.count // len(batches), e.key))
+            rows.append((dev / 1e3 / reps, e.count // reps, e.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) * len(batches)
+    return rows, sum(r[0] for r in rows) * reps, wall_ms
+
+
+def profile_steps(step, batches, report) -> None:
+    """Device time by kernel over a few chained steps (torch.profiler) and
+    the device's busy share of the window."""
+    rows, busy, wall_ms = kernel_times(lambda: [step(b) for b in batches],
+                                       len(batches))
     if not rows:
         log("  profiler: no device time recorded (device share not measured)")
         return
@@ -851,6 +1333,32 @@ def profile_steps(step, batches, report) -> None:
     rest = sum(r[0] for r in rows[15:])
     log(f"    {rest:8.3f} ms  in {len(rows) - 15} other kernels")
     report["training"]["profiled_device_busy_share"] = busy / wall_ms
+
+
+def profile_dense_view(runner, meta, report) -> None:
+    """Where the dense view's device time goes (torch.profiler over one
+    view): the wide kernels by name, the rest (the renderer's own work)
+    together, and the device's busy share of the view."""
+    rows, busy, wall_ms = kernel_times(lambda: runner.render_image(meta), 1)
+    if not rows:
+        log("  profiler: no device time recorded (dense breakdown not measured)")
+        return
+    parts = {k: [0.0, 0] for k in WIDE_KERNELS}
+    parts["other"] = [0.0, 0]
+    for ms, count, name in rows:
+        key = next((k for k in WIDE_KERNELS if f"{k}_kernel" in name), "other")
+        parts[key][0] += ms
+        parts[key][1] += count
+    log(f"  dense view profile: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+        f"wall ({100 * busy / wall_ms:.1f}%); "
+        + ", ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, x{n})"
+                    for k, (ms, n) in parts.items()))
+    for ms, count, name in [r for r in rows if not any(
+            f"{k}_kernel" in r[2] for k in WIDE_KERNELS)][:5]:
+        log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    report["serving_dense"]["profile"] = {
+        "busy_ms": busy, "wall_ms": wall_ms,
+        **{k: {"ms": ms, "launches": n} for k, (ms, n) in parts.items()}}
 
 
 def main() -> int:
@@ -888,9 +1396,13 @@ def main() -> int:
         phases = (
             ("build", lambda: phase_build(device, report)),
             ("compare", lambda: phase_compare(device, report)),
+            ("compare_wide", lambda: phase_compare_wide(device, report)),
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
+            ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("time", lambda: phase_time(device, report)),
+            ("time_dense", lambda: phase_time_dense(device, report)),
+            ("eager_dense", lambda: phase_eager_dense(device, report, Path(tmp))),
         )
         for phase, run in phases:
             log(f"[{phase}]")
@@ -910,6 +1422,7 @@ def main() -> int:
                                       "render_rgb_diff", "eval_chunk_ms",
                                       "eval_kernel")}
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"serving_dense": report["serving_dense"]}))
     log(json.dumps({"training": report["training"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

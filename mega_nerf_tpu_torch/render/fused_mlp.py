@@ -2,10 +2,16 @@
 
 Counterpart of the JAX package's `render/pallas_mlp.py`. The hand-written
 Hopper kernel is `csrc/eval_fwd.cu` (it replaces
-`mega_nerf_tpu/render/pallas_mlp.py::_mlp_kernel`): the training forward's
-`wgmma` layer chain without noise or saved rows, one persistent CTA per SM
-walking the point tiles, its tile and shared memory from
-`fused_train.py::train_fwd_plan`.
+`mega_nerf_tpu/render/pallas_mlp.py::_mlp_kernel` to width 512): the
+training forward's `wgmma` layer chain without noise or saved rows, one
+persistent CTA per SM walking the point tiles, its tile and shared memory
+from `fused_train.py::train_fwd_plan`. Past width 512 eval runs the wide
+route, `fused_wide.py` (one layer GEMM at a time, `csrc/eval_wide.cu`),
+on the same packed weights.
+
+- `supports_fused_kernel(cfg, train)` is the gate, as the JAX package's
+  `supports_fused_kernels(cfg, train)`; `is_wide(cfg)` says which eval
+  route an admitted architecture takes.
 
 - `pack_params` lays a `NeRF` module's weights out for the kernel: one
   (out, in) matrix per matmul layer in the compute dtype, with zero columns
@@ -35,8 +41,12 @@ from mega_nerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 
 MMA_K = 16  # input segments pad to the wgmma depth (16 bf16)
 # The widest layer whose tiles fit one CTA's shared memory in
-# fused_train.py::train_fwd_plan (64 points, output columns split in two).
+# fused_train.py::train_fwd_plan (64 points, output columns split in two):
+# the fused chain of eval_fwd.cu and the three training kernels.
 MAX_LAYER_DIM = 512
+# The wide eval route (fused_wide.py): the JAX eval gate's bf16 limit.
+WIDE_MAX_LAYER_DIM = 2048
+WIDE_LAYER_MULTIPLE = 64
 MAX_MATRICES = 16  # trunk layers + trunk_final + dir_a (the kernel's table)
 
 
@@ -44,19 +54,55 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def supports_fused_kernel(cfg: NeRFConfig) -> Tuple[bool, str]:
-    """Whether the fused eval kernel covers this architecture -> (ok, why)."""
+def _architecture_ok(cfg: NeRFConfig) -> Tuple[bool, str]:
+    """The conditions every fused route shares, and `pack_params` needs."""
     if cfg.rgb_dim != 3:
         return False, "SH output head"
     if cfg.affine_appearance:
         return False, "affine appearance"
-    if cfg.layer_dim % 16 or cfg.layer_dim > MAX_LAYER_DIM:
-        return False, f"layer_dim {cfg.layer_dim} (needs a multiple of 16 <= {MAX_LAYER_DIM})"
+    if cfg.layer_dim % 16:
+        return False, f"layer_dim {cfg.layer_dim} (needs a multiple of 16)"
     if 0 in cfg.skip_layers:
         return False, "skip connection at layer 0"
     if cfg.layers + 2 > MAX_MATRICES:
         return False, f"{cfg.layers} layers"
     return True, ""
+
+
+def supports_fused_kernel(cfg: NeRFConfig, train: bool = False) -> Tuple[bool, str]:
+    """Whether the fused kernels cover this architecture -> (ok, why); the
+    port's counterpart of `pallas_mlp.py::supports_fused_kernels(cfg, train)`.
+
+    - Every route: the rgb head, no affine appearance, no skip at layer 0,
+      at most MAX_MATRICES - 2 layers, layer_dim a multiple of 16.
+    - Eval: the fused chain (`eval_fwd.cu`) to width 512; past it the wide
+      route (`fused_wide.py`) to 2048 in bf16 compute, with layer_dim a
+      multiple of 64 (every hidden operand fills whole 64-column TMA boxes;
+      every width in `configs/` does). The JAX gate asks a multiple of
+      128 only for the TPU's lanes; at every multiple of 128 the two agree
+      in bf16. Past 2048 the eager module runs, as JAX falls back to XLA.
+    - Train: the three training kernels to width 512. The JAX gate trains
+      through Pallas to 1024; the port's eager module trains 513-1024 until
+      the training kernels grow (ROADMAP B.4).
+    - f32 compute past 512: the JAX gate runs Pallas eval to 1024 in f32,
+      the port's wide kernels are bf16 only, so the eager module runs."""
+    ok, why = _architecture_ok(cfg)
+    if not ok or cfg.layer_dim <= MAX_LAYER_DIM:
+        return ok, why
+    d = cfg.layer_dim
+    if train:
+        return False, f"layer_dim {d} (the training kernels stop at {MAX_LAYER_DIM})"
+    if d > WIDE_MAX_LAYER_DIM or d % WIDE_LAYER_MULTIPLE:
+        return False, (f"layer_dim {d} (the wide route needs a multiple of "
+                       f"{WIDE_LAYER_MULTIPLE} <= {WIDE_MAX_LAYER_DIM})")
+    if cfg.dtype != torch.bfloat16:
+        return False, f"{cfg.compute_dtype} compute at layer_dim {d} (the wide route is bf16)"
+    return True, ""
+
+
+def is_wide(cfg: NeRFConfig) -> bool:
+    """Whether an architecture the eval gate admits takes the wide route."""
+    return cfg.layer_dim > MAX_LAYER_DIM
 
 
 @dataclasses.dataclass
@@ -124,7 +170,7 @@ def mlp_param_names(cfg: NeRFConfig) -> List[str]:
 def pack_tensors(cfg: NeRFConfig, params: Dict[str, torch.Tensor]) -> PackedMLP:
     """Module parameters (by name) -> the kernel's layout, detached, on
     their device."""
-    ok, why = supports_fused_kernel(cfg)
+    ok, why = _architecture_ok(cfg)
     if not ok:
         raise NotImplementedError(f"fused kernel does not cover: {why}")
     dt = cfg.dtype
@@ -450,7 +496,7 @@ def io_bytes_per_point(cfg: NeRFConfig) -> int:
 
 __all__ = [
     "PackedMLP", "pack_params", "pack_tensors", "mat_layout",
-    "mlp_param_names", "supports_fused_kernel", "encode", "forward_trace",
+    "mlp_param_names", "supports_fused_kernel", "is_wide", "encode", "forward_trace",
     "fused_nerf_eval", "fused_nerf_eval_plain", "eval_plan", "eval_grid",
     "launch_grid", "flops_per_point", "io_bytes_per_point",
 ]

@@ -374,7 +374,7 @@ def train_fwd_plan(cfg: NeRFConfig) -> TrainFwdPlan:
     at least two ring stages fit, else 64; as many stages (up to 4) as the
     shared memory holds. Raises NotImplementedError where the fused kernels
     do not cover the architecture, ValueError where the tile does not fit."""
-    ok, why = supports_fused_kernel(cfg)
+    ok, why = supports_fused_kernel(cfg, train=True)
     if not ok:
         raise NotImplementedError(f"fused kernel does not cover: {why}")
     d = cfg.layer_dim
@@ -527,7 +527,7 @@ def train_bwd_plan(cfg: NeRFConfig) -> TrainBwdPlan:
     the shared memory holds. Raises NotImplementedError where the fused
     kernels do not cover the architecture, ValueError where the tile does
     not fit."""
-    ok, why = supports_fused_kernel(cfg)
+    ok, why = supports_fused_kernel(cfg, train=True)
     if not ok:
         raise NotImplementedError(f"fused kernel does not cover: {why}")
     d, n_layers = cfg.layer_dim, cfg.layers

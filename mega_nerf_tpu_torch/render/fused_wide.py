@@ -1,0 +1,441 @@
+"""The wide eval MLP (512 < layer_dim <= 2048): one layer at a time.
+
+Counterpart of the JAX package's `render/pallas_mlp.py::_mlp_kernel` at the
+widths its eval gate admits past the port's fused chain (`fused_mlp.py`,
+<= 512). The hand-written Hopper kernels are in `csrc/eval_wide.cu`:
+
+- `eval_wide_encode` writes the f32 frequency encodes of xyz and dirs as
+  bf16 operands, (M, EP) and (M, DP), in the fused chain's form (cos as
+  sin(x 2^k + pi/2), precise sinf, zero columns past the live width);
+- `eval_wide_layer` is one matmul layer, Y = act(sum_s X_s W_s^T + b),
+  bf16 out, its A operand read from up to three tensors as separate
+  K-segments ([enc | h] at a skip layer, [final | dir | app] for dir_a);
+- `eval_wide_heads` is the sigma head over the last trunk output and the
+  rgb head over the branch, in `eval_fwd.cu`'s arithmetic, -> (M, 4) f32.
+
+Between layers the activations pass through device memory: at width 2048
+a layer does ~1,000 FLOP per byte it moves, far above the card's ridge, so
+keeping the activation tile on chip (the fused chain's design, which needs
+256 KB of shared memory per 64 points at this width) buys nothing.
+
+`wide_plan(cfg)` gives the GEMM tile, ring and shared memory (the kernel's
+constants, checked by its launcher) and the sub-chunk: the points one pass
+of the layer chain takes, so that its scratch (two activation buffers, the
+branch and the encodes) stays within `WIDE_SCRATCH_LIMIT`.
+
+Each kernel wrapper runs its plain version on CPU tensors and launches its
+kernel on CUDA tensors or raises; wrappers count launches in `.launches`,
+plain versions their calls in `.calls`. `fused_nerf_eval_wide` composes
+the three kernels, `fused_nerf_eval_wide_plain` their plain versions; on
+the same inputs the latter equals `fused_mlp.fused_nerf_eval_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mega_nerf_tpu_torch.models.nerf import NeRFConfig
+from mega_nerf_tpu_torch.render.fused_mlp import (
+    MMA_K,
+    PackedMLP,
+    _check,
+    _raise_if,
+    _round_up,
+    check_inputs,
+    encode,
+)
+from mega_nerf_tpu_torch.render.fused_train import _ints, _stream
+
+WIDE_TILE_M = 128  # points of a GEMM tile: two consumer warpgroups of 64
+WIDE_TILE_N = 256  # output columns of a GEMM tile (wgmma m64n256k16)
+WIDE_TILE_K = 64  # k columns of a ring stage: one 128-byte swizzle row
+WIDE_STAGES = 4
+WIDE_ALIGN = 1024  # the kernel aligns its base to the swizzle period
+WIDE_MAX_SEGMENTS = 3
+# A ring stage: an A box (tile_m x tile_k) and a B box (tile_n x tile_k), bf16.
+WIDE_STAGE_BYTES = 2 * WIDE_TILE_K * (WIDE_TILE_M + WIDE_TILE_N)
+# The ring, its full and empty mbarriers, the alignment slack.
+WIDE_SMEM_BYTES = WIDE_STAGES * WIDE_STAGE_BYTES + 2 * 8 * WIDE_STAGES + WIDE_ALIGN
+# Scratch of one pass of the layer chain at most, and the most points a
+# pass takes (the GEMM grid's y dimension is below 65,536 tiles).
+WIDE_SCRATCH_LIMIT = 8 * 2 ** 30
+WIDE_MAX_SUB_CHUNK = 2 ** 22
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    tile_m: int
+    tile_n: int
+    tile_k: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    sub_chunk: int  # points per pass of the layer chain
+    scratch_bytes: int  # device scratch of one pass at sub_chunk points
+
+
+def scratch_bytes_per_point(cfg: NeRFConfig) -> int:
+    """bf16 scratch one point takes in a pass: two activation buffers
+    (trunk outputs alternate between them; trunk_final writes the one
+    that does not hold the last trunk output), the branch, the encodes and
+    a padded copy of the appearance rows."""
+    d = cfg.layer_dim
+    ep = _round_up(cfg.enc_in, MMA_K)
+    dp = _round_up(cfg.dir_in, MMA_K)
+    ap = _round_up(cfg.appearance_dim, MMA_K)
+    branch = d // 2 if cfg.uses_dir_branch else 0
+    return 2 * (2 * d + branch + ep + dp + ap)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(cfg: NeRFConfig) -> WidePlan:
+    """The wide kernels' tile and sub-chunk for `cfg`. The sub-chunk is the
+    largest power of two of points, at least one tile, whose scratch fits
+    `WIDE_SCRATCH_LIMIT` (524,288 points, 5.6 GB at width 2048)."""
+    per_point = scratch_bytes_per_point(cfg)
+    sub = WIDE_TILE_M
+    while sub * 2 <= WIDE_MAX_SUB_CHUNK and sub * 2 * per_point <= WIDE_SCRATCH_LIMIT:
+        sub *= 2
+    return WidePlan(WIDE_TILE_M, WIDE_TILE_N, WIDE_TILE_K, WIDE_STAGES,
+                    WIDE_STAGE_BYTES, WIDE_SMEM_BYTES, sub, sub * per_point)
+
+
+def sub_chunks(m: int, sub: int) -> List[Tuple[int, int]]:
+    """[start, end) of each pass over m points, sub points at most each."""
+    return [(m0, min(m0 + sub, m)) for m0 in range(0, m, sub)]
+
+
+def segment_columns(widths: Sequence[int]) -> List[int]:
+    """First packed-matrix column of each A segment: each segment's width
+    rounds up to the MMA depth in `pack_params`' layout."""
+    cols, c = [], 0
+    for w in widths:
+        cols.append(c)
+        c += _round_up(w, MMA_K)
+    return cols
+
+
+# ---------------------------------------------------------------- plain
+
+
+def eval_wide_encode_plain(packed: PackedMLP, xyz: torch.Tensor,
+                           dirs: Optional[torch.Tensor]):
+    """-> (enc (M, EP), dir enc (M, DP) or None) in the compute dtype."""
+    eval_wide_encode_plain.calls += 1
+    cfg = packed.config
+    enc = encode(xyz, cfg.pos_xyz_dim, packed.ep).to(cfg.dtype)
+    dir_enc = None
+    if packed.dp:
+        dir_enc = encode(dirs, cfg.pos_dir_dim, packed.dp).to(cfg.dtype)
+    return enc, dir_enc
+
+
+def eval_wide_layer_plain(xs: Sequence[torch.Tensor], w: torch.Tensor,
+                          b: torch.Tensor, relu: bool) -> torch.Tensor:
+    """act([x_0 | x_1 | ...] W^T + b) rounded to W's dtype: each segment
+    zero-padded to its packed width, operands as given (compute dtype),
+    float32 accumulation and bias."""
+    eval_wide_layer_plain.calls += 1
+    parts = [F.pad(x, (0, _round_up(x.shape[1], MMA_K) - x.shape[1])) for x in xs]
+    inp = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+    y = inp.float() @ w.float().T + b
+    return (torch.relu(y) if relu else y).to(w.dtype)
+
+
+def eval_wide_heads_plain(packed: PackedMLP, h: torch.Tensor,
+                          branch: Optional[torch.Tensor]) -> torch.Tensor:
+    """(M, 4) f32 [sigmoid rgb, activated sigma] from the last trunk output
+    h (sigma head) and the branch (rgb head; h without the branch)."""
+    eval_wide_heads_plain.calls += 1
+    sigma_pre = h.float() @ packed.sigma_w.float() + packed.sigma_b
+    x = branch if branch is not None else h
+    rgb_pre = x.float() @ packed.rgb_w.float().T + packed.rgb_b
+    if packed.config.shifted_softplus:
+        sigma = F.softplus(sigma_pre - 1.0)
+    else:
+        sigma = torch.relu(sigma_pre)
+    return torch.cat([torch.sigmoid(rgb_pre), sigma[:, None]], -1)
+
+
+def fused_nerf_eval_wide_plain(
+    packed: PackedMLP,
+    xyz: torch.Tensor,
+    dirs: Optional[torch.Tensor] = None,
+    app: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The three plain versions composed, one sub-chunk at a time -> (M, 4)
+    f32 [rgb, sigma]; the arithmetic of `fused_mlp.fused_nerf_eval_plain`."""
+    fused_nerf_eval_wide_plain.calls += 1
+    cfg = packed.config
+    out = torch.empty((xyz.shape[0], 4), dtype=torch.float32, device=xyz.device)
+    for m0, m1 in sub_chunks(xyz.shape[0], wide_plan(cfg).sub_chunk):
+        enc, dir_enc = eval_wide_encode_plain(
+            packed, xyz[m0:m1], None if dirs is None else dirs[m0:m1])
+        h = enc
+        for i in range(cfg.layers):
+            xs = [enc, h] if i in cfg.skip_layers else [h]
+            h = eval_wide_layer_plain(xs, packed.mats[i], packed.biases[i], True)
+        branch = None
+        if packed.has_branch:
+            final = eval_wide_layer_plain([h], packed.mats[cfg.layers],
+                                          packed.biases[cfg.layers], False)
+            xs = [final] + ([dir_enc] if packed.dp else [])
+            if packed.ap:
+                xs.append(app[m0:m1].to(cfg.dtype))
+            branch = eval_wide_layer_plain(xs, packed.mats[cfg.layers + 1],
+                                           packed.biases[cfg.layers + 1], True)
+        out[m0:m1] = eval_wide_heads_plain(packed, h, branch)
+    return out
+
+
+for _fn in (eval_wide_encode_plain, eval_wide_layer_plain, eval_wide_heads_plain,
+            fused_nerf_eval_wide_plain):
+    _fn.calls = 0
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _wide_library() -> ctypes.CDLL:
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library("eval_wide")
+    if not getattr(lib, "_wide_bound", False):
+        vp = ctypes.c_void_p
+        lib.eval_wide_encode_launch.argtypes = [vp, vp, vp]
+        lib.eval_wide_layer_launch.argtypes = [vp, vp, vp, vp]
+        lib.eval_wide_heads_launch.argtypes = [vp, vp, vp]
+        for fn in (lib.eval_wide_encode_launch, lib.eval_wide_layer_launch,
+                   lib.eval_wide_heads_launch):
+            fn.restype = ctypes.c_int
+        lib.error_string = lib.eval_wide_error_string
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._wide_bound = True
+    return lib
+
+
+def _device_rule(name: str, t: torch.Tensor) -> bool:
+    """True on a CUDA tensor (launch the kernel), False on a CPU tensor
+    (run the plain version); raises on any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def _longs(values) -> ctypes.Array:
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _check_rows(name: str, t: torch.Tensor, dtype, rows: int, cols: int) -> None:
+    """A row-major 2-D view TMA can read: `dtype`, (rows, cols), unit
+    column stride, 16-byte aligned base and row stride."""
+    ok = (t.dtype == dtype and t.dim() == 2 and tuple(t.shape) == (rows, cols)
+          and t.stride(1) == 1 and (t.stride(0) * t.element_size()) % 16 == 0
+          and t.data_ptr() % 16 == 0)
+    if not ok:
+        raise ValueError(
+            f"{name}: expected a {dtype} ({rows}, {cols}) view with unit column "
+            f"stride and 16-byte aligned base and rows, got {t.dtype} "
+            f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def eval_wide_encode(packed: PackedMLP, xyz: torch.Tensor,
+                     dirs: Optional[torch.Tensor], enc: Optional[torch.Tensor] = None,
+                     dir_enc: Optional[torch.Tensor] = None):
+    """-> (enc (M, EP), dir enc (M, DP) or None), bf16. On CUDA tensors the
+    kernel writes into `enc` / `dir_enc` when given (contiguous), else into
+    new tensors."""
+    if not _device_rule("eval_wide_encode", xyz):
+        return eval_wide_encode_plain(packed, xyz, dirs)
+    cfg = packed.config
+    if cfg.dtype != torch.bfloat16:
+        raise NotImplementedError("eval_wide_encode writes bf16 operands only")
+    m = xyz.shape[0]
+    _check("xyz", xyz, torch.float32, (m, cfg.xyz_dim))
+    if packed.dp:
+        _check("dirs", dirs, torch.float32, (m, 3))
+    if enc is None:
+        enc = torch.empty((m, packed.ep), dtype=torch.bfloat16, device=xyz.device)
+    _check("enc", enc, torch.bfloat16, (m, packed.ep))
+    if packed.dp:
+        if dir_enc is None:
+            dir_enc = torch.empty((m, packed.dp), dtype=torch.bfloat16,
+                                  device=xyz.device)
+        _check("dir_enc", dir_enc, torch.bfloat16, (m, packed.dp))
+    else:
+        dir_enc = None
+    if m == 0:
+        return enc, dir_enc
+    lib = _wide_library()
+    ptrs = [xyz.data_ptr(), dirs.data_ptr() if packed.dp else 0, enc.data_ptr(),
+            dir_enc.data_ptr() if packed.dp else 0]
+    dims = [m, cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim, packed.ep, packed.dp]
+    err = lib.eval_wide_encode_launch(_longs(ptrs), _ints(dims), _stream(xyz))
+    eval_wide_encode.launches += 1
+    _raise_if(lib, err, "eval_wide_encode")
+    return enc, dir_enc
+
+
+def eval_wide_layer(xs: Sequence[torch.Tensor], w: torch.Tensor, b: torch.Tensor,
+                    relu: bool, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(sum_s X_s W[:, col_s : col_s + K_s]^T + b) -> (M, N) bf16.
+
+    xs: 1-3 segments (M, K_s), in `pack_params`' column order (each at the
+    column `segment_columns` gives); w (N, Ktot) bf16 packed matrix; b (N,)
+    f32. On CUDA tensors each segment may be a row-strided view (TMA reads
+    it in place, zeros past its width), `out` (contiguous (M, N) bf16) is
+    written when given."""
+    if not _device_rule("eval_wide_layer", w):
+        return eval_wide_layer_plain(xs, w, b, relu)
+    if not 1 <= len(xs) <= WIDE_MAX_SEGMENTS:
+        raise ValueError(f"eval_wide_layer: 1-{WIDE_MAX_SEGMENTS} segments, got {len(xs)}")
+    m = xs[0].shape[0]
+    n, ktot = w.shape
+    widths = [x.shape[1] for x in xs]
+    cols = segment_columns(widths)
+    if cols[-1] + _round_up(widths[-1], MMA_K) != ktot:
+        raise ValueError(f"eval_wide_layer: segments of widths {widths} do not "
+                         f"fill the packed matrix's {ktot} columns")
+    for i, x in enumerate(xs):
+        if x.device != w.device:
+            raise ValueError("eval_wide_layer: segments and weights on different devices")
+        _check_rows(f"segment {i}", x, torch.bfloat16, m, widths[i])
+    _check_rows("w", w, torch.bfloat16, n, ktot)
+    _check("b", b, torch.float32, (n,))
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=w.device)
+    _check("out", out, torch.bfloat16, (m, n))
+    if m == 0:
+        return out
+    if m > 65535 * WIDE_TILE_M:
+        raise ValueError(f"eval_wide_layer: {m} points exceed one launch's grid")
+    lib = _wide_library()
+    plan_ints = [WIDE_TILE_M, WIDE_TILE_N, WIDE_TILE_K, WIDE_STAGES, WIDE_SMEM_BYTES]
+    ptrs = [x.data_ptr() for x in xs] + [0] * (WIDE_MAX_SEGMENTS - len(xs))
+    ptrs += [w.data_ptr(), b.data_ptr(), out.data_ptr()]
+    dims = [m, n, ktot, len(xs), int(relu)]
+    for i in range(WIDE_MAX_SEGMENTS):
+        dims += ([widths[i], xs[i].stride(0), cols[i]] if i < len(xs) else [0, 0, 0])
+    err = lib.eval_wide_layer_launch(_longs(ptrs), _ints(dims), _ints(plan_ints),
+                                     _stream(w))
+    eval_wide_layer.launches += 1
+    _raise_if(lib, err, "eval_wide_layer")
+    return out
+
+
+def eval_wide_heads(packed: PackedMLP, h: torch.Tensor, branch: Optional[torch.Tensor],
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M, 4) f32 [rgb, sigma] from the last trunk output h (M, D) and the
+    branch (M, D / 2) (None without it); `out` (contiguous) is written when
+    given."""
+    if not _device_rule("eval_wide_heads", h):
+        return eval_wide_heads_plain(packed, h, branch)
+    cfg = packed.config
+    m, d = h.shape[0], cfg.layer_dim
+    _check("h", h, torch.bfloat16, (m, d))
+    if packed.has_branch:
+        _check("branch", branch, torch.bfloat16, (m, d // 2))
+    for t in (packed.sigma_w, packed.rgb_w):
+        if t.dtype != torch.bfloat16 or t.device != h.device:
+            raise ValueError("eval_wide_heads: head weights must be bf16 on h's device")
+    if out is None:
+        out = torch.empty((m, 4), dtype=torch.float32, device=h.device)
+    _check("out", out, torch.float32, (m, 4))
+    if m == 0:
+        return out
+    lib = _wide_library()
+    rgb_in = d // 2 if packed.has_branch else d
+    ptrs = [h.data_ptr(), branch.data_ptr() if packed.has_branch else 0,
+            packed.sigma_w.data_ptr(), packed.sigma_b.data_ptr(),
+            packed.rgb_w.data_ptr(), packed.rgb_b.data_ptr(), out.data_ptr()]
+    dims = [m, d, rgb_in, int(packed.has_branch), int(cfg.shifted_softplus)]
+    err = lib.eval_wide_heads_launch(_longs(ptrs), _ints(dims), _stream(h))
+    eval_wide_heads.launches += 1
+    _raise_if(lib, err, "eval_wide_heads")
+    return out
+
+
+for _fn in (eval_wide_encode, eval_wide_layer, eval_wide_heads):
+    _fn.launches = 0
+
+
+def fused_nerf_eval_wide(
+    packed: PackedMLP,
+    xyz: torch.Tensor,
+    dirs: Optional[torch.Tensor] = None,
+    app: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(M, 4) f32 [rgb, sigma] for M points, the wide route.
+
+    xyz (M, xyz_dim) f32; dirs (M, 3) f32 direction coordinates (after the
+    ref_packed_dirs swap) when the model reads directions; app
+    (M, appearance_dim) per-point appearance rows when it has appearance.
+    CPU tensors run `fused_nerf_eval_wide_plain`; CUDA tensors launch the
+    kernels of `csrc/eval_wide.cu` (bf16 compute only), one sub-chunk of
+    `wide_plan(cfg).sub_chunk` points at a time, or raise."""
+    if not _device_rule("fused_nerf_eval_wide", xyz):
+        return fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
+    cfg = packed.config
+    check_inputs(packed, xyz, dirs, app)
+    m, d = xyz.shape[0], cfg.layer_dim
+    dev = xyz.device
+    out = torch.empty((m, 4), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    sub = min(wide_plan(cfg).sub_chunk, m)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    bufs = [torch.empty((sub, d), **bf), torch.empty((sub, d), **bf)]
+    branch_buf = torch.empty((sub, d // 2), **bf) if packed.has_branch else None
+    enc_buf = torch.empty((sub, packed.ep), **bf)
+    dir_buf = torch.empty((sub, packed.dp), **bf) if packed.dp else None
+    # TMA reads rows 16-byte aligned: other appearance widths get a padded copy.
+    app_pad = packed.ap and (cfg.appearance_dim * 2) % 16 != 0
+    for m0, m1 in sub_chunks(m, sub):
+        k = m1 - m0
+        enc, dir_enc = eval_wide_encode(
+            packed, xyz[m0:m1], None if dirs is None else dirs[m0:m1],
+            enc_buf[:k], None if dir_buf is None else dir_buf[:k])
+        h, free = enc, 0
+        for i in range(cfg.layers):
+            xs = [enc, h] if i in cfg.skip_layers else [h]
+            h = eval_wide_layer(xs, packed.mats[i], packed.biases[i], True,
+                                bufs[free][:k])
+            free = 1 - free
+        branch = None
+        if packed.has_branch:
+            final = eval_wide_layer([h], packed.mats[cfg.layers],
+                                    packed.biases[cfg.layers], False, bufs[free][:k])
+            xs = [final] + ([dir_enc] if packed.dp else [])
+            if packed.ap:
+                rows = app[m0:m1]
+                xs.append(F.pad(rows, (0, packed.ap - rows.shape[1])) if app_pad
+                          else rows)
+            branch = eval_wide_layer(xs, packed.mats[cfg.layers + 1],
+                                     packed.biases[cfg.layers + 1], True,
+                                     branch_buf[:k])
+        eval_wide_heads(packed, h, branch, out[m0:m1])
+    return out
+
+
+def wide_kernel_launches() -> int:
+    """Launches of the three wide kernels since their counters were zeroed."""
+    return (eval_wide_encode.launches + eval_wide_layer.launches
+            + eval_wide_heads.launches)
+
+
+__all__ = [
+    "WidePlan", "wide_plan", "sub_chunks", "segment_columns",
+    "scratch_bytes_per_point", "eval_wide_encode", "eval_wide_layer",
+    "eval_wide_heads", "fused_nerf_eval_wide", "eval_wide_encode_plain",
+    "eval_wide_layer_plain", "eval_wide_heads_plain", "fused_nerf_eval_wide_plain",
+    "wide_kernel_launches",
+]

@@ -10,9 +10,10 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
 - the coarse+fine merge is `composite_weights_merge` (a stable sort by
   depth, then `composite_weights`);
 - the MLP runs through the fused kernel wrappers when the architecture is
-  inside their coverage (`fused_mlp.supports_fused_kernel`; eval:
-  `fused_nerf_eval`, train: the differentiable `fused_nerf_train_apply`),
-  else through the eager `NeRF` module. The gate looks at the architecture
+  inside their coverage (`fused_mlp.supports_fused_kernel(cfg, train)`;
+  eval: `fused_nerf_eval` to width 512, `fused_wide.fused_nerf_eval_wide`
+  past it; train: the differentiable `fused_nerf_train_apply`), else
+  through the eager `NeRF` module. The gate looks at the architecture
   only; on a CPU tensor the wrappers run the kernels' plain versions;
 - train mode (`train=True`) draws from a `torch.Generator` where the JAX
   package splits keys: stratified perturbation, sorted-uniform fine
@@ -42,10 +43,12 @@ from mega_nerf_tpu_torch.ops.geometry import depth2pts_outside, intersect_sphere
 from mega_nerf_tpu_torch.ops.sampling import expand_and_perturb_z_vals, sample_pdf
 from mega_nerf_tpu_torch.render.fused_mlp import (
     fused_nerf_eval,
+    is_wide,
     pack_params,
     supports_fused_kernel,
 )
 from mega_nerf_tpu_torch.render.fused_train import fused_nerf_train_apply
+from mega_nerf_tpu_torch.render.fused_wide import fused_nerf_eval_wide
 
 INF_DELTA = 1e10
 
@@ -97,11 +100,13 @@ def _log_mlp_path(message: str) -> None:
         print(message, flush=True)
 
 
-def fused_gate(bundle: ModelBundle, settings: RenderSettings) -> Tuple[bool, str]:
-    """Does this bundle's MLP go through the fused kernel wrappers?"""
+def fused_gate(bundle: ModelBundle, settings: RenderSettings,
+               train: bool = False) -> Tuple[bool, str]:
+    """Does this bundle's MLP go through the fused kernel wrappers (the
+    eval gate, or with `train` the training gate)?"""
     if not settings.use_fused_kernel:
         return False, "disabled (--no_pallas)"
-    return supports_fused_kernel(bundle.config)
+    return supports_fused_kernel(bundle.config, train)
 
 
 def packed_params(bundle: ModelBundle):
@@ -141,8 +146,10 @@ def _model_eval(
         noise = torch.rand((n * s,), generator=generator, device=xyz.device)
         noise = noise.to(cfg.dtype).float()
 
-    fused, why = fused_gate(bundle, settings)
-    where = "kernel" if flat_xyz.is_cuda else "plain version"
+    fused, why = fused_gate(bundle, settings, train)
+    wide = fused and is_wide(cfg)  # the training gate admits no wide model
+    kernel = "wide kernel" if wide else "kernel"
+    where = kernel if flat_xyz.is_cuda else f"{kernel}'s plain version"
     mode = "train" if train else "eval"
     _log_mlp_path(
         f"MLP path [xyz_dim={cfg.xyz_dim}/{typ}/{mode}]: "
@@ -161,6 +168,8 @@ def _model_eval(
         if train:
             out = fused_nerf_train_apply(bundle.module, flat_xyz, coords, app,
                                          noise)
+        elif wide:
+            out = fused_nerf_eval_wide(packed_params(bundle), flat_xyz, coords, app)
         else:
             out = fused_nerf_eval(packed_params(bundle), flat_xyz, coords, app)
     else:

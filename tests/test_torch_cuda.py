@@ -326,3 +326,169 @@ def test_eval_kernel_persistent_walk_repeats_bitwise(cuda_device, bg):
     assert torch.isfinite(outs[0]).all()
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+
+
+def _wide_case(cuda_device, bg, kw, m, seed=5):
+    """A seeded model of the wide route (8 layers, skip at 4, small random
+    biases) on the card, its packed weights and m seeded points."""
+    from mega_nerf_tpu_torch.render import fused_wide
+
+    hp = tiny_hparams(pos_xyz_dim=12, pos_dir_dim=kw.get("pos_dir_dim", 4),
+                      layers=8, skip_layers=[4], layer_dim=kw["layer_dim"],
+                      bg_layer_dim=kw["layer_dim"],
+                      appearance_dim=kw["appearance_dim"],
+                      compute_dtype="bfloat16")
+    bundle = (make_bg_nerf if bg else make_nerf)(hp, 7)
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(bundle.module, gen)
+    with torch.no_grad():
+        for name, p in bundle.module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    bundle.module.to(cuda_device)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    xyz = torch.rand((m, cfg.xyz_dim), generator=gen).to(cuda_device)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((m, 3), generator=gen), dim=-1).to(cuda_device)
+    dirs = dirs if cfg.pos_dir_dim else None
+    app = None
+    if cfg.appearance_dim:
+        idx = torch.randint(0, 7, (m,), generator=gen).to(cuda_device)
+        app = bundle.module.appearance(idx).contiguous()
+    return fused_wide, packed, xyz, dirs, app
+
+
+def _close(got, want):
+    return ((got.float() - want.float()).abs() / (1 + want.float().abs())).max().item()
+
+
+WIDE_VARIANTS = [
+    {"appearance_dim": 48},
+    {"appearance_dim": 0},
+    {"appearance_dim": 48, "pos_dir_dim": 0},
+    {"appearance_dim": 0, "pos_dir_dim": 0},
+]
+
+
+@pytest.mark.parametrize("m", [1000, 37])
+@pytest.mark.parametrize("kw", WIDE_VARIANTS)
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [640, 1024, 2048])
+def test_wide_eval_kernels_match_plain(cuda_device, width, bg, kw, m):
+    """Each wide kernel against its plain version on the same inputs:
+    the encode, every layer of the chain fed the plain chain's input (the
+    skip layer's [enc | h], trunk_final, dir_a's [final | dir | app] with and
+    without dirs and appearance), the heads; then the whole wide eval.
+    Tolerances: layers and encode 1e-2 (1 + |y|) (another summation order
+    can flip one bf16 rounding), rgb 1e-2 absolute, sigma 1e-2 (1 + |s|).
+    M = 1,000 and 37: not multiples of the 128-point tile."""
+    fw, packed, xyz, dirs, app = _wide_case(cuda_device, bg,
+                                            {"layer_dim": width, **kw}, m)
+    cfg = packed.config
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+        assert _close(enc, p_enc) <= 1e-2
+        if packed.dp:
+            assert _close(dir_enc, p_dir) <= 1e-2
+        h = p_enc
+        for i in range(cfg.layers):
+            xs = [p_enc, h] if i in cfg.skip_layers else [h]
+            got = fw.eval_wide_layer(xs, packed.mats[i], packed.biases[i], True)
+            h = fw.eval_wide_layer_plain(xs, packed.mats[i], packed.biases[i], True)
+            assert _close(got, h) <= 1e-2, i
+        branch = None
+        if packed.has_branch:
+            w, b = packed.mats[cfg.layers], packed.biases[cfg.layers]
+            got = fw.eval_wide_layer([h], w, b, False)
+            final = fw.eval_wide_layer_plain([h], w, b, False)
+            assert _close(got, final) <= 1e-2
+            xs = [final] + ([p_dir] if packed.dp else []) + ([app] if packed.ap else [])
+            w, b = packed.mats[cfg.layers + 1], packed.biases[cfg.layers + 1]
+            got = fw.eval_wide_layer(xs, w, b, True)
+            branch = fw.eval_wide_layer_plain(xs, w, b, True)
+            assert _close(got, branch) <= 1e-2
+        heads = fw.eval_wide_heads(packed, h, branch)
+        p_heads = fw.eval_wide_heads_plain(packed, h, branch)
+        got = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+        want = fw.fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
+    torch.cuda.synchronize()
+    for out, ref in ((heads, p_heads), (got, want)):
+        assert out.shape == (m, 4) and torch.isfinite(out).all()
+        err = (out - ref).abs()
+        assert err[:, :3].max().item() <= 1e-2
+        assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_eval_repeats_bitwise_across_sub_chunks(cuda_device, bg, monkeypatch):
+    """Two launches give the same bits, and so does the same eval cut into
+    sub-chunks of 4,096 points (every kernel's rows are independent), on
+    20,011 points at width 1024; M = 0 launches nothing."""
+    import dataclasses
+
+    fw, packed, xyz, dirs, app = _wide_case(
+        cuda_device, bg, {"layer_dim": 1024, "appearance_dim": 48}, 20_011)
+    launches = fw.wide_kernel_launches()
+    with torch.no_grad():
+        first = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+        again = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+        plan = fw.wide_plan(packed.config)
+        monkeypatch.setattr(fw, "wide_plan",
+                            lambda cfg: dataclasses.replace(plan, sub_chunk=4096))
+        cut = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+        empty = fw.fused_nerf_eval_wide(packed, xyz[:0], dirs[:0], app[:0])
+    torch.cuda.synchronize()
+    per_pass = 2 + packed.config.layers + 2
+    assert fw.wide_kernel_launches() == launches + per_pass * (1 + 1 + 5)
+    assert torch.isfinite(first).all() and empty.shape == (0, 4)
+    assert torch.equal(first, again)
+    assert torch.equal(first, cut)
+
+
+def test_wide_wrappers_raise_and_never_fall_back(cuda_device):
+    """On CUDA tensors of the wrong dtype or layout each wide wrapper
+    raises, without a launch and without running a plain version; f32
+    compute raises too."""
+    fw, packed, xyz, dirs, app = _wide_case(
+        cuda_device, False, {"layer_dim": 640, "appearance_dim": 48}, 256)
+    cfg = packed.config
+    launches = fw.wide_kernel_launches()
+    calls = (fw.fused_nerf_eval_wide_plain.calls, fw.eval_wide_layer_plain.calls,
+             fw.eval_wide_encode_plain.calls, fw.eval_wide_heads_plain.calls)
+    h = torch.zeros((256, 640), dtype=torch.bfloat16, device=cuda_device)
+    w, b = packed.mats[1], packed.biases[1]
+    with pytest.raises(ValueError):
+        fw.fused_nerf_eval_wide(packed, xyz.double(), dirs, app)
+    with pytest.raises(ValueError):
+        fw.fused_nerf_eval_wide(packed, xyz, dirs, app.float())
+    with pytest.raises(ValueError):
+        fw.eval_wide_layer([h.float()], w, b, True)  # f32 segment
+    with pytest.raises(ValueError):
+        fw.eval_wide_layer([h.T.contiguous().T], w, b, True)  # column-major view
+    with pytest.raises(ValueError):
+        wide = torch.zeros((256, 641), dtype=torch.bfloat16, device=cuda_device)
+        fw.eval_wide_layer([wide[:, 1:]], w, b, True)  # base off 16-byte alignment
+    with pytest.raises(ValueError):
+        fw.eval_wide_layer([h[:, :320]], w, b, True)  # segments miss the columns
+    with pytest.raises(ValueError):
+        fw.eval_wide_layer([h], w, b.double(), True)
+    with pytest.raises(ValueError):
+        fw.eval_wide_heads(packed, h.float(), None)
+    with pytest.raises(ValueError):
+        fw.eval_wide_encode(packed, xyz[:, :2].contiguous(), dirs)
+    f32 = _with_compute_dtype(packed, "float32")
+    with pytest.raises(NotImplementedError):
+        fw.fused_nerf_eval_wide(f32, xyz, dirs, app)
+    assert cfg.dtype == torch.bfloat16
+    assert fw.wide_kernel_launches() == launches
+    assert calls == (fw.fused_nerf_eval_wide_plain.calls, fw.eval_wide_layer_plain.calls,
+                     fw.eval_wide_encode_plain.calls, fw.eval_wide_heads_plain.calls)
+
+
+def _with_compute_dtype(packed, compute_dtype):
+    import dataclasses
+
+    return dataclasses.replace(
+        packed, config=dataclasses.replace(packed.config, compute_dtype=compute_dtype))

@@ -102,17 +102,20 @@ def test_eval_plan_rejects_a_mismatched_matrix(which):
 
 def test_build_sources_are_the_kernel_files():
     """`_build.SOURCES` names exactly the `.cu` files under `render/csrc/`,
-    the eval kernel among them, and every source `chip_smoke.py` lists
-    exists (a stale name would fail only on the card)."""
+    the eval kernels (narrow and wide) among them, and every source
+    `chip_smoke.py` lists exists (a stale name would fail only on the
+    card)."""
     on_disk = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == on_disk
     assert len(_build.SOURCES) == len(on_disk)
-    assert "eval_fwd" in on_disk
+    assert {"eval_fwd", "eval_wide"} <= on_disk
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     sources = {name: src for name, src, _ in smoke.KERNELS}
     assert sources["fused_nerf_eval"] == "mega_nerf_tpu_torch/render/csrc/eval_fwd.cu"
+    for name in ("eval_wide_encode", "eval_wide_layer", "eval_wide_heads"):
+        assert sources[name] == "mega_nerf_tpu_torch/render/csrc/eval_wide.cu"
     for src in sources.values():
         assert (ROOT / src).is_file(), src
         assert Path(src).stem in _build.SOURCES

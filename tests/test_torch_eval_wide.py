@@ -1,0 +1,323 @@
+"""The wide eval route (`fused_wide.py` around `csrc/eval_wide.cu`),
+checked without a GPU: the eval and train gates against the JAX package's
+`supports_fused_kernels`, the wrapper's CPU path (its plain version)
+against the JAX package's Pallas eval kernel in interpret mode and against
+the narrow chain's plain version, the plan's sub-chunks, the wrappers'
+device rules, and `render_rays` in eval mode through the wide route against
+the JAX package's renderer. All inputs come from numpy seeds."""
+
+import dataclasses
+from argparse import Namespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mega_nerf_tpu.models import make_bg_nerf as j_make_bg_nerf
+from mega_nerf_tpu.models import make_nerf as j_make_nerf
+from mega_nerf_tpu.models.nerf import NeRFConfig as JNeRFConfig
+from mega_nerf_tpu.render import RenderSettings as JSettings
+from mega_nerf_tpu.render import pallas_mlp as j_pallas
+from mega_nerf_tpu.render import render_rays as j_render_rays
+from mega_nerf_tpu_torch.models import (
+    NeRFConfig,
+    make_bg_nerf,
+    make_nerf,
+    state_from_flax_params,
+)
+from mega_nerf_tpu_torch.render import fused_mlp, fused_wide, rendering
+from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
+
+
+def _hparams(width, **kw):
+    base = dict(pos_xyz_dim=12, pos_dir_dim=4, layers=3, skip_layers=[2],
+                layer_dim=width, bg_layer_dim=width, appearance_dim=48,
+                affine_appearance=False, use_cascade=False, sh_deg=None,
+                shifted_softplus=True, compute_dtype="bfloat16")
+    base.update(kw)
+    return Namespace(**base)
+
+
+def _configs(width, dtype):
+    kw = dict(pos_xyz_dim=12, pos_dir_dim=4, layers=8, skip_layers=(4,),
+              layer_dim=width, appearance_dim=48, compute_dtype=dtype)
+    return NeRFConfig(**kw), JNeRFConfig(**kw)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("width", [256, 512, 640, 1024, 2048, 4096])
+def test_gates_match_jax(width, train, dtype, monkeypatch):
+    """The port's eval and train gates against the JAX gate as it decides
+    on a TPU (`jax.default_backend` patched for this test). They agree but
+    where the port documents a difference: 513-1024 wide, training (the
+    port's training kernels stop at 512) and f32 eval (the wide kernels
+    are bf16 only) take the eager module in the port and Pallas in JAX."""
+    monkeypatch.setattr(j_pallas.jax, "default_backend", lambda: "tpu")
+    cfg, jcfg = _configs(width, dtype)
+    port, why = fused_mlp.supports_fused_kernel(cfg, train)
+    ref = j_pallas.supports_fused_kernels(jcfg, train)
+    if 512 < width <= 1024 and (train or dtype == "float32"):
+        assert ref and not port
+        assert why
+    else:
+        assert port == ref
+    if port and not train:
+        assert fused_mlp.is_wide(cfg) == (width > 512)
+
+
+@pytest.mark.parametrize("width,dtype,admitted", [
+    (576, "bfloat16", True),  # a multiple of 64, not of 128: the port's rule
+    (1984, "bfloat16", True),
+    (528, "bfloat16", False),  # a multiple of 16 only
+    (2112, "bfloat16", False),
+    (576, "float32", False),
+    (496, "float32", True),  # the narrow chain's gate admits f32 (ROADMAP)
+])
+def test_eval_gate_port_rule(width, dtype, admitted):
+    """Past 512 the eval gate admits bf16 multiples of 64 up to 2048; the
+    training gate admits nothing past 512."""
+    cfg, _ = _configs(width, dtype)
+    assert fused_mlp.supports_fused_kernel(cfg)[0] == admitted
+    assert fused_mlp.supports_fused_kernel(cfg, train=True)[0] == (width <= 512)
+
+
+def _flax_bundle(hp, bg, count, seed):
+    """The JAX model, its seeded Flax params and the port's bundle holding
+    them (carried over by `state_from_flax_params`)."""
+    jb = (j_make_bg_nerf if bg else j_make_nerf)(hp, count)
+    params = jax.device_get(jb.init(jax.random.key(seed)))
+    tb = (make_bg_nerf if bg else make_nerf)(hp, count)
+    tb.module.load_state_dict(state_from_flax_params(tb.config, params))
+    tb.module.eval()
+    return jb, params, tb
+
+
+def _points(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    xyz = rng.normal(size=(n, cfg.xyz_dim)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3))
+    dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
+    return xyz, dirs, rng.integers(0, cfg.appearance_count, n)
+
+
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("use_dirs", [True, False])
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_wrapper_on_cpu_matches_pallas_interpret(bg, use_dirs, width):
+    """`fused_nerf_eval_wide` on CPU tensors (its plain version) against
+    the JAX package's Pallas eval kernel in interpret mode: the same Flax
+    weights (carried over by `state_from_flax_params` at a width past 512)
+    and numpy inputs, 3 layers with the skip at 2, f32 compute, 5e-5
+    absolute (as the narrow wrapper's test); 200 points, not a multiple of
+    the JAX block."""
+    hp = _hparams(width, compute_dtype="float32", appearance_dim=8,
+                  pos_dir_dim=4 if use_dirs else 0)
+    count = 5
+    jb, params, tb = _flax_bundle(hp, bg, count, 3)
+    module, cfg = tb.module, tb.config
+    n, block = 200, 128
+    xyz, dirs, idx = _points(cfg, n, 4)
+    app = np.asarray(params["appearance"]["embedding"])[idx]
+    m_pad = -(-n // block) * block
+    pad = lambda a: jnp.asarray(  # noqa: E731
+        np.concatenate([a, np.repeat(a[-1:], m_pad - n, 0)]))
+    want = j_pallas.fused_nerf_eval(
+        j_pallas.pack_params(jb.config, params), pad(xyz),
+        pad(dirs) if use_dirs else None, pad(app), block=block, interpret=True)[:n]
+    packed = fused_mlp.pack_params(module)
+    calls = fused_wide.fused_nerf_eval_wide_plain.calls
+    launches = fused_wide.wide_kernel_launches()
+    got = fused_wide.fused_nerf_eval_wide(
+        packed, torch.from_numpy(xyz), torch.from_numpy(dirs) if use_dirs else None,
+        torch.from_numpy(app))
+    assert fused_wide.fused_nerf_eval_wide_plain.calls == calls + 1
+    assert fused_wide.wide_kernel_launches() == launches
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"appearance_dim": 0},
+    {"appearance_dim": 0, "pos_dir_dim": 0},
+    {"appearance_dim": 5},  # rows not 16-byte wide: the padded segment
+])
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [640, 1024])
+def test_wide_plain_equals_narrow_plain_bitwise(width, bg, kw):
+    """In bf16 the wide route's plain version (encode, layer by layer, heads)
+    gives the narrow chain's plain version's bits: the same operands,
+    products and roundings."""
+    bundle = (make_bg_nerf if bg else make_nerf)(_hparams(width, **kw), 4)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in bundle.module.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[-1]))
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    xyz, dirs, idx = _points(cfg, 300, 1)
+    dirs_t = torch.from_numpy(dirs) if cfg.pos_dir_dim else None
+    app = (bundle.module.appearance(torch.from_numpy(idx) % 4)
+           if cfg.appearance_dim else None)
+    with torch.no_grad():
+        got = fused_wide.fused_nerf_eval_wide_plain(packed, torch.from_numpy(xyz),
+                                                    dirs_t, app)
+        want = fused_mlp.fused_nerf_eval_plain(packed, torch.from_numpy(xyz),
+                                               dirs_t, app)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("width", [576, 640, 1024, 1536, 2048])
+def test_wide_plan_scratch_and_sub_chunk(width):
+    """The sub-chunk is a power of two of whole 128-point tiles whose scratch
+    (two activation buffers, the branch, the encodes, an appearance copy)
+    fits 8 GiB and doubling it would not; 524,288 points (5.6 GB) at 2048.
+    The tile and ring match the layer kernel's constants."""
+    cfg, _ = _configs(width, "bfloat16")
+    plan = fused_wide.wide_plan(cfg)
+    per_point = fused_wide.scratch_bytes_per_point(cfg)
+    sub = plan.sub_chunk
+    assert sub % plan.tile_m == 0 and sub & (sub - 1) == 0
+    assert plan.scratch_bytes == sub * per_point <= fused_wide.WIDE_SCRATCH_LIMIT
+    assert (2 * sub * per_point > fused_wide.WIDE_SCRATCH_LIMIT
+            or 2 * sub > fused_wide.WIDE_MAX_SUB_CHUNK)
+    assert sub // plan.tile_m <= 65535  # the GEMM grid's y dimension
+    assert (plan.tile_m, plan.tile_n, plan.tile_k, plan.stages) == (128, 256, 64, 4)
+    assert plan.smem_bytes == 4 * (128 + 256) * 64 * 2 + 64 + 1024 <= 232_448
+    if width == 2048:
+        assert sub == 524_288 and plan.scratch_bytes < 6e9
+
+
+@pytest.mark.parametrize("sub", [128, 1024, 4096])
+@pytest.mark.parametrize("m", [0, 1, 127, 128, 129, 1000, 4097, 8_388_608])
+def test_sub_chunks_cover_every_point_once(m, sub):
+    """The passes of the layer chain cover [0, m) once, in order, each at
+    most one sub-chunk long and none empty."""
+    chunks = fused_wide.sub_chunks(m, sub)
+    assert len(chunks) == -(-m // sub)
+    starts = [a for a, _ in chunks]
+    ends = [b for _, b in chunks]
+    assert starts == sorted(starts) and (not chunks or (starts[0], ends[-1]) == (0, m))
+    assert all(0 < b - a <= sub for a, b in chunks)
+    assert all(b == a2 for (_, b), (a2, _) in zip(chunks, chunks[1:]))
+
+
+def test_wide_plain_sub_chunking_matches_one_pass(monkeypatch):
+    """The plain composite cut into 128-point sub-chunks (a ragged last
+    one) gives the one-pass result on 300 points: the sub-chunks only slice
+    the rows. Within 1e-6, not bit for bit: the CPU's f32 matmul blocks its
+    sums by the row count (the card test holds the kernels bit for bit)."""
+    bundle = make_nerf(_hparams(640), 4)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    xyz, dirs, idx = _points(cfg, 300, 2)
+    args = (packed, torch.from_numpy(xyz), torch.from_numpy(dirs),
+            bundle.module.appearance(torch.from_numpy(idx) % 4))
+    with torch.no_grad():
+        whole = fused_wide.fused_nerf_eval_wide_plain(*args)
+        plan = fused_wide.wide_plan(cfg)
+        monkeypatch.setattr(fused_wide, "wide_plan",
+                            lambda c: dataclasses.replace(plan, sub_chunk=128))
+        calls = fused_wide.eval_wide_heads_plain.calls
+        cut = fused_wide.fused_nerf_eval_wide_plain(*args)
+    assert fused_wide.eval_wide_heads_plain.calls == calls + 3
+    torch.testing.assert_close(cut, whole, rtol=0, atol=1e-6)
+
+
+def test_segment_columns_follow_the_packed_layout():
+    """The layer's A segments land on `pack_params`' columns: the skip
+    layer's [enc | h] and dir_a's [final | dir enc | app]."""
+    bundle = make_nerf(_hparams(640, appearance_dim=5), 4)
+    cfg, packed = bundle.config, fused_mlp.pack_params(bundle.module)
+    layout = fused_mlp.mat_layout(cfg)
+    skip = [dst for _, dst, _ in layout[2][2]]
+    assert fused_wide.segment_columns([packed.ep, 640]) == skip
+    dir_a = [dst for _, dst, _ in layout[-1][2]]
+    assert fused_wide.segment_columns([640, packed.dp, cfg.appearance_dim]) == dir_a
+    assert packed.mats[-1].shape[1] == 640 + packed.dp + packed.ap
+
+
+@pytest.mark.parametrize("which", ["encode", "layer", "heads", "eval"])
+def test_wide_wrappers_device_rules(which):
+    """CPU tensors run the plain version (no launch); any device but CPU
+    and CUDA raises."""
+    bundle = make_nerf(_hparams(640), 4)
+    packed = fused_mlp.pack_params(bundle.module)
+    m = 4
+    calls = {
+        "encode": lambda dev: fused_wide.eval_wide_encode(
+            packed, torch.zeros((m, 3), device=dev), torch.zeros((m, 3), device=dev)),
+        "layer": lambda dev: fused_wide.eval_wide_layer(
+            [torch.zeros((m, 640), dtype=torch.bfloat16, device=dev)],
+            packed.mats[1].to(dev), packed.biases[1].to(dev), True),
+        "heads": lambda dev: fused_wide.eval_wide_heads(
+            packed, torch.zeros((m, 640), dtype=torch.bfloat16, device=dev),
+            torch.zeros((m, 320), dtype=torch.bfloat16, device=dev)),
+        "eval": lambda dev: fused_wide.fused_nerf_eval_wide(
+            packed, torch.zeros((m, 3), device=dev), torch.zeros((m, 3), device=dev),
+            torch.zeros((m, 48), dtype=torch.bfloat16, device=dev)),
+    }
+    launches = fused_wide.wide_kernel_launches()
+    out = calls[which]("cpu")
+    assert fused_wide.wide_kernel_launches() == launches
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.shape[0] == m and first.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[which]("meta")
+
+
+CENTER = np.array([0.05, -0.1, 0.0], np.float32)
+RADIUS = np.array([1.4, 1.1, 1.2], np.float32)
+
+
+def _rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = (rng.uniform(-0.3, 0.3, size=(n, 3)) * 0.5).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    near = np.full((n, 1), 0.05, np.float32)
+    far = np.where(np.arange(n)[:, None] % 2 == 0, 1e5, 0.8).astype(np.float32)
+    return np.concatenate([o, d, near, far], -1)
+
+
+def test_render_rays_through_the_wide_route_matches_jax(capsys, monkeypatch):
+    """`render_rays` in eval mode with 640-wide fg and bg models (bf16
+    compute: the wide route's domain) against the JAX package's renderer
+    (XLA MLP path, merge compositor) on the same Flax weights and rays;
+    the logged route names the wide kernel. Tolerances: depth rtol 5e-4 as
+    the f32 render test; rgb 1e-3 absolute with a mean under 1e-4, since
+    a float32 sum taken in another order can flip one bf16 rounding of an
+    activation (the f32 test's 1e-4 holds for the mean)."""
+    monkeypatch.setattr(rendering, "_LOGGED_MLP_PATHS", set())
+    hp = _hparams(640, pos_xyz_dim=4, pos_dir_dim=2, appearance_dim=4)
+    count = 5
+    (jfg, pfg, tfg), (jbg, pbg, tbg) = [
+        _flax_bundle(hp, bg, count, seed) for bg, seed in ((False, 0), (True, 1))]
+    rays = _rays(48, seed=3)
+    idx = np.arange(48, dtype=np.int32) % count
+    jset = JSettings(coarse_samples=16, fine_samples=24, use_pallas=False,
+                     eval_compositor="merge", get_depth=True, get_bg_fg_rgb=True)
+    want, _ = j_render_rays(jfg, jbg, pfg, pbg, jnp.asarray(rays), jnp.asarray(idx),
+                            jset, jnp.asarray(CENTER), jnp.asarray(RADIUS),
+                            train=False)
+    tset = RenderSettings(coarse_samples=16, fine_samples=24, get_depth=True,
+                          get_bg_fg_rgb=True)
+    calls = fused_wide.fused_nerf_eval_wide_plain.calls
+    with torch.no_grad():
+        got, _ = render_rays(tfg, tbg, torch.from_numpy(rays),
+                             torch.from_numpy(idx).long(), tset,
+                             torch.from_numpy(CENTER), torch.from_numpy(RADIUS))
+    assert fused_wide.fused_nerf_eval_wide_plain.calls == calls + 4
+    logged = capsys.readouterr().out
+    assert logged.count("fused eval (wide kernel's plain version)") == 4
+    assert "eager" not in logged
+    for key in ("rgb_fine", "fg_rgb_fine", "bg_rgb_fine"):
+        diff = np.abs(got[key].numpy() - np.asarray(want[key]))
+        assert diff.max() <= 1e-3 and diff.mean() <= 1e-4, key
+    for key in ("depth_fine", "fg_depth_fine"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=5e-4, atol=1e-5, err_msg=key)
+    assert set(got) == set(want)

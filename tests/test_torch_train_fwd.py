@@ -67,7 +67,7 @@ def test_train_fwd_plan_fits_every_admitted_width(width):
     for xyz_dim in (3, 4):
         for pos_dir_dim, appearance_dim in VARIANTS:
             cfg = _config(width, xyz_dim, pos_dir_dim, appearance_dim)
-            assert fused_mlp.supports_fused_kernel(cfg)[0]
+            assert fused_mlp.supports_fused_kernel(cfg, train=True)[0]
             _check_plan(cfg)
 
 
@@ -84,7 +84,7 @@ def test_train_fwd_plan_admits_what_the_gate_admits(kw, admitted):
                 layer_dim=256, appearance_dim=48, compute_dtype="bfloat16")
     base.update(kw)
     cfg = NeRFConfig(**base)
-    assert fused_mlp.supports_fused_kernel(cfg)[0] == admitted
+    assert fused_mlp.supports_fused_kernel(cfg, train=True)[0] == admitted
     if admitted:
         _check_plan(cfg)
     else:
