@@ -119,9 +119,22 @@ KERNELS = (
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("eval_wide_heads", "mega_nerf_tpu_torch/render/csrc/eval_wide.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
+    # The wide training route (layer_dim 513-1024): the forward's layers are
+    # eval_wide_layer; these replace the training kernels at those widths.
+    ("train_wide_heads_fwd", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
+     "mega_nerf_tpu/render/pallas_train.py:138"),
+    ("train_wide_heads_bwd", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
+     "mega_nerf_tpu/render/pallas_train.py:171"),
+    ("train_wide_dx", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
+     "mega_nerf_tpu/render/pallas_train.py:171"),
+    ("train_wide_dw", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
+     "mega_nerf_tpu/render/pallas_train.py:171"),
 )
 WIDE_KERNELS = ("eval_wide_encode", "eval_wide_layer", "eval_wide_heads")
+TRAIN_WIDE_KERNELS = ("train_wide_heads_fwd", "train_wide_heads_bwd", "train_wide_dx",
+                      "train_wide_dw")
 DENSE = ["--layer_dim", "2048", "--bg_layer_dim", "2048"]  # configs/mega-nerf-dense
+WIDE_TRAIN = ["--layer_dim", "1024", "--bg_layer_dim", "1024"]  # the JAX training gate's widest
 
 
 def log(msg: str) -> None:
@@ -917,6 +930,19 @@ def dx_flops_per_point(cfg) -> int:
     return 2 * macs
 
 
+def mm_f32(a, b):
+    """torch.mm's keywords for f32 output where it takes out_dtype, tried on
+    small slices of the bf16 operands a and b (else none: bf16 output) ->
+    (keywords, output dtype name)."""
+    import torch
+
+    try:
+        torch.mm(a[:8, :8], b[:8, :8], out_dtype=torch.float32)
+        return {"out_dtype": torch.float32}, "float32"
+    except (TypeError, RuntimeError):
+        return {}, "bfloat16"
+
+
 def library_weight_grad(packed, act, grad):
     """The weight gradient through cuBLAS: torch.mm of the same bf16 column
     views as the kernel's jobs, f32 output where torch.mm takes out_dtype
@@ -926,12 +952,7 @@ def library_weight_grad(packed, act, grad):
     from mega_nerf_tpu_torch.render import fused_train as ft
 
     jobs = ft.weight_grad_jobs(packed)
-    a, b = grad[:, :8], act[:, :8]
-    try:
-        torch.mm(a.T, b, out_dtype=torch.float32)
-        kw, dtype = {"out_dtype": torch.float32}, "float32"
-    except (TypeError, RuntimeError):
-        kw, dtype = {}, "bfloat16"
+    kw, dtype = mm_f32(grad.T, act)
 
     def run():
         for d_col, n, x_col, k, *_ in jobs:
@@ -1296,6 +1317,486 @@ def phase_eager_dense(device, report, tmp: Path):
     return bool(all(np.isfinite(v) for v in metrics.values()))
 
 
+# ------------------------------------------------- the wide training route
+
+
+def zero_train_wide_counters() -> None:
+    """Zero the launch counts of every kernel the wide training route can
+    reach (its four, the wide eval kernels, the narrow training kernels)
+    and the calls of every plain version."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    zero_wide_counters()
+    zero_train_counters()
+    for k in TRAIN_WIDE_KERNELS:
+        getattr(ftw, k).launches = 0
+    for fn in train_wide_plains():
+        fn.calls = 0
+
+
+def train_wide_plains():
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    return (ftw.train_wide_heads_fwd_plain, ftw.train_wide_heads_bwd_plain,
+            ftw.train_wide_dx_plain, ftw.train_wide_dw_plain,
+            ftw.fused_nerf_train_wide_fwd_plain, ftw.fused_nerf_train_wide_bwd_plain)
+
+
+def train_wide_counters():
+    """Launches of the wide training route's kernels (its four and the wide
+    eval kernels its forward runs), of the narrow training kernels, and the
+    calls of every plain version."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    wide, narrow = wide_counters(), train_counters()
+    out = {k: getattr(ftw, k).launches for k in TRAIN_WIDE_KERNELS}
+    out.update({k: wide[k] for k in WIDE_KERNELS})
+    out["narrow"] = sum(narrow[k] for k in ("fused_nerf_train_fwd", "train_bwd_data",
+                                            "weight_grad")) + wide["fused_nerf_eval"]
+    out["plain"] = (wide["plain"] + narrow["plain"]
+                    + sum(fn.calls for fn in train_wide_plains()))
+    return out
+
+
+def wide_step_launches(fg_cfg, bg_cfg):
+    """Launches of one training step through the wide route: fg and bg,
+    coarse and fine, each an encode, a layer GEMM per matmul layer, the
+    heads forward and backward and the plan's dX and dW steps."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    per = dict.fromkeys(TRAIN_WIDE_KERNELS + WIDE_KERNELS, 0)
+    for cfg in (fg_cfg, fg_cfg, bg_cfg, bg_cfg):
+        steps = ftw.train_wide_plan(cfg).steps
+        n_dx = sum(kind == "dx" for kind, _ in steps)
+        per["eval_wide_encode"] += 1
+        per["eval_wide_layer"] += cfg.layers + (2 if cfg.uses_dir_branch else 0)
+        per["train_wide_heads_fwd"] += 1
+        per["train_wide_heads_bwd"] += 1
+        per["train_wide_dx"] += n_dx
+        per["train_wide_dw"] += len(steps) - n_dx
+    return per
+
+
+def compare_train_wide_case(name, hp, bg, m, seed, device):
+    """The wide training kernels against their plain versions on one
+    model -> ({kernel: max_abs_err}, ok). The heads forward reads the plain
+    forward's last trunk output and branch; the backward kernels go through
+    `walk_backward` (each fed the plain backward's tensors, so errors do not
+    compound; every dW launch runs twice for the same bits). Then the
+    composed forward and backward against the composed plain versions."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render.fused_train import split_grads
+
+    bundle = seeded_bundle(hp, 16, bg, seed, device)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    xyz, dirs, idx = mlp_inputs(cfg, m, seed + 1, device)
+    app = bundle.module.appearance(idx).float() if cfg.appearance_dim else None
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    noise = torch.rand((m,), generator=gen, device=device).to(torch.bfloat16).float()
+    g = torch.randn((m, 4), generator=gen, device=device)
+    errs = dict.fromkeys(TRAIN_WIDE_KERNELS, 0.0)  # max |kernel - plain|
+    worst = dict.fromkeys(TRAIN_WIDE_KERNELS, 0.0)  # against each tolerance
+
+    def hold(kernel, got, want, ratio):
+        errs[kernel] = max(errs[kernel], (got.float() - want.float()).abs().max().item())
+        worst[kernel] = max(worst[kernel], ratio)
+
+    def forward_ratio(got, want):
+        err = (got - want).abs()
+        return max(err[:, :3].max().item(), (err[:, 3] / (1 + want[:, 3].abs())).max().item())
+
+    with torch.no_grad():
+        want, saved = ftw.fused_nerf_train_wide_fwd_plain(packed, xyz, dirs, app, noise)
+        out, pre = ftw.train_wide_heads_fwd(packed, saved[f"h{cfg.layers - 1}"],
+                                            saved.get("branch"), noise)
+        hold("train_wide_heads_fwd", out, want, forward_ratio(out, want))
+        hold("train_wide_heads_fwd", pre, saved["pre"], close_ratio(pre, saved["pre"]))
+        same = True
+        for kernel, got, ref in ftw.walk_backward(packed, saved, g):
+            if kernel == ftw.DW_REPEAT:
+                same = same and torch.equal(got, ref)
+            else:
+                hold(kernel, got, ref, rel_err(got, ref))
+        del got, ref
+        # The composed route against the composed plain versions.
+        got, k_saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        del k_saved
+        fwd_ratio = forward_ratio(got, want)
+        flat, d_app = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+        p_flat, p_d_app = ftw.fused_nerf_train_wide_bwd_plain(packed, saved, g)
+        torch.cuda.synchronize()
+        bwd_rel = max(rel_err(a, b) for a, b in zip(split_grads(packed, flat),
+                                                    split_grads(packed, p_flat)))
+        if d_app is not None:
+            bwd_rel = max(bwd_rel, rel_err(d_app, p_d_app))
+        finite = bool(torch.isfinite(got).all() and torch.isfinite(flat).all())
+    ok = (finite and same and max(worst.values()) <= TOL and fwd_ratio <= TOL
+          and bwd_rel <= TOL)
+    log(f"  train wide {name}: M={m}; heads fwd worst {worst['train_wide_heads_fwd']:.3e}, "
+        f"heads bwd rel {worst['train_wide_heads_bwd']:.3e}, dX worst rel "
+        f"{worst['train_wide_dx']:.3e}, dW worst rel {worst['train_wide_dw']:.3e} (two "
+        f"launches bitwise equal={same}); composed forward rgb / sigma ratio "
+        f"{fwd_ratio:.3e}, backward worst rel {bwd_rel:.3e}; finite={finite} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    del saved, flat, p_flat, got, want
+    torch.cuda.empty_cache()
+    return errs, ok
+
+
+def phase_compare_train_wide(device, report):
+    """The wide training route's four kernels against their plain versions
+    at width 1024 (fg and bg, the paper's dirs and appearance): at an M not
+    a multiple of the 128-point tile, and at each pass's M of a training
+    step (batch 1024: fg 256 coarse and 512 fine samples a ray, bg 128 and
+    256), whose launches have their own grids and dW splits; and at 640
+    with and without the branch."""
+    wide = paper_hparams(WIDE_TRAIN)
+    cases = [  # (name, hparams, bg, points)
+        ("fg 1024-wide, dirs, appearance", wide, False, 100_003),
+        ("bg 1024-wide, dirs, appearance", wide, True, 100_003),
+        ("fg 640-wide, no dirs, no appearance (no branch)",
+         paper_hparams(["--layer_dim", "640", "--appearance_dim", "0",
+                        "--pos_dir_dim", "0"]), False, 20_011),
+        ("bg 640-wide, appearance 5, no dirs",
+         paper_hparams(["--bg_layer_dim", "640", "--appearance_dim", "5",
+                        "--pos_dir_dim", "0"]), True, 20_011),
+        ("fg 1024-wide, the fg fine pass", wide, False, 1024 * 512),
+        ("fg 1024-wide, the fg coarse pass", wide, False, 1024 * 256),
+        ("bg 1024-wide, the bg fine pass", wide, True, 1024 * 256),
+        ("bg 1024-wide, the bg coarse pass", wide, True, 1024 * 128),
+    ]
+    kernels = report["kernels"]
+    all_ok = True
+    for i, (name, hp, bg, m) in enumerate(cases):
+        errs, ok = compare_train_wide_case(name, hp, bg, m, 400 + i, device)
+        for k, v in errs.items():
+            kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err", 0.0), v)
+        all_ok &= ok
+    # (bg, points) of each 1024-wide case: train_wide checks that its passes
+    # are among them.
+    report["train_wide_compared"] = {(bg, m) for _, hp, bg, m in cases if hp is wide}
+    return all_ok
+
+
+TRAIN_WIDE_STEPS = 20
+
+
+def phase_train_wide(device, report, tmp: Path):
+    """`train.main` at fg and bg 8x1024 for TRAIN_WIDE_STEPS steps on the
+    train phase's dataset: finite metrics, the wide route named for every
+    fg and bg pass, each kernel's launches per step as the plans say, no
+    narrow-kernel launch, no plain call, no eager-module call; then
+    `eval.main` on the written `{iter}.pt` through the wide eval route."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.models import nerf_config_from_hparams
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import rendering
+
+    ds = tmp / "train_dataset"
+    hp = train_hparams(ds, tmp / "train_wide_exp",
+                       ["--train_iterations", str(TRAIN_WIDE_STEPS), *WIDE_TRAIN])
+    per_step = wide_step_launches(nerf_config_from_hparams(hp, 1, hp.layer_dim, 3),
+                                  nerf_config_from_hparams(hp, 1, hp.bg_layer_dim, 4))
+    routes, snaps, passes = [], [], set()
+    log_path, step_call = rendering._log_mlp_path, TrainStep.__call__
+    forward = ftw._forward
+
+    def recording_forward(packed, xyz, *args):
+        passes.add((packed.config.xyz_dim == 4, xyz.shape[0]))
+        return forward(packed, xyz, *args)
+
+    def recording_log(message):
+        routes.append(message)
+        log_path(message)
+
+    def recording_call(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        snaps.append((metrics["loss"], train_wide_counters()))
+        return metrics
+
+    rendering._log_mlp_path, TrainStep.__call__ = recording_log, recording_call
+    ftw._forward = recording_forward
+    zero_train_wide_counters()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager_calls:
+            val = port_train.main(hp)
+            torch.cuda.synchronize()
+    finally:
+        rendering._log_mlp_path, TrainStep.__call__ = log_path, step_call
+        ftw._forward = forward
+    wall = time.perf_counter() - t0
+    after = train_wide_counters()
+    counts = snaps[-1][1]  # after the last step, before the final validation
+    loss = torch.stack([s[0] for s in snaps]).float().cpu().numpy()
+    train_routes = sorted({r for r in routes if "/train]" in r})
+    log(f"  train.main at {hp.layer_dim}/{hp.bg_layer_dim}: {len(snaps)} steps + final validation in "
+        f"{wall:.2f} s; loss first {loss[0]:.5f} -> last {loss[-1]:.5f}; val {val}; "
+        f"launches after the steps {counts} (per step expected {per_step}); after "
+        f"validation {after}; eager module calls {eager_calls.count}; (bg, points) of "
+        f"the passes {sorted(passes)}, each held against the plain versions in "
+        f"compare_train_wide: {passes <= report['train_wide_compared']}")
+    for r in train_routes:
+        log(f"    {r}")
+    for k in TRAIN_WIDE_KERNELS:
+        report["kernels"][k]["launches"] = counts[k]
+    ok = (len(snaps) == TRAIN_WIDE_STEPS and np.isfinite(loss).all()
+          and all(np.isfinite(v) for v in val.values())
+          and len(train_routes) == 4
+          and all("fused train (wide kernel)" in r for r in train_routes)
+          and all(counts[k] == TRAIN_WIDE_STEPS * n for k, n in per_step.items())
+          and passes <= report["train_wide_compared"]
+          and counts["eval_wide_heads"] == 0 and after["narrow"] == 0
+          and after["plain"] == 0 and eager_calls.count == 0)
+
+    ckpt = tmp / "train_wide_exp" / "0" / "models" / f"{TRAIN_WIDE_STEPS}.pt"
+    e_hp = paper_hparams(["--dataset_path", str(ds), "--exp_name",
+                          str(tmp / "train_wide_eval"), "--ckpt_path", str(ckpt),
+                          "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+                          "--val_scale_factor", "1", "--device", "cuda", *WIDE_TRAIN])
+    zero_wide_counters()
+    routes.clear()
+    rendering._log_mlp_path = recording_log
+    try:
+        with EagerCalls() as eval_eager:
+            e_metrics = port_eval.main(e_hp)
+    finally:
+        rendering._log_mlp_path = log_path
+    e_counts = wide_counters()
+    log(f"  eval.main on {ckpt.name} at {hp.layer_dim}/{hp.bg_layer_dim}: {e_metrics}; "
+        f"launches {e_counts}")
+    ok = (ok and ckpt.exists() and np.isfinite(e_metrics["val/psnr"])
+          and all(e_counts[k] > 0 for k in WIDE_KERNELS) and e_counts["plain"] == 0
+          and eval_eager.count == 0 and routes
+          and all("fused eval (wide kernel)" in r for r in routes))
+    report["training_wide"] = {
+        "steps": len(snaps), "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+        "val_psnr": val.get("val/psnr"), "ckpt_eval_psnr": e_metrics["val/psnr"],
+        "launches_per_step": per_step, "train_main_s": wall}
+    report["wide_train_ckpt"] = ckpt
+    return bool(ok)
+
+
+def time_train_wide_kernels(device, report):
+    """The wide training kernels per launch at the fg-fine shape (524,288
+    points, 8x1024): the heads kernels on the pass's own tensors, dX and dW
+    at a 1024 x 1024 trunk layer, with TFLOP/s, bounds, plain times and
+    cuBLAS (F.linear for dX, torch.mm for dW, the same bf16 operands, f32
+    accumulation; no mask, no bias sums); the forward's layer GEMM and the
+    composed forward and backward of the pass."""
+    import torch
+    import torch.nn.functional as F
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    kernels = report["kernels"]
+    hp = paper_hparams(WIDE_TRAIN)
+    bundle = seeded_bundle(hp, 16, False, 51, device)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    m, d = 1024 * 512, cfg.layer_dim
+    xyz, dirs, idx = mlp_inputs(cfg, m, 52, device)
+    app = bundle.module.appearance(idx).float()
+    gen = torch.Generator(device=device).manual_seed(53)
+    noise = torch.rand((m,), generator=gen, device=device).to(torch.bfloat16).float()
+    g = torch.randn((m, 4), generator=gen, device=device)
+    plan = ftw.check_plan(packed)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    with torch.no_grad():
+        _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        h, branch = saved[f"h{cfg.layers - 1}"], saved["branch"]
+        hf = lambda: ftw.train_wide_heads_fwd(packed, h, branch, noise)  # noqa: E731
+        t_hf, p_hf = cuda_ms(hf, 10), cuda_ms(
+            lambda: ftw.train_wide_heads_fwd_plain(packed, h, branch, noise), 3, 1)
+        hb_args = (packed, g, saved["pre"], h, branch)
+        t_hb, p_hb = cuda_ms(lambda: ftw.train_wide_heads_bwd(*hb_args), 10), cuda_ms(
+            lambda: ftw.train_wide_heads_bwd_plain(*hb_args), 3, 1)
+        # dX and dW at trunk layer 2 (no skip): d_pre_2 -> d_pre_1 masked by h1.
+        gp = (torch.randn((m, d), generator=gen, device=device) * 1e-2).to(torch.bfloat16)
+        wt = ft.transposed_weights(packed)[2]
+        dx_args = (gp, wt, 0, d, ftw.DX_MASK, saved["h1"])
+        t_dx = cuda_ms(lambda: ftw.train_wide_dx(*dx_args), 10)
+        p_dx = cuda_ms(lambda: ftw.train_wide_dx_plain(*dx_args), 3, 1)
+        lib_dx = cuda_ms(lambda: F.linear(gp, wt), 10)
+        job = next(job for kind, job in plan.steps if kind == "dw" and job[0].d == "g_pre2")
+        tensors, out = {"g_pre2": gp, "h1": saved["h1"]}, torch.empty(plan.total, device=device)
+        t_dw = cuda_ms(lambda: ftw.train_wide_dw(job, tensors, out), 10)
+        p_dw = cuda_ms(lambda: ftw.train_wide_dw_plain(job, tensors, out), 3, 1)
+        kw, lib_dtype = mm_f32(gp.T, saved["h1"])
+        lib_dw = cuda_ms(lambda: torch.mm(gp.T, saved["h1"], **kw), 10)
+        t_layer = cuda_ms(lambda: fw.eval_wide_layer([saved["h1"]], packed.mats[2],
+                                                     packed.biases[2], True), 10)
+        t_fwd = cuda_ms(lambda: ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise),
+                        3, 1)
+        t_bwd = cuda_ms(lambda: ftw.fused_nerf_train_wide_bwd(packed, saved, g), 3, 1)
+    del saved, gp, tensors
+    torch.cuda.empty_cache()
+    gemm = 2.0 * m * d * d
+    rows = {  # name: (ms, plain ms, library ms, FLOP, bytes, peak)
+        "train_wide_heads_fwd": (t_hf, p_hf, None, 2.0 * m * (d + 3 * (d // 2)),
+                                 m * (2.0 * d + d + 4 + 32), PEAK_F32_FLOPS),
+        "train_wide_heads_bwd": (t_hb, p_hb, None, 8.0 * m * (d // 2),
+                                 m * (32.0 + 2 * d + 32), PEAK_F32_FLOPS),
+        "train_wide_dx": (t_dx, p_dx, lib_dx, gemm, 6.0 * m * d + 2 * d * d,
+                          PEAK_BF16_FLOPS),
+        "train_wide_dw": (t_dw, p_dw, lib_dw, gemm, 4.0 * m * d + 4 * (d * d + d),
+                          PEAK_BF16_FLOPS),
+    }
+    for k, (ms, plain_ms, lib_ms, fl, nb, peak) in rows.items():
+        t_ops, t_bytes = fl / peak * 1e3, nb / PEAK_HBM_BYTES * 1e3
+        bms, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=lib_ms)
+        rate = (f"{fl / ms / 1e9:.1f} TFLOP/s" if peak == PEAK_BF16_FLOPS
+                else f"{nb / ms / 1e9:.3f} TB/s")
+        lib = ("" if lib_ms is None else
+               f"; cuBLAS {lib_ms:.3f} ms (the kernel takes {ms / lib_ms:.2f}x its time)")
+        log(f"  {k} at fg fine ({m} points, width {d}): {ms:.3f} ms/launch = {rate}; "
+            f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, "
+            f"{nb:.4g} B){lib}")
+    log(f"  weight-gradient library: torch.mm, {lib_dtype} out, no bias sums; dX "
+        f"library: F.linear, bf16 out, no mask")
+    log(f"  eval_wide_layer (the forward's GEMM), 1024 x 1024 trunk layer at fg fine: "
+        f"{t_layer:.3f} ms = {gemm / t_layer / 1e9:.1f} TFLOP/s")
+    flops = (2 * fused_mlp.flops_per_point(cfg) + dx_flops_per_point(cfg)) * m
+    bms, by = bound(flops, (fused_mlp.io_bytes_per_point(cfg) + 4) * m)
+    log(f"  the fg-fine pass through the wide route: forward {t_fwd:.3f} ms + backward "
+        f"{t_bwd:.3f} ms = {t_fwd + t_bwd:.3f} ms, "
+        f"{flops / (t_fwd + t_bwd) / 1e9:.1f} TFLOP/s; bound {bms:.3f} ms ({by}: "
+        f"{flops:.4g} FLOP)")
+    report["training_wide"].update(
+        fg_fine_fwd_ms=t_fwd, fg_fine_bwd_ms=t_bwd, fg_fine_bound_ms=bms,
+        layer_ms_fg_fine=t_layer)
+
+
+def phase_time_train_wide(device, report, tmp: Path):
+    """ms per 1024-ray step and train rays/s at fg and bg 8x1024 over 20
+    chained steps (from train_wide's checkpoint, on the train phase's
+    batches), peak device memory, a 5-step torch.profiler breakdown by
+    kernel, then each kernel per launch at the fg-fine shape."""
+    import torch
+
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    saved = train_wide_counters()
+    runner = Runner(train_hparams(tmp / "train_dataset", tmp / "unused_wide", WIDE_TRAIN),
+                    set_experiment_path=False)
+    runner._load_weights(report["wide_train_ckpt"])
+    step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(runner.hparams),
+                     5e-4, 0.1, TRAIN_WIDE_STEPS, runner.sphere_center,
+                     runner.sphere_radius)
+    batches = report["train_batches"]
+    for b in batches[:5]:  # warm-up
+        step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 20
+    t0 = time.perf_counter()
+    for b in batches[5:5 + n]:
+        step(b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = sum((2 * fused_mlp.flops_per_point(c) + dx_flops_per_point(c)) * pts for c, pts in (
+        (runner.fg.config, 1024 * 768), (runner.bg.config, 1024 * 384)))
+    step_bound = flops / PEAK_BF16_FLOPS * 1e3
+    report["training_wide"].update(step_ms=step_ms, rays_per_s=1024 / step_ms * 1e3,
+                                   peak_mem_gb=peak, step_bound_ms=step_bound)
+    log(f"  wide training path: {step_ms:.2f} ms/step over {n} chained steps = "
+        f"{1024 / step_ms * 1e3:.1f} rays/s (fg + bg 8x1024, batch 1024, 256 + 512 "
+        f"samples); peak device memory allocated {peak:.2f} GB; MLP bound "
+        f"{step_bound:.2f} ms/step ({flops:.4g} FLOP)")
+    rows, busy, wall_ms = kernel_times(lambda: [step(b) for b in batches[25:30]], 5)
+    if rows:
+        log(f"  profiler over 5 steps: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+            f"wall ({100 * busy / wall_ms:.1f}%); per step by kernel:")
+        for ms, count, name in rows[:12]:
+            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+        log(f"    {sum(r[0] for r in rows[12:]):8.3f} ms  in {len(rows) - 12} other kernels")
+        report["training_wide"]["profiled_device_busy_share"] = busy / wall_ms
+    else:
+        log("  profiler: no device time recorded (device share not measured)")
+    report["wide_runner"] = runner
+    del step
+    torch.cuda.empty_cache()
+    time_train_wide_kernels(device, report)
+    # Timing launches are not main-path launches.
+    for k in TRAIN_WIDE_KERNELS:
+        getattr(ftw, k).launches = saved[k]
+    return True
+
+
+def phase_eager_train_wide(device, report, tmp: Path):
+    """A record, not a check: training steps at fg and bg 8x1024 through the
+    eager module (`--no_pallas`), the route the port took for this model
+    before the wide training route: ms/step and peak device memory, or its
+    out-of-memory error."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+
+    runner = report.pop("wide_runner")
+    hp = copy.copy(runner.hparams)
+    hp.use_fused_kernel = False
+    step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(hp), 5e-4, 0.1,
+                     TRAIN_WIDE_STEPS, runner.sphere_center, runner.sphere_radius)
+    batches = report["train_batches"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    with EagerCalls() as eager_calls:
+        try:
+            for b in batches[:2]:  # warm-up
+                losses.append(step(b)["loss"])
+            torch.cuda.synchronize()
+            n = 5
+            t0 = time.perf_counter()
+            for b in batches[2:2 + n]:
+                losses.append(step(b)["loss"])
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            first = str(e).splitlines()[0] if str(e) else repr(e)
+            log(f"  eager module (--no_pallas) training at {hp.layer_dim}/{hp.bg_layer_dim}: "
+                f"out of device "
+                f"memory after {len(losses)} steps, {eager_calls.count} module calls "
+                f"(peak allocated {peak:.2f} GB): {first}")
+            report["training_wide"]["eager"] = {"error": first, "peak_mem_gb": peak}
+            return True
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss = torch.stack(losses).float().cpu().numpy()
+    log(f"  eager module (--no_pallas) training at {hp.layer_dim}/{hp.bg_layer_dim}: "
+        f"{step_ms:.2f} ms/step over "
+        f"{n} chained steps = {1024 / step_ms * 1e3:.1f} rays/s; peak device memory "
+        f"allocated {peak:.2f} GB; {eager_calls.count} module calls; loss {loss[-1]:.5f}")
+    report["training_wide"]["eager"] = {"step_ms": step_ms, "peak_mem_gb": peak,
+                                        "rays_per_s": 1024 / step_ms * 1e3}
+    return bool(np.isfinite(loss).all() and eager_calls.count > 0)
+
+
 def kernel_times(run, reps: int):
     """Device time by kernel over `run()`, which makes `reps` repetitions
     (torch.profiler) -> (rows [(ms per rep, launches per rep, name)],
@@ -1397,12 +1898,16 @@ def main() -> int:
             ("build", lambda: phase_build(device, report)),
             ("compare", lambda: phase_compare(device, report)),
             ("compare_wide", lambda: phase_compare_wide(device, report)),
+            ("compare_train_wide", lambda: phase_compare_train_wide(device, report)),
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
             ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
+            ("train_wide", lambda: phase_train_wide(device, report, Path(tmp))),
             ("time", lambda: phase_time(device, report)),
             ("time_dense", lambda: phase_time_dense(device, report)),
+            ("time_train_wide", lambda: phase_time_train_wide(device, report, Path(tmp))),
             ("eager_dense", lambda: phase_eager_dense(device, report, Path(tmp))),
+            ("eager_train_wide", lambda: phase_eager_train_wide(device, report, Path(tmp))),
         )
         for phase, run in phases:
             log(f"[{phase}]")
@@ -1424,6 +1929,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"serving_dense": report["serving_dense"]}))
     log(json.dumps({"training": report["training"]}))
+    log(json.dumps({"training_wide": report["training_wide"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -7,11 +7,12 @@ training forward's `wgmma` layer chain without noise or saved rows, one
 persistent CTA per SM walking the point tiles, its tile and shared memory
 from `fused_train.py::train_fwd_plan`. Past width 512 eval runs the wide
 route, `fused_wide.py` (one layer GEMM at a time, `csrc/eval_wide.cu`),
-on the same packed weights.
+on the same packed weights; training past 512 runs `fused_train_wide.py`
+on that GEMM and the kernels of `csrc/train_wide.cu`.
 
 - `supports_fused_kernel(cfg, train)` is the gate, as the JAX package's
-  `supports_fused_kernels(cfg, train)`; `is_wide(cfg)` says which eval
-  route an admitted architecture takes.
+  `supports_fused_kernels(cfg, train)`; `is_wide(cfg)` says whether an
+  admitted architecture takes the wide route.
 
 - `pack_params` lays a `NeRF` module's weights out for the kernel: one
   (out, in) matrix per matmul layer in the compute dtype, with zero columns
@@ -44,8 +45,10 @@ MMA_K = 16  # input segments pad to the wgmma depth (16 bf16)
 # fused_train.py::train_fwd_plan (64 points, output columns split in two):
 # the fused chain of eval_fwd.cu and the three training kernels.
 MAX_LAYER_DIM = 512
-# The wide eval route (fused_wide.py): the JAX eval gate's bf16 limit.
+# The wide eval route (fused_wide.py): the JAX eval gate's bf16 limit; the
+# wide training route (fused_train_wide.py): the JAX training gate's.
 WIDE_MAX_LAYER_DIM = 2048
+WIDE_MAX_TRAIN_LAYER_DIM = 1024
 WIDE_LAYER_MULTIPLE = 64
 MAX_MATRICES = 16  # trunk layers + trunk_final + dir_a (the kernel's table)
 
@@ -81,27 +84,30 @@ def supports_fused_kernel(cfg: NeRFConfig, train: bool = False) -> Tuple[bool, s
       every width in `configs/` does). The JAX gate asks a multiple of
       128 only for the TPU's lanes; at every multiple of 128 the two agree
       in bf16. Past 2048 the eager module runs, as JAX falls back to XLA.
-    - Train: the three training kernels to width 512. The JAX gate trains
-      through Pallas to 1024; the port's eager module trains 513-1024 until
-      the training kernels grow (ROADMAP B.4).
-    - f32 compute past 512: the JAX gate runs Pallas eval to 1024 in f32,
-      the port's wide kernels are bf16 only, so the eager module runs."""
+    - Train: the three fused training kernels to width 512; past it the
+      wide training route (`fused_train_wide.py`) to 1024 in bf16 compute,
+      with layer_dim a multiple of 64, as the JAX gate trains through
+      Pallas to 1024. Past 1024 the eager module trains, as JAX falls back
+      to XLA.
+    - f32 compute past 512: the JAX gate runs Pallas eval and training to
+      1024 in f32, the port's wide kernels are bf16 only, so the eager
+      module runs."""
     ok, why = _architecture_ok(cfg)
     if not ok or cfg.layer_dim <= MAX_LAYER_DIM:
         return ok, why
     d = cfg.layer_dim
-    if train:
-        return False, f"layer_dim {d} (the training kernels stop at {MAX_LAYER_DIM})"
-    if d > WIDE_MAX_LAYER_DIM or d % WIDE_LAYER_MULTIPLE:
-        return False, (f"layer_dim {d} (the wide route needs a multiple of "
-                       f"{WIDE_LAYER_MULTIPLE} <= {WIDE_MAX_LAYER_DIM})")
+    limit = WIDE_MAX_TRAIN_LAYER_DIM if train else WIDE_MAX_LAYER_DIM
+    if d > limit or d % WIDE_LAYER_MULTIPLE:
+        return False, (f"layer_dim {d} (the wide {'training' if train else 'eval'} "
+                       f"route needs a multiple of {WIDE_LAYER_MULTIPLE} <= {limit})")
     if cfg.dtype != torch.bfloat16:
         return False, f"{cfg.compute_dtype} compute at layer_dim {d} (the wide route is bf16)"
     return True, ""
 
 
 def is_wide(cfg: NeRFConfig) -> bool:
-    """Whether an architecture the eval gate admits takes the wide route."""
+    """Whether an architecture the gate admits takes the wide route (eval:
+    `fused_wide.py`, training: `fused_train_wide.py`)."""
     return cfg.layer_dim > MAX_LAYER_DIM
 
 

@@ -13,7 +13,8 @@ Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/train_bwd.cu`
   packs with `cast=False`), and returns their gradients in their own
   shapes (padding columns dropped), plus d_app for the gathered appearance
   rows (f32, bf16-exact values). Positions, directions and noise get no
-  gradient.
+  gradient. Past width 512 (`fused_mlp.is_wide`) it runs the wide training
+  route of `fused_train_wide.py` in place of the three kernels here.
 - The forward saves every activation of a point in one row (the layout of
   `act_layout`); the backward reads them: the backward-data step writes
   each layer's pre-activation gradient to one row per point
@@ -48,6 +49,7 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     _round_up,
     check_inputs,
     forward_trace,
+    is_wide,
     launch_tables,
     mat_layout,
     mlp_param_names,
@@ -80,6 +82,7 @@ BWD_APP = 0  # d_app columns, f32 to global memory
 BWD_FINAL = 1  # d_final: bf16 into the gradient tile, no mask
 BWD_MASK = 2  # d_pre: masked by the mask tile, bf16 into the gradient tile
 BWD_MASK_SIGMA = 3  # the same after adding g_sigma * w_sigma
+_WIDE_WHY = "layer_dim past 512 (the wide training route, fused_train_wide.py)"
 
 
 # ------------------------------------------------------------------ layouts
@@ -375,8 +378,8 @@ def train_fwd_plan(cfg: NeRFConfig) -> TrainFwdPlan:
     shared memory holds. Raises NotImplementedError where the fused kernels
     do not cover the architecture, ValueError where the tile does not fit."""
     ok, why = supports_fused_kernel(cfg, train=True)
-    if not ok:
-        raise NotImplementedError(f"fused kernel does not cover: {why}")
+    if not ok or is_wide(cfg):
+        raise NotImplementedError(f"fused kernel does not cover: {why or _WIDE_WHY}")
     d = cfg.layer_dim
     ep, dp = _round_up(cfg.enc_in, MMA_K), _round_up(cfg.dir_in, MMA_K)
     ap = _round_up(cfg.appearance_dim, MMA_K)
@@ -528,8 +531,8 @@ def train_bwd_plan(cfg: NeRFConfig) -> TrainBwdPlan:
     kernels do not cover the architecture, ValueError where the tile does
     not fit."""
     ok, why = supports_fused_kernel(cfg, train=True)
-    if not ok:
-        raise NotImplementedError(f"fused kernel does not cover: {why}")
+    if not ok or is_wide(cfg):
+        raise NotImplementedError(f"fused kernel does not cover: {why or _WIDE_WHY}")
     d, n_layers = cfg.layer_dim, cfg.layers
     ep, dp = _round_up(cfg.enc_in, MMA_K), _round_up(cfg.dir_in, MMA_K)
     ap = _round_up(cfg.appearance_dim, MMA_K)
@@ -813,29 +816,48 @@ def fused_nerf_train_bwd(
     gradients in `packed_shapes` order, d_app or None): `train_bwd_data`
     then `weight_grad` (their plain versions on CPU tensors)."""
     grad, d_app = train_bwd_data(packed, act, g.float().contiguous(), noise)
-    flat = weight_grad(packed, act, grad)
+    return split_grads(packed, weight_grad(packed, act, grad)), d_app
+
+
+def split_grads(packed: PackedMLP, flat: torch.Tensor) -> List[torch.Tensor]:
+    """A flat f32 gradient buffer as views in `packed_shapes` order."""
     shapes = packed_shapes(packed)
     offs = _offsets(shapes)
-    grads = [flat[offs[i]:offs[i + 1]].view(s) for i, s in enumerate(shapes)]
-    return grads, d_app
+    return [flat[offs[i]:offs[i + 1]].view(s) for i, s in enumerate(shapes)]
 
 
 # -------------------------------------------------------- autograd Function
 
 
 class _TrainApply(torch.autograd.Function):
+    """The fused chain to width 512; past it the wide route, which saves
+    every layer's output by name (imported here: it builds on this module)."""
+
     @staticmethod
     def forward(ctx, cfg, xyz, dirs, app, noise, *params):
         packed = pack_tensors(cfg, dict(zip(mlp_param_names(cfg), params)))
-        out, act = fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
-        ctx.cfg, ctx.packed = cfg, packed
-        ctx.save_for_backward(act, noise, *params)
+        if is_wide(cfg):
+            from mega_nerf_tpu_torch.render.fused_train_wide import fused_nerf_train_wide_fwd
+
+            out, saved = fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        else:
+            out, act = fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+            saved = {"act": act, "noise": noise}
+        ctx.cfg, ctx.packed, ctx.names = cfg, packed, list(saved)
+        ctx.save_for_backward(*saved.values(), *params)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        act, noise, *params = ctx.saved_tensors
-        grads, d_app = fused_nerf_train_bwd(ctx.packed, act, noise, g)
+        tensors = ctx.saved_tensors
+        saved, params = dict(zip(ctx.names, tensors)), tensors[len(ctx.names):]
+        if is_wide(ctx.cfg):
+            from mega_nerf_tpu_torch.render.fused_train_wide import fused_nerf_train_wide_bwd
+
+            flat, d_app = fused_nerf_train_wide_bwd(ctx.packed, saved, g)
+            grads = split_grads(ctx.packed, flat)
+        else:
+            grads, d_app = fused_nerf_train_bwd(ctx.packed, saved["act"], saved["noise"], g)
         param_grads = unpack_grads(ctx.cfg, grads, params)
         return (None, None, None, d_app if ctx.needs_input_grad[3] else None,
                 None, *param_grads)
@@ -849,7 +871,9 @@ def fused_nerf_train_apply(
     sigma_noise: Optional[torch.Tensor],  # (M,) f32, or None
 ) -> torch.Tensor:
     """Differentiable fused forward -> (M, 4) [sigmoid rgb, activated
-    sigma]; gradients flow to the module's MLP parameters and to `app`."""
+    sigma]; gradients flow to the module's MLP parameters and to `app`.
+    CPU tensors run the plain versions; CUDA tensors the kernels (past
+    width 512 in bf16 compute only)."""
     cfg = module.config
     named = dict(module.named_parameters())
     params = [named[n] for n in mlp_param_names(cfg)]
@@ -860,6 +884,6 @@ __all__ = [
     "fused_nerf_train_apply", "fused_nerf_train_fwd",
     "fused_nerf_train_fwd_plain", "fused_nerf_train_bwd", "train_bwd_data",
     "train_bwd_data_plain", "weight_grad", "weight_grad_plain",
-    "act_layout", "grad_layout", "packed_shapes", "unpack_grads",
+    "act_layout", "grad_layout", "packed_shapes", "split_grads", "unpack_grads",
     "weight_grad_jobs", "weight_grad_plan", "train_fwd_plan", "train_bwd_plan",
 ]

@@ -12,7 +12,8 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
 - the MLP runs through the fused kernel wrappers when the architecture is
   inside their coverage (`fused_mlp.supports_fused_kernel(cfg, train)`;
   eval: `fused_nerf_eval` to width 512, `fused_wide.fused_nerf_eval_wide`
-  past it; train: the differentiable `fused_nerf_train_apply`), else
+  past it; train: the differentiable `fused_nerf_train_apply`, which runs
+  `fused_train_wide.py` past width 512), else
   through the eager `NeRF` module. The gate looks at the architecture
   only; on a CPU tensor the wrappers run the kernels' plain versions;
 - train mode (`train=True`) draws from a `torch.Generator` where the JAX
@@ -147,7 +148,7 @@ def _model_eval(
         noise = noise.to(cfg.dtype).float()
 
     fused, why = fused_gate(bundle, settings, train)
-    wide = fused and is_wide(cfg)  # the training gate admits no wide model
+    wide = fused and is_wide(cfg)
     kernel = "wide kernel" if wide else "kernel"
     where = kernel if flat_xyz.is_cuda else f"{kernel}'s plain version"
     mode = "train" if train else "eval"

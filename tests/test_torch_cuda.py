@@ -492,3 +492,158 @@ def _with_compute_dtype(packed, compute_dtype):
 
     return dataclasses.replace(
         packed, config=dataclasses.replace(packed.config, compute_dtype=compute_dtype))
+
+
+def _rel(a, b):
+    """||a - b|| / ||b||."""
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def _wide_train_case(cuda_device, bg, width, m, appearance_dim=48, pos_dir_dim=4):
+    """A seeded wide model on the card with its training inputs: points,
+    bf16-rounded sigma noise and an output cotangent."""
+    from mega_nerf_tpu_torch.render import fused_train_wide
+
+    _, packed, xyz, dirs, app = _wide_case(
+        cuda_device, bg, {"layer_dim": width, "appearance_dim": appearance_dim,
+                          "pos_dir_dim": pos_dir_dim}, m)
+    gen = torch.Generator().manual_seed(9)
+    noise = torch.rand((m,), generator=gen).to(torch.bfloat16).float().to(cuda_device)
+    g = torch.randn((m, 4), generator=gen).to(cuda_device)
+    app = None if app is None else app.float()
+    return fused_train_wide, packed, xyz, dirs, app, noise, g
+
+
+def _wide_train_walk(ftw, packed, saved, g):
+    """`walk_backward` -> (worst relative error per kernel, dW launches
+    bitwise equal on a repeat)."""
+    worst = {k: 0.0 for k in ftw.TRAIN_WIDE_KERNELS}
+    same = True
+    for kernel, got, want in ftw.walk_backward(packed, saved, g):
+        if kernel == ftw.DW_REPEAT:
+            same = same and torch.equal(got, want)
+        else:
+            worst[kernel] = max(worst[kernel], _rel(got, want))
+    return worst, same
+
+
+WIDE_TRAIN_VARIANTS = [
+    {},
+    {"appearance_dim": 0, "pos_dir_dim": 0},  # no branch: both heads on h
+    {"appearance_dim": 5, "pos_dir_dim": 0},  # appearance rows padded to 16
+]
+
+
+@pytest.mark.parametrize("m", [1000, 37])
+@pytest.mark.parametrize("kw", WIDE_TRAIN_VARIANTS)
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [640, 1024])
+def test_wide_train_kernels_match_plain(cuda_device, width, bg, kw, m):
+    """The wide training route's four kernels against their plain versions
+    on the same inputs (each backward kernel fed the plain chain's tensors),
+    then the composed forward and backward against the composed plain
+    versions. Tolerances: rgb 1e-2 absolute, sigma and the pre-activations
+    1e-2 (1 + |x|), every backward tensor a relative norm 1e-2 (bf16
+    operands, another summation order). M = 1,000 and 37: not multiples of
+    the 128-point tile or the 64-point stage; with the branch, without it,
+    and with appearance rows that are not 16 bytes wide."""
+    ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(cuda_device, bg, width, m,
+                                                             **kw)
+    cfg = packed.config
+    launches = ftw.wide_train_kernel_launches()
+    with torch.no_grad():
+        want, saved = ftw.fused_nerf_train_wide_fwd_plain(packed, xyz, dirs, app, noise)
+        out, pre = ftw.train_wide_heads_fwd(packed, saved[f"h{cfg.layers - 1}"],
+                                            saved.get("branch"), noise)
+        worst, same = _wide_train_walk(ftw, packed, saved, g)
+        got, k_saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        flat, d_app = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+        p_flat2, p_d_app = ftw.fused_nerf_train_wide_bwd_plain(packed, saved, g)
+    torch.cuda.synchronize()
+    assert ftw.wide_train_kernel_launches() > launches
+    for o, ref in ((out, want), (got, want)):
+        assert o.shape == (m, 4) and torch.isfinite(o).all()
+        err = (o - ref).abs()
+        assert err[:, :3].max().item() <= 1e-2
+        assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-2
+    assert _close(pre, saved["pre"]) <= 1e-2
+    assert set(k_saved) == set(saved)
+    assert max(worst.values()) <= 1e-2, worst
+    assert same
+    assert torch.isfinite(flat).all()
+    from mega_nerf_tpu_torch.render.fused_train import split_grads
+
+    for a, b in zip(split_grads(packed, flat), split_grads(packed, p_flat2)):
+        assert _rel(a, b) <= 1e-2
+    if cfg.appearance_dim:
+        assert d_app.shape == (m, cfg.appearance_dim) and _rel(d_app, p_d_app) <= 1e-2
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_train_dw_repeats_bitwise(cuda_device, bg):
+    """Two launches of every dW launch of the plan give the same bits
+    (splits summed in a fixed order) on 20,011 points at width 1024, and so
+    does the whole backward run twice."""
+    ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(cuda_device, bg, 1024,
+                                                             20_011)
+    with torch.no_grad():
+        _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        _, same = _wide_train_walk(ftw, packed, saved, g)
+        first, d_app = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+        again, d_app2 = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+    torch.cuda.synchronize()
+    assert same
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, again) and torch.equal(d_app, d_app2)
+
+
+def test_wide_train_wrappers_raise_and_never_fall_back(cuda_device):
+    """On CUDA tensors of the wrong dtype or layout each wide training
+    wrapper raises, without a launch and without running a plain version;
+    f32 compute raises too."""
+    ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(cuda_device, False, 640, 256)
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    plain = (ftw.train_wide_heads_fwd_plain, ftw.train_wide_heads_bwd_plain,
+             ftw.train_wide_dx_plain, ftw.train_wide_dw_plain,
+             ftw.fused_nerf_train_wide_fwd_plain, ftw.fused_nerf_train_wide_bwd_plain)
+    calls = [f.calls for f in plain]
+    launches = ftw.wide_train_kernel_launches()
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    h = torch.zeros((256, 640), **bf)
+    branch = torch.zeros((256, 320), **bf)
+    pre = torch.zeros((256, 4), device=cuda_device)
+    wt = ft.transposed_weights(packed)[2]
+    rows = torch.zeros((256, ftw.HEADS_GRAD_WIDTH), **bf)
+    out = torch.zeros(ftw.check_plan(packed).total, device=cuda_device)
+    job = ftw.check_plan(packed).steps[-1][1]
+    with pytest.raises(ValueError):
+        ftw.train_wide_heads_fwd(packed, h.float(), branch, noise)
+    with pytest.raises(ValueError):
+        ftw.train_wide_heads_fwd(packed, h, branch, noise.double())
+    with pytest.raises(ValueError):
+        ftw.train_wide_heads_bwd(packed, g.double(), pre, h, branch)
+    with pytest.raises(ValueError):
+        ftw.train_wide_heads_bwd(packed, g, pre, h, branch[:, :64].contiguous())
+    with pytest.raises(ValueError):
+        ftw.train_wide_dx(h.float(), wt, 0, 640, ftw.DX_MASK, h)
+    with pytest.raises(ValueError):
+        ftw.train_wide_dx(h, wt, 0, 640, ftw.DX_MASK, None)  # no mask
+    with pytest.raises(ValueError):
+        ftw.train_wide_dx(h, wt, 100, 640, ftw.DX_NONE)  # rows past the matrix
+    with pytest.raises(ValueError):
+        ftw.train_wide_dx(h, wt, 0, 640, ftw.DX_MASK_SIGMA, h, None, packed.sigma_w)
+    with pytest.raises(ValueError):
+        ftw.train_wide_dw(job, {"g_pre0": h.float(), "enc": h}, out)
+    with pytest.raises(ValueError):
+        ftw.train_wide_dw(job, {"g_pre0": h, "enc": h}, out.double())
+    with pytest.raises(ValueError):
+        ftw.train_wide_dw(job, {"g_pre0": h, "enc": h}, out[:100])  # past the buffer
+    f32 = _with_compute_dtype(packed, "float32")
+    with pytest.raises(NotImplementedError):
+        ftw.fused_nerf_train_wide_fwd(f32, xyz, dirs, app, noise)
+    with pytest.raises(NotImplementedError):
+        ftw.train_wide_heads_bwd(f32, g, pre, h, branch)
+    assert rows.shape[1] == 16
+    assert ftw.wide_train_kernel_launches() == launches
+    assert [f.calls for f in plain] == calls

@@ -52,19 +52,20 @@ def _configs(width, dtype):
 def test_gates_match_jax(width, train, dtype, monkeypatch):
     """The port's eval and train gates against the JAX gate as it decides
     on a TPU (`jax.default_backend` patched for this test). They agree but
-    where the port documents a difference: 513-1024 wide, training (the
-    port's training kernels stop at 512) and f32 eval (the wide kernels
-    are bf16 only) take the eager module in the port and Pallas in JAX."""
+    where the port documents a difference: 513-1024 wide in f32 compute
+    (the wide kernels are bf16 only), eval and training, take the eager
+    module in the port and Pallas in JAX. bf16 training at 513-1024 agrees:
+    the wide training route."""
     monkeypatch.setattr(j_pallas.jax, "default_backend", lambda: "tpu")
     cfg, jcfg = _configs(width, dtype)
     port, why = fused_mlp.supports_fused_kernel(cfg, train)
     ref = j_pallas.supports_fused_kernels(jcfg, train)
-    if 512 < width <= 1024 and (train or dtype == "float32"):
+    if 512 < width <= 1024 and dtype == "float32":
         assert ref and not port
         assert why
     else:
         assert port == ref
-    if port and not train:
+    if port:
         assert fused_mlp.is_wide(cfg) == (width > 512)
 
 
@@ -78,10 +79,11 @@ def test_gates_match_jax(width, train, dtype, monkeypatch):
 ])
 def test_eval_gate_port_rule(width, dtype, admitted):
     """Past 512 the eval gate admits bf16 multiples of 64 up to 2048; the
-    training gate admits nothing past 512."""
+    training gate the same up to 1024 (the wide training route)."""
     cfg, _ = _configs(width, dtype)
     assert fused_mlp.supports_fused_kernel(cfg)[0] == admitted
-    assert fused_mlp.supports_fused_kernel(cfg, train=True)[0] == (width <= 512)
+    assert fused_mlp.supports_fused_kernel(cfg, train=True)[0] == (
+        admitted and width <= 1024)
 
 
 def _flax_bundle(hp, bg, count, seed):
