@@ -81,6 +81,16 @@ Runs every phase, in order:
               took for this model before the wide kernels; prints its
               s/view or its out-of-memory error (the phase fails only on
               another error or non-finite metrics).
+The wide training route (fg and bg 8x1024) adds, in the order of `main`:
+compare_train_wide (each wide training kernel against its plain version,
+also at the four pass sizes of a step), train_wide (20 steps of
+`train.main`, launches per step, an eval of the written checkpoint),
+time_train_wide (ms per step, peak memory, a profile by kernel; each
+kernel per launch at the fg-fine shape with its bound and plain time, dX
+and dW beside cuBLAS, the forward's layer GEMM beside `F.linear` on its
+operands and bias, each GEMM's ratio to its library call; the layer
+GEMM's ratio at 2048 is time_dense's) and eager_train_wide (a record of
+the eager module's step).
 
 Prints `{"serving": ...}`, `{"serving_dense": ...}` and `{"training": ...}` lines, a
 `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
@@ -1195,8 +1205,8 @@ def phase_time_dense(device, report):
     log(f"  eval_wide_layer, 2048 x 2048 trunk layer on {sub} points: {ms:.3f} "
         f"ms/launch = {flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
         f"cuBLAS (F.linear, bf16 operands and bias, f32 accumulation) {lib_ms:.3f} ms = "
-        f"{flops / lib_ms / 1e9:.1f} TFLOP/s; bound {bms:.3f} ms ({by}: "
-        f"{flops:.4g} FLOP, {nbytes:.4g} B)")
+        f"{flops / lib_ms / 1e9:.1f} TFLOP/s (the kernel takes {ms / lib_ms:.2f}x its "
+        f"time); bound {bms:.3f} ms ({by}: {flops:.4g} FLOP, {nbytes:.4g} B)")
     live = cfg.enc_in + cfg.dir_in
     enc_bytes = sub * (4.0 * cfg.xyz_dim + 12 + 2 * (packed.ep + packed.dp))
     enc_ops = 3.0 * live * sub  # scale, phase and sin per live column
@@ -1591,8 +1601,9 @@ def time_train_wide_kernels(device, report):
     points, 8x1024): the heads kernels on the pass's own tensors, dX and dW
     at a 1024 x 1024 trunk layer, with TFLOP/s, bounds, plain times and
     cuBLAS (F.linear for dX, torch.mm for dW, the same bf16 operands, f32
-    accumulation; no mask, no bias sums); the forward's layer GEMM and the
-    composed forward and backward of the pass."""
+    accumulation; no mask, no bias sums); the forward's layer GEMM beside
+    F.linear on its operands and bias; the composed forward and backward
+    of the pass."""
     import torch
     import torch.nn.functional as F
 
@@ -1638,6 +1649,8 @@ def time_train_wide_kernels(device, report):
         lib_dw = cuda_ms(lambda: torch.mm(gp.T, saved["h1"], **kw), 10)
         t_layer = cuda_ms(lambda: fw.eval_wide_layer([saved["h1"]], packed.mats[2],
                                                      packed.biases[2], True), 10)
+        b16 = packed.biases[2].to(torch.bfloat16)  # F.linear's bias in the operands' type
+        lib_layer = cuda_ms(lambda: F.linear(saved["h1"], packed.mats[2], b16), 10)
         t_fwd = cuda_ms(lambda: ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise),
                         3, 1)
         t_bwd = cuda_ms(lambda: ftw.fused_nerf_train_wide_bwd(packed, saved, g), 3, 1)
@@ -1668,8 +1681,12 @@ def time_train_wide_kernels(device, report):
             f"{nb:.4g} B){lib}")
     log(f"  weight-gradient library: torch.mm, {lib_dtype} out, no bias sums; dX "
         f"library: F.linear, bf16 out, no mask")
+    layer_bound, layer_by = bound(gemm, 4.0 * m * d + 2 * d * d + 4 * d)
     log(f"  eval_wide_layer (the forward's GEMM), 1024 x 1024 trunk layer at fg fine: "
-        f"{t_layer:.3f} ms = {gemm / t_layer / 1e9:.1f} TFLOP/s")
+        f"{t_layer:.3f} ms = {gemm / t_layer / 1e9:.1f} TFLOP/s; bound {layer_bound:.3f} "
+        f"ms ({layer_by}); cuBLAS (F.linear, bf16 operands and bias, f32 accumulation) "
+        f"{lib_layer:.3f} ms = {gemm / lib_layer / 1e9:.1f} TFLOP/s (the kernel takes "
+        f"{t_layer / lib_layer:.2f}x its time)")
     flops = (2 * fused_mlp.flops_per_point(cfg) + dx_flops_per_point(cfg)) * m
     bms, by = bound(flops, (fused_mlp.io_bytes_per_point(cfg) + 4) * m)
     log(f"  the fg-fine pass through the wide route: forward {t_fwd:.3f} ms + backward "
@@ -1678,7 +1695,8 @@ def time_train_wide_kernels(device, report):
         f"{flops:.4g} FLOP)")
     report["training_wide"].update(
         fg_fine_fwd_ms=t_fwd, fg_fine_bwd_ms=t_bwd, fg_fine_bound_ms=bms,
-        layer_ms_fg_fine=t_layer)
+        layer_ms_fg_fine=t_layer, layer_library_ms_fg_fine=lib_layer,
+        dx_ms_fg_fine=t_dx, dx_library_ms_fg_fine=lib_dx)
 
 
 def phase_time_train_wide(device, report, tmp: Path):

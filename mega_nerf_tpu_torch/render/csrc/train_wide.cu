@@ -23,14 +23,33 @@
 //   bf16.
 // - train_wide_dx_kernel: one layer's backward-data GEMM,
 //   Y[:, c] = sum_n G[:, n] W[n][c0 + c], on the transposed packed matrix
-//   (rows c0 .. c0 + N of it), with eval_wide.cu's layer skeleton: 128 x
-//   256 output tiles, one per CTA, a producer warpgroup keeping a 4-stage
-//   TMA ring of G boxes (128 points x 64) and weight boxes (256 x 64, L2
-//   evict_last), two consumer warpgroups on wgmma m64n256k16 with both
-//   operands K-major. The epilogue adds g_sigma[p] w_sigma[c] in f32 at the
-//   last trunk layer (as _train_bwd_kernel sums both terms before masking),
-//   applies the ReLU mask of the saved layer output (> 0) and stores bf16,
-//   or stores f32 (d_app) or unmasked bf16 (d_final).
+//   (rows c0 .. c0 + N of it), with eval_wide.cu's persistent layer GEMM
+//   without its clusters: 128 x 256 output tiles walked by one CTA per SM
+//   (tile t at point tile t / ntn, N tile t % ntn), a producer thread
+//   keeping a 3-stage TMA ring of G boxes (128 points x 64) and weight
+//   boxes (256 x 64, L2 evict_last) full across tile boundaries, two
+//   consumer warpgroups on wgmma m64n256k16 with both operands K-major.
+//   (Two-CTA clusters sharing the weight boxes, as eval_wide.cu's, made
+//   the masked dX 5% slower: they tie each CTA's pace to its peer's, and
+//   the mask loads make that pace uneven.) The epilogue adds
+//   g_sigma[p] w_sigma[c] in f32 at the last trunk layer (as
+//   _train_bwd_kernel sums both terms before masking; both brought into
+//   shared memory by cp.async at the tile's start), applies the ReLU mask
+//   of the saved layer output (> 0) and rounds to bf16, or leaves unmasked
+//   bf16 (d_final), into a shared half-tile buffer per warpgroup (four
+//   64 x 64 boxes, 128-byte swizzle) that a second producer thread stores
+//   by TMA under the next tile's products. The mask tile comes in by TMA
+//   into that same buffer as soon as the previous tile's stores have read
+//   it, so it lands under the products; each thread reads its own mask
+//   pairs there and overwrites them with its results. d_app (f32, N = the
+//   appearance width, any) goes through the same buffer 64 columns at a
+//   time and out by coalesced stores predicated on the tile's edge. One
+//   instance of the kernel per mode keeps each within ptxas's 168
+//   registers with the products pipelined.
+//   Per tile at 1024 x 1024 the design it replaces (one tile per CTA, mask
+//   words read from device memory in the epilogue a quarter tile at a
+//   time) spent 1.2 µs before its first product, 9.7 µs in products and
+//   10.1 µs in its epilogue (a %globaltimer copy of that kernel).
 // - train_wide_dw_kernel: dW = d_pre^T X and db = sum d_pre of one packed
 //   matrix (its X segments are separate tensors, each its own tensor map)
 //   or of the two heads, weight_grad.cu's design without clusters: a CTA
@@ -53,8 +72,8 @@
 // shuffle where products follow; the ring releases and the epilogue stores
 // are predicated instructions). The device helpers are eval_wide.cu's and
 // weight_grad.cu's, copied (each .cu stands alone).
-// Left for later work: persistent CTAs, two-CTA clusters multicasting the
-// shared operand, fusing dW into the dX sweep, a TMA mask tile.
+// Left for later work: two-CTA clusters multicasting the shared operand in
+// dW, ping-pong consumer warpgroups in dX, fusing dW into the dX sweep.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,16 +88,33 @@ typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------- constants
 
-// train_wide_dx_kernel (eval_wide.cu's layer GEMM tile and ring).
+// train_wide_dx_kernel (eval_wide.cu's layer GEMM tile, ring, output
+// buffer and plan: fused_wide.py WIDE_*).
 constexpr int TILE_M = 128;
 constexpr int TILE_N = 256;
 constexpr int TILE_K = 64;
-constexpr int STAGES = 4;
+constexpr int STAGES = 3;
 constexpr int A_BYTES = TILE_M * TILE_K * 2;
 constexpr int B_BYTES = TILE_N * TILE_K * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int RING_BYTES = STAGES * STAGE_BYTES;
-constexpr int DX_SMEM_BYTES = RING_BYTES + 2 * 8 * STAGES + 1024;
+// The output tile in shared memory: per consumer warpgroup its 64 rows as
+// four 64 x 64 boxes (128-byte rows, 128-byte swizzle), stored by TMA; the
+// mask tile loads into the same place first.
+constexpr int HALF_M = TILE_M / 2;
+constexpr int OUT_BOX = HALF_M * 64 * 2;
+constexpr int OUT_HALF_BYTES = HALF_M * TILE_N * 2;
+constexpr int OUT_BYTES = 2 * OUT_HALF_BYTES;
+// Per consumer warpgroup, two copies (tile parity) of the tile's epilogue
+// operands: w_sigma of its 256 columns (bf16 pairs, 512 B) and g_sigma of
+// the warpgroup's 64 rows (a 4-byte word each, at SIGMA_ROWS).
+constexpr int PARAM_BYTES = 1024;
+constexpr int SIGMA_ROWS = 512;
+constexpr int PARAMS_BYTES = 2 * 2 * PARAM_BYTES;
+// full and empty per stage; per warpgroup: ready, freed, mask landed.
+constexpr int BARRIERS = 2 * STAGES + 6;
+constexpr int DX_SMEM_BYTES =
+    RING_BYTES + OUT_BYTES + PARAMS_BYTES + 8 * BARRIERS + 1024;
 constexpr int CONSUMER_WARPS = 8;  // two warpgroups
 constexpr int DX_THREADS = CONSUMER_WARPS * 32 + 128;  // + the producer warpgroup
 constexpr int PRODUCER_REGS = 40;
@@ -181,6 +217,52 @@ __device__ __forceinline__ void st_global_if(void* addr, uint32_t v, bool p) {
       "{\n.reg .pred q;\nsetp.ne.s32 q, %2, 0;\n@q st.global.b32 [%0], %1;\n}\n" ::"l"(
           addr),
       "r"(v), "r"((int)p) : "memory");
+}
+
+// One box from shared memory at src into `map` at (column c, row r); TMA
+// clips rows and columns past the tensor. No L2 hint: with evict_first the
+// GEMMs gained 1-3% and train_wide_dw, timed after them, lost 7-8%.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c,
+                                          int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(r)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The committed stores have read shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory become visible to TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 4 bytes from global memory at src into shared memory at dst, without a
+// register on the way (cp.async); zeros where p does not hold.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool p) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(p ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of
@@ -312,29 +394,51 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x
 // ---------------------------------------------------------------- dX
 
 struct DxMaps {
-  CUtensorMap g;  // (M, K) gradient rows, 64 x 128 boxes
-  CUtensorMap w;  // (N, K) rows c0 .. c0 + N of the transposed matrix, 64 x 256
+  CUtensorMap g;     // (M, K) gradient rows, 64 x 128 boxes
+  CUtensorMap w;     // (N, K) rows c0 .. c0 + N of the transposed matrix, 64 x 256
+  CUtensorMap out;   // (M, N) bf16 output, 64 x 64 boxes (not MODE_F32)
+  CUtensorMap mask;  // (M, N) bf16 saved layer output, 64 x 64 boxes (mask modes)
 };
 
 struct DxParams {
-  void* out;            // (M, N) bf16, or f32 for MODE_F32
-  const bf16* mask;     // (M, N) saved layer output (mask modes)
+  float* out_f32;       // (M, N) f32 (MODE_F32)
   const bf16* gheads;   // (M, HEADS_ROW) heads-gradient rows (MODE_MASK_SIGMA)
   const bf16* w_sigma;  // (N,) (MODE_MASK_SIGMA)
-  int M, N, nchunk, mode;
+  int M, N, nchunk;
+  int ntn, ntiles;      // N tiles, all tiles (point tiles x N tiles)
 };
 
+// Byte offset, in a warpgroup's half of the output buffer, of the bf16 pair
+// at row r (0-63) and column 8 g + 2 q (q < 4) of the tile: box g / 8,
+// 16-byte chunk g % 8 of the row, placed at chunk (g % 8) ^ (r % 8) (the
+// 128-byte swizzle of the TMA boxes). The eight rows a warp touches at
+// once differ in r % 8, so their chunks fall in different banks.
+__device__ __forceinline__ uint32_t out_offset(int r, int g, int q) {
+  return (g >> 3) * OUT_BOX + r * 128 + ((((g & 7) ^ (r & 7))) << 4) + 4 * q;
+}
+
+// One instance per epilogue mode (MODE_*): each holds only its own
+// epilogue, which keeps the consumers within ptxas's 168 registers with the
+// products pipelined (with all four in one body, ptxas serialised them,
+// C7511).
+template <int MODE>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 train_wide_dx_kernel(const __grid_constant__ DxMaps maps,
                      const __grid_constant__ DxParams p) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 B: boxes start on that boundary.
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING_BYTES);
-  uint64_t* empty = full + STAGES;
   const uint32_t ring = smem_u32(smem);
-  const int n0 = blockIdx.x * TILE_N;
-  const int m0 = blockIdx.y * TILE_M;
+  uint8_t* outbuf = smem + RING_BYTES;
+  uint8_t* params = outbuf + OUT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(params + PARAMS_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* ready = empty + STAGES;  // per warpgroup: its half tile is written
+  uint64_t* freed = ready + 2;       // per warpgroup: the store has read it
+  uint64_t* mask_in = freed + 2;     // per warpgroup: its mask half has landed
+  constexpr bool direct = MODE == MODE_F32;
+  constexpr bool masked = MODE == MODE_MASK || MODE == MODE_MASK_SIGMA;
+  constexpr bool sigma = MODE == MODE_MASK_SIGMA;
   // Read from lane 0, so the compiler knows the warp (and warpgroup) index
   // is uniform: wgmma under a branch it cannot prove uniform is serialised.
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
@@ -345,124 +449,195 @@ train_wide_dx_kernel(const __grid_constant__ DxMaps maps,
       mbar_init(full + s, 1);
       mbar_init(empty + s, CONSUMER_WARPS);
     }
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(ready + h, 128);
+      mbar_init(freed + h, 1);
+      mbar_init(mask_in + h, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp >= CONSUMER_WARPS) {
-    // Producer warpgroup: it gives its registers to the consumers, and one
-    // thread keeps the ring full.
+    // Producer warpgroup: it gives its registers to the consumers. One
+    // thread keeps the ring full across tile boundaries; another loads each
+    // tile's mask into the output buffer (as soon as the previous tile's
+    // stores have read it) and stores each finished half tile by TMA.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (warp == CONSUMER_WARPS && lane == 0) {
-      for (int c = 0; c < p.nchunk; ++c) {
-        const int st = c % STAGES;
-        const int use = c / STAGES;
-        if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
-        mbar_expect_tx(full + st, STAGE_BYTES);
-        const uint32_t dst = ring + st * STAGE_BYTES;
-        tma_load(dst, &maps.g, c * TILE_K, m0, full + st);
-        tma_load_keep(dst + A_BYTES, &maps.w, c * TILE_K, n0, full + st);
+      int st = 0, use = 0;
+      for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+        const int m0 = (t / p.ntn) * TILE_M, n0 = (t % p.ntn) * TILE_N;
+        for (int c = 0; c < p.nchunk; ++c) {
+          if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+          mbar_expect_tx(full + st, STAGE_BYTES);
+          const uint32_t dst = ring + st * STAGE_BYTES;
+          tma_load(dst, &maps.g, c * TILE_K, m0, full + st);
+          tma_load_keep(dst + A_BYTES, &maps.w, c * TILE_K, n0, full + st);
+          if (++st == STAGES) st = 0, ++use;
+        }
       }
+    } else if (warp == CONSUMER_WARPS + 1 && lane == 0 && !direct) {
+      int it = 0;
+      for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x, ++it) {
+        const int m0 = (t / p.ntn) * TILE_M, n0 = (t % p.ntn) * TILE_N;
+        for (int h = 0; masked && h < 2; ++h) {
+          mbar_expect_tx(mask_in + h, OUT_HALF_BYTES);
+          for (int b = 0; b < TILE_N / 64; ++b)
+            tma_load(smem_u32(outbuf + h * OUT_HALF_BYTES + b * OUT_BOX), &maps.mask,
+                     n0 + 64 * b, m0 + HALF_M * h, mask_in + h);
+        }
+        for (int h = 0; h < 2; ++h) {
+          mbar_wait(ready + h, it & 1);
+          for (int b = 0; b < TILE_N / 64; ++b)
+            tma_store(&maps.out, smem_u32(outbuf + h * OUT_HALF_BYTES + b * OUT_BOX),
+                      n0 + 64 * b, m0 + HALF_M * h);
+          bulk_commit();
+        }
+        bulk_wait_read();
+        mbar_arrive(freed);
+        mbar_arrive(freed + 1);
+      }
+      bulk_wait_all();
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
   const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  uint8_t* half = outbuf + wg * OUT_HALF_BYTES;
+  // Row of accumulators 0-1 of each group of four in the warpgroup's 64 (+ 8
+  // for 2-3); its r % 8 is lane / 4.
+  const int r0 = 16 * (warp & 3) + (lane >> 2);
+  const int q = lane & 3;
   float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  // Products of a stage stay in flight while the next stage's issue; its
-  // stage is released once wgmma.wait_group 1 says they are done.
-  int held = -1;
-  for (int c = 0; c < p.nchunk; ++c) {
-    const int st = c % STAGES;
-    mbar_wait(full + st, (c / STAGES) & 1);
-    const uint32_t base = ring + st * STAGE_BYTES;
-    const uint64_t da = kmajor_desc(base + wg * 64 * 128);
-    const uint64_t db = kmajor_desc(base + A_BYTES);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < TILE_K / 16; ++kk)
-      wgmma_n256(acc, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
-    wgmma_commit();
-    wgmma_wait_one();
-    mbar_arrive_if(empty + held, lane == 0 && held >= 0);
-    held = st;
-  }
-  wgmma_wait_all();
-  mbar_arrive_if(empty + held, lane == 0 && held >= 0);
-  // The epilogue reads the accumulators only after the wait above.
-  fence_operands<128>(acc);
-
-  // Accumulator i of a thread: row 16 * (warp % 4) + lane / 4 (+ 8 for
-  // i % 4 >= 2) of the warpgroup's 64, column 8 * (i / 4) + 2 * (lane % 4) +
-  // i % 2 of the tile's 256.
-  const bool f32_out = p.mode == MODE_F32;
-  const bool masked = p.mode == MODE_MASK || p.mode == MODE_MASK_SIGMA;
-  const bool sigma = p.mode == MODE_MASK_SIGMA;
-  const int row0 = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
-  // Loads read clamped addresses; only `sigma` and `masked` (launch
-  // parameters, uniform) choose whether they happen. The mask words of a
-  // quarter of the tile's columns are all loaded before any store of that
-  // quarter (a quarter keeps them within ptxas's 168 registers):
-  // each predicated store is an asm statement with a memory clobber, which
-  // no load may pass, so loads interleaved with stores would each wait a
-  // round trip to device memory.
-  float gs[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = row0 + 8 * rr;
-    gs[rr] = sigma ? __bfloat162float(p.gheads[(size_t)(row < p.M ? row : 0) * HEADS_ROW])
-                   : 0.f;
-  }
-  constexpr int PART = TILE_N / 32;  // 8-column groups per quarter
-#pragma unroll
-  for (int part = 0; part < 4; ++part) {
-    uint32_t mk[PART][2];
-    float2 ws[PART];
-#pragma unroll
-    for (int j = 0; j < PART; ++j) {
-      const int col = n0 + 8 * (PART * part + j) + 2 * (lane & 3);
-      const bool live0 = col < p.N;
-      ws[j] = sigma ? pair_at(p.w_sigma + (live0 ? col : 0)) : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int row = row0 + 8 * rr;
-        const bool ok = live0 && row < p.M;
-        const size_t at = (size_t)(ok ? row : 0) * p.N + (ok ? col : 0);
-        mk[j][rr] = masked ? __ldg(reinterpret_cast<const unsigned int*>(p.mask + at))
-                           : 0x3F803F80u;  // bf16 1.0 pairs: nothing masked
-      }
+  int st = 0, phase = 0;
+  int it = 0;
+  for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x, ++it) {
+    const int m0 = (t / p.ntn) * TILE_M, n0 = (t % p.ntn) * TILE_N;
+    // MODE_MASK_SIGMA: the tile's w_sigma pairs and the warpgroup's g_sigma
+    // words into its copy for the tile's parity, loading under the
+    // products (zeros past N and M). Every thread of the warpgroup passed
+    // the barrier of the last epilogue, so none still reads the copy of two
+    // tiles back.
+    uint8_t* prm = params + (2 * wg + (it & 1)) * PARAM_BYTES;
+    if (sigma) {
+      const int col = n0 + 2 * tid;
+      cp_async4(smem_u32(prm + 4 * tid), p.w_sigma + (col < p.N ? col : 0), col < p.N);
+      const int row = m0 + HALF_M * wg + tid;
+      const bool live = tid < HALF_M && row < p.M;
+      cp_async4(smem_u32(prm + SIGMA_ROWS + 4 * tid),
+                p.gheads + (size_t)(live ? row : 0) * HEADS_ROW, live);
+      cp_async_commit();
     }
+
+    // Products of a stage stay in flight while the next stage's issue; its
+    // stage is released once wgmma.wait_group 1 says they are done.
+    int held = -1;
+    for (int c = 0; c < p.nchunk; ++c) {
+      mbar_wait(full + st, phase);
+      const uint32_t base = ring + st * STAGE_BYTES;
+      const uint64_t da = kmajor_desc(base + wg * 64 * 128);
+      const uint64_t db = kmajor_desc(base + A_BYTES);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < PART; ++j) {
-      const int g = PART * part + j;
-      const int col = n0 + 8 * g + 2 * (lane & 3);
-      const bool live0 = col < p.N;
-      const bool live1 = col + 1 < p.N;
+      for (int kk = 0; kk < TILE_K / 16; ++kk)
+        wgmma_n256(acc, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_one();
+      mbar_arrive_if(empty + held, lane == 0 && held >= 0);
+      held = st;
+      st = st + 1 == STAGES ? 0 : st + 1;
+      phase ^= st == 0;
+    }
+    wgmma_wait_all();
+    mbar_arrive_if(empty + held, lane == 0);
+    // The epilogue reads the accumulators only after the wait above.
+    fence_operands<128>(acc);
+
+    // Accumulator i of a thread: row r0 (+ 8 for i % 4 >= 2) of the
+    // warpgroup's 64, column 8 * (i / 4) + 2 * q + i % 2 of the tile's 256.
+    if (direct) {
+      // d_app (f32, N = the appearance width) through this warpgroup's half
+      // of the output buffer, 64 columns at a time: the accumulators go to
+      // shared memory (32-bit addresses, as in the other epilogues), then
+      // the warpgroup copies the 64 x 64 slab out row by row, each warp
+      // storing 32 consecutive floats, predicated on the edge. Stored
+      // straight from the accumulators, each store's 64-bit address held
+      // registers the products' pipeline needs (ptxas serialised it, C7511).
+      float* slab = reinterpret_cast<float*>(half);
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int row = row0 + 8 * rr;
-        const bool ok = live0 && row < p.M;
-        const size_t at = (size_t)(ok ? row : 0) * p.N + (ok ? col : 0);
-        float v0 = acc[4 * g + 2 * rr];
-        float v1 = acc[4 * g + 2 * rr + 1];
-        v0 = sigma ? __fadd_rn(v0, __fmul_rn(gs[rr], ws[j].x)) : v0;
-        v1 = sigma ? __fadd_rn(v1, __fmul_rn(gs[rr], ws[j].y)) : v1;
-        const float2 m2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&mk[j][rr]));
-        v0 = m2.x > 0.f ? v0 : 0.f;
-        v1 = m2.y > 0.f ? v1 : 0.f;
-        if (f32_out) {
-          float* out = reinterpret_cast<float*>(p.out);
-          const bool ok1 = live1 && row < p.M;
-          st_global_if(out + at, __float_as_uint(v0), ok);
-          st_global_if(out + (ok1 ? at + 1 : 0), __float_as_uint(v1), ok1);
-        } else {
-          st_global_if(reinterpret_cast<bf16*>(p.out) + at, bf16_pair(v0, v1), ok);
+      for (int sl = 0; sl < TILE_N / 64; ++sl) {
+        if (n0 + 64 * sl < p.N) {  // uniform: kernel parameters and the tile
+          named_bar(1 + wg, 128);  // the last slab has been copied out
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr)
+              *reinterpret_cast<float2*>(slab + (r0 + 8 * rr) * 64 + 8 * j + 2 * q) =
+                  make_float2(acc[4 * (8 * sl + j) + 2 * rr],
+                              acc[4 * (8 * sl + j) + 2 * rr + 1]);
+          named_bar(1 + wg, 128);
+          const int col = n0 + 64 * sl + (tid & 63);
+          for (int r = tid >> 6; r < HALF_M; r += 2) {
+            const int row = m0 + HALF_M * wg + r;
+            const bool ok = row < p.M && col < p.N;
+            st_global_if(p.out_f32 + (ok ? (size_t)row * p.N + col : 0),
+                         __float_as_uint(slab[r * 64 + (tid & 63)]), ok);
+          }
         }
       }
+    } else {
+      // The copies of the whole warpgroup have landed, and the half buffer
+      // holds the tile's mask (mask modes) or the store has read the
+      // previous tile out of it (parity 1 passes at the first tile).
+      cp_async_wait_all();
+      named_bar(1 + wg, 128);
+      mbar_wait(masked ? mask_in + wg : freed + wg, masked ? it & 1 : (it & 1) ^ 1);
+      float gs[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        gs[rr] = sigma ? __bfloat162float(*reinterpret_cast<const bf16*>(
+                             prm + SIGMA_ROWS + 4 * (r0 + 8 * rr)))
+                       : 0.f;
+      // Four 8-column groups at a time: their mask pairs are all read
+      // before any result overwrites them in place (each thread reads and
+      // writes only its own pairs).
+#pragma unroll
+      for (int part = 0; part < TILE_N / 32; ++part) {
+        uint32_t mk[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            mk[j][rr] = masked ? *reinterpret_cast<const uint32_t*>(
+                                     half + out_offset(r0 + 8 * rr, 4 * part + j, q))
+                               : 0x3F803F80u;  // bf16 1.0 pairs: nothing masked
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int g = 4 * part + j;
+          const float2 ws =
+              sigma ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                          prm + 4 * (4 * g + q)))
+                    : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float v0 = acc[4 * g + 2 * rr];
+            float v1 = acc[4 * g + 2 * rr + 1];
+            v0 = sigma ? __fadd_rn(v0, __fmul_rn(gs[rr], ws.x)) : v0;
+            v1 = sigma ? __fadd_rn(v1, __fmul_rn(gs[rr], ws.y)) : v1;
+            const float2 m2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&mk[j][rr]));
+            v0 = m2.x > 0.f ? v0 : 0.f;
+            v1 = m2.y > 0.f ? v1 : 0.f;
+            *reinterpret_cast<uint32_t*>(half + out_offset(r0 + 8 * rr, g, q)) =
+                bf16_pair(v0, v1);
+          }
+        }
+      }
+      fence_async_smem();
+      mbar_arrive(ready + wg);
     }
   }
 }
@@ -869,29 +1044,40 @@ int train_wide_heads_bwd_launch(const long long* ptrs, const int* dims, void* st
 // ptrs: g, the transposed matrix's first row used, out, mask (or 0), heads
 // rows (or 0), w_sigma (or 0); dims: M, N (output columns), K (the
 // reduction: g's and the matrix's columns), mode, g's row stride (elements),
-// heads row width (fused_train_wide.py::train_wide_dx).
-int train_wide_dx_launch(const long long* ptrs, const int* dims, void* stream) {
+// heads row width; plan: tile_m, tile_n, tile_k, stages, output buffer
+// bytes, smem bytes (fused_wide.py's plan, checked against this file's
+// constants); grid: the CTAs, each walking tiles blockIdx.x, + gridDim.x,
+// ... (fused_train_wide.py::train_wide_dx).
+int train_wide_dx_launch(const long long* ptrs, const int* dims, const int* plan,
+                         int grid, void* stream) {
+  if (plan[0] != TILE_M || plan[1] != TILE_N || plan[2] != TILE_K ||
+      plan[3] != STAGES || plan[4] != OUT_BYTES || plan[5] != DX_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
   DxParams p;
-  p.out = reinterpret_cast<void*>(ptrs[2]);
-  p.mask = reinterpret_cast<const bf16*>(ptrs[3]);
+  p.out_f32 = reinterpret_cast<float*>(ptrs[2]);
   p.gheads = reinterpret_cast<const bf16*>(ptrs[4]);
   p.w_sigma = reinterpret_cast<const bf16*>(ptrs[5]);
   p.M = dims[0];
   p.N = dims[1];
   const int K = dims[2];
-  p.mode = dims[3];
+  const int mode = dims[3];
   const int ld_g = dims[4];
   p.nchunk = (K + TILE_K - 1) / TILE_K;
-  const int grid_y = (p.M + TILE_M - 1) / TILE_M;
-  const bool masked = p.mode == MODE_MASK || p.mode == MODE_MASK_SIGMA;
-  const bool known = p.mode == MODE_F32 || p.mode == MODE_NONE || masked;
-  if (!known || dims[5] != HEADS_ROW ||
-      p.N < 1 || K < 1 || (p.mode != MODE_F32 && p.N % 2) || grid_y > 65535 ||
-      (masked && !p.mask) ||
-      (p.mode == MODE_MASK_SIGMA && (!p.gheads || !p.w_sigma)) ||
+  p.ntn = (p.N + TILE_N - 1) / TILE_N;
+  const long long tiles = (long long)((p.M + TILE_M - 1) / TILE_M) * p.ntn;
+  const bool masked = mode == MODE_MASK || mode == MODE_MASK_SIGMA;
+  const bool known = mode == MODE_F32 || mode == MODE_NONE || masked;
+  // bf16 outputs and masks are TMA boxes: 16-byte aligned base and rows.
+  const bool boxes = mode != MODE_F32;
+  if (!known || dims[5] != HEADS_ROW || p.N < 1 || K < 1 || tiles > (1LL << 30) ||
+      grid < 1 || (boxes && (p.N % 8 || misaligned(ptrs[2]))) ||
+      (masked && (!ptrs[3] || misaligned(ptrs[3]))) ||
+      (mode == MODE_MASK_SIGMA && (!p.gheads || !p.w_sigma || ptrs[4] % 4 ||
+                                     ptrs[5] % 4)) ||
       misaligned(ptrs[0]) || misaligned(ptrs[1]) || (ld_g * 2) % 16 || (K * 2) % 16)
     return (int)cudaErrorInvalidValue;
   if (p.M <= 0) return 0;
+  p.ntiles = (int)tiles;
   if (!encode_tiled()) return ERR_NO_ENCODE;
   DxMaps maps;
   memset(&maps, 0, sizeof maps);
@@ -900,14 +1086,41 @@ int train_wide_dx_launch(const long long* ptrs, const int* dims, void* stream) {
   if (r == CUDA_SUCCESS)
     r = make_map(&maps.w, reinterpret_cast<const void*>(ptrs[1]), p.N, K, K, TILE_N,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+  if (r == CUDA_SUCCESS && boxes)
+    r = make_map(&maps.out, reinterpret_cast<const void*>(ptrs[2]), p.M, p.N, p.N,
+                 HALF_M, CU_TENSOR_MAP_L2_PROMOTION_NONE);
+  if (r == CUDA_SUCCESS && masked)
+    r = make_map(&maps.mask, reinterpret_cast<const void*>(ptrs[3]), p.M, p.N, p.N,
+                 HALF_M, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
   if (r != CUDA_SUCCESS) return -(int)r;
-  cudaError_t err = cudaFuncSetAttribute(
-      train_wide_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM_BYTES);
+  void (*kernel)(const DxMaps, const DxParams) =
+      mode == MODE_F32    ? train_wide_dx_kernel<MODE_F32>
+      : mode == MODE_NONE ? train_wide_dx_kernel<MODE_NONE>
+      : mode == MODE_MASK ? train_wide_dx_kernel<MODE_MASK>
+                            : train_wide_dx_kernel<MODE_MASK_SIGMA>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.N + TILE_N - 1) / TILE_N, grid_y);
-  train_wide_dx_kernel<<<grid, DX_THREADS, DX_SMEM_BYTES,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(maps, p);
+  kernel<<<grid, DX_THREADS, DX_SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(maps,
+                                                                                     p);
   return (int)cudaGetLastError();
+}
+
+// CTAs of train_wide_dx_kernel with smem bytes of shared memory that the
+// current device holds at once: per SM (the occupancy calculator, on the
+// masked instance: all four take the same threads and shared memory) x SMs.
+int train_wide_resident_ctas(int smem, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(train_wide_dx_kernel<MODE_MASK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, train_wide_dx_kernel<MODE_MASK>, DX_THREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *ctas = per_sm * sms;
+  return (int)err;
 }
 
 // ptrs: out, scratch, counters, then one pointer per tensor map; dims: M,

@@ -452,22 +452,23 @@ def _raise_if(lib: ctypes.CDLL, err: int, what: str) -> None:
                            + lib.error_string(err).decode())
 
 
-_RESIDENT: Dict[Tuple[int, int], int] = {}
+_RESIDENT: Dict[Tuple[str, int, int], int] = {}
 
 
-def _resident_ctas(lib: ctypes.CDLL, device: torch.device, smem: int) -> int:
-    """CTAs of the eval kernel with `smem` bytes of shared memory that the
-    card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
-    SMs), cached per device and shared-memory size."""
+def _resident_ctas(lib: ctypes.CDLL, device: torch.device, smem: int,
+                   query: str = "eval_fwd_resident_ctas") -> int:
+    """CTAs of a persistent kernel with `smem` bytes of shared memory that
+    the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+    SMs, the library's `query` export), cached per query, device and
+    shared-memory size."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, smem)
+    key = (query, index, smem)
     if key not in _RESIDENT:
         ctas = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _raise_if(lib, lib.eval_fwd_resident_ctas(smem, ctypes.byref(ctas)),
-                      "eval_fwd occupancy")
+            _raise_if(lib, getattr(lib, query)(smem, ctypes.byref(ctas)), query)
         if ctas.value < 1:
-            raise RuntimeError(f"eval_fwd: no CTA with {smem} B of shared "
+            raise RuntimeError(f"{query}: no CTA with {smem} B of shared "
                                "memory fits an SM")
         _RESIDENT[key] = ctas.value
     return _RESIDENT[key]

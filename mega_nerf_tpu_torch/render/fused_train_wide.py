@@ -71,7 +71,7 @@ from mega_nerf_tpu_torch.render.fused_train import (
     transposed_weights,
 )
 from mega_nerf_tpu_torch.render.fused_wide import (
-    WIDE_TILE_M,
+    DX_CLUSTER,
     _check_rows,
     _device_rule,
     _longs,
@@ -79,11 +79,11 @@ from mega_nerf_tpu_torch.render.fused_wide import (
     eval_wide_encode_plain,
     eval_wide_layer,
     eval_wide_layer_plain,
+    wide_grid,
+    wide_plan_ints,
+    wide_resident_ctas,
 )
 
-# The most points one call takes: the GEMM grids' y dimension (point tiles)
-# stays below 65,536. At 1024 wide that is ~166 GB of saved activations.
-WIDE_MAX_TRAIN_POINTS = 65535 * WIDE_TILE_M
 HEADS_GRAD_WIDTH = 16  # bf16 columns of a heads-gradient row (32 B)
 HEADS_RGB_COL = 8  # g_rgb's first column: TMA boxes start on 16 B
 # train_wide_dx's epilogues (train_wide.cu MODE_*).
@@ -350,7 +350,9 @@ def _train_wide_library() -> ctypes.CDLL:
         vp = ctypes.c_void_p
         lib.train_wide_heads_fwd_launch.argtypes = [vp, vp, vp]
         lib.train_wide_heads_bwd_launch.argtypes = [vp, vp, vp]
-        lib.train_wide_dx_launch.argtypes = [vp, vp, vp]
+        lib.train_wide_dx_launch.argtypes = [vp, vp, vp, ctypes.c_int, vp]
+        lib.train_wide_resident_ctas.argtypes = [ctypes.c_int, vp]
+        lib.train_wide_resident_ctas.restype = ctypes.c_int
         lib.train_wide_dw_launch.argtypes = [vp, vp, vp, vp, vp]
         for fn in (lib.train_wide_heads_fwd_launch, lib.train_wide_heads_bwd_launch,
                    lib.train_wide_dx_launch, lib.train_wide_dw_launch):
@@ -446,13 +448,16 @@ def train_wide_heads_bwd(packed: PackedMLP, g: torch.Tensor, pre: torch.Tensor,
 def train_wide_dx(g: torch.Tensor, wt: torch.Tensor, row0: int, k: int, mode: int,
                   mask: Optional[torch.Tensor] = None,
                   g_heads: Optional[torch.Tensor] = None,
-                  w_sigma: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  w_sigma: Optional[torch.Tensor] = None,
+                  grid: Optional[int] = None) -> torch.Tensor:
     """mode(g @ wt[row0:row0 + k]^T) -> (M, k), f32 for DX_F32, else bf16.
 
     g (M, N) bf16 gradient rows; wt (Ktot, N) bf16 transposed packed matrix
     (`fused_train.transposed_weights`); mask (M, k) bf16 saved output for
     the mask modes; g_heads (M, HEADS_GRAD_WIDTH) and w_sigma (k,) bf16 for
-    DX_MASK_SIGMA."""
+    DX_MASK_SIGMA. On CUDA tensors the kernel is persistent
+    (`fused_wide.wide_grid` CTAs, without clusters; `grid`, the tests'
+    only, sets another count)."""
     if not _device_rule("train_wide_dx", g):
         return train_wide_dx_plain(g, wt, row0, k, mode, mask, g_heads, w_sigma)
     m, n = g.shape
@@ -472,21 +477,22 @@ def train_wide_dx(g: torch.Tensor, wt: torch.Tensor, row0: int, k: int, mode: in
     for t in (wt, mask, g_heads, w_sigma):
         if t is not None and t.device != g.device:
             raise ValueError("train_wide_dx: tensors on different devices")
-    if mode != DX_F32 and k % 2:
-        raise ValueError("train_wide_dx: bf16 outputs store column pairs (even k)")
+    if mode != DX_F32 and k % 8:
+        raise ValueError("train_wide_dx: bf16 outputs leave by TMA (k a multiple of 8)")
     out = torch.empty((m, k), dtype=torch.float32 if mode == DX_F32 else torch.bfloat16,
                       device=g.device)
     if m == 0 or k == 0:
         return out
-    if m > WIDE_MAX_TRAIN_POINTS:
-        raise ValueError(f"train_wide_dx: {m} points exceed one launch's grid")
     lib = _train_wide_library()
     ptrs = [g.data_ptr(), wt.data_ptr() + 2 * row0 * n, out.data_ptr(),
             mask.data_ptr() if masked else 0,
             g_heads.data_ptr() if mode == DX_MASK_SIGMA else 0,
             w_sigma.data_ptr() if mode == DX_MASK_SIGMA else 0]
     dims = [m, k, n, mode, g.stride(0), HEADS_GRAD_WIDTH]
-    err = lib.train_wide_dx_launch(_longs(ptrs), _ints(dims), _stream(g))
+    if grid is None:
+        grid = wide_grid(m, k, wide_resident_ctas(lib, "train_wide", g.device), DX_CLUSTER)
+    err = lib.train_wide_dx_launch(_longs(ptrs), _ints(dims), _ints(wide_plan_ints()),
+                                   int(grid), _stream(g))
     train_wide_dx.launches += 1
     _raise_if(lib, err, "train_wide_dx")
     return out
@@ -600,9 +606,6 @@ def _plain_ops() -> _Ops:
 def _forward(packed: PackedMLP, xyz, dirs, app, noise, ops: _Ops):
     cfg = packed.config
     plan = check_plan(packed)
-    if xyz.shape[0] > WIDE_MAX_TRAIN_POINTS:
-        raise ValueError(f"the wide training route takes at most "
-                         f"{WIDE_MAX_TRAIN_POINTS} points per call")
     enc, dir_enc = ops.encode(packed, xyz, dirs)
     saved = {"enc": enc}
     h, branch = enc, None

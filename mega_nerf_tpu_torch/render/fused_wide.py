@@ -18,10 +18,13 @@ a layer does ~1,000 FLOP per byte it moves, far above the card's ridge, so
 keeping the activation tile on chip (the fused chain's design, which needs
 256 KB of shared memory per 64 points at this width) buys nothing.
 
-`wide_plan(cfg)` gives the GEMM tile, ring and shared memory (the kernel's
-constants, checked by its launcher) and the sub-chunk: the points one pass
-of the layer chain takes, so that its scratch (two activation buffers, the
-branch and the encodes) stays within `WIDE_SCRATCH_LIMIT`.
+`wide_plan(cfg)` gives the GEMM tile, ring, output buffer and shared memory
+(the kernel's constants, checked by its launcher; `train_wide_dx` runs on
+the same plan) and the sub-chunk: the points one pass of the layer chain
+takes, so that its scratch (two activation buffers, the branch and the
+encodes) stays within `WIDE_SCRATCH_LIMIT`. The GEMM is persistent:
+`wide_grid` CTAs, as many as the card holds, walk the output tiles in the
+order `tile_walk` mirrors.
 
 Each kernel wrapper runs its plain version on CPU tensors and launches its
 kernel on CUDA tensors or raises; wrappers count launches in `.launches`,
@@ -46,6 +49,7 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     PackedMLP,
     _check,
     _raise_if,
+    _resident_ctas,
     _round_up,
     check_inputs,
     encode,
@@ -55,15 +59,28 @@ from mega_nerf_tpu_torch.render.fused_train import _ints, _stream
 WIDE_TILE_M = 128  # points of a GEMM tile: two consumer warpgroups of 64
 WIDE_TILE_N = 256  # output columns of a GEMM tile (wgmma m64n256k16)
 WIDE_TILE_K = 64  # k columns of a ring stage: one 128-byte swizzle row
-WIDE_STAGES = 4
+WIDE_STAGES = 3
 WIDE_ALIGN = 1024  # the kernel aligns its base to the swizzle period
 WIDE_MAX_SEGMENTS = 3
 # A ring stage: an A box (tile_m x tile_k) and a B box (tile_n x tile_k), bf16.
 WIDE_STAGE_BYTES = 2 * WIDE_TILE_K * (WIDE_TILE_M + WIDE_TILE_N)
-# The ring, its full and empty mbarriers, the alignment slack.
-WIDE_SMEM_BYTES = WIDE_STAGES * WIDE_STAGE_BYTES + 2 * 8 * WIDE_STAGES + WIDE_ALIGN
+# The bf16 output tile staged for its TMA store (and, in train_wide_dx, the
+# mask tile before it); per consumer warpgroup two 1 KB copies (tile
+# parity) of the tile's epilogue operands (bias, or w_sigma and g_sigma).
+WIDE_OUT_BYTES = 2 * WIDE_TILE_M * WIDE_TILE_N
+WIDE_PARAMS_BYTES = 2 * 2 * 1024
+# full and empty per stage; per warpgroup ready, freed and mask landed.
+WIDE_BARRIERS = 2 * WIDE_STAGES + 6
+# The ring, the output buffer, the epilogue operands, the mbarriers, the
+# alignment slack (both GEMM kernels: eval_wide_layer and train_wide_dx).
+WIDE_SMEM_BYTES = (WIDE_STAGES * WIDE_STAGE_BYTES + WIDE_OUT_BYTES + WIDE_PARAMS_BYTES
+                   + 8 * WIDE_BARRIERS + WIDE_ALIGN)
+# CTAs per cluster: eval_wide_layer's two share each stage's weight box;
+# train_wide_dx runs without clusters.
+WIDE_CLUSTER = 2
+DX_CLUSTER = 1
 # Scratch of one pass of the layer chain at most, and the most points a
-# pass takes (the GEMM grid's y dimension is below 65,536 tiles).
+# pass takes (32,768 point tiles).
 WIDE_SCRATCH_LIMIT = 8 * 2 ** 30
 WIDE_MAX_SUB_CHUNK = 2 ** 22
 
@@ -75,6 +92,7 @@ class WidePlan:
     tile_k: int
     stages: int
     stage_bytes: int
+    out_bytes: int
     smem_bytes: int
     sub_chunk: int  # points per pass of the layer chain
     scratch_bytes: int  # device scratch of one pass at sub_chunk points
@@ -103,7 +121,55 @@ def wide_plan(cfg: NeRFConfig) -> WidePlan:
     while sub * 2 <= WIDE_MAX_SUB_CHUNK and sub * 2 * per_point <= WIDE_SCRATCH_LIMIT:
         sub *= 2
     return WidePlan(WIDE_TILE_M, WIDE_TILE_N, WIDE_TILE_K, WIDE_STAGES,
-                    WIDE_STAGE_BYTES, WIDE_SMEM_BYTES, sub, sub * per_point)
+                    WIDE_STAGE_BYTES, WIDE_OUT_BYTES, WIDE_SMEM_BYTES, sub,
+                    sub * per_point)
+
+
+def wide_plan_ints() -> List[int]:
+    """The GEMM plan both launchers check against their constants: tile_m,
+    tile_n, tile_k, stages, output buffer bytes, shared-memory bytes."""
+    return [WIDE_TILE_M, WIDE_TILE_N, WIDE_TILE_K, WIDE_STAGES, WIDE_OUT_BYTES,
+            WIDE_SMEM_BYTES]
+
+
+def wide_units(m: int, n: int, cluster: int) -> int:
+    """What one cluster of `cluster` CTAs computes at a time: `cluster`
+    neighbouring point tiles of one N tile."""
+    return -(-m // (cluster * WIDE_TILE_M)) * -(-n // WIDE_TILE_N)
+
+
+def wide_grid(m: int, n: int, resident: int, cluster: int = WIDE_CLUSTER) -> int:
+    """CTAs of a persistent GEMM launch: whole clusters, one per unit of
+    work, at most as many as the card holds at once."""
+    return cluster * max(1, min(wide_units(m, n, cluster), resident // cluster))
+
+
+def tile_walk(m: int, n: int, grid: int,
+              cluster: int = WIDE_CLUSTER) -> List[List[Tuple[int, int]]]:
+    """(first point, first column) of the tiles each of `grid` CTAs (whole
+    clusters) computes, in order, mirroring the kernels: cluster c = b //
+    cluster takes units u = c, c + grid / cluster, ..., unit u at point
+    tiles cluster (u // ntn) + r (r < cluster) and N tile u % ntn, CTA b
+    the one of rank r = b % cluster. A CTA whose unit has no point tile of
+    its rank (the count of point tiles is not a multiple of the cluster)
+    computes a tile wholly past m and stores nothing; it is left out here."""
+    ntm, ntn = -(-m // WIDE_TILE_M), -(-n // WIDE_TILE_N)
+    walk = []
+    for b in range(grid):
+        tiles = []
+        for u in range(b // cluster, wide_units(m, n, cluster), grid // cluster):
+            mt = cluster * (u // ntn) + b % cluster
+            if mt < ntm:
+                tiles.append((mt * WIDE_TILE_M, (u % ntn) * WIDE_TILE_N))
+        walk.append(tiles)
+    return walk
+
+
+def wide_resident_ctas(lib: ctypes.CDLL, name: str, device: torch.device) -> int:
+    """CTAs of library `name`'s GEMM kernel the card holds at once (its
+    `<name>_resident_ctas` export at WIDE_SMEM_BYTES: whole clusters),
+    cached per device."""
+    return _resident_ctas(lib, device, WIDE_SMEM_BYTES, f"{name}_resident_ctas")
 
 
 def sub_chunks(m: int, sub: int) -> List[Tuple[int, int]]:
@@ -209,7 +275,9 @@ def _wide_library() -> ctypes.CDLL:
     if not getattr(lib, "_wide_bound", False):
         vp = ctypes.c_void_p
         lib.eval_wide_encode_launch.argtypes = [vp, vp, vp]
-        lib.eval_wide_layer_launch.argtypes = [vp, vp, vp, vp]
+        lib.eval_wide_layer_launch.argtypes = [vp, vp, vp, ctypes.c_int, vp]
+        lib.eval_wide_resident_ctas.argtypes = [ctypes.c_int, vp]
+        lib.eval_wide_resident_ctas.restype = ctypes.c_int
         lib.eval_wide_heads_launch.argtypes = [vp, vp, vp]
         for fn in (lib.eval_wide_encode_launch, lib.eval_wide_layer_launch,
                    lib.eval_wide_heads_launch):
@@ -286,14 +354,17 @@ def eval_wide_encode(packed: PackedMLP, xyz: torch.Tensor,
 
 
 def eval_wide_layer(xs: Sequence[torch.Tensor], w: torch.Tensor, b: torch.Tensor,
-                    relu: bool, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    relu: bool, out: Optional[torch.Tensor] = None,
+                    grid: Optional[int] = None) -> torch.Tensor:
     """act(sum_s X_s W[:, col_s : col_s + K_s]^T + b) -> (M, N) bf16.
 
     xs: 1-3 segments (M, K_s), in `pack_params`' column order (each at the
     column `segment_columns` gives); w (N, Ktot) bf16 packed matrix; b (N,)
     f32. On CUDA tensors each segment may be a row-strided view (TMA reads
-    it in place, zeros past its width), `out` (contiguous (M, N) bf16) is
-    written when given."""
+    it in place, zeros past its width), `out` (contiguous (M, N) bf16, N a
+    multiple of 8: TMA stores its rows) is written when given. `grid` (the
+    tests' only; even: clusters of WIDE_CLUSTER) launches that many CTAs in
+    place of `wide_grid`'s."""
     if not _device_rule("eval_wide_layer", w):
         return eval_wide_layer_plain(xs, w, b, relu)
     if not 1 <= len(xs) <= WIDE_MAX_SEGMENTS:
@@ -311,22 +382,24 @@ def eval_wide_layer(xs: Sequence[torch.Tensor], w: torch.Tensor, b: torch.Tensor
         _check_rows(f"segment {i}", x, torch.bfloat16, m, widths[i])
     _check_rows("w", w, torch.bfloat16, n, ktot)
     _check("b", b, torch.float32, (n,))
+    if n % 8:
+        raise ValueError(f"eval_wide_layer: {n} output columns (TMA stores rows of "
+                         "a multiple of 8)")
     if out is None:
         out = torch.empty((m, n), dtype=torch.bfloat16, device=w.device)
     _check("out", out, torch.bfloat16, (m, n))
     if m == 0:
         return out
-    if m > 65535 * WIDE_TILE_M:
-        raise ValueError(f"eval_wide_layer: {m} points exceed one launch's grid")
     lib = _wide_library()
-    plan_ints = [WIDE_TILE_M, WIDE_TILE_N, WIDE_TILE_K, WIDE_STAGES, WIDE_SMEM_BYTES]
+    if grid is None:
+        grid = wide_grid(m, n, wide_resident_ctas(lib, "eval_wide", w.device))
     ptrs = [x.data_ptr() for x in xs] + [0] * (WIDE_MAX_SEGMENTS - len(xs))
     ptrs += [w.data_ptr(), b.data_ptr(), out.data_ptr()]
     dims = [m, n, ktot, len(xs), int(relu)]
     for i in range(WIDE_MAX_SEGMENTS):
         dims += ([widths[i], xs[i].stride(0), cols[i]] if i < len(xs) else [0, 0, 0])
-    err = lib.eval_wide_layer_launch(_longs(ptrs), _ints(dims), _ints(plan_ints),
-                                     _stream(w))
+    err = lib.eval_wide_layer_launch(_longs(ptrs), _ints(dims), _ints(wide_plan_ints()),
+                                     int(grid), _stream(w))
     eval_wide_layer.launches += 1
     _raise_if(lib, err, "eval_wide_layer")
     return out
@@ -433,7 +506,9 @@ def wide_kernel_launches() -> int:
 
 
 __all__ = [
-    "WidePlan", "wide_plan", "sub_chunks", "segment_columns",
+    "WidePlan", "wide_plan", "wide_plan_ints", "wide_units", "wide_grid",
+    "tile_walk", "WIDE_CLUSTER", "DX_CLUSTER",
+    "wide_resident_ctas", "sub_chunks", "segment_columns",
     "scratch_bytes_per_point", "eval_wide_encode", "eval_wide_layer",
     "eval_wide_heads", "fused_nerf_eval_wide", "eval_wide_encode_plain",
     "eval_wide_layer_plain", "eval_wide_heads_plain", "fused_nerf_eval_wide_plain",

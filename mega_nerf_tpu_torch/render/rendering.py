@@ -14,8 +14,10 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   eval: `fused_nerf_eval` to width 512, `fused_wide.fused_nerf_eval_wide`
   past it; train: the differentiable `fused_nerf_train_apply`, which runs
   `fused_train_wide.py` past width 512), else
-  through the eager `NeRF` module. The gate looks at the architecture
-  only; on a CPU tensor the wrappers run the kernels' plain versions;
+  through the eager `NeRF` module (`mlp_route`). The gate looks at the
+  architecture, and on the card also at the compute dtype: f32 compute
+  on a CUDA tensor takes the eager module, since the kernels are bf16; on
+  a CPU tensor the wrappers run the kernels' plain versions;
 - train mode (`train=True`) draws from a `torch.Generator` where the JAX
   package splits keys: stratified perturbation, sorted-uniform fine
   sampling (`det = perturb == 0`) and uniform sigma noise rounded to the
@@ -101,13 +103,26 @@ def _log_mlp_path(message: str) -> None:
         print(message, flush=True)
 
 
-def fused_gate(bundle: ModelBundle, settings: RenderSettings,
-               train: bool = False) -> Tuple[bool, str]:
-    """Does this bundle's MLP go through the fused kernel wrappers (the
-    eval gate, or with `train` the training gate)?"""
+def mlp_route(cfg, device_type: str, train: bool = False) -> Tuple[bool, str]:
+    """Does an MLP of `cfg` on points of `device_type` go through the fused
+    kernel wrappers -> (fused, why not): the gate's answer
+    (`supports_fused_kernel`, eval or with `train` training), except that
+    f32 compute on the card takes the eager module, since every kernel
+    computes in bf16. On CPU tensors the wrappers run their plain
+    versions, which compute in either dtype."""
+    ok, why = supports_fused_kernel(cfg, train)
+    if ok and device_type == "cuda" and cfg.dtype != torch.bfloat16:
+        return False, f"{cfg.compute_dtype} compute on the card (the kernels are bf16)"
+    return ok, why
+
+
+def fused_gate(bundle: ModelBundle, settings: RenderSettings, train: bool,
+               device_type: str) -> Tuple[bool, str]:
+    """Does this bundle's MLP go through the fused kernel wrappers for
+    points on `device_type` (`mlp_route`)?"""
     if not settings.use_fused_kernel:
         return False, "disabled (--no_pallas)"
-    return supports_fused_kernel(bundle.config, train)
+    return mlp_route(bundle.config, device_type, train)
 
 
 def packed_params(bundle: ModelBundle):
@@ -147,7 +162,7 @@ def _model_eval(
         noise = torch.rand((n * s,), generator=generator, device=xyz.device)
         noise = noise.to(cfg.dtype).float()
 
-    fused, why = fused_gate(bundle, settings, train)
+    fused, why = fused_gate(bundle, settings, train, flat_xyz.device.type)
     wide = fused and is_wide(cfg)
     kernel = "wide kernel" if wide else "kernel"
     where = kernel if flat_xyz.is_cuda else f"{kernel}'s plain version"

@@ -647,3 +647,173 @@ def test_wide_train_wrappers_raise_and_never_fall_back(cuda_device):
     assert rows.shape[1] == 16
     assert ftw.wide_train_kernel_launches() == launches
     assert [f.calls for f in plain] == calls
+
+
+# The persistent GEMMs (eval_wide_layer, train_wide_dx) at many tiles per CTA:
+# 100,003 points (782 point tiles, the last one ragged) against the card's
+# one CTA per SM, and at forced small counts: 1 and 7 clusters of two CTAs
+# (eval_wide_layer), 1 and 7 CTAs (train_wide_dx).
+WALK_POINTS = 100_003
+WIDE_LAYOUTS = {  # name: (segment widths, output columns, relu) at width d
+    "trunk": lambda d: ([d], d, True),
+    "final": lambda d: ([d], d, False),  # trunk_final: no ReLU
+    "skip": lambda d: ([80, d], d, True),  # [enc | h]
+    "dir_a": lambda d: ([d, 32, 48], d // 2, True),  # [final | dir | app]
+    "dir_a_no_app": lambda d: ([d, 32], d // 2, True),
+    "dir_a_no_dir": lambda d: ([d, 48], d // 2, True),
+}
+
+
+@pytest.mark.parametrize("layout", list(WIDE_LAYOUTS))
+@pytest.mark.parametrize("width", [640, 1024, 2048])
+def test_wide_layer_persistent_walk_matches_plain(cuda_device, width, layout):
+    """`eval_wide_layer` on 100,003 points in every segment layout of the
+    chain (one segment, the skip's two, dir_a's three or two), with and
+    without the ReLU, at widths 640 (N not a multiple of 256, and 320 for
+    dir_a), 1024 and 2048: within 1e-2 (1 + |y|) of its plain version
+    (another summation order can flip one bf16 rounding); two launches give
+    the same bits, and so do launches on 1 and on 7 clusters of two CTAs,
+    each walking many tiles (every tile is computed the same way whatever
+    CTA takes it)."""
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    widths, n, relu = WIDE_LAYOUTS[layout](width)
+    gen = torch.Generator().manual_seed(width + 7 * len(widths) + n)
+    m = WALK_POINTS
+    xs = [(torch.randn((m, w), generator=gen) * 0.5).to(torch.bfloat16).to(cuda_device)
+          for w in widths]
+    cols = fw.segment_columns(widths)
+    ktot = cols[-1] + -(-widths[-1] // 16) * 16
+    w = (torch.randn((n, ktot), generator=gen) / ktot ** 0.5).to(torch.bfloat16)
+    b = 0.1 * torch.randn((n,), generator=gen)
+    w, b = w.to(cuda_device), b.to(cuda_device)
+    launches = fw.eval_wide_layer.launches
+    with torch.no_grad():
+        got = fw.eval_wide_layer(xs, w, b, relu)
+        again = fw.eval_wide_layer(xs, w, b, relu)
+        few = [fw.eval_wide_layer(xs, w, b, relu, grid=2 * c) for c in (1, 7)]
+        want = fw.eval_wide_layer_plain(xs, w, b, relu)
+    torch.cuda.synchronize()
+    assert fw.eval_wide_layer.launches == launches + 4
+    assert got.shape == (m, n) and torch.isfinite(got.float()).all()
+    assert _close(got, want) <= 1e-2
+    assert torch.equal(got, again)
+    for out in few:
+        assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("mode", ["f32", "none", "mask", "mask_sigma"])
+@pytest.mark.parametrize("width", [640, 1024])
+def test_wide_dx_persistent_walk_matches_plain(cuda_device, width, mode):
+    """`train_wide_dx` on 100,003 points in each epilogue mode (d_app in f32
+    at the appearance width 48, unmasked bf16, the ReLU mask of a saved
+    output, the mask after the sigma term), from rows 32 on of a transposed
+    matrix: a relative norm within 1e-2 of its plain version (bf16
+    operands, another summation order); two launches give the same bits,
+    and so do launches on 1 and on 7 CTAs."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    modes = {"f32": ftw.DX_F32, "none": ftw.DX_NONE, "mask": ftw.DX_MASK,
+             "mask_sigma": ftw.DX_MASK_SIGMA}
+    code = modes[mode]
+    m, k, row0 = WALK_POINTS, 48 if mode == "f32" else width, 32
+    gen = torch.Generator().manual_seed(width + code)
+    bf = lambda t: t.to(torch.bfloat16).to(cuda_device)  # noqa: E731
+    g = bf(torch.randn((m, width), generator=gen) * 1e-2)
+    wt = bf(torch.randn((row0 + k, width), generator=gen) / width ** 0.5)
+    mask = bf(torch.randn((m, k), generator=gen)) if mode.startswith("mask") else None
+    g_heads = bf(torch.randn((m, ftw.HEADS_GRAD_WIDTH), generator=gen) * 1e-2)
+    w_sigma = bf(torch.randn((k,), generator=gen))
+    if mode != "mask_sigma":
+        g_heads = w_sigma = None
+    args = (g, wt, row0, k, code, mask, g_heads, w_sigma)
+    launches = ftw.train_wide_dx.launches
+    with torch.no_grad():
+        got = ftw.train_wide_dx(*args)
+        again = ftw.train_wide_dx(*args)
+        few = [ftw.train_wide_dx(*args, grid=c) for c in (1, 7)]
+        want = ftw.train_wide_dx_plain(*args)
+    torch.cuda.synchronize()
+    assert ftw.train_wide_dx.launches == launches + 4
+    assert got.shape == (m, k) and torch.isfinite(got.float()).all()
+    assert got.dtype == (torch.float32 if mode == "f32" else torch.bfloat16)
+    assert _rel(got, want) <= 1e-2
+    if mask is not None:  # what the mask zeroes stays zero
+        assert (got[mask.float() <= 0] == 0).all()
+    assert torch.equal(got, again)
+    for out in few:
+        assert torch.equal(got, out)
+
+
+def _render_counters():
+    """Launches of every kernel wrapper and calls of every plain version."""
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    return (fused_mlp.fused_nerf_eval.launches, fused_mlp.fused_nerf_eval_plain.calls,
+            ft.fused_nerf_train_fwd.launches, ft.fused_nerf_train_fwd_plain.calls,
+            ft.train_bwd_data.launches, ft.train_bwd_data_plain.calls,
+            ft.weight_grad.launches, ft.weight_grad_plain.calls,
+            fw.wide_kernel_launches(), fw.fused_nerf_eval_wide_plain.calls,
+            ftw.wide_train_kernel_launches())
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_f32_render_on_the_card_takes_the_eager_module(cuda_device, train):
+    """`--compute_dtype float32` at width 256 with the fused kernels on (the
+    default): on the card the MLP route sends it to the eager module, since
+    every kernel computes in bf16. `render_rays` runs in eval and train
+    mode, launches no kernel and runs no plain version, and matches the
+    eager module's render (`--no_pallas`) on the same rays and generator
+    seed (values and, in train mode, every parameter's gradient: 1e-6)."""
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings, mlp_route, render_rays
+
+    hp = tiny_hparams(layer_dim=256, bg_layer_dim=256, appearance_dim=8,
+                      compute_dtype="float32")
+    gen = torch.Generator().manual_seed(11)
+    bundles = []
+    for make in (make_nerf, make_bg_nerf):
+        bundle = make(hp, 5)
+        init_weights(bundle.module, gen)
+        bundle.module.to(cuda_device)
+        bundles.append(bundle)
+    fg, bg = bundles
+    assert mlp_route(fg.config, "cuda", train) == (
+        False, "float32 compute on the card (the kernels are bf16)")
+    n = 64
+    o = (torch.rand((n, 3), generator=gen) - 0.5) * 0.3
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+    far = torch.where(torch.arange(n)[:, None] % 2 == 0, 1e5, 0.8)
+    rays = torch.cat([o, d, torch.full((n, 1), 0.05), far], -1).to(cuda_device)
+    idx = (torch.arange(n) % 5).to(cuda_device)
+    center = torch.tensor([0.05, -0.1, 0.0], device=cuda_device)
+    radius = torch.tensor([1.4, 1.1, 1.2], device=cuda_device)
+
+    def run(fused):
+        settings = RenderSettings(coarse_samples=16, fine_samples=16,
+                                  use_fused_kernel=fused)
+        for b in bundles:
+            b.module.zero_grad(set_to_none=True)
+        rng = torch.Generator(device=cuda_device).manual_seed(5)
+        with torch.set_grad_enabled(train):
+            res, _ = render_rays(fg, bg, rays, idx, settings, center, radius,
+                                 train=train, generator=rng if train else None)
+        grads = []
+        if train:
+            res["rgb_fine"].square().sum().backward()
+            grads = [p.grad.clone() for b in bundles for p in b.module.parameters()
+                     if p.grad is not None]
+        return res["rgb_fine"].detach(), grads
+
+    before = _render_counters()
+    got, got_grads = run(True)
+    torch.cuda.synchronize()
+    assert _render_counters() == before
+    want, want_grads = run(False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.shape == (n, 3)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert len(got_grads) == len(want_grads) and (not train or got_grads)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)

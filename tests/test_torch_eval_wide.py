@@ -8,6 +8,7 @@ the JAX package's renderer. All inputs come from numpy seeds."""
 
 import dataclasses
 from argparse import Namespace
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -186,11 +187,71 @@ def test_wide_plan_scratch_and_sub_chunk(width):
     assert plan.scratch_bytes == sub * per_point <= fused_wide.WIDE_SCRATCH_LIMIT
     assert (2 * sub * per_point > fused_wide.WIDE_SCRATCH_LIMIT
             or 2 * sub > fused_wide.WIDE_MAX_SUB_CHUNK)
-    assert sub // plan.tile_m <= 65535  # the GEMM grid's y dimension
-    assert (plan.tile_m, plan.tile_n, plan.tile_k, plan.stages) == (128, 256, 64, 4)
-    assert plan.smem_bytes == 4 * (128 + 256) * 64 * 2 + 64 + 1024 <= 232_448
+    assert sub // plan.tile_m <= 65535
+    assert (plan.tile_m, plan.tile_n, plan.tile_k, plan.stages) == (128, 256, 64, 3)
+    # Ring, output tile, two bias copies per warpgroup, 12 mbarriers, slack.
+    assert plan.out_bytes == 128 * 256 * 2
+    assert plan.smem_bytes == 3 * (128 + 256) * 64 * 2 + 65536 + 4096 + 96 + 1024
+    assert plan.smem_bytes <= 232_448
     if width == 2048:
         assert sub == 524_288 and plan.scratch_bytes < 6e9
+
+
+def cu_constants(name):
+    """The `constexpr int` constants of `csrc/<name>.cu`, evaluated in
+    order (each is an integer expression over the ones before it)."""
+    import re
+
+    src = (Path(fused_wide.__file__).parent / "csrc" / f"{name}.cu").read_text()
+    values = {}
+    for key, expr in re.findall(r"constexpr int (\w+) =\s*([^;]+);", src):
+        values[key] = eval(expr.replace("/", "//"), {}, dict(values))  # noqa: S307
+    return values
+
+
+def test_wide_plan_matches_the_layer_kernel_constants():
+    """The plan `eval_wide_layer` passes is what its launcher checks
+    (`eval_wide.cu`'s constants), and its shared memory fits a CTA: a
+    3-stage ring, the 64 KB output tile, the bias copies and mbarriers."""
+    c = cu_constants("eval_wide")
+    assert fused_wide.wide_plan_ints() == [c["TILE_M"], c["TILE_N"], c["TILE_K"],
+                                           c["STAGES"], c["OUT_BYTES"], c["SMEM_BYTES"]]
+    assert c["PARAMS_BYTES"] == fused_wide.WIDE_PARAMS_BYTES
+    assert c["BARRIERS"] == fused_wide.WIDE_BARRIERS
+    assert c["OUT_BYTES"] == 4 * 2 * c["OUT_BOX"]  # four 64 x 64 boxes per half
+    assert c["SMEM_BYTES"] <= 232_448  # what a CTA may use on the card (227 KB)
+    src = (Path(fused_wide.__file__).parent / "csrc" / "eval_wide.cu").read_text()
+    assert src.count(f"__cluster_dims__({fused_wide.WIDE_CLUSTER}, 1, 1)") == 1
+
+
+@pytest.mark.parametrize("cluster", [fused_wide.WIDE_CLUSTER, fused_wide.DX_CLUSTER])
+@pytest.mark.parametrize("clusters", [1, 7, 66, 10_000])
+@pytest.mark.parametrize("m,n", [(1, 256), (37, 640), (1000, 2048), (100_003, 1024),
+                                 (100_003, 320), (4096, 48), (129, 256)])
+def test_tile_walk_covers_every_tile_once(m, n, clusters, cluster):
+    """The persistent GEMMs' walk, mirrored (clusters of two for the layer
+    GEMM, single CTAs for dX): the tiles of all CTAs cover each (point
+    tile, N tile) of a ragged M x N output exactly once, for cluster counts
+    below, at and above the units of work; the CTAs of a cluster always
+    hold the same N tile and neighbouring point tiles (they share the
+    weight boxes); the launch grid is whole clusters, never more than the
+    units or the resident CTAs."""
+    grid = clusters * cluster
+    walk = fused_wide.tile_walk(m, n, grid, cluster)
+    ntm, ntn = -(-m // 128), -(-n // 256)
+    tiles = [t for cta in walk for t in cta]
+    assert sorted(tiles) == [(i * 128, j * 256) for i in range(ntm) for j in range(ntn)]
+    assert len(tiles) == ntm * ntn
+    units = fused_wide.wide_units(m, n, cluster)
+    assert units == -(-ntm // cluster) * ntn
+    for c in range(clusters):
+        ctas = walk[c * cluster:(c + 1) * cluster]
+        assert len(ctas[0]) == len(range(c, units, clusters))
+        for rank, cta in enumerate(ctas):
+            for (m0, n0), (m1, n1) in zip(ctas[0], cta):
+                assert n1 == n0 and m1 == m0 + 128 * rank and m0 % (128 * cluster) == 0
+    got = fused_wide.wide_grid(m, n, grid, cluster)
+    assert got % cluster == 0 and got == cluster * max(1, min(units, clusters))
 
 
 @pytest.mark.parametrize("sub", [128, 1024, 4096])

@@ -80,3 +80,35 @@ def test_render_rays_matches_jax(mlp, ref_bg_sampling, fine):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=5e-4, atol=1e-5, err_msg=key)
     assert set(got) == set(want)
+
+
+@pytest.mark.parametrize("device,dtype,width,train,fused", [
+    ("cuda", "float32", 256, False, False),  # the kernels are bf16: eager
+    ("cuda", "float32", 256, True, False),
+    ("cuda", "bfloat16", 256, False, True),
+    ("cuda", "bfloat16", 256, True, True),
+    ("cpu", "float32", 256, False, True),  # the kernels' plain versions
+    ("cpu", "float32", 256, True, True),
+    ("cuda", "float32", 640, False, False),  # the gate's own answer past 512
+    ("cpu", "float32", 640, False, False),
+    ("cuda", "bfloat16", 640, True, True),
+])
+def test_mlp_route_sends_f32_on_the_card_to_the_eager_module(device, dtype, width,
+                                                             train, fused):
+    """The renderer's MLP route: f32 compute on a CUDA tensor takes the eager
+    module (with the reason), bf16 on the card and any dtype on the CPU take
+    the fused wrappers wherever the gate admits the architecture; the
+    `--no_pallas` switch still wins."""
+    from mega_nerf_tpu_torch.models import NeRFConfig
+    from mega_nerf_tpu_torch.render import rendering
+
+    cfg = NeRFConfig(layer_dim=width, compute_dtype=dtype)
+    ok, why = rendering.mlp_route(cfg, device, train)
+    assert ok == fused
+    if device == "cuda" and dtype == "float32" and width <= 512:
+        assert why == "float32 compute on the card (the kernels are bf16)"
+    bundle = make_nerf(tiny_hparams(layer_dim=width, compute_dtype=dtype), 1)
+    on = rendering.fused_gate(bundle, RenderSettings(), train, device)
+    off = rendering.fused_gate(bundle, RenderSettings(use_fused_kernel=False), train,
+                               device)
+    assert on[0] == fused and off == (False, "disabled (--no_pallas)")

@@ -18,6 +18,8 @@ over by `state_from_flax_params`.
 - two Adam steps at width 576 against the JAX `make_train_step`.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -253,6 +255,49 @@ def test_dw_splits_cover_the_points_in_order(m, tiles):
     assert split_len % ftw.DW_STAGE == 0
     assert (splits - 1) * split_len < m <= splits * split_len
     assert splits * tiles <= max(2 * 132, tiles)
+
+
+def test_dx_plan_matches_the_dx_kernel_constants():
+    """`train_wide_dx` passes the wide GEMM plan, and `train_wide.cu`'s dX
+    constants are that plan: the same tile, 3-stage ring, output tile (the
+    mask tile's buffer too) and shared memory as `eval_wide.cu`, within a
+    CTA's 227 KB; the epilogue modes are the wrapper's."""
+    from mega_nerf_tpu_torch.render import fused_wide
+    from tests.test_torch_eval_wide import cu_constants
+
+    c = cu_constants("train_wide")
+    assert fused_wide.wide_plan_ints() == [c["TILE_M"], c["TILE_N"], c["TILE_K"],
+                                           c["STAGES"], c["OUT_BYTES"],
+                                           c["DX_SMEM_BYTES"]]
+    assert c["DX_SMEM_BYTES"] == cu_constants("eval_wide")["SMEM_BYTES"] <= 232_448
+    assert c["SIGMA_ROWS"] + 4 * 64 <= c["PARAM_BYTES"]  # w_sigma pairs, g_sigma words
+    assert c["SIGMA_ROWS"] == 2 * 256
+    assert (c["MODE_F32"], c["MODE_NONE"], c["MODE_MASK"], c["MODE_MASK_SIGMA"]) == (
+        ftw.DX_F32, ftw.DX_NONE, ftw.DX_MASK, ftw.DX_MASK_SIGMA)
+    assert c["HEADS_ROW"] == ftw.HEADS_GRAD_WIDTH
+    src = (Path(ftw.__file__).parent / "csrc" / "train_wide.cu").read_text()
+    assert fused_wide.DX_CLUSTER == 1 and "__cluster_dims__" not in src
+
+
+@pytest.mark.parametrize("width,appearance_dim", [(576, 48), (640, 5), (1024, 48)])
+def test_dx_jobs_walk_every_tile_once(width, appearance_dim):
+    """Each dX job of a plan, on a step's ragged pass size, is walked by the
+    persistent kernel (no clusters) tile by tile exactly once at the card's
+    132 CTAs and at 7 and 1: every bf16 output is a multiple of 8 columns
+    wide (its rows leave by TMA), d_app's f32 columns any width."""
+    from mega_nerf_tpu_torch.render import fused_wide
+
+    cfg = _config(width, 3, 4, appearance_dim)
+    plan = ftw.check_plan(fused_mlp.pack_params(NeRF(cfg)))
+    m = 100_003
+    for kind, job in plan.steps:
+        if kind != "dx":
+            continue
+        assert job.mode == ftw.DX_F32 or job.k % 8 == 0
+        for grid in (132, 7, 1):
+            walk = fused_wide.tile_walk(m, job.k, grid, fused_wide.DX_CLUSTER)
+            tiles = [t for cta in walk for t in cta]
+            assert len(tiles) == len(set(tiles)) == -(-m // 128) * -(-job.k // 256)
 
 
 def test_render_rays_train_through_the_wide_route_matches_jax(capsys, monkeypatch):
