@@ -83,14 +83,18 @@ Runs every phase, in order:
               another error or non-finite metrics).
 The wide training route (fg and bg 8x1024) adds, in the order of `main`:
 compare_train_wide (each wide training kernel against its plain version,
-also at the four pass sizes of a step), train_wide (20 steps of
-`train.main`, launches per step, an eval of the written checkpoint),
-time_train_wide (ms per step, peak memory, a profile by kernel; each
-kernel per launch at the fg-fine shape with its bound and plain time, dX
-and dW beside cuBLAS, the forward's layer GEMM beside `F.linear` on its
-operands and bias, each GEMM's ratio to its library call; the layer
-GEMM's ratio at 2048 is time_dense's) and eager_train_wide (a record of
-the eager module's step).
+also at the four pass sizes of a step, where a trunk layer's dW and db from
+the kernel and from the plain f32 matmul are each held against f64 sums of
+the same bf16 operands), train_wide (20 steps of `train.main`, launches per
+step, an eval of the written checkpoint), time_train_wide (ms per step,
+peak memory, a profile by kernel with the step's dW device time beside its
+FLOP and bound; each kernel per launch at the fg-fine shape with its bound
+and plain time, dX and dW beside cuBLAS, the forward's layer GEMM beside
+`F.linear` on its operands and bias, each GEMM's ratio to its library call;
+the layer GEMM's ratio at 2048 is time_dense's; dW and torch.mm at a trunk
+job at each pass size, each timed right after the same ten layer GEMMs,
+beside the SM clock and the cycles) and eager_train_wide (a record of the
+eager module's step).
 
 Prints `{"serving": ...}`, `{"serving_dense": ...}` and `{"training": ...}` lines, a
 `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
@@ -1387,9 +1391,44 @@ def wide_step_launches(fg_cfg, bg_cfg):
     return per
 
 
-def compare_train_wide_case(name, hp, bg, m, seed, device):
+def dw_against_f64(packed, saved, gen):
+    """A trunk layer's weight gradient (layer 2: dW = d_pre2^T h1, db = sum
+    d_pre2) from `train_wide_dw` and from `train_wide_dw_plain`, each held
+    against the f64 sums of the same bf16 operands: h1 the saved layer
+    output, d_pre2 seeded normal rows (scale 1e-2) under h2's ReLU mask ->
+    (kernel's relative error, plain's), over the weights and bias together."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    plan = ftw.check_plan(packed)
+    job = next(job for kind, job in plan.steps if kind == "dw" and job[0].d == "g_pre2")
+    h1, h2 = saved["h1"], saved["h2"]
+    d = (torch.randn(h2.shape, generator=gen, device=h2.device) * 1e-2
+         * (h2 > 0)).to(torch.bfloat16)
+    tensors = {"g_pre2": d, "h1": h1}
+    j = job[0]
+    rows = slice(j.out_off, j.out_off + j.n * j.out_stride)
+    bias = slice(j.bias_off, j.bias_off + j.n)
+
+    def flat(buf):
+        return torch.cat([buf[rows].view(j.n, j.out_stride)[:, :j.k].reshape(-1),
+                          buf[bias]]).double()
+
+    got = flat(ftw.train_wide_dw(job, tensors, torch.zeros(plan.total, device=d.device)))
+    plain = flat(ftw.train_wide_dw_plain(job, tensors,
+                                         torch.zeros(plan.total, device=d.device)))
+    dd = d.double()
+    ref = torch.cat([(dd.T @ h1.double()).reshape(-1), dd.sum(0)])
+    del dd
+    norm = ref.norm().item()
+    return (got - ref).norm().item() / norm, (plain - ref).norm().item() / norm
+
+
+def compare_train_wide_case(name, hp, bg, m, seed, device, f64=False):
     """The wide training kernels against their plain versions on one
-    model -> ({kernel: max_abs_err}, ok). The heads forward reads the plain
+    model -> ({kernel: max_abs_err}, ok, with `f64` the relative errors of
+    `dw_against_f64` (kernel, plain), else None). The heads forward reads the plain
     forward's last trunk output and branch; the backward kernels go through
     `walk_backward` (each fed the plain backward's tensors, so errors do not
     compound; every dW launch runs twice for the same bits). Then the
@@ -1432,6 +1471,8 @@ def compare_train_wide_case(name, hp, bg, m, seed, device):
             else:
                 hold(kernel, got, ref, rel_err(got, ref))
         del got, ref
+        # C.3: the kernel and the plain f32 matmul against f64 sums.
+        f64_errs = dw_against_f64(packed, saved, gen) if f64 else None
         # The composed route against the composed plain versions.
         got, k_saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
         del k_saved
@@ -1445,7 +1486,11 @@ def compare_train_wide_case(name, hp, bg, m, seed, device):
             bwd_rel = max(bwd_rel, rel_err(d_app, p_d_app))
         finite = bool(torch.isfinite(got).all() and torch.isfinite(flat).all())
     ok = (finite and same and max(worst.values()) <= TOL and fwd_ratio <= TOL
-          and bwd_rel <= TOL)
+          and bwd_rel <= TOL and (f64_errs is None or max(f64_errs) <= TOL))
+    if f64_errs is not None:
+        log(f"  train wide {name}: M={m}; a trunk layer's dW and db against f64 sums of "
+            f"the same bf16 operands: train_wide_dw {f64_errs[0]:.3e}, train_wide_dw_plain "
+            f"(f32 matmul) {f64_errs[1]:.3e} relative")
     log(f"  train wide {name}: M={m}; heads fwd worst {worst['train_wide_heads_fwd']:.3e}, "
         f"heads bwd rel {worst['train_wide_heads_bwd']:.3e}, dX worst rel "
         f"{worst['train_wide_dx']:.3e}, dW worst rel {worst['train_wide_dw']:.3e} (two "
@@ -1454,7 +1499,7 @@ def compare_train_wide_case(name, hp, bg, m, seed, device):
         f"{'ok' if ok else 'FAIL'}")
     del saved, flat, p_flat, got, want
     torch.cuda.empty_cache()
-    return errs, ok
+    return errs, ok, f64_errs
 
 
 def phase_compare_train_wide(device, report):
@@ -1481,10 +1526,15 @@ def phase_compare_train_wide(device, report):
     ]
     kernels = report["kernels"]
     all_ok = True
+    f64 = report.setdefault("training_wide", {}).setdefault("dw_rel_err_vs_f64", {})
     for i, (name, hp, bg, m) in enumerate(cases):
-        errs, ok = compare_train_wide_case(name, hp, bg, m, 400 + i, device)
+        errs, ok, f64_errs = compare_train_wide_case(name, hp, bg, m, 400 + i, device,
+                                                     f64="pass" in name)
         for k, v in errs.items():
             kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err", 0.0), v)
+        if f64_errs is not None:
+            f64[f"{'bg' if bg else 'fg'} {m}"] = {"kernel": f64_errs[0],
+                                                  "plain": f64_errs[1]}
         all_ok &= ok
     # (bg, points) of each 1024-wide case: train_wide checks that its passes
     # are among them.
@@ -1588,10 +1638,10 @@ def phase_train_wide(device, report, tmp: Path):
           and all(e_counts[k] > 0 for k in WIDE_KERNELS) and e_counts["plain"] == 0
           and eval_eager.count == 0 and routes
           and all("fused eval (wide kernel)" in r for r in routes))
-    report["training_wide"] = {
+    report.setdefault("training_wide", {}).update({
         "steps": len(snaps), "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
         "val_psnr": val.get("val/psnr"), "ckpt_eval_psnr": e_metrics["val/psnr"],
-        "launches_per_step": per_step, "train_main_s": wall}
+        "launches_per_step": per_step, "train_main_s": wall})
     report["wide_train_ckpt"] = ckpt
     return bool(ok)
 
@@ -1699,6 +1749,107 @@ def time_train_wide_kernels(device, report):
         dx_ms_fg_fine=t_dx, dx_library_ms_fg_fine=lib_dx)
 
 
+# A training step's passes: (label, points) of fg fine, fg coarse, bg fine
+# and bg coarse at 1024 rays (256 + 512 fg samples, 128 + 256 bg).
+WIDE_PASSES = (("fg fine", 1024 * 512), ("fg coarse", 1024 * 256),
+               ("bg fine", 1024 * 256), ("bg coarse", 1024 * 128))
+NEIGHBOUR_LAYERS = 10  # layer GEMMs before each timed dW, as in a step's forward
+
+
+def step_dw_work(fg_cfg, bg_cfg):
+    """A training step's dW work from the plans' jobs at the four passes ->
+    (FLOP of the products and bias sums at the live widths, bound ms: per
+    launch the larger of its FLOP at 989 TFLOP/s and its bytes, each input
+    row read once and each output written once, at 3.35 TB/s)."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    flops = bound_ms = 0.0
+    for cfg, passes in ((fg_cfg, (1024 * 512, 1024 * 256)),
+                        (bg_cfg, (1024 * 256, 1024 * 128))):
+        plan = ftw.train_wide_plan(cfg)
+        widths = dict(plan.saved)
+        for kind, jobs in plan.steps:
+            if kind != "dw":
+                continue
+            names = {j.x: widths[j.x] for j in jobs}
+            names.update({j.d: max(jj.d_col + jj.n for jj in jobs if jj.d == j.d)
+                          for j in jobs})
+            per_point = sum(2 * j.n * j.k + (j.n if j.bias_off >= 0 else 0) for j in jobs)
+            out_bytes = 4 * sum(j.n * j.k + (j.n if j.bias_off >= 0 else 0) for j in jobs)
+            for m in passes:
+                flops += per_point * m
+                bound_ms += bound(per_point * m, 2 * m * sum(names.values()) + out_bytes)[0]
+    return flops, bound_ms
+
+
+def time_dw_beside_layers(device, report):
+    """`train_wide_dw` and its library call (torch.mm, f32 out where it
+    takes out_dtype, no bias sums) at a 1024 x 1024 trunk job at each pass
+    of a step, each timed alone right after the same neighbour:
+    NEIGHBOUR_LAYERS launches of the forward's layer GEMM, as in a step.
+    The SM clock is read just before each timed launch (torch.cuda._sleep
+    of 400,000 cycles timed with CUDA events), and each time is printed
+    beside it and its cycles (ms x GHz); medians of five turns, the two
+    calls alternating. Nothing waits between the neighbour and the timed
+    call, so the wrapper's host work runs while the card is busy with the
+    neighbour and the card never idles before the timed launch."""
+    import statistics
+
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    bundle = seeded_bundle(paper_hparams(WIDE_TRAIN), 16, False, 61, device)
+    packed = fused_mlp.pack_params(bundle.module)
+    plan = ftw.check_plan(packed)
+    job = next(job for kind, job in plan.steps if kind == "dw" and job[0].d == "g_pre2")
+    d = packed.config.layer_dim
+    gen = torch.Generator(device=device).manual_seed(62)
+    out = torch.empty(plan.total, device=device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    rows = {}
+    with torch.no_grad():
+        for label, m in WIDE_PASSES:
+            h1 = torch.relu(torch.randn((m, d), generator=gen, device=device)).to(torch.bfloat16)
+            gp = (torch.randn((m, d), generator=gen, device=device) * 1e-2).to(torch.bfloat16)
+            tensors = {"g_pre2": gp, "h1": h1}
+            kw, _ = mm_f32(gp.T, h1)
+            calls = {"train_wide_dw": lambda: ftw.train_wide_dw(job, tensors, out),
+                     "torch.mm": lambda: torch.mm(gp.T, h1, **kw)}
+            got = {k: [] for k in calls}
+            for turn in range(10):
+                name = list(calls)[turn % 2]
+                for _ in range(NEIGHBOUR_LAYERS):
+                    fw.eval_wide_layer([h1], packed.mats[2], packed.biases[2], True)
+                ev[0].record()
+                torch.cuda._sleep(400_000)
+                ev[1].record()
+                ev[2].record()
+                calls[name]()
+                ev[3].record()
+                torch.cuda.synchronize()
+                got[name].append((ev[2].elapsed_time(ev[3]),
+                                  400_000 / (ev[0].elapsed_time(ev[1]) * 1e6)))
+            row = {}
+            for name, v in got.items():
+                ms = statistics.median(t for t, _ in v)
+                ghz = statistics.median(g for _, g in v)
+                row[name] = {"ms": ms, "ghz": ghz, "mcycles": ms * ghz}
+            rows[f"{label} {m}"] = row
+            k, lib = row["train_wide_dw"], row["torch.mm"]
+            log(f"  train_wide_dw after {NEIGHBOUR_LAYERS} layer GEMMs, 1024 x 1024 trunk "
+                f"job, {label} ({m} points): {k['ms']:.3f} ms at {k['ghz']:.2f} GHz = "
+                f"{k['mcycles']:.3f} M cycles; torch.mm (f32 out, no bias sums) in the same "
+                f"position {lib['ms']:.3f} ms at {lib['ghz']:.2f} GHz = {lib['mcycles']:.3f} "
+                f"M cycles (the kernel takes {k['ms'] / lib['ms']:.2f}x its time, "
+                f"{k['mcycles'] / lib['mcycles']:.2f}x its cycles)")
+            del h1, gp, tensors
+    report["training_wide"]["dw_beside_layers"] = rows
+    torch.cuda.empty_cache()
+
+
 def phase_time_train_wide(device, report, tmp: Path):
     """ms per 1024-ray step and train rays/s at fg and bg 8x1024 over 20
     chained steps (from train_wide's checkpoint, on the train phase's
@@ -1748,12 +1899,23 @@ def phase_time_train_wide(device, report, tmp: Path):
             log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
         log(f"    {sum(r[0] for r in rows[12:]):8.3f} ms  in {len(rows) - 12} other kernels")
         report["training_wide"]["profiled_device_busy_share"] = busy / wall_ms
+        dw_ms = sum(ms for ms, _, name in rows if "train_wide_dw_kernel" in name)
+        dw_n = sum(count for _, count, name in rows if "train_wide_dw_kernel" in name)
+        dw_flops, dw_bound = step_dw_work(runner.fg.config, runner.bg.config)
+        log(f"  train_wide_dw per step (profile): {dw_ms:.3f} ms device time over {dw_n} "
+            f"launches; the step's dW products {dw_flops:.4g} FLOP = "
+            f"{dw_flops / dw_ms / 1e9:.1f} TFLOP/s; bound {dw_bound:.3f} ms (each launch "
+            f"the larger of its FLOP at 989 TFLOP/s and its bytes at 3.35 TB/s)")
+        report["training_wide"].update(dw_ms_per_step=dw_ms, dw_launches_per_step=dw_n,
+                                       dw_flop_per_step=dw_flops,
+                                       dw_bound_ms_per_step=dw_bound)
     else:
         log("  profiler: no device time recorded (device share not measured)")
     report["wide_runner"] = runner
     del step
     torch.cuda.empty_cache()
     time_train_wide_kernels(device, report)
+    time_dw_beside_layers(device, report)
     # Timing launches are not main-path launches.
     for k in TRAIN_WIDE_KERNELS:
         getattr(ftw, k).launches = saved[k]

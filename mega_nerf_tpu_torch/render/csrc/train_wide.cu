@@ -52,14 +52,33 @@
 //   10.1 µs in its epilogue (a %globaltimer copy of that kernel).
 // - train_wide_dw_kernel: dW = d_pre^T X and db = sum d_pre of one packed
 //   matrix (its X segments are separate tensors, each its own tensor map)
-//   or of the two heads, weight_grad.cu's design without clusters: a CTA
-//   computes one 128 (n) x 256 (k) tile over one split of the points, a
-//   producer warp keeps a 4-stage ring of 64-point boxes, wgmma reads both
-//   operands MN-major (the reduction runs over points), the bias sums come
-//   from one m64n8k16 against bf16 ones per k-step; each CTA writes its f32
-//   partial to scratch and the last CTA of a tile (an atomic counter only
-//   elects it) sums the splits in split order, so two launches give the
-//   same bits.
+//   or of the two heads, over 128 (n) x 256 (k) output tiles, persistent
+//   and split over the points: one CTA per SM, in clusters of two, walks a
+//   balanced split of the launch's (tile pair, 64-point stage) space
+//   (DwWalk: every cluster gets the same number of stages within one; the
+//   mains of all tile pairs run over the same points at once, so the rows
+//   they share come from L2; the floaters walk what the mains leave,
+//   stream-K). The two CTAs of a cluster take neighbouring n-tiles of one
+//   k-tile (or k-tiles of one n-tile) over the same points and each loads
+//   half of every box of the shared operand into both. A producer warp
+//   keeps a 4-stage ring of 64-point boxes full across unit boundaries; two
+//   consumer warpgroups run wgmma m64n256k16 with both operands MN-major,
+//   one stage's products in flight while the next stage's start, at most
+//   DW_CHAIN stages into one accumulator before it is added into the unit's
+//   partial (wgmma's f32 sums lose accuracy with the length of the chain);
+//   two bias warps add the d_pre columns of the bias tiles in f32 as the
+//   stages pass. Each unit's f32 partial goes to its own slot and its stages to
+//   its tile's count; past the walk, the CTA whose unit completed a tile's
+//   stages (the atomic count elects it) sums the tile's partials in point
+//   order with four-float loads, so two launches at one grid give the same
+//   bits.
+//   The design it replaces (one CTA per tile and split, 256 CTAs in two
+//   waves at a 1024 x 1024 layer, products drained every stage, the last
+//   CTA of a tile summing eight partials one float at a time) spent per CTA
+//   at 524,288 points 0.5 µs in its prologue, 1.4 µs to its first full
+//   stage, 856 µs in its loop (11% of it waiting on a full stage), 3.9 µs
+//   storing its partial, and the 32 summing CTAs 94 µs more (a %globaltimer
+//   copy of that kernel, NVIDIA H100 80GB HBM3 at 700 W).
 //
 // What bounds it on an H100: the tensor cores. A 1024 x 1024 layer does 2
 // FLOP per weight per point in each of the forward, dX and dW GEMMs: on the
@@ -72,8 +91,8 @@
 // shuffle where products follow; the ring releases and the epilogue stores
 // are predicated instructions). The device helpers are eval_wide.cu's and
 // weight_grad.cu's, copied (each .cu stands alone).
-// Left for later work: two-CTA clusters multicasting the shared operand in
-// dW, ping-pong consumer warpgroups in dX, fusing dW into the dX sweep.
+// Left for later work: ping-pong consumer warpgroups in dX, fusing dW into
+// the dX sweep.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -136,14 +155,37 @@ constexpr int BOX_BYTES = SP * BOX * 2;
 constexpr int A_BOXES = DW_TN / BOX;
 constexpr int B_BOXES = DW_TK / BOX;
 constexpr int DW_STAGE_BYTES = (A_BOXES + B_BOXES) * BOX_BYTES;
-constexpr int ONES_BYTES = 16 * 128;  // 16 points x one 128 B row
-constexpr int DW_THREADS = CONSUMER_WARPS * 32 + 32;
+// Two consumer warpgroups, the producer warp, two bias warps.
+constexpr int DW_BIAS_WARPS = 2;
+constexpr int DW_THREADS = CONSUMER_WARPS * 32 + 32 + 32 * DW_BIAS_WARPS;
+constexpr int DW_SUM_THREADS = DW_THREADS - 32;  // all but the producer warp
 constexpr int DW_TILE_ELEMS = DW_TN * DW_TK + DW_TN;  // partial tile + bias row
 constexpr int DW_MAX_JOBS = 4;
 constexpr int DW_MAX_MAPS = 4;
 constexpr int DW_MAX_TILES = 64;
+constexpr int DW_MAX_WORKERS = 256;  // clusters of a launch
+constexpr int DW_MAX_UNITS = DW_MAX_TILES + 1;  // of one worker
+// The CTAs of a cluster, launched with the cluster attribute.
+constexpr int DW_CLUSTER = 2;
+// Stages of one chain of products into the accumulators before they are
+// added into the unit's partial. wgmma's f32 sums drift from f64 in
+// proportion to the chain: on an NVIDIA H100 80GB HBM3, a 1024 x 1024 trunk
+// job's dW/db is 4.3e-6 relative at 128 stages, 9.5e-6 at 256, 2.2e-5 at
+// 512, 4.9e-5 at 993, 1.1e-4 at 1,986 (the unbounded walk at 524,288
+// points). 512 costs ~1.5% of the walk at 524,288 points, 256 ~5%.
+constexpr int DW_CHAIN = 512;
+// What the two CTAs of a cluster share (one TMA load multicast to both):
+// nothing, the X boxes (neighbouring n-tiles of one k-tile of a job) or
+// the d_pre boxes (neighbouring k-tiles of one n-tile).
+constexpr int SHARE_NONE = 0;
+constexpr int SHARE_X = 1;
+constexpr int SHARE_A = 2;
+// The ring, full and empty per stage, then a few words, the worker's units
+// and whether each completed its tile, and the fixup's list of partial
+// slots.
+constexpr int DW_TABLE_BYTES = 16 + 20 * DW_MAX_UNITS + 4 * DW_MAX_WORKERS;
 constexpr int DW_SMEM_BYTES =
-    1024 + DW_STAGES * DW_STAGE_BYTES + ONES_BYTES + 2 * DW_STAGES * 8 + 16;
+    1024 + DW_STAGES * DW_STAGE_BYTES + 2 * DW_STAGES * 8 + DW_TABLE_BYTES;
 
 constexpr int HEADS_THREADS = 256;
 constexpr int HEADS_ROW = 16;     // bf16 columns of a heads-gradient row
@@ -209,6 +251,42 @@ __device__ __forceinline__ void tma_load_keep(uint32_t dst, const CUtensorMap* m
       ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], pol;\n}\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(r)
       : "memory");
+}
+
+// The same box into both CTAs of the cluster, at the same shared-memory
+// offset, completing on each CTA's barrier at the same offset.
+__device__ __forceinline__ void tma_load_both(uint32_t dst, const CUtensorMap* map, int c,
+                                              int r, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"((uint16_t)3), "r"(c),
+      "r"(r)
+      : "memory");
+}
+
+// Arrive on the barrier at the same offset in CTA `cta` of the cluster
+// where p holds (a predicate, not a branch).
+__device__ __forceinline__ void mbar_arrive_cluster_if(uint64_t* bar, uint32_t cta,
+                                                       bool p) {
+  asm volatile(
+      "{\n.reg .pred q;\n.reg .b32 remote;\nsetp.ne.s32 q, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@q mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta), "r"((int)p)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
 }
 
 // A 4-byte global store where p holds (a predicated instruction).
@@ -355,18 +433,6 @@ __device__ __forceinline__ void wgmma_n256_t(float* d, uint64_t da, uint64_t db,
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REGS128
       "%128, %129, p, 1, 1, 1, 1;\n}\n"
       : ACC128
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 8, f32) = A (64 x 16) * B (16 x 8) (+ d), both MN-major: the bias
-// sums.
-__device__ __forceinline__ void wgmma_n8_t(float* d, uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -654,156 +720,429 @@ struct DwMaps {
 
 struct DwParams {
   float* out;
-  float* scratch;  // (splits, ntiles, DW_TILE_ELEMS)
-  int* counters;   // (ntiles,), zero at launch
-  int M, ntiles, splits, split_len;
+  float* scratch;  // (slots, DW_CLUSTER, DW_TILE_ELEMS): one partial per unit
+  int* counters;   // (ntiles,), zero at launch: stages summed so far
+  int M, T, ntiles, nitems;
   DwJob jobs[DW_MAX_JOBS];
   int tiles[DW_MAX_TILES][3];  // (job, n0, k0)
+  int items[DW_MAX_TILES][3];  // (tile of CTA rank 0, of rank 1 or -1, share)
 };
 
+// The balanced walk (fused_train_wide.py::dw_walk mirrors it): G workers
+// (clusters) share P items (tile pairs, or a lone tile) of T 64-point
+// stages each. Worker c does W + (c < e) stages, so every
+// worker's share is within one stage of the mean. The first q P workers
+// are mains: main c = m P + p takes stages [m W + (+1s before it), ...) of
+// item p, so the q mains of every item run over the same points at the
+// same time (the items' shared rows come from L2). The other r = G - q P
+// workers are floaters: they walk what the mains leave, each item's last
+// stages [F(p), T), items in order, as one line cut into equal shares
+// (stream-K). A unit is a worker's stretch of one item; its partial goes to
+// slot c (a main) or q P + f + p (floater f in item p: a floater's items
+// rise with f, so f + p is unique).
+struct DwWalk {
+  int P, T, G, q, W, e;
+  __device__ DwWalk(int P_, int T_, int G_) : P(P_), T(T_), G(G_), q(G_ / P_) {
+    const long long total = (long long)P_ * T_;
+    W = (int)(total / G_);
+    e = (int)(total - (long long)G_ * W);
+  }
+  __device__ int share(int c) const { return W + (c < e ? 1 : 0); }
+  // The first stage of main m of item p (m <= q: F(p) at m = q).
+  __device__ int main_start(int m, int p) const {
+    return m * W + (e > p ? min(m, (e - p - 1) / P + 1) : 0);
+  }
+  // Floater f's first position on the floaters' line.
+  __device__ int floater_start(int f) const {
+    return f * W + min(f, max(0, e - q * P));
+  }
+};
+
+// The units of worker c in order: next() gives (item, first stage, end
+// stage, slot) until it returns false. Every value is the same in every
+// thread (kernel parameters, blockIdx and loop counts).
+struct DwUnits {
+  const DwWalk& w;
+  int c, p, pre, x0, x1;
+  __device__ DwUnits(const DwWalk& w_, int c_) : w(w_), c(c_), p(0), pre(0) {
+    x0 = c >= w.q * w.P ? w.floater_start(c - w.q * w.P) : 0;
+    x1 = x0 + w.share(c);
+  }
+  __device__ bool next(int& item, int& s0, int& s1, int& slot) {
+    if (c < w.q * w.P) {  // a main: one unit
+      if (p) return false;
+      p = 1;
+      item = c % w.P;
+      s0 = w.main_start(c / w.P, item);
+      s1 = s0 + w.share(c);
+      slot = c;
+      return s1 > s0;
+    }
+    while (p < w.P && pre < x1) {
+      const int f0 = w.main_start(w.q, p), len = w.T - f0;
+      const int lo = max(x0, pre), hi = min(x1, pre + len);
+      item = p;
+      s0 = f0 + lo - pre;
+      s1 = f0 + hi - pre;
+      slot = c + p;  // q P + f + p
+      pre += len;
+      ++p;
+      if (lo < hi) return true;
+    }
+    return false;
+  }
+};
+
+// Where p holds (predicated instructions, no branch): add n to the tile's
+// stage count and write to the shared word at flag whether that completed
+// its T stages (-1) or not (0).
+__device__ __forceinline__ void count_stages_if(int* counter, int n, int T, int* flag,
+                                                bool p) {
+  asm volatile(
+      "{\n.reg .pred q;\n.reg .s32 old;\n.reg .s32 f;\nsetp.ne.s32 q, %3, 0;\n"
+      "@q atom.global.add.s32 old, [%0], %1;\n"
+      "@q add.s32 old, old, %1;\n"
+      "@q set.eq.s32.s32 f, old, %2;\n"
+      "@q st.shared.s32 [%4], f;\n}\n" ::"l"(counter),
+      "r"(n), "r"(T), "r"((int)p), "r"(smem_u32(flag))
+      : "memory");
+}
+
+// One launch computes dW = d_pre^T X and db = sum d_pre of one packed
+// matrix (its X segments are separate tensors, each its own tensor map) or
+// of the two heads. Persistent: G workers walk DwWalk's units; a worker is a
+// cluster of two CTAs on the two tiles of an item (each loads half of the
+// shared operand's boxes into both; a lone tile's peer loads its own boxes
+// and stores nothing). Thread 0 writes the
+// worker's units into shared memory once; a producer warp keeps a 4-stage
+// ring of 64-point boxes full across unit boundaries; two consumer
+// warpgroups run wgmma m64n256k16 with both operands MN-major (the
+// reduction runs over points), one stage's products in flight while the
+// next stage's start, DW_CHAIN stages at a time into the accumulators,
+// which are then added into the unit's partial. A warpgroup with no live rows (the heads' tiles)
+// runs the same products on whatever its box holds and stores nothing, so
+// every branch around the products is the same for both. Two bias warps
+// add the d_pre columns of the bias tiles (k0 == 0 of a job with a bias)
+// in f32 as each stage passes, each lane two columns, point by point (a
+// bias product beside the main one, as in weight_grad.cu, takes registers
+// a consumer lacks under ptxas's 168: its wgmma were serialised, C7511).
+// Each unit's f32 partial goes to its own slot, and its stages are added
+// to its tile's count at once; the unit that completes a tile's T stages
+// (the atomic count only elects it) has its CTA sum the tile's partials in
+// point order past the walk, so two launches at one grid give the same
+// bits. A floater's units mostly end before the mains of their tiles, so
+// the sums fall to the mains, one unit each.
 __global__ void __launch_bounds__(DW_THREADS, 1)
 train_wide_dw_kernel(const __grid_constant__ DwMaps maps,
                      const __grid_constant__ DwParams p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* ones = smem + DW_STAGES * DW_STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ones + ONES_BYTES);
+  const uint32_t ring = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * DW_STAGE_BYTES);
   uint64_t* empty = full + DW_STAGES;
-  int* s_last = reinterpret_cast<int*>(empty + DW_STAGES);
+  int* s_count = reinterpret_cast<int*>(empty + DW_STAGES);  // units, slots to sum
+  int* s_units = s_count + 4;  // per unit: item, first stage, end stage, slot
+  int* s_elected = s_units + 4 * DW_MAX_UNITS;  // per unit: it completed its tile
+  int* s_order = s_elected + DW_MAX_UNITS;      // the fixup's slots, in point order
 
-  // CTAs walk the tiles fastest and the splits slowest, so the tiles of one
-  // split read the same point rows at about the same time (from L2).
-  const int tile = blockIdx.x % p.ntiles;
-  const int split = blockIdx.x / p.ntiles;
-  const DwJob jb = p.jobs[p.tiles[tile][0]];
-  const int n0 = p.tiles[tile][1];
-  const int k0 = p.tiles[tile][2];
-  const int rows = min(DW_TN, jb.n - n0);  // live output rows and columns
-  const int cols = min(DW_TK, jb.k - k0);
-  // d_pre boxes start on 16 B: the host refuses a d_col that is not a
-  // multiple of 8, and n0 is a multiple of DW_TN.
-  const int a_col = jb.d_col + n0;
-  const int a_boxes = (rows + BOX - 1) / BOX;
-  const int b_boxes = (cols + BOX - 1) / BOX;
-  const bool do_bias = jb.bias_off >= 0 && k0 == 0;
-  const int mb = split * p.split_len;
-  const int nst = (min(p.M, mb + p.split_len) - mb + SP - 1) / SP;
-  const int warp = threadIdx.x >> 5;
+  // Read from lane 0, so the compiler knows these are uniform: wgmma under
+  // a branch it cannot prove uniform is serialised.
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
   const int lane = threadIdx.x & 31;
+  const int rank = __shfl_sync(0xffffffffu, (int)cluster_rank(), 0);
+  const DwWalk w(p.nitems, p.T, gridDim.x / DW_CLUSTER);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < DW_STAGES; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, CONSUMER_WARPS);
+      // A stage is refilled once the consumer and bias warps of both CTAs
+      // have used it (either may hold boxes the other loaded).
+      mbar_init(empty + s, (CONSUMER_WARPS + DW_BIAS_WARPS) * DW_CLUSTER);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    int count = 0, item, s0, s1, slot;
+    for (DwUnits u(w, blockIdx.x / DW_CLUSTER); u.next(item, s0, s1, slot); ++count) {
+      s_units[4 * count] = item;
+      s_units[4 * count + 1] = s0;
+      s_units[4 * count + 2] = s1;
+      s_units[4 * count + 3] = slot;
+      s_elected[count] = 0;
+    }
+    s_count[0] = count;
   }
-  for (int i = threadIdx.x; i < ONES_BYTES / 4; i += DW_THREADS)
-    reinterpret_cast<uint32_t*>(ones)[i] = 0x3F803F80u;  // bf16 1.0 pairs
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
+  cluster_sync();  // both CTAs' barriers exist before either is used
+  const int nunits = __shfl_sync(0xffffffffu, s_count[0], 0);
 
   if (warp == CONSUMER_WARPS) {
-    // Producer: one thread keeps the ring full.
+    // Producer: one thread keeps the ring full across units. Of a shared
+    // operand each CTA loads every other box for both; every box lands in
+    // both CTAs.
     if (lane == 0) {
-      const int bytes = (a_boxes + b_boxes) * BOX_BYTES;
-      for (int it = 0; it < nst; ++it) {
-        const int s = it % DW_STAGES;
-        const int use = it / DW_STAGES;
-        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
-        mbar_expect_tx(full + s, bytes);
-        const uint32_t st = smem_u32(smem + s * DW_STAGE_BYTES);
-        const int row = mb + it * SP;
-        for (int b = 0; b < a_boxes; ++b)
-          tma_load(st + b * BOX_BYTES, &maps.m[jb.d_map], a_col + b * BOX, row,
-                   full + s);
-        for (int b = 0; b < b_boxes; ++b)
-          tma_load(st + (A_BOXES + b) * BOX_BYTES, &maps.m[jb.x_map], k0 + b * BOX, row,
-                   full + s);
+      int st = 0, use = 0;
+      for (int u = 0; u < nunits; ++u) {
+        const int item = s_units[4 * u], s0 = s_units[4 * u + 1], s1 = s_units[4 * u + 2];
+        const int tile = p.items[item][rank];
+        const int share = p.items[item][2];
+        int a_boxes = 0, b_boxes = 0, a_col = 0, k0 = 0, d_map = 0, x_map = 0;
+        if (tile >= 0) {
+          const DwJob& jb = p.jobs[p.tiles[tile][0]];
+          const int n0 = p.tiles[tile][1];
+          k0 = p.tiles[tile][2];
+          // d_pre boxes start on 16 B: the host refuses a d_col that is not
+          // a multiple of 8, and n0 is a multiple of DW_TN.
+          a_col = jb.d_col + n0;
+          a_boxes = (min(DW_TN, jb.n - n0) + BOX - 1) / BOX;
+          b_boxes = (min(DW_TK, jb.k - k0) + BOX - 1) / BOX;
+          d_map = jb.d_map;
+          x_map = jb.x_map;
+        }
+        const int bytes = (a_boxes + b_boxes) * BOX_BYTES;
+        for (int it = s0; it < s1; ++it) {
+          if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+          mbar_expect_tx(full + st, bytes);
+          const uint32_t dst = ring + st * DW_STAGE_BYTES;
+          const int row = it * SP;
+          for (int b = 0; b < a_boxes; ++b) {
+            if (share != SHARE_A)
+              tma_load(dst + b * BOX_BYTES, &maps.m[d_map], a_col + b * BOX, row, full + st);
+            else if (b % 2 == rank)
+              tma_load_both(dst + b * BOX_BYTES, &maps.m[d_map], a_col + b * BOX, row,
+                            full + st);
+          }
+          for (int b = 0; b < b_boxes; ++b) {
+            const uint32_t xd = dst + (A_BOXES + b) * BOX_BYTES;
+            if (share != SHARE_X)
+              tma_load(xd, &maps.m[x_map], k0 + b * BOX, row, full + st);
+            else if (b % 2 == rank)
+              tma_load_both(xd, &maps.m[x_map], k0 + b * BOX, row, full + st);
+          }
+          if (++st == DW_STAGES) st = 0, ++use;
+        }
       }
     }
-  } else {
+    // The producer warp takes no part in the sums below.
+    cluster_sync();
+    return;
+  }
+
+  // Consumers (warps 0-7) and bias warps: every unit's partial, its stage
+  // count, then the sums of the tiles this CTA completed.
+  const int tid = warp < CONSUMER_WARPS ? threadIdx.x : threadIdx.x - 32;  // 0-319
+  int st = 0, phase = 0;
+  if (warp < CONSUMER_WARPS) {
     // Consumers: warpgroup wg owns output rows wg*64 .. wg*64+63.
     const int wg = warp >> 2;
-    const bool active = wg * 64 < rows;
-    float acc[128];  // set by the first product (accumulate = 0)
-    float bacc[4];
-    const uint64_t d_ones = sw128_desc(smem_u32(ones), BOX_BYTES, 1024);
-    for (int it = 0; it < nst; ++it) {
-      const int s = it % DW_STAGES;
-      mbar_wait(full + s, (it / DW_STAGES) & 1);
-      if (active) {
-        const uint32_t st = smem_u32(smem + s * DW_STAGE_BYTES);
-        const uint64_t da = sw128_desc(st + wg * BOX_BYTES, BOX_BYTES, 1024);
-        const uint64_t db = sw128_desc(st + A_BOXES * BOX_BYTES, BOX_BYTES, 1024);
-        wgmma_fence();
+    float acc[128];  // set by each chain's first product (accumulate = 0)
+    for (int u = 0; u < nunits; ++u) {
+      const int n = __shfl_sync(0xffffffffu, s_units[4 * u + 2] - s_units[4 * u + 1], 0);
+      const int item = __shfl_sync(0xffffffffu, s_units[4 * u], 0);
+      const int slot = __shfl_sync(0xffffffffu, s_units[4 * u + 3], 0);
+      const int tile = p.items[item][rank];
+      const DwJob& jb = p.jobs[tile >= 0 ? p.tiles[tile][0] : 0];
+      const int n0 = tile >= 0 ? p.tiles[tile][1] : 0;
+      const int k0 = tile >= 0 ? p.tiles[tile][2] : 0;
+      const int rows = tile >= 0 ? min(DW_TN, jb.n - n0) : 0;  // live output rows
+      const int cols = min(DW_TK, jb.k - k0);                   // and columns
+      // Accumulator i of a thread sits at row 16 * warp + lane / 4 (+ 8 for
+      // i % 4 >= 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the
+      // warpgroup's 64 x 256 block.
+      float* part = p.scratch + ((size_t)slot * DW_CLUSTER + rank) * DW_TILE_ELEMS +
+                    (wg * 64 + (warp & 3) * 16 + (lane >> 2)) * DW_TK + 2 * (lane & 3);
+      for (int c0 = 0; c0 < n; c0 += DW_CHAIN) {
+        // Products of a stage stay in flight while the next stage's start;
+        // its stage is released (in both CTAs) once wgmma.wait_group 1 says
+        // they are done.
+        const int len = min(DW_CHAIN, n - c0);
+        int held = -1;
+        for (int c = 0; c < len; ++c) {
+          mbar_wait(full + st, phase);
+          const uint32_t base = ring + st * DW_STAGE_BYTES;
+          const uint64_t da = sw128_desc(base + wg * BOX_BYTES, BOX_BYTES, 1024);
+          const uint64_t db = sw128_desc(base + A_BOXES * BOX_BYTES, BOX_BYTES, 1024);
+          wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < SP / 16; ++ks) {
-          // 16 points = 2 KB further into each tile (descriptor units of 16 B).
-          // The bias product runs for every tile so that no branch sits
-          // between the products; only bias tiles write it.
-          const int accumulate = it > 0 || ks > 0;
-          wgmma_n256_t(acc, da + ks * 128, db + ks * 128, accumulate);
-          wgmma_n8_t(bacc, da + ks * 128, d_ones, accumulate);
+          for (int ks = 0; ks < SP / 16; ++ks)  // 16 points = 2 KB (descriptor units of 16 B)
+            wgmma_n256_t(acc, da + ks * 128, db + ks * 128, c > 0 || ks > 0);
+          wgmma_commit();
+          wgmma_wait_one();
+          mbar_arrive_cluster_if(empty + held, 0, lane == 0 && held >= 0);
+          mbar_arrive_cluster_if(empty + held, 1, lane == 0 && held >= 0);
+          held = st;
+          st = st + 1 == DW_STAGES ? 0 : st + 1;
+          phase ^= st == 0;
         }
-        wgmma_commit();
         wgmma_wait_all();
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
-    }
-    fence_operands<128>(acc);
-    fence_operands<4>(bacc);
+        mbar_arrive_cluster_if(empty + held, 0, lane == 0);
+        mbar_arrive_cluster_if(empty + held, 1, lane == 0);
+        // The partial reads the accumulators only after the waits above.
+        fence_operands<128>(acc);
 
-    // This split's partial tile: accumulator i of a thread sits at row
-    // 16 * warp + lane / 4 (+ 8 for i % 4 >= 2), column 8 * (i / 4) +
-    // 2 * (lane % 4) + i % 2 of the warpgroup's 64 x 256 block.
-    if (active && nst > 0) {
-      float* part = p.scratch + ((size_t)split * p.ntiles + tile) * DW_TILE_ELEMS;
-      const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+        // The chain into the unit's partial tile: stored by the first,
+        // added to what the earlier chains left by the others, four column
+        // pairs at a time (a compiler barrier after each, so the loads do
+        // not all start at once and take registers the accumulators hold).
+        if (wg * 64 < rows) {
 #pragma unroll
-      for (int j = 0; j < DW_TK / 8; ++j) {
-        if (8 * j < cols) {
-          const int c = 8 * j + 2 * (lane & 3);
-          *reinterpret_cast<float2*>(part + r * DW_TK + c) =
-              make_float2(acc[4 * j], acc[4 * j + 1]);
-          *reinterpret_cast<float2*>(part + (r + 8) * DW_TK + c) =
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+          for (int j0 = 0; j0 < DW_TK / 8; j0 += 4) {
+            float2 was[8];
+#pragma unroll
+            for (int j = j0; j < j0 + 4; ++j) {
+              const bool load = c0 > 0 && 8 * j < cols;
+              was[2 * (j - j0)] = load ? *reinterpret_cast<const float2*>(part + 8 * j)
+                                       : make_float2(0.f, 0.f);
+              was[2 * (j - j0) + 1] =
+                  load ? *reinterpret_cast<const float2*>(part + 8 * DW_TK + 8 * j)
+                       : make_float2(0.f, 0.f);
+            }
+#pragma unroll
+            for (int j = j0; j < j0 + 4; ++j) {
+              if (8 * j < cols) {
+                const float2 a = was[2 * (j - j0)], b = was[2 * (j - j0) + 1];
+                *reinterpret_cast<float2*>(part + 8 * j) =
+                    make_float2(acc[4 * j] + a.x, acc[4 * j + 1] + a.y);
+                *reinterpret_cast<float2*>(part + 8 * DW_TK + 8 * j) =
+                    make_float2(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+              }
+            }
+            asm volatile("" ::: "memory");
+          }
         }
       }
-      if (do_bias && (lane & 3) == 0) {
-        part[DW_TN * DW_TK + r] = bacc[0];
-        part[DW_TN * DW_TK + r + 8] = bacc[2];
+      // The partials of this unit (the bias warps' too) are stored: count
+      // its stages.
+      __threadfence();
+      named_bar(1, DW_SUM_THREADS);
+      count_stages_if(p.counters + (tile >= 0 ? tile : 0), n, p.T, s_elected + u,
+                      tid == 0 && tile >= 0);
+    }
+  } else {
+    // Bias warp b: lane l adds d_pre columns 64 b + 2 l and + 1 of the tile
+    // (box b, 16-byte chunk l / 4 of each 128-byte row, placed at chunk ^
+    // (row % 8) by the swizzle) over every point of a bias unit, even and
+    // odd points apart, then the two together; on the other units it only
+    // passes the stages on.
+    const int bw = warp - CONSUMER_WARPS - 1;
+    const int at = bw * BOX_BYTES + 4 * (lane & 3);
+    for (int u = 0; u < nunits; ++u) {
+      const int item = s_units[4 * u];
+      const int n = s_units[4 * u + 2] - s_units[4 * u + 1];
+      const int tile = p.items[item][rank];
+      const bool bias = tile >= 0 && p.jobs[p.tiles[tile][0]].bias_off >= 0 &&
+                        p.tiles[tile][2] == 0;
+      float e0 = 0.f, e1 = 0.f, o0 = 0.f, o1 = 0.f;
+      for (int c = 0; c < n; ++c) {
+        mbar_wait(full + st, phase);
+        if (bias) {
+          const uint8_t* box = smem + st * DW_STAGE_BYTES + at;
+#pragma unroll 16
+          for (int r = 0; r < SP; r += 2) {
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                box + r * 128 + (((lane >> 2) ^ (r & 7)) << 4));
+            const uint32_t x = *reinterpret_cast<const uint32_t*>(
+                box + (r + 1) * 128 + (((lane >> 2) ^ ((r + 1) & 7)) << 4));
+            e0 += __uint_as_float(v << 16);
+            e1 += __uint_as_float(v & 0xFFFF0000u);
+            o0 += __uint_as_float(x << 16);
+            o1 += __uint_as_float(x & 0xFFFF0000u);
+          }
+        }
+        __syncwarp();
+        mbar_arrive_cluster_if(empty + st, 0, lane == 0);
+        mbar_arrive_cluster_if(empty + st, 1, lane == 0);
+        st = st + 1 == DW_STAGES ? 0 : st + 1;
+        phase ^= st == 0;
+      }
+      if (bias) {
+        float* part = p.scratch +
+                      ((size_t)s_units[4 * u + 3] * DW_CLUSTER + rank) * DW_TILE_ELEMS;
+        *reinterpret_cast<float2*>(part + DW_TN * DW_TK + 64 * bw + 2 * lane) =
+            make_float2(e0 + o0, e1 + o1);
+      }
+      __threadfence();
+      named_bar(1, DW_SUM_THREADS);
+    }
+  }
+
+  // The tiles whose last unit this CTA ran: their partials in point order
+  // (the mains, then the floaters that walked the last stages), the weights
+  // summed by the consumers with four-float loads, the bias by the bias
+  // warps.
+  for (int u = 0; u < nunits; ++u) {
+    named_bar(1, DW_SUM_THREADS);  // the flags are written; the last sums are read
+    if (!s_elected[u]) continue;
+    const int item = s_units[4 * u];
+    const int tile = p.items[item][rank];
+    if (tid == 0) {
+      int count = 0;
+      for (int m = 0; m < w.q; ++m)
+        if (w.share(m * w.P + item) > 0) s_order[count++] = m * w.P + item;
+      int pre = 0;
+      for (int i = 0; i < item; ++i) pre += w.T - w.main_start(w.q, i);
+      const int end = pre + w.T - w.main_start(w.q, item);
+      for (int f = 0; f < w.G - w.q * w.P; ++f) {
+        const int c = w.q * w.P + f;
+        const int lo = w.floater_start(f);
+        if (max(lo, pre) < min(lo + w.share(c), end)) s_order[count++] = c + item;
+      }
+      s_count[1] = count;
+    }
+    named_bar(1, DW_SUM_THREADS);
+    __threadfence();
+    const int count = s_count[1];
+    const DwJob& jb = p.jobs[p.tiles[tile][0]];
+    const int n0 = p.tiles[tile][1], k0 = p.tiles[tile][2];
+    const int rows = min(DW_TN, jb.n - n0), cols = min(DW_TK, jb.k - k0);
+    const size_t stride = (size_t)DW_CLUSTER * DW_TILE_ELEMS;
+    const float* base = p.scratch + (size_t)rank * DW_TILE_ELEMS;
+    float* out = p.out + jb.out_off + (size_t)n0 * jb.out_stride + k0;
+    const bool vec =
+        (reinterpret_cast<uintptr_t>(out) & 15) == 0 && (jb.out_stride & 3) == 0;
+    // Consumer thread tid sums columns 4 (tid % 64) .. + 3 of rows tid / 64,
+    // + 4, ...: the partials' loads of two rows in flight at once, eight
+    // partials at a time, then added in point order.
+    const int c4 = 4 * (tid & 63);
+#pragma unroll 2
+    for (int r = tid >> 6; warp < CONSUMER_WARPS && c4 < cols && r < rows; r += 4) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i0 = 0; i0 < count; i0 += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (i0 + i < count)
+            v[i] = __ldcg(reinterpret_cast<const float4*>(
+                base + s_order[i0 + i] * stride + r * DW_TK + c4));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i0 + i < count) {
+            sum.x += v[i].x;
+            sum.y += v[i].y;
+            sum.z += v[i].z;
+            sum.w += v[i].w;
+          }
+        }
+      }
+      float* o = out + (size_t)r * jb.out_stride + c4;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = sum;
+      } else {
+        o[0] = sum.x;
+        o[1] = sum.y;
+        o[2] = sum.z;
+        o[3] = sum.w;
+      }
+    }
+    if (warp > CONSUMER_WARPS && jb.bias_off >= 0 && k0 == 0) {
+      for (int r = tid - CONSUMER_WARPS * 32; r < rows; r += 32 * DW_BIAS_WARPS) {
+        float sum = 0.f;
+        for (int i = 0; i < count; ++i)
+          sum += __ldcg(base + s_order[i] * stride + DW_TN * DW_TK + r);
+        p.out[jb.bias_off + n0 + r] = sum;
       }
     }
   }
-
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    *s_last = atomicAdd(p.counters + tile, 1) == p.splits - 1;
-  __syncthreads();
-  if (!*s_last) return;
-  __threadfence();
-
-  // The last CTA of this tile sums every split's partial in split order.
-  const size_t split_stride = (size_t)p.ntiles * DW_TILE_ELEMS;
-  const float* part = p.scratch + (size_t)tile * DW_TILE_ELEMS;
-  for (int e = threadIdx.x; e < rows * cols; e += DW_THREADS) {
-    const int r = e / cols, c = e % cols;
-    float s = 0.f;
-    for (int sp = 0; sp < p.splits; ++sp)
-      s += __ldcg(part + sp * split_stride + r * DW_TK + c);
-    p.out[jb.out_off + (size_t)(n0 + r) * jb.out_stride + k0 + c] = s;
-  }
-  if (do_bias) {
-    for (int r = threadIdx.x; r < rows; r += DW_THREADS) {
-      float s = 0.f;
-      for (int sp = 0; sp < p.splits; ++sp)
-        s += __ldcg(part + sp * split_stride + DW_TN * DW_TK + r);
-      p.out[jb.bias_off + n0 + r] = s;
-    }
-  }
+  // No CTA leaves while its peer may still multicast into it or arrive on
+  // its barriers.
+  cluster_sync();
 }
 
 // ---------------------------------------------------------------- heads
@@ -1124,11 +1463,13 @@ int train_wide_resident_ctas(int smem, int* ctas) {
 }
 
 // ptrs: out, scratch, counters, then one pointer per tensor map; dims: M,
-// nmaps, njobs, ntiles, splits, split_len, then per map its width and row
-// stride (elements); jobs: njobs x 8 ints (DwJob fields in order); tiles:
-// ntiles x (job, n0, k0) (fused_train_wide.py::train_wide_dw).
+// nmaps, njobs, ntiles, nitems, then per map its width and row stride
+// (elements); jobs: njobs x 8 ints (DwJob fields in order); tiles: ntiles x
+// (job, n0, k0); items: nitems x (tile of CTA rank 0, tile of rank 1 or -1,
+// share); grid: the CTAs, whole clusters of DW_CLUSTER, each cluster
+// walking DwWalk's units (fused_train_wide.py::train_wide_dw).
 int train_wide_dw_launch(const long long* ptrs, const int* dims, const int* jobs,
-                         const int* tiles, void* stream) {
+                         const int* tiles, const int* items, int grid, void* stream) {
   DwParams p;
   p.out = reinterpret_cast<float*>(ptrs[0]);
   p.scratch = reinterpret_cast<float*>(ptrs[1]);
@@ -1137,17 +1478,19 @@ int train_wide_dw_launch(const long long* ptrs, const int* dims, const int* jobs
   const int nmaps = dims[1];
   const int njobs = dims[2];
   p.ntiles = dims[3];
-  p.splits = dims[4];
-  p.split_len = dims[5];
+  p.nitems = dims[4];
+  p.T = (p.M + SP - 1) / SP;
   if (nmaps < 1 || nmaps > DW_MAX_MAPS || njobs < 1 || njobs > DW_MAX_JOBS ||
-      p.ntiles < 1 || p.ntiles > DW_MAX_TILES || p.splits < 1 || p.split_len % SP ||
-      (long long)p.splits * p.split_len < p.M)
+      p.ntiles < 1 || p.ntiles > DW_MAX_TILES || p.nitems < 1 || p.nitems > p.ntiles ||
+      grid < DW_CLUSTER || grid % DW_CLUSTER || grid / DW_CLUSTER > DW_MAX_WORKERS)
     return (int)cudaErrorInvalidValue;
   for (int j = 0; j < njobs; ++j) {
     const int* f = jobs + 8 * j;
     p.jobs[j] = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7]};
+    // d_col a multiple of 8 (TMA boxes start on 16 B), k of 4 (the sums
+    // write four columns at a time).
     if (f[0] < 0 || f[0] >= nmaps || f[3] < 0 || f[3] >= nmaps || f[1] % 8 ||
-        f[2] < 1 || f[4] < 1)
+        f[2] < 1 || f[4] < 1 || f[4] % 4)
       return (int)cudaErrorInvalidValue;
   }
   for (int t = 0; t < p.ntiles; ++t) {
@@ -1156,12 +1499,33 @@ int train_wide_dw_launch(const long long* ptrs, const int* dims, const int* jobs
         p.tiles[t][2] % DW_TK)
       return (int)cudaErrorInvalidValue;
   }
+  // Every tile in exactly one item; the two tiles of a shared item read the
+  // same boxes of what they share.
+  int seen[DW_MAX_TILES] = {0};
+  for (int i = 0; i < p.nitems; ++i) {
+    const int a = items[3 * i], b = items[3 * i + 1], share = items[3 * i + 2];
+    for (int f = 0; f < 3; ++f) p.items[i][f] = items[3 * i + f];
+    if (a < 0 || a >= p.ntiles || b < -1 || b >= p.ntiles || share < SHARE_NONE ||
+        share > SHARE_A || (share != SHARE_NONE && b < 0))
+      return (int)cudaErrorInvalidValue;
+    ++seen[a];
+    if (b >= 0) {
+      ++seen[b];
+      const int* ta = p.tiles[a];
+      const int* tb = p.tiles[b];
+      if ((share == SHARE_X && (ta[0] != tb[0] || ta[2] != tb[2])) ||
+          (share == SHARE_A && (ta[0] != tb[0] || ta[1] != tb[1])))
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  for (int t = 0; t < p.ntiles; ++t)
+    if (seen[t] != 1) return (int)cudaErrorInvalidValue;
   if (p.M <= 0) return 0;
   if (!encode_tiled()) return ERR_NO_ENCODE;
   DwMaps maps;
   memset(&maps, 0, sizeof maps);
   for (int i = 0; i < nmaps; ++i) {
-    const int width = dims[6 + 2 * i], ld = dims[7 + 2 * i];
+    const int width = dims[5 + 2 * i], ld = dims[6 + 2 * i];
     if (misaligned(ptrs[3 + i]) || (ld * 2) % 16 || width < 1)
       return (int)cudaErrorInvalidValue;
     const CUresult r = make_map(&maps.m[i], reinterpret_cast<const void*>(ptrs[3 + i]),
@@ -1171,9 +1535,49 @@ int train_wide_dw_launch(const long long* ptrs, const int* dims, const int* jobs
   cudaError_t err = cudaFuncSetAttribute(
       train_wide_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  train_wide_dw_kernel<<<p.ntiles * p.splits, DW_THREADS, DW_SMEM_BYTES,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(maps, p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = DW_SMEM_BYTES;
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DW_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, train_wide_dw_kernel, maps, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// CTAs of train_wide_dw_kernel that the current device holds at once in
+// clusters of DW_CLUSTER: one CTA per SM (a GPC with an odd number of free
+// SMs leaves one unused).
+int train_wide_dw_resident_ctas(int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      train_wide_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, clusters = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(DW_CLUSTER * sms);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = DW_SMEM_BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DW_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, train_wide_dw_kernel, &cfg);
+  *ctas = DW_CLUSTER * clusters;
+  return (int)err;
 }
 
 const char* train_wide_error_string(int code) {

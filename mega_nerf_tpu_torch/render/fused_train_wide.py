@@ -62,8 +62,6 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     _round_up,
 )
 from mega_nerf_tpu_torch.render.fused_train import (
-    WG_MIN_SPLIT,
-    WG_WAVES,
     _ints,
     _offsets,
     _stream,
@@ -92,14 +90,26 @@ DX_NONE = 1  # bf16 out, no mask: d_final
 DX_MASK = 2  # bf16 out, masked by the saved layer output (> 0)
 DX_MASK_SIGMA = 3  # the same after adding g_sigma[p] * w_sigma[c] in f32
 # train_wide_dw's tiles and limits (train_wide.cu DW_*): 128 (n) x 256 (k)
-# output tiles, 64 points per ring stage.
+# output tiles, 64 points per ring stage, a 4-stage ring of 64-point boxes
+# (d_pre 64 x 128 and X 64 x 256), barriers, a worker's units and the
+# fixup's list of partial slots.
 DW_TILE_N = 128
 DW_TILE_K = 256
 DW_STAGE = 64
+DW_STAGES = 4
 DW_TILE_ELEMS = DW_TILE_N * DW_TILE_K + DW_TILE_N  # partial tile + bias row
 DW_MAX_JOBS = 4
 DW_MAX_MAPS = 4
 DW_MAX_TILES = 64
+DW_MAX_WORKERS = 256
+DW_MAX_UNITS = DW_MAX_TILES + 1  # of one worker
+DW_SMEM_BYTES = (1024 + DW_STAGES * 2 * DW_STAGE * (DW_TILE_N + DW_TILE_K)
+                 + 2 * DW_STAGES * 8 + 16 + 20 * DW_MAX_UNITS + 4 * DW_MAX_WORKERS)
+# What the two CTAs of a dW cluster share (train_wide.cu SHARE_*): nothing,
+# the X boxes (neighbouring n-tiles of one k-tile) or the d_pre boxes
+# (neighbouring k-tiles of one n-tile).
+DW_SHARE_NONE, DW_SHARE_X, DW_SHARE_A = 0, 1, 2
+DW_CLUSTER = 2  # CTAs of a dW cluster
 
 
 class DxJob(NamedTuple):
@@ -353,7 +363,9 @@ def _train_wide_library() -> ctypes.CDLL:
         lib.train_wide_dx_launch.argtypes = [vp, vp, vp, ctypes.c_int, vp]
         lib.train_wide_resident_ctas.argtypes = [ctypes.c_int, vp]
         lib.train_wide_resident_ctas.restype = ctypes.c_int
-        lib.train_wide_dw_launch.argtypes = [vp, vp, vp, vp, vp]
+        lib.train_wide_dw_launch.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, vp]
+        lib.train_wide_dw_resident_ctas.argtypes = [vp]
+        lib.train_wide_dw_resident_ctas.restype = ctypes.c_int
         for fn in (lib.train_wide_heads_fwd_launch, lib.train_wide_heads_bwd_launch,
                    lib.train_wide_dx_launch, lib.train_wide_dw_launch):
             fn.restype = ctypes.c_int
@@ -504,30 +516,147 @@ def dw_tiles(jobs: Sequence[DwJob]) -> List[Tuple[int, int, int]]:
             for n0 in range(0, job.n, DW_TILE_N) for k0 in range(0, job.k, DW_TILE_K)]
 
 
-def dw_splits(m: int, ntiles: int, resident: int) -> Tuple[int, int]:
-    """(splits, points per split) of a launch over m points: as many splits
-    as fill WG_WAVES waves of `resident` CTAs, at least WG_MIN_SPLIT points
-    each; each split a multiple of DW_STAGE points, the last ending at m."""
-    splits = max(1, min(WG_WAVES * resident // max(ntiles, 1), -(-m // WG_MIN_SPLIT)))
-    split_len = _round_up(-(-m // splits), DW_STAGE)
-    return -(-m // split_len), split_len
+def dw_items(jobs: Sequence[DwJob]) -> List[Tuple[int, int, int]]:
+    """The launch's tiles (`dw_tiles` indices) as the items its clusters
+    walk: (tile of CTA rank 0, tile of rank 1 or -1, what they share).
+    Neighbouring n-tiles of one k-tile of a job (sharing X), then of what
+    is left neighbouring k-tiles of one n-tile (sharing d_pre), then any
+    two, and a last lone tile with an idle peer."""
+    tiles = dw_tiles(jobs)
+    index = {t: i for i, t in enumerate(tiles)}
+    items: List[Tuple[int, int, int]] = []
+    rest: Dict[Tuple[int, int], List[int]] = {}
+    for j, job in enumerate(jobs):
+        for k0 in range(0, job.k, DW_TILE_K):
+            ns = [index[(j, n0, k0)] for n0 in range(0, job.n, DW_TILE_N)]
+            items += [(ns[i], ns[i + 1], DW_SHARE_X) for i in range(0, len(ns) - 1, 2)]
+            if len(ns) % 2:
+                rest.setdefault(tiles[ns[-1]][:2], []).append(ns[-1])
+    singles = []
+    for group in rest.values():
+        items += [(group[i], group[i + 1], DW_SHARE_A)
+                  for i in range(0, len(group) - 1, 2)]
+        if len(group) % 2:
+            singles.append(group[-1])
+    items += [(singles[i], singles[i + 1], DW_SHARE_NONE)
+              for i in range(0, len(singles) - 1, 2)]
+    if len(singles) % 2:
+        items.append((singles[-1], -1, DW_SHARE_NONE))
+    return items
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+class DwWalk(NamedTuple):
+    """The balanced walk of a dW launch (train_wide.cu DwWalk): `workers`
+    (clusters of DW_CLUSTER CTAs) share `items` of `stages` 64-point
+    stages each. Worker c does w + (c < e) stages. The first q * items
+    workers are mains, main m * items + p on one stretch of item p (the
+    q mains of every item run over the same points at once); the rest are
+    floaters, walking each item's remaining last stages, items in order,
+    as one line cut into equal shares (stream-K)."""
+    items: int
+    stages: int
+    workers: int
+    q: int
+    w: int
+    e: int
+
+    def share(self, c: int) -> int:
+        return self.w + (c < self.e)
+
+    def main_start(self, m: int, p: int) -> int:
+        """First stage of main m of item p (at m = q: the floaters' first)."""
+        return m * self.w + (min(m, (self.e - p - 1) // self.items + 1)
+                             if self.e > p else 0)
+
+    def floater_start(self, f: int) -> int:
+        return f * self.w + min(f, max(0, self.e - self.q * self.items))
+
+
+def dw_walk(items: int, stages: int, workers: int) -> DwWalk:
+    total = items * stages
+    return DwWalk(items, stages, workers, workers // items, total // workers,
+                  total - workers * (total // workers))
+
+
+def dw_units(walk: DwWalk, c: int) -> List[Tuple[int, int, int, int]]:
+    """(item, first stage, end stage, partial slot) of worker c's units, in
+    the order it walks them (train_wide.cu DwUnits)."""
+    mains = walk.q * walk.items
+    if c < mains:
+        p = c % walk.items
+        s0 = walk.main_start(c // walk.items, p)
+        return [(p, s0, s0 + walk.share(c), c)] if walk.share(c) else []
+    x0 = walk.floater_start(c - mains)
+    x1 = x0 + walk.share(c)
+    units, pre = [], 0
+    for p in range(walk.items):
+        if pre >= x1:
+            break
+        f0 = walk.main_start(walk.q, p)
+        lo, hi = max(x0, pre), min(x1, pre + walk.stages - f0)
+        if lo < hi:
+            units.append((p, f0 + lo - pre, f0 + hi - pre, c + p))
+        pre += walk.stages - f0
+    return units
+
+
+def dw_fixup_order(walk: DwWalk, item: int) -> List[int]:
+    """The partial slots of `item` in the order its fixup sums them: its
+    mains, then the floaters that walked its last stages."""
+    mains = walk.q * walk.items
+    order = [m * walk.items + item for m in range(walk.q)
+             if walk.share(m * walk.items + item)]
+    pre = sum(walk.stages - walk.main_start(walk.q, i) for i in range(item))
+    end = pre + walk.stages - walk.main_start(walk.q, item)
+    for f in range(walk.workers - mains):
+        lo = walk.floater_start(f)
+        if max(lo, pre) < min(lo + walk.share(mains + f), end):
+            order.append(mains + f + item)
+    return order
+
+
+def dw_grid(items: int, stages: int, resident: int) -> int:
+    """CTAs of a dW launch: one per SM (whole clusters), no more workers
+    than stages."""
+    return DW_CLUSTER * max(1, min(resident // DW_CLUSTER, items * stages, DW_MAX_WORKERS))
+
+
+_DW_RESIDENT: Dict[int, int] = {}
+
+
+def _dw_resident(lib: ctypes.CDLL, device: torch.device) -> int:
+    """CTAs of the dW kernel the card holds at once in clusters of
+    DW_CLUSTER (the occupancy query), cached per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _DW_RESIDENT:
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_if(lib, lib.train_wide_dw_resident_ctas(ctypes.byref(ctas)),
+                      "train_wide_dw_resident_ctas")
+        if ctas.value < DW_CLUSTER:
+            raise RuntimeError("train_wide_dw: no cluster of its CTAs fits the card")
+        _DW_RESIDENT[index] = ctas.value
+    return _DW_RESIDENT[index]
 
 
 def train_wide_dw(jobs: Sequence[DwJob], tensors: Dict[str, torch.Tensor],
-                  out: torch.Tensor) -> torch.Tensor:
+                  out: torch.Tensor, grid: Optional[int] = None) -> torch.Tensor:
     """Writes each job's dW and db into the flat f32 buffer `out` (one
-    launch per call); the points are split over the CTAs and the splits
-    summed in a fixed order, so two launches give the same bits."""
+    launch per call). On CUDA tensors the kernel is persistent: `dw_grid`
+    CTAs (one per SM) in clusters of DW_CLUSTER walk `dw_walk`'s balanced
+    split of the (item, 64-point stage) space, and each tile's partials are
+    summed in point order, so two launches at one grid give the same bits.
+    `grid`, the tests' only, sets another CTA count (whole clusters)."""
     if not _device_rule("train_wide_dw", out):
         return train_wide_dw_plain(jobs, tensors, out)
     if not 1 <= len(jobs) <= DW_MAX_JOBS:
         raise ValueError(f"train_wide_dw: 1-{DW_MAX_JOBS} jobs, got {len(jobs)}")
     if out.dtype != torch.float32 or out.dim() != 1 or not out.is_contiguous():
         raise ValueError("train_wide_dw: out must be a contiguous flat f32 buffer")
+    if grid is not None and (grid < DW_CLUSTER or grid % DW_CLUSTER
+                             or grid > DW_CLUSTER * DW_MAX_WORKERS):
+        raise ValueError(f"train_wide_dw: grid {grid} is not 1-{DW_MAX_WORKERS} "
+                         f"clusters of {DW_CLUSTER}")
     names = list(dict.fromkeys(nm for j in jobs for nm in (j.d, j.x)))
     if len(names) > DW_MAX_MAPS:
         raise ValueError(f"train_wide_dw: more than {DW_MAX_MAPS} tensors")
@@ -537,8 +666,8 @@ def train_wide_dw(jobs: Sequence[DwJob], tensors: Dict[str, torch.Tensor],
         _check_rows(nm, t, torch.bfloat16, m, t.shape[1] if t.dim() == 2 else -1)
         if t.device != out.device:
             raise ValueError("train_wide_dw: tensors on different devices")
-    for j in jobs:
-        if j.d_col % 8 or j.d_col + j.n > tensors[j.d].shape[1] \
+    for j in jobs:  # d_col on 16 B (TMA boxes), k in fours (the sums' stores)
+        if j.d_col % 8 or j.k % 4 or j.d_col + j.n > tensors[j.d].shape[1] \
                 or j.k > tensors[j.x].shape[1]:
             raise ValueError(f"train_wide_dw: job {j} does not fit its tensors")
         end = max(j.out_off + (j.n - 1) * j.out_stride + j.k, j.bias_off + j.n)
@@ -554,20 +683,26 @@ def train_wide_dw(jobs: Sequence[DwJob], tensors: Dict[str, torch.Tensor],
             if j.bias_off >= 0:
                 out[j.bias_off:j.bias_off + j.n] = 0
         return out
-    splits, split_len = dw_splits(m, len(tiles), _sm_count(out.device))
-    scratch = torch.empty(splits * len(tiles) * DW_TILE_ELEMS, dtype=torch.float32,
-                          device=out.device)
-    counters = torch.zeros(len(tiles), dtype=torch.int32, device=out.device)
     lib = _train_wide_library()
+    items = dw_items(jobs)
+    if grid is None:
+        grid = dw_grid(len(items), -(-m // DW_STAGE), _dw_resident(lib, out.device))
+    # A partial per unit and CTA: main slots 0 .. q P - 1, floater slots
+    # below workers + items (`dw_units`).
+    scratch = torch.empty((grid // DW_CLUSTER + len(items)) * DW_CLUSTER * DW_TILE_ELEMS,
+                          dtype=torch.float32, device=out.device)
+    counters = torch.zeros(len(tiles), dtype=torch.int32, device=out.device)
     ptrs = [out.data_ptr(), scratch.data_ptr(), counters.data_ptr()]
     ptrs += [tensors[nm].data_ptr() for nm in names]
-    dims = [m, len(names), len(jobs), len(tiles), splits, split_len]
+    dims = [m, len(names), len(jobs), len(tiles), len(items)]
     dims += [v for nm in names for v in (tensors[nm].shape[1], tensors[nm].stride(0))]
     job_ints = [v for j in jobs for v in (names.index(j.d), j.d_col, j.n,
                                           names.index(j.x), j.k, j.out_off,
                                           j.out_stride, j.bias_off)]
     err = lib.train_wide_dw_launch(_longs(ptrs), _ints(dims), _ints(job_ints),
-                                   _ints(v for t in tiles for v in t), _stream(out))
+                                   _ints(v for t in tiles for v in t),
+                                   _ints(v for it in items for v in it), int(grid),
+                                   _stream(out))
     train_wide_dw.launches += 1
     _raise_if(lib, err, "train_wide_dw")
     return out
@@ -745,7 +880,8 @@ def wide_train_kernel_launches() -> int:
 
 __all__ = [
     "DxJob", "DwJob", "TrainWidePlan", "train_wide_plan", "check_plan",
-    "app_operand", "dw_tiles", "dw_splits", "walk_backward", "DW_REPEAT",
+    "app_operand", "dw_tiles", "dw_items", "DwWalk", "dw_walk", "dw_units",
+    "dw_fixup_order", "dw_grid", "walk_backward", "DW_REPEAT",
     "train_wide_heads_fwd", "train_wide_heads_bwd", "train_wide_dx", "train_wide_dw",
     "train_wide_heads_fwd_plain", "train_wide_heads_bwd_plain",
     "train_wide_dx_plain", "train_wide_dw_plain",

@@ -745,6 +745,91 @@ def test_wide_dx_persistent_walk_matches_plain(cuda_device, width, mode):
         assert torch.equal(got, out)
 
 
+def _dw_launch_tensors(job, plan, m, gen, device):
+    """Seeded bf16 rows for every tensor a dW launch of `plan` reads, each
+    as wide as the plan keeps it (the gradients as their jobs read them)."""
+    widths = dict(plan.saved)
+    tensors = {}
+    for j in job:
+        for name in (j.d, j.x):
+            if name not in tensors:
+                width = widths.get(name) or max(jj.d_col + jj.n for jj in job
+                                                if jj.d == name)
+                if name == "g_heads":
+                    width = 16
+                rows = torch.randn((m, width), generator=gen) * (1e-2 if j.d == name else 1)
+                tensors[name] = rows.to(torch.bfloat16).to(device)
+    return tensors
+
+
+@pytest.mark.parametrize("grid", [None, 512, 14, 2])
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_dw_persistent_walk_matches_plain(cuda_device, bg, grid):
+    """Every dW launch of the 1024-wide plan (the heads, dir_a's three
+    jobs, trunk_final, the trunk, the skip layer's two jobs, layer 0) on
+    100,003 points (the last 64-point stage ragged), at the default grid,
+    at 256 clusters (the most a launch takes: short units, many partials
+    per tile) and at 7 and 1 clusters (each walking many units, each unit
+    many chains of products): a relative norm within 1e-2 of
+    `train_wide_dw_plain` for every weight and bias gradient (bf16
+    operands, another summation order), and two launches at one grid give
+    the same bits."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    packed = _wide_train_case(cuda_device, bg, 1024, 64)[1]
+    plan = ftw.check_plan(packed)
+    gen = torch.Generator().manual_seed(11 + bg)
+    m = WALK_POINTS
+    launches = ftw.train_wide_dw.launches
+    count = 0
+    for kind, job in plan.steps:
+        if kind != "dw":
+            continue
+        tensors = _dw_launch_tensors(job, plan, m, gen, cuda_device)
+        want = ftw.train_wide_dw_plain(job, tensors, torch.zeros(plan.total,
+                                                                 device=cuda_device))
+        got = ftw.train_wide_dw(job, tensors, torch.zeros_like(want), grid)
+        again = ftw.train_wide_dw(job, tensors, torch.zeros_like(want), grid)
+        count += 2
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), job
+        for j in job:
+            rows = slice(j.out_off, j.out_off + j.n * j.out_stride)
+            a = got[rows].view(j.n, j.out_stride)[:, :j.k]
+            b = want[rows].view(j.n, j.out_stride)[:, :j.k]
+            assert torch.isfinite(a).all() and _rel(a, b) <= 1e-2, j
+            if j.bias_off >= 0:
+                bias = slice(j.bias_off, j.bias_off + j.n)
+                assert _rel(got[bias], want[bias]) <= 1e-2, j
+    assert ftw.train_wide_dw.launches == launches + count
+
+
+def test_wide_dw_refuses_what_its_kernel_cannot_take(cuda_device):
+    """`train_wide_dw` on the card refuses, before any launch, a job whose
+    k is not a multiple of 4 (the kernel's sums store four columns at a
+    time), a d_col off 16 bytes (TMA boxes) and a grid that is not 1-256
+    whole clusters; it never falls back to its plain version."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    m = 1000
+    tensors = {"d": torch.ones((m, 64), dtype=torch.bfloat16, device=cuda_device),
+               "x": torch.ones((m, 64), dtype=torch.bfloat16, device=cuda_device)}
+    out = torch.zeros(64 * 64 + 64, device=cuda_device)
+    good = ftw.DwJob("d", 0, 32, "x", 64, 0, 64, 64 * 64)
+    launches, calls = ftw.train_wide_dw.launches, ftw.train_wide_dw_plain.calls
+    for job, grid in [(good._replace(k=62), None), (good._replace(d_col=4), None),
+                      (good, 3), (good, 0), (good, 2 * ftw.DW_MAX_WORKERS + 2)]:
+        with pytest.raises(ValueError):
+            ftw.train_wide_dw([job], tensors, out, grid)
+    assert ftw.train_wide_dw.launches == launches
+    assert ftw.train_wide_dw_plain.calls == calls
+    ftw.train_wide_dw([good], tensors, out)
+    torch.cuda.synchronize()
+    assert ftw.train_wide_dw.launches == launches + 1
+    assert torch.equal(out[:32 * 64].view(32, 64), torch.full((32, 64), float(m),
+                                                               device=cuda_device))
+
+
 def _render_counters():
     """Launches of every kernel wrapper and calls of every plain version."""
     from mega_nerf_tpu_torch.render import fused_train as ft

@@ -249,12 +249,114 @@ def test_wide_train_plan_covers_every_gradient_once(width, xyz_dim, pos_dir_dim,
 @pytest.mark.parametrize("m,tiles", [(1, 1), (4097, 40), (524_288, 32), (524_288, 6),
                                      (20_011, 24)])
 def test_dw_splits_cover_the_points_in_order(m, tiles):
-    """A dW launch's splits: whole 64-point stages, together covering
-    [0, m) with each split non-empty, two waves of the 132 SMs at most."""
-    splits, split_len = ftw.dw_splits(m, tiles, 132)
-    assert split_len % ftw.DW_STAGE == 0
-    assert (splits - 1) * split_len < m <= splits * split_len
-    assert splits * tiles <= max(2 * 132, tiles)
+    """A dW launch's split of its points (the persistent walk, `dw_walk`),
+    its `tiles` walked as as many items: on the card's 132 CTAs, whole
+    clusters, no more workers than stages, each item's 64-point stages
+    covered once and in order by units of whole stages, the last ending at
+    m, every worker's share within one stage of the mean."""
+    stages = -(-m // ftw.DW_STAGE)
+    assert (stages - 1) * ftw.DW_STAGE < m <= stages * ftw.DW_STAGE
+    grid = ftw.dw_grid(tiles, stages, 132)
+    workers = grid // ftw.DW_CLUSTER
+    assert grid % ftw.DW_CLUSTER == 0
+    assert 1 <= workers <= min(132 // ftw.DW_CLUSTER, tiles * stages)
+    walk = ftw.dw_walk(tiles, stages, workers)
+    spans = {}
+    for c in range(workers):
+        units = ftw.dw_units(walk, c)
+        assert sum(s1 - s0 for _, s0, s1, _ in units) == walk.share(c)
+        for p, s0, s1, _ in units:
+            spans.setdefault(p, []).append((s0, s1))
+    assert sorted(spans) == list(range(tiles))
+    for p, got in spans.items():
+        got.sort()
+        assert got[0][0] == 0 and got[-1][1] == stages
+        assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    shares = [walk.share(c) for c in range(workers)]
+    assert max(shares) - min(shares) <= 1
+
+
+def test_dw_plan_matches_the_dw_kernel_constants():
+    """`train_wide.cu`'s dW constants are the wrapper's: the tile, the
+    64-point stage, the ring, the partial's layout, the limits, the share
+    modes, the cluster and the shared memory (ring, barriers, the worker's
+    units, the fixup's slot list), within a CTA's 227 KB."""
+    from tests.test_torch_eval_wide import cu_constants
+
+    c = cu_constants("train_wide")
+    assert (c["DW_TN"], c["DW_TK"], c["SP"], c["DW_STAGES"], c["DW_TILE_ELEMS"]) == (
+        ftw.DW_TILE_N, ftw.DW_TILE_K, ftw.DW_STAGE, ftw.DW_STAGES, ftw.DW_TILE_ELEMS)
+    assert c["DW_STAGE_BYTES"] == 2 * ftw.DW_STAGE * (ftw.DW_TILE_N + ftw.DW_TILE_K)
+    assert (c["DW_MAX_JOBS"], c["DW_MAX_MAPS"], c["DW_MAX_TILES"], c["DW_MAX_WORKERS"],
+            c["DW_MAX_UNITS"]) == (ftw.DW_MAX_JOBS, ftw.DW_MAX_MAPS, ftw.DW_MAX_TILES,
+                                   ftw.DW_MAX_WORKERS, ftw.DW_MAX_UNITS)
+    assert (c["SHARE_NONE"], c["SHARE_X"], c["SHARE_A"]) == (
+        ftw.DW_SHARE_NONE, ftw.DW_SHARE_X, ftw.DW_SHARE_A)
+    assert c["DW_SMEM_BYTES"] == ftw.DW_SMEM_BYTES <= 232_448
+    assert c["DW_CLUSTER"] == ftw.DW_CLUSTER == 2
+
+
+# The point counts of a 1024-ray step's passes (fg fine, fg coarse and bg
+# fine, bg coarse) and two ragged ones.
+DW_POINTS = (1024 * 512, 1024 * 256, 1024 * 128, 100_003, 37)
+
+
+@pytest.mark.parametrize("workers", [132, 66, 7, 1])
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width,pos_dir_dim,appearance_dim", [
+    (1024, 4, 48), (1024, 0, 0), (640, 4, 48), (640, 0, 0)])
+def test_dw_walk_covers_every_tile_stage_once(width, pos_dir_dim, appearance_dim, bg,
+                                              workers):
+    """Every dW launch of the plans at 640 and 1024 (fg and bg, with and
+    without the branch), as the kernel walks it (`dw_items`, `dw_units`):
+    every job's k is a multiple of 4 (the kernel's sums store four
+    columns at a time); the items pair the tiles into whole clusters (each
+    tile in one item, at most one lone tile; a shared item's two tiles
+    read the same boxes of what they share); at each of a step's pass
+    sizes and at ragged M, on `workers` clusters, every (item, 64-point
+    stage) is walked exactly once, every worker's share is within one
+    stage of the mean, the partial slots are distinct and within the
+    scratch, and each item's fixup sums its slots in the order of their
+    points."""
+    cfg = _config(width, 4 if bg else 3, pos_dir_dim, appearance_dim)
+    plan = ftw.train_wide_plan(cfg)
+    for kind, jobs in plan.steps:
+        if kind != "dw":
+            continue
+        assert all(j.k % 4 == 0 for j in jobs)
+        tiles = ftw.dw_tiles(jobs)
+        items = ftw.dw_items(jobs)
+        used = [t for a, b, _ in items for t in (a, b) if t >= 0]
+        assert sorted(used) == list(range(len(tiles)))
+        assert sum(b < 0 for _, b, _ in items) == len(tiles) % 2
+        for a, b, share in items:
+            if b < 0:
+                assert share == ftw.DW_SHARE_NONE
+            elif share == ftw.DW_SHARE_X:  # one k-tile, neighbouring n-tiles
+                assert tiles[a][0::2] == tiles[b][0::2]
+                assert tiles[b][1] - tiles[a][1] == ftw.DW_TILE_N
+            elif share == ftw.DW_SHARE_A:  # one n-tile, neighbouring k-tiles
+                assert tiles[a][:2] == tiles[b][:2]
+                assert tiles[b][2] - tiles[a][2] == ftw.DW_TILE_K
+        for m in DW_POINTS:
+            stages = -(-m // ftw.DW_STAGE)
+            walk = ftw.dw_walk(len(items), stages, workers)
+            seen = np.zeros((len(items), stages), np.int32)
+            by_item = {}
+            mean = len(items) * stages / workers
+            for c in range(workers):
+                units = ftw.dw_units(walk, c)
+                assert len(units) <= ftw.DW_MAX_UNITS
+                assert abs(sum(s1 - s0 for _, s0, s1, _ in units) - mean) < 1
+                for p, s0, s1, slot in units:
+                    seen[p, s0:s1] += 1
+                    by_item.setdefault(p, []).append((s0, slot))
+            assert (seen == 1).all()
+            slots = [slot for units in by_item.values() for _, slot in units]
+            assert len(set(slots)) == len(slots)
+            assert max(slots) < workers + len(items)  # the wrapper's scratch
+            for p, units in by_item.items():
+                assert ftw.dw_fixup_order(walk, p) == [slot for _, slot in sorted(units)]
 
 
 def test_dx_plan_matches_the_dx_kernel_constants():
