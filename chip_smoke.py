@@ -28,8 +28,10 @@ Runs every phase, in order:
               chain fed the plain chain's input: the skip layer, and dir_a
               with and without dirs and appearance), M not a multiple of the
               128-point tile, and the whole wide eval at the dense fg and bg
-              shapes on 1,000,003 points. Encode and layers 1e-2 (1 + |y|),
-              rgb 1e-2 absolute, sigma 1e-2 (1 + |sigma|).
+              shapes on 1,000,003 points. Encode and layers 1e-2 (1 + |y|)
+              (the encode also 99.9% of its bf16 elements bit-equal, the
+              rest one bf16 ulp away), rgb 1e-2 absolute, sigma 1e-2
+              (1 + |sigma|).
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -70,7 +72,10 @@ Runs every phase, in order:
 6b. time_dense - the wide kernels at the dense width on one 524,288-point
               sub-chunk (the layer GEMM at a 2048 x 2048 trunk layer, with
               TFLOP/s, bound, plain ms and cuBLAS's F.linear on the same
-              bf16 operands); the whole wide eval at the fg-fine shape of one
+              bf16 operands; the encode at the fg and the bg shape, each
+              with its byte bound and its agreement with plain: the share
+              of bit-equal bf16 elements, at least 99.9%, and the largest
+              difference in bf16 ulps, at most 1); the whole wide eval at the fg-fine shape of one
               chunk (8,388,608 points) against its bound, its plain version
               and the cuBLAS chain over the same layers; the dense view's
               s/view, rays/s and peak device memory, and a torch.profiler
@@ -476,6 +481,22 @@ def close_ratio(got, want) -> float:
     return ((got - want).abs() / (1 + want.abs())).max().item()
 
 
+def bf16_agreement(got, want):
+    """-> (share of the bf16 elements that are bit-equal, the largest
+    difference in bf16 ulps); +0 and -0 count as one value."""
+    import torch
+
+    def order(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    g, w = order(got), order(want)
+    return (g == w).float().mean().item(), int((g - w).abs().max().item())
+
+
+ENCODE_EQUAL_SHARE = 0.999  # the encode kernel's bf16 elements bit-equal to plain
+
+
 def compare_wide_case(name, hp, bg, m, m_full, seed, device):
     """The wide kernels against their plain versions on one model's own
     operands -> ({kernel: max_abs_err}, ok). Each layer of the chain (the
@@ -506,8 +527,11 @@ def compare_wide_case(name, hp, bg, m, m_full, seed, device):
         enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
         p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
         hold("eval_wide_encode", enc, p_enc)
+        agree = [bf16_agreement(enc, p_enc)]
         if p_dir is not None:
             hold("eval_wide_encode", dir_enc, p_dir)
+            agree.append(bf16_agreement(dir_enc, p_dir))
+        enc_equal, enc_ulps = min(a for a, _ in agree), max(u for _, u in agree)
         h = p_enc
         for i in range(cfg.layers):
             xs = [p_enc, h] if i in cfg.skip_layers else [h]
@@ -534,9 +558,12 @@ def compare_wide_case(name, hp, bg, m, m_full, seed, device):
         sig_ratio = (err[:, 3] / (1 + want[:, 3].abs())).max().item()
         finite = bool(torch.isfinite(got).all())
     ok = (finite and worst["eval_wide_encode"] <= TOL and worst["eval_wide_layer"] <= TOL
-          and rgb_err <= TOL and sig_ratio <= TOL)
+          and rgb_err <= TOL and sig_ratio <= TOL and enc_equal >= ENCODE_EQUAL_SHARE
+          and enc_ulps <= 1)
     log(f"  wide {name}: M={m}, {n_layers} layers; encode max|err|/(1+|x|)="
-        f"{worst['eval_wide_encode']:.3e}, layers worst max|err|/(1+|y|)="
+        f"{worst['eval_wide_encode']:.3e}, bf16 bit-equal {100 * enc_equal:.4f}% (limit "
+        f"{100 * ENCODE_EQUAL_SHARE:.1f}%), largest difference {enc_ulps} bf16 ulp (limit 1); "
+        f"layers worst max|err|/(1+|y|)="
         f"{worst['eval_wide_layer']:.3e}, heads rgb max|err|={rgb_err:.3e} sigma "
         f"max|err|/(1+|s|)={sig_ratio:.3e}; finite={finite} -> {'ok' if ok else 'FAIL'}")
     if m_full:
@@ -1197,8 +1224,17 @@ def phase_time_dense(device, report):
         plain_ms = cuda_ms(lambda: fw.eval_wide_layer_plain([x], w, b, True), 3, 1)
         b16 = b.to(torch.bfloat16)  # F.linear takes the bias in the operands' type
         lib_ms = cuda_ms(lambda: F.linear(x, w, b16), 10)
-        enc_ms = cuda_ms(lambda: fw.eval_wide_encode(packed, xyz, dirs), 10)
-        enc_plain = cuda_ms(lambda: fw.eval_wide_encode_plain(packed, xyz, dirs), 3, 1)
+        # The encode at the fg shape, then the bg shape (xyz_dim 4: 112 enc
+        # columns), each into given outputs, as the wide eval's sub-chunks.
+        bg_packed = fused_mlp.pack_params(seeded_bundle(hp, 16, True, 45, device).module)
+        bg_xyz, bg_dirs, _ = mlp_inputs(bg_packed.config, sub, 46, device)
+        encode_shapes = []
+        for shape, pk, sx, sd in (("fg", packed, xyz, dirs), ("bg", bg_packed, bg_xyz, bg_dirs)):
+            outs = fw.eval_wide_encode(pk, sx, sd)
+            t = cuda_ms(lambda: fw.eval_wide_encode(pk, sx, sd, *outs), 20)
+            tp = cuda_ms(lambda: fw.eval_wide_encode_plain(pk, sx, sd), 3, 1)
+            encode_shapes.append((shape, pk, sx, sd, t, tp))
+            del outs
         heads_ms = cuda_ms(lambda: fw.eval_wide_heads(packed, x, branch), 10)
         heads_plain = cuda_ms(lambda: fw.eval_wide_heads_plain(packed, x, branch), 3, 1)
     flops = 2.0 * sub * d * d
@@ -1211,22 +1247,41 @@ def phase_time_dense(device, report):
         f"cuBLAS (F.linear, bf16 operands and bias, f32 accumulation) {lib_ms:.3f} ms = "
         f"{flops / lib_ms / 1e9:.1f} TFLOP/s (the kernel takes {ms / lib_ms:.2f}x its "
         f"time); bound {bms:.3f} ms ({by}: {flops:.4g} FLOP, {nbytes:.4g} B)")
-    live = cfg.enc_in + cfg.dir_in
-    enc_bytes = sub * (4.0 * cfg.xyz_dim + 12 + 2 * (packed.ep + packed.dp))
-    enc_ops = 3.0 * live * sub  # scale, phase and sin per live column
-    heads_bytes = sub * (2.0 * d + d + 16) + 2 * (d + 3 * (d // 2))
-    heads_ops = 2.0 * sub * (d + 3 * (d // 2))
-    for name, t, tp, nb, ops in (("eval_wide_encode", enc_ms, enc_plain, enc_bytes, enc_ops),
-                                 ("eval_wide_heads", heads_ms, heads_plain, heads_bytes,
-                                  heads_ops)):
+    def f32_bound(nb, ops):
         t_ops = ops / PEAK_F32_FLOPS * 1e3
         t_bytes = nb / PEAK_HBM_BYTES * 1e3
-        bms, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-        kernels[name].update(ms=t, plain_ms=tp, bound_ms=bms, bound_by=by)
-        log(f"  {name} on {sub} points: {t:.3f} ms/launch ({nb / t / 1e9:.3f} TB/s); "
-            f"plain {tp:.3f} ms; bound {bms:.3f} ms ({by}: {nb:.4g} B, {ops:.4g} "
-            f"f32 operations)")
-    del x, branch, xyz, dirs
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    encode_ok = True
+    for shape, pk, sx, sd, t, tp in encode_shapes:
+        c = pk.config
+        nb = sub * (4.0 * c.xyz_dim + 12 + 2 * (pk.ep + pk.dp))
+        ops = 3.0 * (c.enc_in + c.dir_in) * sub  # scale, phase and sin per live column
+        bms, by = f32_bound(nb, ops)
+        with torch.no_grad():
+            got = fw.eval_wide_encode(pk, sx, sd)
+            want = fw.eval_wide_encode_plain(pk, sx, sd)
+        agree = [bf16_agreement(g, w) for g, w in zip(got, want) if w is not None]
+        equal, ulps = min(a for a, _ in agree), max(u for _, u in agree)
+        worst = max(close_ratio(g, w) for g, w in zip(got, want) if w is not None)
+        encode_ok &= equal >= ENCODE_EQUAL_SHARE and ulps <= 1 and worst <= TOL
+        if shape == "fg":  # the kernel table's row
+            kernels["eval_wide_encode"].update(ms=t, plain_ms=tp, bound_ms=bms, bound_by=by)
+        log(f"  eval_wide_encode, {shape} shape (xyz_dim {c.xyz_dim}, {pk.ep} + {pk.dp} "
+            f"columns) on {sub} points: {t:.4f} ms/launch ({nb / t / 1e9:.3f} TB/s, "
+            f"{100 * bms / t:.1f}% of its bound); plain {tp:.3f} ms; bound {bms:.4f} ms "
+            f"({by}: {nb:.4g} B, {ops:.4g} f32 operations); against plain max|err|/(1+|x|)="
+            f"{worst:.3e}, bf16 bit-equal {100 * equal:.4f}%, largest difference {ulps} "
+            f"bf16 ulp -> {'ok' if equal >= ENCODE_EQUAL_SHARE and ulps <= 1 else 'FAIL'}")
+    heads_bytes = sub * (2.0 * d + d + 16) + 2 * (d + 3 * (d // 2))
+    heads_ops = 2.0 * sub * (d + 3 * (d // 2))
+    bms, by = f32_bound(heads_bytes, heads_ops)
+    kernels["eval_wide_heads"].update(ms=heads_ms, plain_ms=heads_plain, bound_ms=bms,
+                                      bound_by=by)
+    log(f"  eval_wide_heads on {sub} points: {heads_ms:.3f} ms/launch "
+        f"({heads_bytes / heads_ms / 1e9:.3f} TB/s); plain {heads_plain:.3f} ms; bound "
+        f"{bms:.3f} ms ({by}: {heads_bytes:.4g} B, {heads_ops:.4g} f32 operations)")
+    del x, branch, xyz, dirs, encode_shapes, bg_packed, bg_xyz, bg_dirs, got, want, pk, sx, sd
 
     # The whole wide eval at the fg-fine shape of one 16,384-ray chunk.
     m = 16384 * 512
@@ -1285,7 +1340,7 @@ def phase_time_dense(device, report):
     profile_dense_view(runner, meta, report)
     for k in WIDE_KERNELS:  # timing launches are not main-path launches
         getattr(fw, k).launches = saved[k]
-    return True
+    return encode_ok
 
 
 def phase_eager_dense(device, report, tmp: Path):
@@ -1909,6 +1964,11 @@ def phase_time_train_wide(device, report, tmp: Path):
         report["training_wide"].update(dw_ms_per_step=dw_ms, dw_launches_per_step=dw_n,
                                        dw_flop_per_step=dw_flops,
                                        dw_bound_ms_per_step=dw_bound)
+        enc_ms = sum(ms for ms, _, name in rows if "eval_wide_encode_kernel" in name)
+        enc_n = sum(count for _, count, name in rows if "eval_wide_encode_kernel" in name)
+        log(f"  eval_wide_encode per step (profile): {enc_ms:.3f} ms device time over "
+            f"{enc_n} launches")
+        report["training_wide"]["encode_ms_per_step"] = enc_ms
     else:
         log("  profiler: no device time recorded (device share not measured)")
     report["wide_runner"] = runner

@@ -6,7 +6,10 @@ widths its eval gate admits past the port's fused chain (`fused_mlp.py`,
 
 - `eval_wide_encode` writes the f32 frequency encodes of xyz and dirs as
   bf16 operands, (M, EP) and (M, DP), in the fused chain's form (cos as
-  sin(x 2^k + pi/2), precise sinf, zero columns past the live width);
+  sin(x 2^k + pi/2), sinf's results, zero columns past the live width):
+  tiles of `encode_plan` points, a lane per point walking one coordinate's
+  frequencies (`encode_walk` mirrors which columns each thread writes),
+  rows staged in shared memory and stored as one contiguous range;
 - `eval_wide_layer` is one matmul layer, Y = act(sum_s X_s W_s^T + b),
   bf16 out, its A operand read from up to three tensors as separate
   K-segments ([enc | h] at a skip layer, [final | dir | app] for dir_a);
@@ -79,6 +82,13 @@ WIDE_SMEM_BYTES = (WIDE_STAGES * WIDE_STAGE_BYTES + WIDE_OUT_BYTES + WIDE_PARAMS
 # train_wide_dx runs without clusters.
 WIDE_CLUSTER = 2
 DX_CLUSTER = 1
+# The encode kernel: 256 threads (8 warps) per CTA walk tiles of at most
+# ENCODE_TILE points, a lane per point; the tile halves (to 32) while its
+# shared memory (coordinates and staged rows) exceeds ENCODE_SMEM_TARGET.
+ENCODE_TILE = 128
+ENCODE_WARPS = 8
+ENCODE_SMEM_TARGET = 96 * 1024
+ENCODE_MAX_SMEM = 232_448  # a CTA's most shared memory on sm_90
 # Scratch of one pass of the layer chain at most, and the most points a
 # pass takes (32,768 point tiles).
 WIDE_SCRATCH_LIMIT = 8 * 2 ** 30
@@ -170,6 +180,54 @@ def wide_resident_ctas(lib: ctypes.CDLL, name: str, device: torch.device) -> int
     `<name>_resident_ctas` export at WIDE_SMEM_BYTES: whole clusters),
     cached per device."""
     return _resident_ctas(lib, device, WIDE_SMEM_BYTES, f"{name}_resident_ctas")
+
+
+def encode_smem(tile: int, xyz_dim: int, ep: int, dp: int) -> int:
+    """Shared memory of an encode tile: the f32 xyz and dirs rows, the
+    staged enc and dir rows at 2 EP + 4 and 2 DP + 4 bytes (an odd number
+    of words, so the 32 lanes' stores at one column fall in 32 banks)."""
+    return tile * (xyz_dim + 3) * 4 + tile * (2 * ep + 4) + (tile * (2 * dp + 4) if dp else 0)
+
+
+def encode_plan(xyz_dim: int, ep: int, dp: int) -> Tuple[int, int]:
+    """(points per tile, shared-memory bytes) of the encode kernel: ENCODE_TILE
+    points, halved down to 32 while the tile needs more than
+    ENCODE_SMEM_TARGET (at 12 / 4 frequencies a tile takes 33-41 KB)."""
+    tile = ENCODE_TILE
+    while tile > 32 and encode_smem(tile, xyz_dim, ep, dp) > ENCODE_SMEM_TARGET:
+        tile //= 2
+    return tile, encode_smem(tile, xyz_dim, ep, dp)
+
+
+def encode_walk(xyz_dim: int, nf_xyz: int, nf_dir: int, has_dir: bool,
+                tile: int = ENCODE_TILE) -> dict:
+    """What each thread of the encode kernel writes into a tile's staged
+    rows, in its order, mirroring its loops -> {(warp, lane): [(operand,
+    point, column, coordinate, k, phase), ...]}: operand 0 is enc, 1 dir;
+    k = -1 marks the identity column; phase 1 the cos column (argument
+    x 2^k + pi/2). Warp w takes tasks w, w + ENCODE_WARPS, ... of the
+    (stream s, 32-point group g) tasks, task = s * groups + g; streams are
+    the xyz coordinates, then the three direction coordinates; lane l
+    takes point 32 g + l and walks k, the columns from the loop indices.
+    The pad columns, zeroed once per CTA, are not listed."""
+    groups = tile // 32
+    streams = xyz_dim + (3 if has_dir else 0)
+    walk = {}
+    for warp in range(ENCODE_WARPS):
+        for task in range(warp, streams * groups, ENCODE_WARPS):
+            s, g = divmod(task, groups)
+            operand, i, d, nf = ((0, s, xyz_dim, nf_xyz) if s < xyz_dim
+                                 else (1, s - xyz_dim, 3, nf_dir))
+            for lane in range(32):
+                out = walk.setdefault((warp, lane), [])
+                point = 32 * g + lane
+                out.append((operand, point, i, i, -1, 0))
+                col = d + i
+                for k in range(nf):
+                    for phase in (0, 1):
+                        out.append((operand, point, col, i, k, phase))
+                        col += d
+    return walk
 
 
 def sub_chunks(m: int, sub: int) -> List[Tuple[int, int]]:
@@ -320,13 +378,20 @@ def eval_wide_encode(packed: PackedMLP, xyz: torch.Tensor,
                      dirs: Optional[torch.Tensor], enc: Optional[torch.Tensor] = None,
                      dir_enc: Optional[torch.Tensor] = None):
     """-> (enc (M, EP), dir enc (M, DP) or None), bf16. On CUDA tensors the
-    kernel writes into `enc` / `dir_enc` when given (contiguous), else into
-    new tensors."""
+    kernel writes into `enc` / `dir_enc` when given (contiguous, 16-byte
+    aligned: the kernel stores 16-byte chunks), else into new tensors;
+    xyz_dim 3 or 4."""
     if not _device_rule("eval_wide_encode", xyz):
         return eval_wide_encode_plain(packed, xyz, dirs)
     cfg = packed.config
     if cfg.dtype != torch.bfloat16:
         raise NotImplementedError("eval_wide_encode writes bf16 operands only")
+    if cfg.xyz_dim not in (3, 4):
+        raise ValueError(f"eval_wide_encode: xyz_dim {cfg.xyz_dim} (the kernel takes 3 or 4)")
+    tile, smem = encode_plan(cfg.xyz_dim, packed.ep, packed.dp)
+    if smem > ENCODE_MAX_SMEM:
+        raise ValueError(f"eval_wide_encode: {cfg.pos_xyz_dim} / {cfg.pos_dir_dim} "
+                         f"frequencies need {smem} bytes of shared memory per tile")
     m = xyz.shape[0]
     _check("xyz", xyz, torch.float32, (m, cfg.xyz_dim))
     if packed.dp:
@@ -341,12 +406,16 @@ def eval_wide_encode(packed: PackedMLP, xyz: torch.Tensor,
         _check("dir_enc", dir_enc, torch.bfloat16, (m, packed.dp))
     else:
         dir_enc = None
+    for name, t in (("enc", enc), ("dir_enc", dir_enc)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"eval_wide_encode: {name} is not 16-byte aligned")
     if m == 0:
         return enc, dir_enc
     lib = _wide_library()
     ptrs = [xyz.data_ptr(), dirs.data_ptr() if packed.dp else 0, enc.data_ptr(),
             dir_enc.data_ptr() if packed.dp else 0]
-    dims = [m, cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim, packed.ep, packed.dp]
+    dims = [m, cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim, packed.ep, packed.dp,
+            tile, smem]
     err = lib.eval_wide_encode_launch(_longs(ptrs), _ints(dims), _stream(xyz))
     eval_wide_encode.launches += 1
     _raise_if(lib, err, "eval_wide_encode")
@@ -507,7 +576,8 @@ def wide_kernel_launches() -> int:
 
 __all__ = [
     "WidePlan", "wide_plan", "wide_plan_ints", "wide_units", "wide_grid",
-    "tile_walk", "WIDE_CLUSTER", "DX_CLUSTER",
+    "tile_walk", "WIDE_CLUSTER", "DX_CLUSTER", "encode_smem", "encode_plan",
+    "encode_walk",
     "wide_resident_ctas", "sub_chunks", "segment_columns",
     "scratch_bytes_per_point", "eval_wide_encode", "eval_wide_layer",
     "eval_wide_heads", "fused_nerf_eval_wide", "eval_wide_encode_plain",

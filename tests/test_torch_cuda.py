@@ -363,6 +363,25 @@ def _close(got, want):
     return ((got.float() - want.float()).abs() / (1 + want.float().abs())).max().item()
 
 
+def _bf16_order(t):
+    """bf16 bit patterns as integers in value order: +0 and -0 both 0,
+    neighbouring values 1 apart."""
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _assert_encode_agrees(got, want):
+    """The encode kernel against its plain version: 1e-2 (1 + |x|), at
+    least 99.9% of the bf16 elements bit-equal and the rest one bf16 ulp
+    away (the kernel's sines are sinf's own; a result one f32 ulp off
+    flips a bf16 rounding only at a tie)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    assert _close(got, want) <= 1e-2
+    g, w = _bf16_order(got), _bf16_order(want)
+    assert (g == w).float().mean().item() >= 0.999
+    assert (g - w).abs().max().item() <= 1
+
+
 WIDE_VARIANTS = [
     {"appearance_dim": 48},
     {"appearance_dim": 0},
@@ -380,8 +399,9 @@ def test_wide_eval_kernels_match_plain(cuda_device, width, bg, kw, m):
     the encode, every layer of the chain fed the plain chain's input (the
     skip layer's [enc | h], trunk_final, dir_a's [final | dir | app] with and
     without dirs and appearance), the heads; then the whole wide eval.
-    Tolerances: layers and encode 1e-2 (1 + |y|) (another summation order
-    can flip one bf16 rounding), rgb 1e-2 absolute, sigma 1e-2 (1 + |s|).
+    Tolerances: layers 1e-2 (1 + |y|) (another summation order can flip
+    one bf16 rounding), the encode as `_assert_encode_agrees`, rgb 1e-2
+    absolute, sigma 1e-2 (1 + |s|).
     M = 1,000 and 37: not multiples of the 128-point tile."""
     fw, packed, xyz, dirs, app = _wide_case(cuda_device, bg,
                                             {"layer_dim": width, **kw}, m)
@@ -389,9 +409,9 @@ def test_wide_eval_kernels_match_plain(cuda_device, width, bg, kw, m):
     with torch.no_grad():
         enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
         p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
-        assert _close(enc, p_enc) <= 1e-2
+        _assert_encode_agrees(enc, p_enc)
         if packed.dp:
-            assert _close(dir_enc, p_dir) <= 1e-2
+            _assert_encode_agrees(dir_enc, p_dir)
         h = p_enc
         for i in range(cfg.layers):
             xs = [p_enc, h] if i in cfg.skip_layers else [h]
@@ -419,6 +439,102 @@ def test_wide_eval_kernels_match_plain(cuda_device, width, bg, kw, m):
         err = (out - ref).abs()
         assert err[:, :3].max().item() <= 1e-2
         assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-2
+
+
+def _encode_case(cuda_device, bg, pos_xyz_dim, pos_dir_dim, m, spread=1.0, seed=11):
+    """A 16-wide model's packed encode (only its encode widths matter) and m
+    seeded points: the renderer's ranges (fg xyz in [-1.5, 1.5], bg a unit
+    vector and an inverse depth in [0, 1], unit dirs) times `spread`."""
+    from mega_nerf_tpu_torch.render import fused_wide
+
+    hp = tiny_hparams(pos_xyz_dim=pos_xyz_dim, pos_dir_dim=pos_dir_dim,
+                      compute_dtype="bfloat16")
+    bundle = (make_bg_nerf if bg else make_nerf)(hp, 1)
+    packed = fused_mlp.pack_params(bundle.module.to(cuda_device))
+    gen = torch.Generator().manual_seed(seed)
+    if bg:
+        p = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen), dim=-1)
+        xyz = torch.cat([p, torch.rand((m, 1), generator=gen)], -1)
+    else:
+        xyz = 1.5 * (2 * torch.rand((m, 3), generator=gen) - 1)
+    dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen), dim=-1)
+    return (fused_wide, packed, (spread * xyz).to(cuda_device),
+            (spread * dirs).to(cuda_device) if pos_dir_dim else None)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("m", [1, 37, 129, 1000, 200_003])
+@pytest.mark.parametrize("pos_dir_dim", [4, 0])
+@pytest.mark.parametrize("pos_xyz_dim", [12, 16, 1, 64])
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_encode_kernel_matches_plain(cuda_device, bg, pos_xyz_dim, pos_dir_dim, m,
+                                          given):
+    """The encode kernel against its plain version (`_assert_encode_agrees`)
+    at xyz_dim 3 and 4, 12 / 16 / 1 xyz frequencies (64: the tile halves to
+    64 points), with and without dirs; M = 1, 37, one tile + 1 and 1,000,
+    and 200,003 (CTAs walk several tiles); outputs allocated by the wrapper
+    or given, pre-filled with NaN, so every column, pads included, must be
+    written. A second launch gives the same bits."""
+    fw, packed, xyz, dirs = _encode_case(cuda_device, bg, pos_xyz_dim, pos_dir_dim, m)
+    assert fw.encode_plan(packed.config.xyz_dim, packed.ep, packed.dp)[0] == (
+        64 if pos_xyz_dim == 64 else fw.ENCODE_TILE)
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    outs = {}
+    if given:
+        outs["enc"] = torch.full((m, packed.ep), float("nan"), **bf)
+        if packed.dp:
+            outs["dir_enc"] = torch.full((m, packed.dp), float("nan"), **bf)
+    launches = fw.eval_wide_encode.launches
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs, **outs)
+        again = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+    torch.cuda.synchronize()
+    assert fw.eval_wide_encode.launches == launches + 2
+    if given:
+        assert enc.data_ptr() == outs["enc"].data_ptr()
+    _assert_encode_agrees(enc, p_enc)
+    assert torch.equal(enc.view(torch.int16), again[0].view(torch.int16))
+    assert (dir_enc is None) == (p_dir is None) == (pos_dir_dim == 0)
+    if p_dir is not None:
+        _assert_encode_agrees(dir_enc, p_dir)
+        assert torch.equal(dir_enc.view(torch.int16), again[1].view(torch.int16))
+
+
+@pytest.mark.parametrize("pos_xyz_dim", [12, 16])
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_encode_kernel_takes_sinf_past_the_reduction_limit(cuda_device, bg,
+                                                                pos_xyz_dim):
+    """The renderer's ranges times 6,667 (fg coordinates up to 1e4): x 2^k
+    passes sinf's Cody-Waite limit (105,615) from k = 4 on, and those lanes
+    take sinf itself; the same agreement as in the renderer's ranges."""
+    fw, packed, xyz, dirs = _encode_case(cuda_device, bg, pos_xyz_dim, 4, 1000,
+                                         spread=1e4 / 1.5)
+    assert xyz.abs().max().item() * 2 ** (pos_xyz_dim - 1) > 105_615
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+    torch.cuda.synchronize()
+    _assert_encode_agrees(enc, p_enc)
+    _assert_encode_agrees(dir_enc, p_dir)
+
+
+def test_wide_encode_refuses_misaligned_outputs(cuda_device):
+    """A given enc or dir_enc off 16-byte alignment (the kernel stores
+    16-byte chunks) raises, without a launch or a plain call."""
+    fw, packed, xyz, dirs = _encode_case(cuda_device, False, 12, 4, 64)
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    enc = torch.empty(64 * packed.ep + 8, **bf)[8:].view(64, packed.ep)
+    dir_enc = torch.empty(64 * packed.dp + 8, **bf)[8:].view(64, packed.dp)
+    launches, calls = fw.eval_wide_encode.launches, fw.eval_wide_encode_plain.calls
+    for given in ({"enc": torch.empty(64 * packed.ep + 1, **bf)[1:].view(64, packed.ep)},
+                  {"dir_enc": torch.empty(64 * packed.dp + 1, **bf)[1:].view(64, packed.dp)}):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fw.eval_wide_encode(packed, xyz, dirs, **given)
+    fw.eval_wide_encode(packed, xyz, dirs, enc=enc, dir_enc=dir_enc)  # aligned: fine
+    torch.cuda.synchronize()
+    assert fw.eval_wide_encode.launches == launches + 1
+    assert fw.eval_wide_encode_plain.calls == calls
 
 
 @pytest.mark.parametrize("bg", [False, True])

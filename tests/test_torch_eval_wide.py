@@ -268,6 +268,90 @@ def test_sub_chunks_cover_every_point_once(m, sub):
     assert all(b == a2 for (_, b), (a2, _) in zip(chunks, chunks[1:]))
 
 
+def _config_encodes():
+    """(xyz_dim, pos_xyz_dim, pos_dir_dim) of every file in `configs/` (the
+    options' defaults, 12 and 4, where a file sets none), fg and bg."""
+    import yaml
+
+    found = set()
+    for path in sorted((Path(__file__).resolve().parents[1] / "configs").glob("*/*.yaml")):
+        opts = yaml.safe_load(path.read_text()) or {}
+        nf = (opts.get("pos_xyz_dim", 12), opts.get("pos_dir_dim", 4))
+        found |= {(3, *nf), (4, *nf)}
+    return sorted(found)
+
+
+ENCODES = _config_encodes() + [(4, 0, 4), (4, 1, 4), (4, 16, 4)]
+
+
+def test_config_encodes_are_the_paper_ones():
+    """What the encode cases below cover: every family in `configs/` uses
+    12 xyz frequencies with 4 dir frequencies or none."""
+    assert ENCODES[:4] == [(3, 12, 0), (3, 12, 4), (4, 12, 0), (4, 12, 4)]
+    assert len(ENCODES) == 7
+
+
+@pytest.mark.parametrize("xyz_dim,nf_xyz,nf_dir", ENCODES)
+def test_encode_walk_matches_the_jax_encode_layout(xyz_dim, nf_xyz, nf_dir):
+    """The encode kernel's column assignment, mirrored (`encode_walk`):
+    within a tile every live column of every point's enc and dir rows is
+    written exactly once, by the lane of that point, and carries the JAX
+    package's `encode_layout` column (source coordinate, scale 2^k, kind,
+    pi/2 phase on the cos columns); no pad column is written (the kernel
+    zeroes them once per CTA). Also the staged rows' odd word strides and
+    the tile's shared memory."""
+    ep = fused_mlp._round_up(xyz_dim * (1 + 2 * nf_xyz), fused_mlp.MMA_K)
+    dp = fused_mlp._round_up(3 * (1 + 2 * nf_dir), fused_mlp.MMA_K) if nf_dir else 0
+    tile, smem = fused_wide.encode_plan(xyz_dim, ep, dp)
+    assert tile == fused_wide.ENCODE_TILE and smem == fused_wide.encode_smem(
+        tile, xyz_dim, ep, dp) <= fused_wide.ENCODE_SMEM_TARGET
+    walk = fused_wide.encode_walk(xyz_dim, nf_xyz, nf_dir, dp > 0, tile)
+    assert set(walk) == {(w, lane) for w in range(fused_wide.ENCODE_WARPS)
+                         for lane in range(32)}
+    layouts = [j_pallas.encode_layout(((xyz_dim, nf_xyz),), ep)]
+    widths = [ep]
+    if dp:
+        layouts.append(j_pallas.encode_layout(((3, nf_dir),), dp))
+        widths.append(dp)
+    seen = {}
+    for (warp, lane), writes in walk.items():
+        for operand, point, col, coord, k, phase in writes:
+            assert point % 32 == lane and 0 <= point < tile
+            assert (operand, point, col) not in seen
+            seen[operand, point, col] = (coord, k, phase)
+    for operand, (layout, width) in enumerate(zip(layouts, widths)):
+        assert (2 * width + 4) // 4 % 2 == 1  # odd words: 32 lanes, 32 banks
+        colsrc, scale, phase, kind = layout.np_arrays()
+        for point in range(tile):
+            for col in range(width):
+                got = seen.get((operand, point, col))
+                if col >= layout.live_cols:
+                    assert got is None and colsrc[col] == -1 and kind[col] == 0
+                    continue
+                c, k, ph = got
+                assert c == colsrc[col]
+                assert kind[col] == (k >= 0)
+                assert scale[col] == np.float32(2.0 ** max(k, 0))
+                assert phase[col] == (np.float32(np.pi / 2) if ph else 0)
+    assert len(seen) == tile * sum(lay.live_cols for lay in layouts)
+
+
+@pytest.mark.parametrize("xyz_dim,nf_xyz,tile", [(4, 12, 128), (4, 16, 128), (4, 64, 64),
+                                                 (3, 64, 64), (4, 128, 32)])
+def test_encode_plan_halves_the_tile_for_many_frequencies(xyz_dim, nf_xyz, tile):
+    """The encode tile: 128 points while its coordinates and staged rows fit
+    ENCODE_SMEM_TARGET, halved down to 32 past it, within a CTA's shared
+    memory; `ENCODE_MAX_SMEM` and the warps are the kernel's own constants."""
+    ep = fused_mlp._round_up(xyz_dim * (1 + 2 * nf_xyz), fused_mlp.MMA_K)
+    got, smem = fused_wide.encode_plan(xyz_dim, ep, 32)
+    assert got == tile and smem == fused_wide.encode_smem(tile, xyz_dim, ep, 32)
+    assert smem <= fused_wide.ENCODE_SMEM_TARGET or tile == 32
+    assert smem <= fused_wide.ENCODE_MAX_SMEM
+    c = cu_constants("eval_wide")
+    assert c["ENCODE_MAX_SMEM"] == fused_wide.ENCODE_MAX_SMEM
+    assert c["ENCODE_THREADS"] == 32 * fused_wide.ENCODE_WARPS
+
+
 def test_wide_plain_sub_chunking_matches_one_pass(monkeypatch):
     """The plain composite cut into 128-point sub-chunks (a ragged last
     one) gives the one-pass result on 300 points: the sub-chunks only slice
