@@ -100,9 +100,25 @@ the layer GEMM's ratio at 2048 is time_dense's; dW and torch.mm at a trunk
 job at each pass size, each timed right after the same ten layer GEMMs,
 beside the SM clock and the cycles) and eager_train_wide (a record of the
 eager module's step).
+The cascade families and the SH head add, after time_train_wide:
+serve_cascade (`eval.main` with `configs/npp/building.yaml`: coarse and fine
+NeRFs, fg and bg 8x2048, seeded random weights, the 128x128 view; the wide
+eval kernels' launches for each of the four levels, each on its own packed
+weights, no narrow, eager or plain call; the levels' MLPs differ on the
+same points; 1,024 rays again through the wide plain version, fine and
+coarse rgb <= 1e-2; s/view, rays/s, peak memory, device time by kernel),
+train_cascade (20 steps of `train.main` with
+`configs/mega-nerf-embed-only/building.yaml` at `--layer_dim 1024`: finite
+metrics with `coarse_loss`, a falling loss, each level's wide training
+launches per step, its pass sizes 262,144 and 786,432 held against the plain
+versions in compare_train_wide, no narrow, plain or eager call; `eval.main`
+on its `{iter}.pt`; ms/step and peak memory) and train_sh (10 steps of
+`train.main` and an eval with `configs/mega-nerf-sh-3/building.yaml`, the
+eager module named by the log for every pass, no kernel launch).
 
-Prints `{"serving": ...}`, `{"serving_dense": ...}` and `{"training": ...}` lines, a
-`{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
+Prints `{"serving": ...}`, `{"serving_dense": ...}`, `{"training": ...}`,
+`{"training_wide": ...}`, `{"serving_cascade": ...}`, `{"training_cascade": ...}`
+and `{"training_sh": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -1427,14 +1443,15 @@ def train_wide_counters():
     return out
 
 
-def wide_step_launches(fg_cfg, bg_cfg):
-    """Launches of one training step through the wide route: fg and bg,
-    coarse and fine, each an encode, a layer GEMM per matmul layer, the
-    heads forward and backward and the plan's dX and dW steps."""
+def wide_step_launches(pass_cfgs):
+    """Launches of training passes through the wide route, one pass per
+    config in `pass_cfgs` (a step's: fg and bg, coarse and fine): each an
+    encode, a layer GEMM per matmul layer, the heads forward and backward
+    and the plan's dX and dW steps."""
     from mega_nerf_tpu_torch.render import fused_train_wide as ftw
 
     per = dict.fromkeys(TRAIN_WIDE_KERNELS + WIDE_KERNELS, 0)
-    for cfg in (fg_cfg, fg_cfg, bg_cfg, bg_cfg):
+    for cfg in pass_cfgs:
         steps = ftw.train_wide_plan(cfg).steps
         n_dx = sum(kind == "dx" for kind, _ in steps)
         per["eval_wide_encode"] += 1
@@ -1562,8 +1579,9 @@ def phase_compare_train_wide(device, report):
     at width 1024 (fg and bg, the paper's dirs and appearance): at an M not
     a multiple of the 128-point tile, and at each pass's M of a training
     step (batch 1024: fg 256 coarse and 512 fine samples a ray, bg 128 and
-    256), whose launches have their own grids and dW splits; and at 640
-    with and without the branch."""
+    256) and at the cascade's fine pass (256 + 512 a ray), whose launches
+    have their own grids and dW splits; and at 640 with and without the
+    branch."""
     wide = paper_hparams(WIDE_TRAIN)
     cases = [  # (name, hparams, bg, points)
         ("fg 1024-wide, dirs, appearance", wide, False, 100_003),
@@ -1578,6 +1596,8 @@ def phase_compare_train_wide(device, report):
         ("fg 1024-wide, the fg coarse pass", wide, False, 1024 * 256),
         ("bg 1024-wide, the bg fine pass", wide, True, 1024 * 256),
         ("bg 1024-wide, the bg coarse pass", wide, True, 1024 * 128),
+        # The cascade's fine pass: the coarse and fine depths, 256 + 512.
+        ("fg 1024-wide, the cascade's fine pass", wide, False, 1024 * 768),
     ]
     kernels = report["kernels"]
     all_ok = True
@@ -1619,8 +1639,9 @@ def phase_train_wide(device, report, tmp: Path):
     ds = tmp / "train_dataset"
     hp = train_hparams(ds, tmp / "train_wide_exp",
                        ["--train_iterations", str(TRAIN_WIDE_STEPS), *WIDE_TRAIN])
-    per_step = wide_step_launches(nerf_config_from_hparams(hp, 1, hp.layer_dim, 3),
-                                  nerf_config_from_hparams(hp, 1, hp.bg_layer_dim, 4))
+    fg_cfg = nerf_config_from_hparams(hp, 1, hp.layer_dim, 3)
+    bg_cfg = nerf_config_from_hparams(hp, 1, hp.bg_layer_dim, 4)
+    per_step = wide_step_launches((fg_cfg, fg_cfg, bg_cfg, bg_cfg))
     routes, snaps, passes = [], [], set()
     log_path, step_call = rendering._log_mlp_path, TrainStep.__call__
     forward = ftw._forward
@@ -2037,6 +2058,425 @@ def phase_eager_train_wide(device, report, tmp: Path):
     return bool(np.isfinite(loss).all() and eager_calls.count > 0)
 
 
+CASCADE_SERVE = "npp/building.yaml"  # cascade, fg and bg 8x2048, no appearance
+CASCADE_TRAIN = "mega-nerf-embed-only/building.yaml"  # cascade, appearance, no bg
+SH_TRAIN = "mega-nerf-sh-3/building.yaml"  # SH degree 2, no view dirs, 8x256
+LEVELS = ("fg coarse", "fg fine", "bg coarse", "bg fine")
+CASCADE_TRAIN_STEPS = 20
+SH_TRAIN_STEPS = 10
+TRAIN_ARGS = ["--dataset_type", "memory", "--batch_size", "1024", "--lr", "5e-4",
+              "--lr_decay_factor", "0.1", "--ckpt_interval", "100000",
+              "--val_interval", "100000"]
+
+
+def config_hparams(get_opts, config: str, ds: Path, exp: Path, extra=()):
+    """The hparams of a file of `configs/` on a generated dataset, on cuda
+    (the dataset's altitude range and near bound, val views at full size)."""
+    return get_opts(["--config_file", str(ROOT / "configs" / config),
+                     "--dataset_path", str(ds), "--exp_name", str(exp),
+                     "--device", "cuda", "--ray_altitude_range", "-1.3", "0.6",
+                     "--near", "0.05", "--val_scale_factor", "1", *extra])
+
+
+def all_launches() -> int:
+    """Launches of every kernel of the port so far."""
+    counts = train_wide_counters()
+    return sum(counts[k] for k in TRAIN_WIDE_KERNELS + WIDE_KERNELS) + counts["narrow"]
+
+
+class LevelLaunches:
+    """While open, the wide eval kernels' launches by level ("fg coarse",
+    ...): each call of the renderer's wide eval wrapper is attributed to the
+    level whose packed weights `rendering.packed_params` handed out; `packs`
+    holds the identities of each level's packed weights."""
+
+    def __enter__(self):
+        from mega_nerf_tpu_torch.render import rendering
+
+        self.counts, self.packs, owner = {}, {}, {}
+        self._saved = packed_params, eval_wide = (rendering.packed_params,
+                                                  rendering.fused_nerf_eval_wide)
+
+        def recording_packed(bundle, typ):
+            packed = packed_params(bundle, typ)
+            level = f"{'bg' if bundle.config.xyz_dim == 4 else 'fg'} {typ}"
+            owner[id(packed)] = level
+            self.packs.setdefault(level, set()).add(id(packed))
+            return packed
+
+        def recording_eval_wide(packed, *args):
+            before = wide_counters()
+            out = eval_wide(packed, *args)
+            after = wide_counters()
+            level = self.counts.setdefault(owner[id(packed)], dict.fromkeys(WIDE_KERNELS, 0))
+            for k in WIDE_KERNELS:
+                level[k] += after[k] - before[k]
+            return out
+
+        rendering.packed_params = recording_packed
+        rendering.fused_nerf_eval_wide = recording_eval_wide
+        return self
+
+    def __exit__(self, *exc):
+        from mega_nerf_tpu_torch.render import rendering
+
+        rendering.packed_params, rendering.fused_nerf_eval_wide = self._saved
+
+
+def phase_serve_cascade(device, report, tmp: Path):
+    """The serving path of a cascade family at its full width:
+    `eval.main` on cuda with `configs/npp/building.yaml` (coarse and fine
+    NeRFs, fg and bg 8x2048, no appearance, no ellipse bounds) and seeded
+    random weights for every level, on the serve phase's 128x128 view.
+    Checks finite PSNR/SSIM, launches of every wide eval kernel for each
+    of the four levels (fg/bg, coarse/fine), each level on its own packed
+    weights, no narrow eval launch, no eager-module or plain call; the two
+    levels' MLPs give different outputs on the same points; 1,024 rays
+    rendered again through the wide plain version agree on the fine and
+    the coarse rgb (<= 1e-2). Prints s/view, rays/s, peak device memory
+    and the view's device time by kernel."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch.ops.rays import generate_image_rays
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+    from mega_nerf_tpu_torch.render import rendering
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    ds = tmp / "dataset"
+    if not (ds / "coordinates.pt").exists():
+        write_dataset(ds, hw=128, n_train=4, seed=7)
+    hp = config_hparams(port_eval.get_eval_opts, CASCADE_SERVE, ds, tmp / "exp_cascade")
+    fg = seeded_bundle(hp, 5, False, 51, "cpu")
+    bg = seeded_bundle(hp, 5, True, 52, "cpu")
+    ckpt = tmp / "cascade.pt"
+    torch.save({"model_state_dict": fg.module.state_dict(),
+                "bg_model_state_dict": bg.module.state_dict(),
+                "iteration": 0}, ckpt)
+    hp.ckpt_path = str(ckpt)
+    del fg, bg
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_wide_counters()
+    t0 = time.perf_counter()
+    with EagerCalls() as eager_calls, LevelLaunches() as levels:
+        metrics = port_eval.main(hp)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = wide_counters()
+    by_level = levels.counts
+    log(f"  eval.main with {CASCADE_SERVE} (cascade, {hp.layer_dim}/{hp.bg_layer_dim}, "
+        f"{hp.coarse_samples} + {hp.fine_samples} samples): {metrics} in {wall:.2f} s; "
+        f"peak device memory allocated {peak:.2f} GB; launches {counts}; by level "
+        f"{by_level}; eager module calls {eager_calls.count}")
+    own_packs = all(levels.packs.get(f"{side} coarse", set()).isdisjoint(
+        levels.packs.get(f"{side} fine", set())) for side in ("fg", "bg"))
+    ok = (all(np.isfinite(v) for v in metrics.values())
+          and {"val/psnr", "val/ssim"} <= set(metrics)
+          and set(by_level) == set(LEVELS) and own_packs
+          and all(by_level[lv][k] > 0 for lv in LEVELS for k in WIDE_KERNELS)
+          and all(sum(by_level[lv][k] for lv in LEVELS) == counts[k] for k in WIDE_KERNELS)
+          and counts["fused_nerf_eval"] == 0 and counts["plain"] == 0
+          and eager_calls.count == 0)
+    report["serving_cascade"] = {
+        "config": CASCADE_SERVE, "eval_main_s": wall, "peak_mem_gb": peak,
+        "metrics": metrics, "launches_by_level": by_level,
+        "eager_calls": eager_calls.count}
+
+    hp.exp_name = str(tmp / "exp_cascade_cmp")
+    runner = Runner(hp, set_experiment_path=False)
+    runner.make_eval_state()
+    meta = runner.val_items[0]
+    runner.render_image(meta)  # warm: packs both levels' weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.render_image(meta)
+    torch.cuda.synchronize()
+    s_view = (time.perf_counter() - t0) / reps
+    view_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_rays = meta.W * meta.H
+    c, f = hp.coarse_samples, hp.fine_samples  # the fine level sees c + f a ray
+    points = n_rays * ((c + c + f) + (c // 2 + c // 2 + f // 2))
+    log(f"  cascade serving path: {meta.W}x{meta.H} view, {s_view:.4f} s/view, "
+        f"{n_rays / s_view:.1f} rays/s, {points:,} MLP points a view; peak device "
+        f"memory allocated {view_peak:.2f} GB")
+    report["serving_cascade"].update(s_per_view=s_view, rays_per_s=n_rays / s_view,
+                                     view_peak_mem_gb=view_peak, mlp_points=points)
+    profile_dense_view(runner, meta, report, "serving_cascade", "cascade")
+
+    # The levels' MLPs on the same points: different weights, other outputs.
+    cfg = runner.fg.config
+    xyz, dirs, _ = mlp_inputs(cfg, 65_536, 53, device)
+    with torch.no_grad():
+        outs = [fw.fused_nerf_eval_wide(rendering.packed_params(runner.fg, typ), xyz, dirs)
+                for typ in ("coarse", "fine")]
+    level_diff = close_ratio(outs[0], outs[1])
+
+    # Some rays again, wide kernels vs the wide plain version.
+    rays = generate_image_rays(meta, runner.near, runner.far, runner.ray_altitude_range,
+                               True, device=device)[:DENSE_CMP_RAYS]
+    args = (runner.fg, runner.bg, rays, None, runner.render_settings(),
+            runner.sphere_center, runner.sphere_radius)
+    with torch.no_grad():
+        kern, _ = rendering.render_rays(*args)
+        saved = rendering.fused_nerf_eval_wide
+        rendering.fused_nerf_eval_wide = fw.fused_nerf_eval_wide_plain
+        try:
+            plain, _ = rendering.render_rays(*args)
+        finally:
+            rendering.fused_nerf_eval_wide = saved
+    diffs = {key: (kern[key] - plain[key]).abs().max().item()
+             for key in ("rgb_fine", "rgb_coarse")}
+    log(f"  {DENSE_CMP_RAYS} rays, wide kernels vs the wide plain version: rgb_fine "
+        f"max|diff|={diffs['rgb_fine']:.3e}, rgb_coarse max|diff|="
+        f"{diffs['rgb_coarse']:.3e}; the fg levels' MLPs on 65,536 points: "
+        f"max|coarse - fine|/(1+|fine|)={level_diff:.3e}")
+    report["serving_cascade"].update(render_rgb_diff=diffs, level_rgb_diff=level_diff)
+    ok = (ok and max(diffs.values()) <= TOL and level_diff > TOL
+          and all(bool(torch.isfinite(kern[k]).all()) for k in diffs))
+    report["cascade_runner"] = runner
+    return bool(ok)
+
+
+def phase_train_cascade(device, report, tmp: Path):
+    """Training a cascade family through the wide training kernels:
+    `train.main` on cuda with `configs/mega-nerf-embed-only/building.yaml`
+    (coarse and fine 8x NeRFs with appearance, no bg) cut to `--layer_dim
+    1024`, the widest the training gates take through kernels, for
+    CASCADE_TRAIN_STEPS steps on the train phase's dataset. Checks finite
+    metrics with a `coarse_loss`, a falling loss, the wide route named for
+    both levels, each level's launches per step as its plan says (the
+    coarse pass 262,144 points, the fine one 786,432), every pass size held
+    against the plain versions in compare_train_wide, no narrow, plain or
+    eager-module call; `eval.main` on the written `{iter}.pt`; then ms per
+    step over chained steps and their peak device memory."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.models import nerf_config_from_hparams
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import rendering
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    ds = tmp / "train_dataset"
+    width = ["--layer_dim", "1024"]
+    hp = config_hparams(port_train.get_train_opts, CASCADE_TRAIN, ds,
+                        tmp / "train_cascade_exp",
+                        [*TRAIN_ARGS, "--train_iterations", str(CASCADE_TRAIN_STEPS), *width])
+    cfg = nerf_config_from_hparams(hp, 1, hp.layer_dim, 3)
+    per_level = wide_step_launches([cfg])
+    level_points = {hp.batch_size * hp.coarse_samples: "coarse",
+                    hp.batch_size * (hp.coarse_samples + hp.fine_samples): "fine"}
+    by_level = {lv: dict.fromkeys(per_level, 0) for lv in level_points.values()}
+    routes, snaps, passes = [], [], set()
+    log_path, step_call = rendering._log_mlp_path, TrainStep.__call__
+    wide_fwd, wide_bwd = ftw.fused_nerf_train_wide_fwd, ftw.fused_nerf_train_wide_bwd
+
+    def counted(fn, m, *args):
+        before = train_wide_counters()
+        out = fn(*args)
+        after = train_wide_counters()
+        level = by_level.setdefault(level_points.get(m, f"{m} points"),
+                                    dict.fromkeys(per_level, 0))
+        for k in per_level:
+            level[k] += after[k] - before[k]
+        return out
+
+    def recording_fwd(packed, xyz, *args):
+        passes.add((packed.config.xyz_dim == 4, xyz.shape[0]))
+        return counted(wide_fwd, xyz.shape[0], packed, xyz, *args)
+
+    def recording_bwd(packed, saved, g):
+        return counted(wide_bwd, g.shape[0], packed, saved, g)
+
+    def recording_log(message):
+        routes.append(message)
+        log_path(message)
+
+    def recording_call(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        snaps.append((metrics, train_wide_counters()))
+        return metrics
+
+    rendering._log_mlp_path, TrainStep.__call__ = recording_log, recording_call
+    ftw.fused_nerf_train_wide_fwd, ftw.fused_nerf_train_wide_bwd = recording_fwd, recording_bwd
+    zero_train_wide_counters()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager_calls:
+            val = port_train.main(hp)
+            torch.cuda.synchronize()
+    finally:
+        rendering._log_mlp_path, TrainStep.__call__ = log_path, step_call
+        ftw.fused_nerf_train_wide_fwd, ftw.fused_nerf_train_wide_bwd = wide_fwd, wide_bwd
+    wall = time.perf_counter() - t0
+    after = train_wide_counters()
+    counts = snaps[-1][1]  # after the last step, before the final validation
+    metrics = {k: torch.stack([m[k] for m, _ in snaps]).float().cpu().numpy()
+               for k in snaps[0][0]}
+    loss = metrics["loss"]
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    train_routes = sorted({r for r in routes if "/train]" in r})
+    steps = len(snaps)
+    log(f"  train.main with {CASCADE_TRAIN} at --layer_dim {hp.layer_dim}: {steps} steps "
+        f"+ final validation in {wall:.2f} s; loss first 5 {first:.5f} -> last 5 "
+        f"{last:.5f}, coarse_loss {metrics['coarse_loss'][0]:.5f} -> "
+        f"{metrics['coarse_loss'][-1]:.5f}; val {val}; launches after the steps {counts}; "
+        f"by level (fwd + bwd) {by_level} (per level and step expected {per_level}); "
+        f"after validation {after}; eager module calls {eager_calls.count}; (bg, points) "
+        f"of the passes {sorted(passes)}, each held against the plain versions in "
+        f"compare_train_wide: {passes <= report['train_wide_compared']}")
+    for r in train_routes:
+        log(f"    {r}")
+    ok = (steps == CASCADE_TRAIN_STEPS and "coarse_loss" in metrics
+          and all(np.isfinite(v).all() for k, v in metrics.items() if k != "psnr")
+          and last < first and all(np.isfinite(v) for v in val.values())
+          and len(train_routes) == 2
+          and all("fused train (wide kernel)" in r for r in train_routes)
+          and set(by_level) == {"coarse", "fine"}
+          and all(by_level[lv][k] == steps * n for lv in by_level
+                  for k, n in per_level.items())
+          and all(counts[k] == 2 * steps * n for k, n in per_level.items())
+          and passes <= report["train_wide_compared"]
+          and counts["eval_wide_heads"] == 0 and after["narrow"] == 0
+          and after["plain"] == 0 and eager_calls.count == 0)
+
+    ckpt = tmp / "train_cascade_exp" / "0" / "models" / f"{CASCADE_TRAIN_STEPS}.pt"
+    e_hp = config_hparams(port_eval.get_eval_opts, CASCADE_TRAIN, ds,
+                          tmp / "train_cascade_eval", [*width, "--ckpt_path", str(ckpt)])
+    zero_wide_counters()
+    with EagerCalls() as eval_eager:
+        e_metrics = port_eval.main(e_hp)
+    e_counts = wide_counters()
+    log(f"  eval.main on {ckpt.name}: {e_metrics}; launches {e_counts}")
+    ok = (ok and ckpt.exists() and np.isfinite(e_metrics["val/psnr"])
+          and all(e_counts[k] > 0 for k in WIDE_KERNELS) and e_counts["plain"] == 0
+          and eval_eager.count == 0)
+
+    # ms per step over chained steps from the trained weights.
+    runner = Runner(config_hparams(port_train.get_train_opts, CASCADE_TRAIN, ds,
+                                   tmp / "unused", [*TRAIN_ARGS, *width]),
+                    set_experiment_path=False)
+    runner._load_weights(ckpt)
+    step = TrainStep(runner.fg, None, RenderSettings.from_hparams(runner.hparams), 5e-4,
+                     0.1, CASCADE_TRAIN_STEPS)
+    batches = report["train_batches"]
+    for b in batches[:2]:
+        step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 10
+    t0 = time.perf_counter()
+    for b in batches[2:2 + n]:
+        step(b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  cascade training step at {hp.layer_dim}: {step_ms:.2f} ms/step over {n} "
+        f"chained steps = {hp.batch_size / step_ms * 1e3:.1f} rays/s; peak device memory "
+        f"allocated {peak:.2f} GB")
+    report["training_cascade"] = {
+        "config": CASCADE_TRAIN, "layer_dim": hp.layer_dim, "steps": steps,
+        "loss_first5": first, "loss_last5": last,
+        "coarse_loss_last": float(metrics["coarse_loss"][-1]),
+        "val_psnr": val.get("val/psnr"), "ckpt_eval_psnr": e_metrics["val/psnr"],
+        "launches_per_level_step": per_level, "launches_by_level": by_level,
+        "train_main_s": wall, "step_ms": step_ms, "rays_per_s": hp.batch_size / step_ms * 1e3,
+        "peak_mem_gb": peak}
+    del step, runner
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def phase_train_sh(device, report, tmp: Path):
+    """The SH head's family at its paper width: SH_TRAIN_STEPS steps of
+    `train.main` on cuda with `configs/mega-nerf-sh-3/building.yaml` (SH
+    degree 2, no view dirs, fg + bg 8x256) and `eval.main` on its
+    `{iter}.pt`. The kernels have the rgb head only, so this is the eager
+    module, which the log must name for every pass. Checks finite metrics
+    and no kernel launch; ms per step from the steps after the first (each
+    followed by a synchronize)."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render import rendering
+
+    ds = tmp / "train_dataset"
+    hp = config_hparams(port_train.get_train_opts, SH_TRAIN, ds, tmp / "train_sh_exp",
+                        [*TRAIN_ARGS, "--train_iterations", str(SH_TRAIN_STEPS)])
+    routes, snaps, ends = [], [], []
+    log_path, step_call = rendering._log_mlp_path, TrainStep.__call__
+
+    def recording_log(message):
+        routes.append(message)
+        log_path(message)
+
+    def recording_call(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        snaps.append(metrics)
+        return metrics
+
+    rendering._log_mlp_path, TrainStep.__call__ = recording_log, recording_call
+    zero_train_wide_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager_calls:
+            val = port_train.main(hp)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ckpt = tmp / "train_sh_exp" / "0" / "models" / f"{SH_TRAIN_STEPS}.pt"
+        e_hp = config_hparams(port_eval.get_eval_opts, SH_TRAIN, ds, tmp / "train_sh_eval",
+                              ["--ckpt_path", str(ckpt)])
+        e_metrics = port_eval.main(e_hp)
+    finally:
+        rendering._log_mlp_path, TrainStep.__call__ = log_path, step_call
+    launches = all_launches()
+    plain = train_wide_counters()["plain"]
+    metrics = {k: torch.stack([m[k] for m in snaps]).float().cpu().numpy()
+               for k in snaps[0]}
+    kinds = sorted(set(routes))
+    step_ms = (ends[-1] - ends[0]) / (len(ends) - 1) * 1e3
+    log(f"  train.main with {SH_TRAIN} ({hp.layer_dim}/{hp.bg_layer_dim}, sh_deg "
+        f"{hp.sh_deg}): {len(snaps)} steps + final validation in {wall:.2f} s, "
+        f"{step_ms:.2f} ms/step after the first, peak device memory allocated "
+        f"{peak:.2f} GB; loss {metrics['loss'][0]:.5f} -> "
+        f"{metrics['loss'][-1]:.5f}; val {val}; eval.main on {ckpt.name}: {e_metrics}; "
+        f"kernel launches {launches}, plain calls {plain}, eager module calls "
+        f"{eager_calls.count}")
+    for r in kinds:
+        log(f"    {r}")
+    report["training_sh"] = {
+        "config": SH_TRAIN, "steps": len(snaps), "loss_first": float(metrics["loss"][0]),
+        "loss_last": float(metrics["loss"][-1]), "val_psnr": val.get("val/psnr"),
+        "ckpt_eval_psnr": e_metrics["val/psnr"], "train_main_s": wall,
+        "step_ms": step_ms, "peak_mem_gb": peak, "eager_calls": eager_calls.count}
+    return bool(len(snaps) == SH_TRAIN_STEPS
+                and all(np.isfinite(v).all() for k, v in metrics.items() if k != "psnr")
+                and all(np.isfinite(v) for v in val.values())
+                and np.isfinite(e_metrics["val/psnr"])
+                and len(kinds) == 8  # fg/bg x coarse/fine x train/eval
+                and all("eager NeRF module (SH output head)" in r for r in kinds)
+                and launches == 0 and plain == 0 and eager_calls.count > 0)
+
+
 def kernel_times(run, reps: int):
     """Device time by kernel over `run()`, which makes `reps` repetitions
     (torch.profiler) -> (rows [(ms per rep, launches per rep, name)],
@@ -2076,13 +2516,14 @@ def profile_steps(step, batches, report) -> None:
     report["training"]["profiled_device_busy_share"] = busy / wall_ms
 
 
-def profile_dense_view(runner, meta, report) -> None:
-    """Where the dense view's device time goes (torch.profiler over one
-    view): the wide kernels by name, the rest (the renderer's own work)
-    together, and the device's busy share of the view."""
+def profile_dense_view(runner, meta, report, section="serving_dense",
+                       label="dense") -> None:
+    """Where a wide view's device time goes (torch.profiler over one view):
+    the wide kernels by name, the rest (the renderer's own work) together,
+    and the device's busy share of the view -> report[section]["profile"]."""
     rows, busy, wall_ms = kernel_times(lambda: runner.render_image(meta), 1)
     if not rows:
-        log("  profiler: no device time recorded (dense breakdown not measured)")
+        log(f"  profiler: no device time recorded ({label} breakdown not measured)")
         return
     parts = {k: [0.0, 0] for k in WIDE_KERNELS}
     parts["other"] = [0.0, 0]
@@ -2090,14 +2531,14 @@ def profile_dense_view(runner, meta, report) -> None:
         key = next((k for k in WIDE_KERNELS if f"{k}_kernel" in name), "other")
         parts[key][0] += ms
         parts[key][1] += count
-    log(f"  dense view profile: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+    log(f"  {label} view profile: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
         f"wall ({100 * busy / wall_ms:.1f}%); "
         + ", ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, x{n})"
                     for k, (ms, n) in parts.items()))
     for ms, count, name in [r for r in rows if not any(
             f"{k}_kernel" in r[2] for k in WIDE_KERNELS)][:5]:
         log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
-    report["serving_dense"]["profile"] = {
+    report[section]["profile"] = {
         "busy_ms": busy, "wall_ms": wall_ms,
         **{k: {"ms": ms, "launches": n} for k, (ms, n) in parts.items()}}
 
@@ -2146,6 +2587,9 @@ def main() -> int:
             ("time", lambda: phase_time(device, report)),
             ("time_dense", lambda: phase_time_dense(device, report)),
             ("time_train_wide", lambda: phase_time_train_wide(device, report, Path(tmp))),
+            ("serve_cascade", lambda: phase_serve_cascade(device, report, Path(tmp))),
+            ("train_cascade", lambda: phase_train_cascade(device, report, Path(tmp))),
+            ("train_sh", lambda: phase_train_sh(device, report, Path(tmp))),
             ("eager_dense", lambda: phase_eager_dense(device, report, Path(tmp))),
             ("eager_train_wide", lambda: phase_eager_train_wide(device, report, Path(tmp))),
         )
@@ -2170,6 +2614,9 @@ def main() -> int:
     log(json.dumps({"serving_dense": report["serving_dense"]}))
     log(json.dumps({"training": report["training"]}))
     log(json.dumps({"training_wide": report["training_wide"]}))
+    log(json.dumps({"serving_cascade": report["serving_cascade"]}))
+    log(json.dumps({"training_cascade": report["training_cascade"]}))
+    log(json.dumps({"training_sh": report["training_sh"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

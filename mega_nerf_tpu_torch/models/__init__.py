@@ -1,5 +1,7 @@
-"""Model layer: the NeRF MLP, its factory and weight carry-over."""
+"""Model layer: the NeRF MLP, the cascade, their factory and weight
+carry-over."""
 
+from mega_nerf_tpu_torch.models.cascade import Cascade
 from mega_nerf_tpu_torch.models.factory import (
     ModelBundle,
     make_bg_nerf,
@@ -19,6 +21,7 @@ from mega_nerf_tpu_torch.models.weights import (
 )
 
 __all__ = [
+    "Cascade",
     "ModelBundle",
     "make_bg_nerf",
     "make_nerf",

@@ -1,16 +1,18 @@
 """Model factory: build foreground/background NeRF bundles from hparams.
 
-Counterpart of the JAX package's `models/factory.py` for a single NeRF.
-Mega mixtures (`--train_mega_nerf`, `--container_path`) and the cascade
-(`--use_cascade`) are not ported yet and raise `NotImplementedError`.
+Counterpart of the JAX package's `models/factory.py` for a single NeRF or
+the coarse/fine cascade (`--use_cascade`, `models/cascade.py`). Mega
+mixtures (`--train_mega_nerf`, `--container_path`) are not ported yet and
+raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from argparse import Namespace
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Union
 
+from mega_nerf_tpu_torch.models.cascade import Cascade
 from mega_nerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 
 
@@ -38,13 +40,21 @@ def nerf_config_from_hparams(
 
 @dataclasses.dataclass
 class ModelBundle:
-    """A NeRF module with its static config."""
+    """A NeRF module, or a coarse/fine `Cascade` of two, with their static
+    config."""
 
-    module: NeRF
+    module: Union[NeRF, Cascade]
     config: NeRFConfig
-    # Kernel-layout weights (render/fused_mlp.PackedMLP), packed by the
-    # renderer on first use; reset to None after changing the weights.
-    packed: Optional[Any] = None
+    cascade: bool = False
+    # Kernel-layout weights (render/fused_mlp.PackedMLP) by level, packed by
+    # the renderer on first use (render/rendering.py::packed_params); reset
+    # to None after changing the weights outside the optimizer.
+    packed: Optional[Dict[str, Any]] = None
+
+    def level(self, typ: str) -> NeRF:
+        """The module that evaluates sampling level `typ` ("coarse" or
+        "fine"): that level's under the cascade, else the one NeRF."""
+        return self.module.level(typ) if self.cascade else self.module
 
 
 def _make_bundle(hparams: Namespace, appearance_count: int, layer_dim: int,
@@ -52,9 +62,9 @@ def _make_bundle(hparams: Namespace, appearance_count: int, layer_dim: int,
     for flag in ("container_path", "train_mega_nerf"):
         if getattr(hparams, flag, None) is not None:
             raise NotImplementedError(f"--{flag} (mega mixtures) is not ported yet")
-    if getattr(hparams, "use_cascade", False):
-        raise NotImplementedError("--use_cascade is not ported yet")
     cfg = nerf_config_from_hparams(hparams, appearance_count, layer_dim, xyz_dim)
+    if getattr(hparams, "use_cascade", False):
+        return ModelBundle(module=Cascade(cfg), config=cfg, cascade=True)
     return ModelBundle(module=NeRF(cfg), config=cfg)
 
 

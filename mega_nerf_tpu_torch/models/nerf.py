@@ -5,7 +5,7 @@ frequency encoding in float32, a skip-connection trunk, a shifted-softplus
 density head, and a view/appearance branch feeding the rgb head. Parameter
 names follow the reference torch module (`xyz_encodings.{i}.0.*`,
 `sigma.*`, `xyz_encoding_final.*`, `dir_a_encoding.0.*`, `rgb.*`,
-`embedding_a.weight`), so a reference `{iter}.pt` loads with
+`embedding_a.weight`, `affine.*`), so a reference `{iter}.pt` loads with
 `load_state_dict`.
 
 Precision follows the JAX module's dense layer: operands are rounded to the
@@ -14,8 +14,12 @@ and the result is rounded to the compute dtype again. bf16 values are exact
 in float32, so a float32 matmul of the rounded operands is that arithmetic
 exactly (TF32 stays off for float32 matmuls by default).
 
-Not in this slice: the SH output head, affine appearance and the cascade;
-they raise `NotImplementedError`.
+The SH output head (`rgb_dim` = 3 (sh_deg + 1)^2) returns raw
+coefficients, which the renderer turns into rgb with `ops/sh.py::eval_sh`.
+Affine appearance maps the embedding to a 3x4 colour transform applied to
+the rgb pre-activation, in the compute dtype, and keeps the embedding out
+of the view branch. The coarse/fine cascade holds two of these modules
+(`models/cascade.py`).
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ class NeRFConfig:
     ref_packed_dirs: bool = False
 
     def __post_init__(self):
+        if self.rgb_dim > 3:
+            assert self.pos_dir_dim == 0, "SH output head requires pos_dir_dim == 0"
         object.__setattr__(self, "skip_layers", tuple(self.skip_layers))
 
     @property
@@ -96,20 +102,16 @@ def direction_coords(cfg: NeRFConfig, xyz: torch.Tensor,
 
 
 class NeRF(nn.Module):
-    """Skip-connection MLP emitting (rgb, sigma).
+    """Skip-connection MLP emitting (rgb or SH coefficients, sigma).
 
     forward(xyz (..., xyz_dim), dirs (..., 3) or None, image_indices (...,)
-    int or None, sigma_noise (...,) f32 or None) -> (..., 4): sigmoid rgb
-    and shifted-softplus sigma; the training noise is added to the sigma
-    pre-activation."""
+    int or None, sigma_noise (...,) f32 or None) -> (..., rgb_dim + 1):
+    sigmoid rgb (raw SH coefficients when rgb_dim > 3) and shifted-softplus
+    sigma; the training noise is added to the sigma pre-activation."""
 
     def __init__(self, config: NeRFConfig):
         super().__init__()
         cfg = config
-        if cfg.rgb_dim != 3:
-            raise NotImplementedError("SH output head is not ported yet")
-        if cfg.affine_appearance:
-            raise NotImplementedError("affine appearance is not ported yet")
         self.config = cfg
         d = cfg.layer_dim
         layers = []
@@ -127,15 +129,21 @@ class NeRF(nn.Module):
             self.embedding_a = nn.Embedding(
                 cfg.appearance_count, cfg.appearance_dim
             )
+        if cfg.affine_appearance:
+            if cfg.appearance_dim == 0:
+                raise ValueError("affine appearance needs appearance_dim > 0")
+            self.affine = nn.Linear(cfg.appearance_dim, 12)
         if cfg.uses_dir_branch:
+            # Affine appearance keeps the embedding out of the branch.
+            branch_app = 0 if cfg.affine_appearance else cfg.appearance_dim
             self.xyz_encoding_final = nn.Linear(d, d)
             self.dir_a_encoding = nn.Sequential(
-                nn.Linear(d + cfg.dir_in + cfg.appearance_dim, d // 2),
+                nn.Linear(d + cfg.dir_in + branch_app, d // 2),
                 nn.ReLU(),
             )
-            self.rgb = nn.Linear(d // 2, 3)
+            self.rgb = nn.Linear(d // 2, cfg.rgb_dim)
         else:
-            self.rgb = nn.Linear(d, 3)
+            self.rgb = nn.Linear(d, cfg.rgb_dim)
 
     def appearance(self, image_indices: torch.Tensor) -> torch.Tensor:
         """Embedding rows in the compute dtype; out-of-range indices clamp
@@ -170,6 +178,11 @@ class NeRF(nn.Module):
         else:
             sigma = torch.relu(sigma)
 
+        app = None
+        if cfg.appearance_dim > 0:
+            if image_indices is None:
+                raise ValueError("appearance model needs image indices")
+            app = self.appearance(image_indices)
         if cfg.uses_dir_branch:
             branch_in = [dense(h, self.xyz_encoding_final, dt)]
             if cfg.pos_dir_dim > 0:
@@ -179,17 +192,25 @@ class NeRF(nn.Module):
                 branch_in.append(
                     frequency_encode(dir_in.float(), cfg.pos_dir_dim).to(dt)
                 )
-            if cfg.appearance_dim > 0:
-                if image_indices is None:
-                    raise ValueError("appearance model needs image indices")
-                branch_in.append(self.appearance(image_indices))
+            if app is not None and not cfg.affine_appearance:
+                branch_in.append(app)
             branch = torch.relu(
                 dense(torch.cat(branch_in, dim=-1), self.dir_a_encoding[0], dt)
             )
             rgb = dense(branch, self.rgb, dt)
         else:
             rgb = dense(h, self.rgb, dt)
-        return torch.cat([torch.sigmoid(rgb.float()), sigma], dim=-1)
+        if cfg.affine_appearance:
+            # rgb <- A[:, :3] rgb + A[:, 3], rounded to the compute dtype
+            # after the product and after the sum, as the JAX module's
+            # einsum and add in that dtype.
+            affine = dense(app, self.affine, dt).reshape(*app.shape[:-1], 3, 4)
+            mixed = (affine[..., :3].float() @ rgb.float()[..., None])[..., 0]
+            rgb = mixed.to(dt) + affine[..., 3]
+        rgb = rgb.float()
+        if cfg.rgb_dim == 3:
+            rgb = torch.sigmoid(rgb)
+        return torch.cat([rgb, sigma], dim=-1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -2,10 +2,12 @@
 
 The port's `NeRF` uses the reference torch naming; the JAX package names
 its Flax modules `trunk_{i}`, `sigma`, `trunk_final`, `dir_a`, `rgb` and
-`appearance`. torch `Linear` stores weight as (out, in), a Flax Dense kernel
-as (in, out): kernels are transposed on the way through. Embedding tables
-agree on (count, dim). The entry table is the port's own copy of the one in
-the JAX package's `models/torch_interop.py`.
+`appearance` (and `affine`). torch `Linear` stores weight as (out, in), a
+Flax Dense kernel as (in, out): kernels are transposed on the way through.
+Embedding tables agree on (count, dim). A cascade's Flax tree holds the
+two levels under "coarse" and "fine", its state dict under the `coarse.` /
+`fine.` prefixes. The entry table is the port's own copy of the one in the
+JAX package's `models/torch_interop.py`.
 """
 
 from __future__ import annotations
@@ -37,13 +39,24 @@ def _entries(cfg: NeRFConfig) -> List[_Entry]:
     entries.append(("rgb", "bias", "rgb.bias", False))
     if cfg.appearance_dim > 0:
         entries.append(("appearance", "embedding", "embedding_a.weight", False))
+    if cfg.affine_appearance:
+        entries.append(("affine", "kernel", "affine.weight", True))
+        entries.append(("affine", "bias", "affine.bias", False))
     return entries
 
 
+_LEVELS = ("coarse", "fine")
+
+
 def state_from_flax_params(
-    cfg: NeRFConfig, params_np: Dict
+    cfg: NeRFConfig, params_np: Dict, cascade: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """Flax params tree (numpy leaves) -> the port's state dict."""
+    """Flax params tree (numpy leaves) -> the port's state dict; with
+    `cascade`, the tree's "coarse" / "fine" subtrees -> `coarse.` / `fine.`
+    keys."""
+    if cascade:
+        return {f"{level}.{k}": v for level in _LEVELS
+                for k, v in state_from_flax_params(cfg, params_np[level]).items()}
     state: Dict[str, torch.Tensor] = {}
     for mod, name, key, transpose in _entries(cfg):
         arr = np.asarray(params_np[mod][name], dtype=np.float32)
@@ -54,9 +67,14 @@ def state_from_flax_params(
 
 
 def flax_params_from_state(
-    cfg: NeRFConfig, state: Dict[str, torch.Tensor]
-) -> Dict[str, Dict[str, np.ndarray]]:
-    """The port's state dict -> Flax params tree of numpy arrays."""
+    cfg: NeRFConfig, state: Dict[str, torch.Tensor], cascade: bool = False
+) -> Dict:
+    """The port's state dict -> Flax params tree of numpy arrays; with
+    `cascade`, `coarse.` / `fine.` keys -> "coarse" / "fine" subtrees."""
+    if cascade:
+        return {level: flax_params_from_state(
+            cfg, {k[len(level) + 1:]: v for k, v in state.items()
+                  if k.startswith(level + ".")}) for level in _LEVELS}
     params: Dict[str, Dict[str, np.ndarray]] = {}
     for mod, name, key, transpose in _entries(cfg):
         arr = state[key].detach().cpu().float().numpy()

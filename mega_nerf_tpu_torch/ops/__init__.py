@@ -1,4 +1,4 @@
-"""Pure tensor ops: ray generation, sampling, compositing, metrics."""
+"""Pure tensor ops: ray generation, sampling, compositing, metrics, SH."""
 
 from mega_nerf_tpu_torch.ops.compositing import (
     CompositeWeights,
@@ -17,6 +17,7 @@ from mega_nerf_tpu_torch.ops.sampling import (
     sample_cdf,
     sample_pdf,
 )
+from mega_nerf_tpu_torch.ops.sh import eval_sh
 
 __all__ = [
     "CompositeWeights",
@@ -32,4 +33,5 @@ __all__ = [
     "expand_and_perturb_z_vals",
     "sample_cdf",
     "sample_pdf",
+    "eval_sh",
 ]

@@ -2,16 +2,17 @@
 
 Counterpart of the JAX package's `parallel/train_step.py` for one process:
 
-- loss = MSE on the fine rgb, plus the Mip-NeRF 360 distortion term when
-  `distortion_loss_weight > 0`; metrics `photo_loss`, `psnr`,
-  `depth_variance` (and `distortion`), `loss`;
+- loss = MSE on the fine rgb; under the coarse/fine cascade the mean of
+  it and the coarse rgb's MSE (`coarse_loss`); plus the Mip-NeRF 360
+  distortion term when `distortion_loss_weight > 0`; metrics
+  `photo_loss`, `psnr` (of the fine photo loss), `depth_variance`
+  (`coarse_loss`, `distortion`), `loss`;
 - `torch.optim.Adam` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
-  over the module's parameters in state-dict order, its learning rate
-  `lr * decay^(t / T)` applied per step by a `LambdaLR`;
+  over the module's parameters in state-dict order (a cascade's coarse
+  level, then its fine level), its learning rate `lr * decay^(t / T)`
+  applied per step by a `LambdaLR`;
 - the background step is skipped when the batch holds no background ray:
   its parameters, Adam state and schedule stay as they were.
-
-The cascade (`--use_cascade`) is not ported yet; the model factory raises.
 """
 
 from __future__ import annotations
@@ -112,13 +113,18 @@ class TrainStep:
             self.fg, self.bg, batch["rays"], idx, self.settings,
             self.sphere_center, self.sphere_radius, train=True,
             generator=generator)
-        photo_loss = torch.mean((results[f"rgb_{self.typ}"] - batch["rgbs"]) ** 2)
+        rgbs = batch["rgbs"]
+        photo_loss = torch.mean((results[f"rgb_{self.typ}"] - rgbs) ** 2)
         loss = photo_loss
         metrics = {
             "photo_loss": photo_loss,
             "psnr": -10.0 * torch.log10(photo_loss),
             "depth_variance": torch.mean(results[f"depth_variance_{self.typ}"]),
         }
+        if self.settings.use_cascade and self.typ == "fine":
+            coarse_loss = torch.mean((results["rgb_coarse"] - rgbs) ** 2)
+            metrics["coarse_loss"] = coarse_loss
+            loss = (loss + coarse_loss) / 2
         w = self.settings.distortion_loss_weight
         if w > 0:
             distortion = torch.mean(results["distortion_coarse"])

@@ -8,7 +8,14 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
 - the `capped` / `last_delta` arithmetic, the bg `flip` and
   `ref_bg_sampling` follow the JAX package exactly;
 - the coarse+fine merge is `composite_weights_merge` (a stable sort by
-  depth, then `composite_weights`);
+  depth, then `composite_weights`); under the coarse/fine cascade
+  (`use_cascade`) each level is its own NeRF (`bundle.level(typ)`), the
+  coarse pass composites rgb (and the background's share), and the fine
+  pass evaluates the sorted union of the coarse and fine depths with no
+  merge;
+- the SH output head (`sh_deg`): rgb = sigmoid(eval_sh(coefficients, ray
+  direction)), on the eager module (the kernels have the rgb head only,
+  as the JAX package's Pallas gate);
 - the MLP runs through the fused kernel wrappers when the architecture is
   inside their coverage (`fused_mlp.supports_fused_kernel(cfg, train)`;
   eval: `fused_nerf_eval` to width 512, `fused_wide.fused_nerf_eval_wide`
@@ -25,8 +32,7 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   and fine depths are detached; depth variance uses detached weights.
   Callers of eval mode wrap it in `torch.no_grad()`.
 
-Not ported yet: occupancy `fg_bounds`, the cascade, mega mixtures and their
-routing.
+Not ported yet: occupancy `fg_bounds`, mega mixtures and their routing.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from mega_nerf_tpu_torch.ops.compositing import (
 )
 from mega_nerf_tpu_torch.ops.geometry import depth2pts_outside, intersect_sphere
 from mega_nerf_tpu_torch.ops.sampling import expand_and_perturb_z_vals, sample_pdf
+from mega_nerf_tpu_torch.ops.sh import eval_sh
 from mega_nerf_tpu_torch.render.fused_mlp import (
     fused_nerf_eval,
     is_wide,
@@ -62,7 +69,9 @@ class RenderSettings:
 
     coarse_samples: int = 256
     fine_samples: int = 512
+    use_cascade: bool = False  # separate coarse and fine NeRFs
     perturb: float = 1.0  # train-mode stratified jitter (0 = none)
+    sh_deg: Optional[int] = None  # SH output head of this degree
     sigma_noise: bool = True  # train-mode uniform [0, 1) density noise
     # False = evaluate the MLP with the eager NeRF module (--no_pallas);
     # otherwise the fused kernel wherever the architecture is covered.
@@ -84,7 +93,9 @@ class RenderSettings:
         kw = dict(
             coarse_samples=getattr(hparams, "coarse_samples", 256),
             fine_samples=getattr(hparams, "fine_samples", 512),
+            use_cascade=getattr(hparams, "use_cascade", False),
             perturb=getattr(hparams, "perturb", 1.0),
+            sh_deg=getattr(hparams, "sh_deg", None),
             use_fused_kernel=getattr(hparams, "use_fused_kernel", True),
             ref_bg_sampling=getattr(hparams, "ref_bg_sampling", False),
             distortion_loss_weight=getattr(hparams, "distortion_loss_weight", 0.0),
@@ -122,19 +133,27 @@ def fused_gate(bundle: ModelBundle, settings: RenderSettings, train: bool,
     points on `device_type` (`mlp_route`)?"""
     if not settings.use_fused_kernel:
         return False, "disabled (--no_pallas)"
+    if settings.sh_deg is not None:
+        return False, "SH output head"
     return mlp_route(bundle.config, device_type, train)
 
 
-def packed_params(bundle: ModelBundle):
-    """The bundle's kernel-layout weights for eval, packed on first use and
-    kept on the bundle until a parameter changes: the cache is keyed on
-    each parameter's storage and version counter, which optimizer steps
-    and `load_state_dict` (in-place updates) bump."""
-    key = tuple((p.data_ptr(), p._version) for p in bundle.module.parameters())
-    if bundle.packed is None or bundle.packed_key != key:
-        bundle.packed = pack_params(bundle.module)
-        bundle.packed_key = key
-    return bundle.packed
+def packed_params(bundle: ModelBundle, typ: str):
+    """The kernel-layout weights of the module evaluating level `typ`, for
+    eval: packed on first use and kept on the bundle, one cache per level
+    (a cascade's two levels hold different weights), until a parameter of
+    that level changes: each cache is keyed on its parameters' storage and
+    version counters, which optimizer steps and `load_state_dict`
+    (in-place updates) bump."""
+    module = bundle.level(typ)
+    slot = typ if bundle.cascade else "model"
+    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+    if bundle.packed is None:
+        bundle.packed = {}
+    hit = bundle.packed.get(slot)
+    if hit is None or hit[0] != key:
+        hit = bundle.packed[slot] = (key, pack_params(module))
+    return hit[1]
 
 
 def _model_eval(
@@ -147,8 +166,10 @@ def _model_eval(
     train: bool,
     generator: Optional[torch.Generator],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Evaluate the MLP on all samples -> (rgbs (N, S, 3), sigmas (N, S))."""
+    """Evaluate level `typ`'s MLP on all samples -> (rgbs (N, S, 3), sigmas
+    (N, S)); with `sh_deg` the SH coefficients become rgb here."""
     cfg = bundle.config
+    module = bundle.level(typ)
     n, s, d = xyz.shape
     flat_xyz = xyz.reshape(n * s, d).float().contiguous()
     dirs = None
@@ -176,24 +197,30 @@ def _model_eval(
             direction_coords(cfg, flat_xyz, dirs).float().contiguous()
         app = None
         if cfg.appearance_dim > 0:
-            app = bundle.module.appearance(image_indices)  # (N, A) per ray
+            app = module.appearance(image_indices)  # (N, A) per ray
             if train:
                 app = app.float()  # bf16-exact f32 rows; grads sum in f32
             app = app[:, None].expand(n, s, app.shape[-1]).reshape(n * s, -1)
             app = app.contiguous()
         if train:
-            out = fused_nerf_train_apply(bundle.module, flat_xyz, coords, app,
-                                         noise)
+            out = fused_nerf_train_apply(module, flat_xyz, coords, app, noise)
         elif wide:
-            out = fused_nerf_eval_wide(packed_params(bundle), flat_xyz, coords, app)
+            out = fused_nerf_eval_wide(packed_params(bundle, typ), flat_xyz,
+                                       coords, app)
         else:
-            out = fused_nerf_eval(packed_params(bundle), flat_xyz, coords, app)
+            out = fused_nerf_eval(packed_params(bundle, typ), flat_xyz, coords, app)
     else:
         idx = None
         if cfg.appearance_dim > 0:
             idx = image_indices[:, None].expand(n, s).reshape(n * s)
-        out = bundle.module(flat_xyz, dirs, idx, noise)
-    out = out.reshape(n, s, 4)
+        out = module(flat_xyz, dirs, idx, noise)
+    if settings.sh_deg is not None:
+        k = (settings.sh_deg + 1) ** 2
+        coeffs = out[:, :3 * k].reshape(n * s, 3, k)
+        sh_dirs = rays_d.expand(n, s, 3).reshape(n * s, 3)
+        rgb = torch.sigmoid(eval_sh(settings.sh_deg, coeffs, sh_dirs))
+        out = torch.cat([rgb, out[:, 3 * k:]], -1)
+    out = out.reshape(n, s, out.shape[-1])
     return out[..., :3], out[..., 3]
 
 
@@ -303,8 +330,11 @@ def _get_results(
     train: bool,
     generator: Optional[torch.Generator],
 ) -> Dict[str, torch.Tensor]:
-    """Coarse pass + hierarchical fine pass."""
+    """Coarse pass + hierarchical fine pass. Under the cascade the coarse
+    pass composites its own rgb (and bg_lambda) and the fine level
+    evaluates the sorted union of the coarse and fine depths."""
     results: Dict[str, torch.Tensor] = {}
+    cascade = settings.use_cascade
     get_var = settings.get_depth_variance
 
     capped = last_delta[:, 0] < INF_DELTA
@@ -314,11 +344,11 @@ def _get_results(
     _inference(
         results, "coarse", bundle, settings, rays_d, image_indices,
         xyz_coarse, z_vals, last_delta_c,
-        composite_rgb=fine_samples == 0,
+        composite_rgb=cascade or fine_samples == 0,
         get_depth=(fine_samples == 0) and get_depth,
         get_depth_variance=(fine_samples == 0) and get_var,
         get_weights=fine_samples > 0,
-        get_bg_lambda=get_bg_lambda and fine_samples == 0,
+        get_bg_lambda=get_bg_lambda and (cascade or fine_samples == 0),
         flip=flip,
         depth_real=depth_real,
         train=train,
@@ -339,6 +369,8 @@ def _get_results(
     if flip:
         # The bg pass composites in descending order.
         fine_z_vals = torch.flip(fine_z_vals, dims=(-1,))
+    if cascade:
+        fine_z_vals = torch.sort(torch.cat([z_vals, fine_z_vals], -1), -1).values
 
     xyz_fine, depth_real_fine = xyz_fine_fn(fine_z_vals)
 
@@ -441,18 +473,21 @@ def render_rays(
     )
 
     if bg is not None:
-        typ = "fine" if settings.fine_samples > 0 else "coarse"
-        mult = torch.where(has_bg, results[f"bg_lambda_{typ}"], 0.0)
-        for comp in ("rgb", "depth"):
-            key = f"{comp}_{typ}"
-            if key not in results or key not in bg_results:
-                continue
-            val = results[key]
-            bg_val = bg_results[key] * (mult[:, None] if val.dim() > 1 else mult)
-            if settings.get_bg_fg_rgb:
-                results[f"fg_{comp}_{typ}"] = val
-                results[f"bg_{comp}_{typ}"] = bg_val
-            results[key] = val + bg_val
+        types = ["fine" if settings.fine_samples > 0 else "coarse"]
+        if settings.use_cascade and settings.fine_samples > 0:
+            types.append("coarse")
+        for typ in types:
+            mult = torch.where(has_bg, results[f"bg_lambda_{typ}"], 0.0)
+            for comp in ("rgb", "depth"):
+                key = f"{comp}_{typ}"
+                if key not in results or key not in bg_results:
+                    continue
+                val = results[key]
+                bg_val = bg_results[key] * (mult[:, None] if val.dim() > 1 else mult)
+                if settings.get_bg_fg_rgb:
+                    results[f"fg_{comp}_{typ}"] = val
+                    results[f"bg_{comp}_{typ}"] = bg_val
+                results[key] = val + bg_val
     bg_rays_present = (has_bg.any() if has_bg is not None
                        else torch.zeros((), dtype=torch.bool, device=rays.device))
     return results, bg_rays_present

@@ -13,8 +13,11 @@
   without a cluster mask; `--ckpt_path` resumes weights, Adam states and
   the iteration count;
 - `make_eval_state` loads a reference-format `{iter}.pt` (--ckpt_path);
+  checkpoints carry each module's state dict as it is, so a cascade's
+  hold the reference's `coarse.*` / `fine.*` keys;
 - `render_image` renders a whole view in chunks bounded by an 8M-point
-  budget per MLP pass;
+  budget per MLP pass (under the cascade the fine pass has coarse + fine
+  points a ray);
 - `_run_validation` scores PSNR/SSIM on the right half of each val view
   (the half excluded from training) and writes gt | pred | depth panels.
 
@@ -70,8 +73,12 @@ _INFERNO = np.array([
 
 
 def _eval_chunk_cap(hparams: Namespace) -> int:
-    """Max rays per render call that keeps each MLP pass in budget."""
+    """Max rays per render call that keeps each MLP pass in budget. The
+    cascade's fine pass evaluates the coarse and the fine depths together,
+    so its pass has coarse + fine points per ray."""
     s_max = max(hparams.coarse_samples, hparams.fine_samples, 1)
+    if getattr(hparams, "use_cascade", False) and hparams.fine_samples > 0:
+        s_max = hparams.coarse_samples + hparams.fine_samples
     return max(1, EVAL_POINT_BUDGET // s_max)
 
 
@@ -246,7 +253,7 @@ class Runner:
         if hp.dataset_type != "memory":
             raise NotImplementedError(
                 f"--dataset_type {hp.dataset_type} is not ported yet "
-                "(ROADMAP.md A.6); use --dataset_type memory")
+                "(ROADMAP.md A.2); use --dataset_type memory")
         return MemoryDataset(
             self.train_items, self.near, self.far, self.ray_altitude_range,
             hp.center_pixels, np.random.default_rng(hp.random_seed),

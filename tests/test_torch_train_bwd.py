@@ -97,7 +97,7 @@ def test_train_bwd_plan_fits_every_admitted_width(width):
     ({"layer_dim": 512}, True),
     ({"layer_dim": 528}, False),
     ({"layer_dim": 40}, False),
-    ({"rgb_dim": 12}, False),
+    ({"rgb_dim": 12, "pos_dir_dim": 0}, False),  # an SH head (no view dirs)
     ({"affine_appearance": True}, False),
     ({"skip_layers": (0,)}, False),
 ])
