@@ -54,6 +54,22 @@ Runs every phase, in order:
               plain call, and a finite-PSNR `eval.main` on the final
               `{iter}.pt`; then one step from the same weights and batch
               through the kernels and through the plain versions.
+4b. train_fs - the training path fed from the parquet chunk store, cut and
+              resumed: a 4-chunk store of a generated 128x128 dataset, run
+              A = 40 paper-config steps of `train.main --dataset_type
+              filesystem` (a checkpoint and a validation every 20,
+              `--profile_steps 5`), run B = A's step-20 checkpoint (mid-
+              epoch) resumed to 40 in a fresh experiment. Checks finite
+              metrics, 4 launches a step of each narrow training kernel in
+              both runs and no plain or eager-module call, the same batches
+              bit for bit in A's steps 21-40 and B's, the final weights
+              within 1e-3 relative, `train/rays_per_sec` in A's
+              `metrics.jsonl`, A's profiler trace, a finite-PSNR `eval.main`
+              on A's last checkpoint. Records: a one-chunk store of 16 + 1
+              views at 512x512 (its write, the chunk's read and regenerate
+              ms and rays/s), `load_chunk`'s waits on the prefetch in run A,
+              and ms per step over 20 chained steps fed from that store
+              beside fed from memory (turns memory, store, store, memory).
 5. time     - eval kernel ms per launch and its persistent grid at the
               serving path's four shapes (fg 16,384 x 256 and x 512, bg
               16,384 x 128 and x 256 points), its TFLOP/s, plain ms and bound
@@ -117,7 +133,7 @@ on its `{iter}.pt`; ms/step and peak memory) and train_sh (10 steps of
 eager module named by the log for every pass, no kernel launch).
 
 Prints `{"serving": ...}`, `{"serving_dense": ...}`, `{"training": ...}`,
-`{"training_wide": ...}`, `{"serving_cascade": ...}`, `{"training_cascade": ...}`
+`{"training_fs": ...}`, `{"training_wide": ...}`, `{"serving_cascade": ...}`, `{"training_cascade": ...}`
 and `{"training_sh": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
@@ -393,6 +409,9 @@ def write_dataset(root: Path, hw: int, n_train: int, seed: int,
     focal = 0.9 * hw
     intrinsics = torch.tensor([focal, focal, hw / 2, hw / 2], dtype=torch.float32)
     positions = [(-1.0, y, z) for y in (-0.6, 0.0, 0.6) for z in (-0.4, 0.4)]
+    if n_train + 1 > len(positions):  # up to 17 train views on a 6 x 3 lattice
+        positions = [(-1.0, y, z) for y in np.linspace(-0.6, 0.6, 6)
+                     for z in (-0.4, 0.0, 0.4)]
     for i, pos in enumerate(positions[: n_train + 1]):
         split = "val" if i == 2 else "train"
         (root / split / "metadata").mkdir(parents=True, exist_ok=True)
@@ -926,6 +945,219 @@ def phase_train(device, report, tmp: Path):
                           "step_worst_rel_grad_diff": worst}
     report["train_step"] = step
     report["train_batches"] = batches
+    return bool(ok)
+
+
+TRAIN_FS_STEPS = 40
+TRAIN_FS_RESUME = 20  # the checkpoint run B resumes from: mid-epoch
+LOADER_HW, LOADER_VIEWS = 512, 16  # the loader record's one-chunk store
+FED_STEPS, FED_WARM = 20, 5
+
+
+def fed_step_ms(step, dataset, device, seed: int) -> float:
+    """ms per step over FED_STEPS chained steps fed as the runner feeds them
+    (host batch from `dataset.batches`, `batch_to_device`, the step), after
+    FED_WARM steps that also take the chunk load of a filesystem dataset."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch.runtime.runner import batch_to_device
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batches = dataset.batches(1024, np.random.default_rng(seed))
+    for _ in range(FED_WARM):
+        step(batch_to_device(next(batches), device), gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FED_STEPS):
+        step(batch_to_device(next(batches), device), gen)
+    torch.cuda.synchronize()
+    batches.close()
+    return (time.perf_counter() - t0) / FED_STEPS * 1e3
+
+
+def phase_train_fs(device, report, tmp: Path):
+    """Training from the parquet chunk store, cut and resumed: a generated
+    128x128 dataset (4 train views + the val view's left half) written as a
+    4-chunk store, then run A, `train.main` on cuda at the paper config with
+    `--dataset_type filesystem`, TRAIN_FS_STEPS steps, a checkpoint and a
+    validation every 20 steps and `--profile_steps 5`; run B resumes from
+    A's step-20 checkpoint (mid-epoch) in a fresh experiment and trains to
+    the same end. Checks finite metrics, 4 launches a step of each narrow
+    training kernel in both runs and no plain or eager-module call, the same
+    batches bit for bit in A's steps 21-40 and B's, A's and B's final
+    weights within 1e-3 relative (the worst tensor printed), A's
+    `metrics.jsonl` holding `train/rays_per_sec`, A's profiler trace, and a
+    finite PSNR from `eval.main` on A's last checkpoint. A record, not a
+    check: a one-chunk store of 16 views at 512x512, its write, the ms to
+    read and regenerate the chunk and the loader's rays/s, the ms
+    `load_chunk` waited on the prefetch in run A, and ms per step fed from
+    that store beside fed from memory (turns: memory, store, store,
+    memory)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    import pyarrow.parquet as pq
+
+    from mega_nerf_tpu_torch.data.filesystem_dataset import FilesystemDataset
+    from mega_nerf_tpu_torch.models.nerf import init_weights
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    ds = tmp / "train_fs_dataset"
+    write_dataset(ds, hw=128, n_train=4, seed=11, smooth=True)
+    chunks = tmp / "train_fs_chunks"
+    fs_args = ["--dataset_type", "filesystem", "--chunk_paths", str(chunks),
+               "--num_chunks", "4", "--train_iterations", str(TRAIN_FS_STEPS),
+               "--ckpt_interval", str(TRAIN_FS_RESUME),
+               "--val_interval", str(TRAIN_FS_RESUME), "--profile_steps", "5"]
+
+    t0 = time.perf_counter()
+    store = Runner(train_hparams(ds, tmp / "unused", fs_args),
+                   set_experiment_path=False)._make_dataset()
+    store_write_s = time.perf_counter() - t0
+    store.close()
+    rows = sorted(store._chunk_rows.values())
+    log(f"  store: {len(rows)} chunks of {rows} rays written in {store_write_s:.2f} s")
+
+    def run(name, extra=()):
+        record, waits = [], []
+        step_call, load_chunk = TrainStep.__call__, FilesystemDataset.load_chunk
+
+        def recording(self, batch, generator=None):  # a copy on the card, no sync
+            record.append({k: v.clone() for k, v in batch.items()})
+            return step_call(self, batch, generator)
+
+        def timed_load(self):
+            t = time.perf_counter()
+            self._future.result()
+            waits.append((time.perf_counter() - t) * 1e3)
+            return load_chunk(self)
+
+        TrainStep.__call__ = recording
+        FilesystemDataset.load_chunk = timed_load
+        zero_train_counters()
+        try:
+            with EagerCalls() as eager:
+                val = port_train.main(train_hparams(ds, tmp / name, [*fs_args, *extra]))
+            torch.cuda.synchronize()
+        finally:
+            TrainStep.__call__ = step_call
+            FilesystemDataset.load_chunk = load_chunk
+        counts = train_counters()
+        log(f"  run {name}: {len(record)} steps, val {val}, launches {counts}, "
+            f"eager calls {eager.count}, load_chunk waits (ms) "
+            f"{[round(w, 3) for w in waits]}")
+        return record, waits, val, counts, eager.count, tmp / name / "0"
+
+    a_batches, a_waits, a_val, a_counts, a_eager, a_exp = run("train_fs_a")
+    resume_ckpt = a_exp / "models" / f"{TRAIN_FS_RESUME}.pt"
+    ds_state = torch.load(resume_ckpt, weights_only=False)["dataset_state"]
+    b_batches, _, b_val, b_counts, b_eager, b_exp = run(
+        "train_fs_b", ["--ckpt_path", str(resume_ckpt)])
+
+    def launched(counts, steps):
+        return (all(counts[k] == 4 * steps for k in
+                    ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad"))
+                and counts["plain"] == 0)
+
+    same = (len(b_batches) == TRAIN_FS_STEPS - TRAIN_FS_RESUME
+            and all(torch.equal(a[k], b[k]) for a, b in
+                    zip(a_batches[TRAIN_FS_RESUME:], b_batches) for k in a))
+    final_a = torch.load(a_exp / "models" / f"{TRAIN_FS_STEPS}.pt", weights_only=False)
+    final_b = torch.load(b_exp / "models" / f"{TRAIN_FS_STEPS}.pt", weights_only=False)
+    diffs = {f"{key}.{n}": rel_err(final_b[key][n], t) for key in
+             ("model_state_dict", "bg_model_state_dict")
+             for n, t in final_a[key].items()}
+    worst_name, worst = max(diffs.items(), key=lambda t: t[1])
+    equal_share = sum(d == 0 for d in diffs.values()) / len(diffs)
+    log(f"  runs A and B: steps {TRAIN_FS_RESUME + 1}-{TRAIN_FS_STEPS} took the same "
+        f"batches: {same} (resumed at {ds_state}); final weights worst relative "
+        f"diff {worst:.3e} ({worst_name}), {100 * equal_share:.1f}% of tensors "
+        f"bit-equal")
+
+    lines = [json.loads(x) for x in (a_exp / "tb" / "metrics.jsonl").read_text().splitlines()]
+    rates = [x["train/rays_per_sec"] for x in lines if "train/rays_per_sec" in x]
+    losses = [x["train/loss"] for x in lines if "train/loss" in x]
+    traces = sorted((a_exp / "profile").glob("*.json.gz"))
+    log(f"  metrics.jsonl: train/rays_per_sec {rates}, train/loss {losses}; "
+        f"profiler trace {[p.name for p in traces]}")
+    e_metrics = port_eval.main(paper_hparams([
+        "--dataset_path", str(ds), "--exp_name", str(tmp / "train_fs_eval"),
+        "--ckpt_path", str(a_exp / "models" / f"{TRAIN_FS_STEPS}.pt"),
+        "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+        "--val_scale_factor", "1", "--device", "cuda"]))
+    log(f"  eval.main on {TRAIN_FS_STEPS}.pt: {e_metrics}")
+
+    ok = (launched(a_counts, TRAIN_FS_STEPS)
+          and launched(b_counts, TRAIN_FS_STEPS - TRAIN_FS_RESUME)
+          and a_eager == 0 and b_eager == 0 and same and worst <= 1e-3
+          and 0 < ds_state["batch_index"]
+          and all(np.isfinite(v) for v in [*a_val.values(), *b_val.values()])
+          and bool(losses) and np.isfinite(losses).all()
+          and bool(rates) and np.isfinite(rates).all()
+          and bool(traces) and np.isfinite(e_metrics["val/psnr"]))
+
+    # The loader at a realistic chunk: 16 views at 512x512 in one chunk.
+    big = tmp / "loader_dataset"
+    write_dataset(big, hw=LOADER_HW, n_train=LOADER_VIEWS, seed=13)
+    runner = Runner(train_hparams(big, tmp / "unused", [
+        "--dataset_type", "filesystem", "--chunk_paths", str(tmp / "loader_chunks"),
+        "--num_chunks", "1"]), set_experiment_path=False)
+    t0 = time.perf_counter()
+    store = runner._make_dataset()
+    big_write_s = time.perf_counter() - t0
+    store._future.result()  # the prefetch of chunk 0, started by the constructor
+    path = store._parquet_paths[0]
+    read_ms, chunk_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pq.read_table(path)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        chunk = store._load_chunk_inner(0)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    n_rays = chunk["rays"].shape[0]
+    loader = {"rays": n_rays, "views": LOADER_VIEWS + 1, "hw": LOADER_HW,
+              "write_s": big_write_s, "read_ms": read_ms, "chunk_ms": chunk_ms,
+              "rays_per_s": n_rays / (min(chunk_ms) / 1e3),
+              "bytes_on_disk": path.stat().st_size}
+    log(f"  loader: {n_rays} rays in one chunk ({path.stat().st_size / 1e6:.1f} MB), "
+        f"written in {big_write_s:.2f} s; parquet read {min(read_ms):.1f} ms, read + "
+        f"regenerate (_load_chunk_inner) {min(chunk_ms):.1f} ms (of {chunk_ms}) = "
+        f"{loader['rays_per_s']:.4g} rays/s")
+
+    init_weights(runner.fg.module, torch.Generator().manual_seed(1))
+    init_weights(runner.bg.module, torch.Generator().manual_seed(2))
+    step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(runner.hparams),
+                     5e-4, 0.1, 1000, runner.sphere_center, runner.sphere_radius)
+    runner.hparams.dataset_type = "memory"
+    memory = runner._make_dataset()
+    fed = {"memory": [], "filesystem": []}
+    for turn, name in enumerate(("memory", "filesystem", "filesystem", "memory")):
+        fed[name].append(fed_step_ms(step, memory if name == "memory" else store,
+                                     device, 100 + turn))
+    store.close()
+    log(f"  ms per step over {FED_STEPS} chained steps (batch 1024, paper fg+bg), fed "
+        f"from memory {fed['memory']}, from the store {fed['filesystem']}")
+
+    report["training_fs"] = {
+        "steps": TRAIN_FS_STEPS, "resumed_at": TRAIN_FS_RESUME,
+        "resume_dataset_state": ds_state, "chunks": len(rows), "chunk_rows": rows,
+        "store_write_s": store_write_s, "same_batches": same,
+        "weights_worst_rel_diff": worst, "weights_worst_tensor": worst_name,
+        "weights_bit_equal_share": equal_share,
+        "launches_a": a_counts, "launches_b": b_counts,
+        "eager_calls": a_eager + b_eager, "load_chunk_wait_ms": a_waits,
+        "rays_per_sec_logged": rates, "val_psnr_a": a_val.get("val/psnr"),
+        "val_psnr_b": b_val.get("val/psnr"), "eval_psnr": e_metrics["val/psnr"],
+        "loader": loader, "fed_step_ms": fed,
+    }
     return bool(ok)
 
 
@@ -2583,6 +2815,7 @@ def main() -> int:
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
             ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
+            ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
             ("train_wide", lambda: phase_train_wide(device, report, Path(tmp))),
             ("time", lambda: phase_time(device, report)),
             ("time_dense", lambda: phase_time_dense(device, report)),
@@ -2613,6 +2846,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"serving_dense": report["serving_dense"]}))
     log(json.dumps({"training": report["training"]}))
+    log(json.dumps({"training_fs": report["training_fs"]}))
     log(json.dumps({"training_wide": report["training_wide"]}))
     log(json.dumps({"serving_cascade": report["serving_cascade"]}))
     log(json.dumps({"training_cascade": report["training_cascade"]}))

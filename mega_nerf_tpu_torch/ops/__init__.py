@@ -11,6 +11,7 @@ from mega_nerf_tpu_torch.ops.rays import (
     generate_image_rays,
     get_ray_directions,
     get_rays,
+    get_rays_flat,
 )
 from mega_nerf_tpu_torch.ops.sampling import (
     expand_and_perturb_z_vals,
@@ -30,6 +31,7 @@ __all__ = [
     "generate_image_rays",
     "get_ray_directions",
     "get_rays",
+    "get_rays_flat",
     "expand_and_perturb_z_vals",
     "sample_cdf",
     "sample_pdf",

@@ -1,15 +1,20 @@
-"""Image-quality metrics: PSNR and SSIM.
+"""Image-quality metrics: PSNR, SSIM and LPIPS.
 
 Port of the JAX package's `ops/metrics.py`. SSIM reproduces the reference's
 tf.image.ssim-style separable Gaussian blur with zero padding. The blur
 runs as a grouped `conv2d` with cuDNN's TF32 mode off, so a CUDA run keeps
-float32 precision. LPIPS is not ported yet: its weights are not in the repo.
+float32 precision. LPIPS scores every net whose weight file exists
+(`ops/lpips.py`); with none it returns {}.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 import torch.nn.functional as F
+
+from mega_nerf_tpu_torch.ops.lpips import LPIPS, load_available
 
 
 def psnr(rgbs: torch.Tensor, target_rgbs: torch.Tensor) -> torch.Tensor:
@@ -69,3 +74,13 @@ def ssim(
     denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
     ssim_map = numer / denom
     return torch.mean(ssim_map.reshape(ssim_map.shape[0], -1), dim=-1).mean()
+
+
+def lpips(rgbs: torch.Tensor, target_rgbs: torch.Tensor,
+          nets: Optional[Dict[str, LPIPS]] = None) -> Dict[str, float]:
+    """LPIPS distance per backbone between two (H, W, 3) images in [0, 1],
+    on their device. `nets` (from `ops.lpips.load_available`) are loaded
+    here when not given; {} when no weight file exists."""
+    if nets is None:
+        nets = load_available(device=rgbs.device)
+    return {net: float(fn(rgbs, target_rgbs)) for net, fn in nets.items()}

@@ -1,7 +1,7 @@
 """Ray generation in the DRB (down-right-back) world convention.
 
-Port of the JAX package's `ops/rays.py` and `generate_image_rays`
-(`data/memory_dataset.py`). A "ray record" is 8 floats: [origin(3), unit
+Port of the JAX package's `ops/rays.py` (with `get_rays_flat`, the chunk
+loader's) and `generate_image_rays` (`data/memory_dataset.py`). A "ray record" is 8 floats: [origin(3), unit
 direction(3), near, far]. The altitude-plane truncation is a dense `where`
 over all rays.
 """
@@ -54,22 +54,12 @@ def _plane_bound(
     return torch.where(eligible, t, default)
 
 
-def get_rays(
-    directions: torch.Tensor,
-    c2w: torch.Tensor,
-    near: float,
-    far: float,
-    ray_altitude_range: Optional[Sequence[float]] = None,
-) -> torch.Tensor:
-    """(..., 8) world-space ray records for one camera.
-
-    directions: (..., 3) camera-frame unit directions; c2w: (3, 4) DRB pose.
-    With `ray_altitude_range` = [alt_hi, alt_lo] near is pushed forward to
-    the ceiling plane and far pulled back to the ground plane."""
-    rays_d = directions @ c2w[:, :3].T
-    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    rays_o = c2w[:, 3].expand(rays_d.shape)
-
+def _records(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
+             far: float, ray_altitude_range: Optional[Sequence[float]]
+             ) -> torch.Tensor:
+    """(..., 8) records from origins and unit directions. With
+    `ray_altitude_range` = [alt_hi, alt_lo] near is pushed forward to the
+    ceiling plane and far pulled back to the ground plane."""
     near_b = torch.full(rays_o.shape[:-1], near, dtype=rays_o.dtype,
                         device=rays_o.device)
     far_b = torch.full(rays_o.shape[:-1], far, dtype=rays_o.dtype,
@@ -83,6 +73,39 @@ def get_rays(
         far_b = torch.maximum(near_b, far_b)
 
     return torch.cat([rays_o, rays_d, near_b[..., None], far_b[..., None]], -1)
+
+
+def get_rays(
+    directions: torch.Tensor,
+    c2w: torch.Tensor,
+    near: float,
+    far: float,
+    ray_altitude_range: Optional[Sequence[float]] = None,
+) -> torch.Tensor:
+    """(..., 8) world-space ray records for one camera.
+
+    directions: (..., 3) camera-frame unit directions; c2w: (3, 4) DRB pose."""
+    rays_d = directions @ c2w[:, :3].T
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    rays_o = c2w[:, 3].expand(rays_d.shape)
+    return _records(rays_o, rays_d, near, far, ray_altitude_range)
+
+
+def get_rays_flat(
+    directions: torch.Tensor,
+    c2ws: torch.Tensor,
+    near: float,
+    far: float,
+    ray_altitude_range: Optional[Sequence[float]] = None,
+) -> torch.Tensor:
+    """(N, 8) ray records for a flat list of (direction, pose) pairs.
+
+    directions: (N, 3) camera-frame unit directions; c2ws: (N, 3, 4) poses,
+    one per ray. The chunk loader regenerates a chunk's rays from its
+    stored pixel indices with one batched product."""
+    rays_d = torch.einsum("nij,nj->ni", c2ws[:, :, :3], directions)
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return _records(c2ws[:, :, 3], rays_d, near, far, ray_altitude_range)
 
 
 def generate_image_rays(

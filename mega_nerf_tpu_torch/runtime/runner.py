@@ -5,27 +5,34 @@
   the altitude bounds;
 - the metadata scan (val images join the train set; appearance indices
   follow the sorted file names);
-- `train` runs the epoch loop over the in-memory dataset (a fresh
-  shuffle per epoch from `np.random.default_rng((seed, epoch))`), one
-  `TrainStep` per batch, a non-finite check and throughput every 100 steps,
-  `{iter}.pt` checkpoints at `--ckpt_interval` and at the end,
+- `train` runs the epoch loop over the in-memory dataset or the parquet
+  chunk store (`--dataset_type memory|filesystem`; one chunk per epoch),
+  a fresh shuffle per epoch from `np.random.default_rng((seed, epoch))`,
+  one `TrainStep` per batch; `TrainLoopHooks` give the non-finite check
+  and throughput every 100 steps and the `--profile_steps` torch.profiler
+  window; `{iter}.pt` checkpoints at `--ckpt_interval` and at the end,
   `--val_interval` validation, and the final validation plus `metrics.txt`
-  without a cluster mask; `--ckpt_path` resumes weights, Adam states and
-  the iteration count;
+  without a cluster mask; scalars and result panels go to `<exp>/tb`
+  (`metrics.jsonl`, and TensorBoard when it imports);
+- `--ckpt_path` resumes weights, Adam states and the iteration count, and
+  with `--resume_ckpt_state` (the default) also the batch stream (epoch and
+  the batch of it last consumed, which the resumed epoch skips) and the
+  sample generator, so a resumed run continues exactly as the uninterrupted
+  one; `--no_resume_ckpt_state` restarts the stream;
 - `make_eval_state` loads a reference-format `{iter}.pt` (--ckpt_path);
   checkpoints carry each module's state dict as it is, so a cascade's
   hold the reference's `coarse.*` / `fine.*` keys;
 - `render_image` renders a whole view in chunks bounded by an 8M-point
   budget per MLP pass (under the cascade the fine pass has coarse + fine
   points a ray);
-- `_run_validation` scores PSNR/SSIM on the right half of each val view
-  (the half excluded from training) and writes gt | pred | depth panels.
+- `_run_validation` scores PSNR/SSIM, and LPIPS for every net with a
+  weight file, on the right half of each val view (the half excluded from
+  training) and writes gt | pred | depth panels.
 
 Everything runs on `--device` (default cuda). Asking for cuda without a
-card raises; nothing falls back to the CPU. Not ported yet: the filesystem
-dataset, mid-epoch resume of the batch stream, LPIPS, TensorBoard logging,
-profiler hooks, occupancy bounds, culling, routing, mixtures and
-multi-process training and validation.
+card raises; nothing falls back to the CPU. Not ported yet: occupancy
+bounds, culling, routing, mixtures and multi-process training and
+validation.
 """
 
 from __future__ import annotations
@@ -39,18 +46,22 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from mega_nerf_tpu_torch.data.filesystem_dataset import FilesystemDataset
 from mega_nerf_tpu_torch.data.image_metadata import ImageMetadata
-from mega_nerf_tpu_torch.data.torch_io import load_coordinates, load_pt
 from mega_nerf_tpu_torch.data.memory_dataset import MemoryDataset
+from mega_nerf_tpu_torch.data.torch_io import load_coordinates, load_pt
 from mega_nerf_tpu_torch.models.factory import ModelBundle, make_bg_nerf, make_nerf
 from mega_nerf_tpu_torch.models.nerf import init_weights
 from mega_nerf_tpu_torch.models.weights import strip_module_prefix
+from mega_nerf_tpu_torch.ops.lpips import LPIPS, load_available
+from mega_nerf_tpu_torch.ops.metrics import lpips as lpips_metric
 from mega_nerf_tpu_torch.ops.metrics import psnr as psnr_metric
 from mega_nerf_tpu_torch.ops.metrics import ssim as ssim_metric
 from mega_nerf_tpu_torch.ops.rays import generate_image_rays
 from mega_nerf_tpu_torch.parallel.train_step import TrainStep
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
 from mega_nerf_tpu_torch.runtime import checkpoints
+from mega_nerf_tpu_torch.runtime.logging import MetricsWriter
 
 METRICS_CHECK_INTERVAL = 100  # steps between non-finite checks
 
@@ -93,6 +104,90 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def batch_to_device(host_batch: Dict[str, np.ndarray],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """A dataset's host batch -> the train step's tensors on `device`."""
+    batch = {
+        "rgbs": torch.from_numpy(host_batch["rgbs"]),
+        "rays": torch.from_numpy(host_batch["rays"]),
+        "img_indices": torch.from_numpy(host_batch["img_indices"]).long(),
+    }
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+class TrainLoopHooks:
+    """The training loop's instrumentation: a torch.profiler window over
+    `--profile_steps` steps from 10 steps past the start, the periodic
+    non-finite metric guard, and throughput accounting."""
+
+    def __init__(self, hparams: Namespace, profile_dir: Optional[Path],
+                 rays_per_step: int, start_iteration: int,
+                 device: torch.device):
+        self.profile_dir = profile_dir
+        self.rays_per_step = rays_per_step
+        self.total = hparams.train_iterations
+        self.profile_steps = hparams.profile_steps
+        self.profile_start = start_iteration + 10
+        self.device = device
+        self._profiler = None
+        self.t0: Optional[float] = None
+        self.step0 = start_iteration
+
+    def maybe_profile(self, iteration: int) -> None:
+        if self.profile_steps <= 0 or self.profile_dir is None:
+            return
+        if iteration == self.profile_start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif iteration >= self.profile_start + self.profile_steps:
+            self.stop_profile()
+
+    def stop_profile(self) -> None:
+        """End an open trace window (the device finishes its queued work
+        first) and write `<profile_dir>/trace.json.gz`."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        self.profile_dir.mkdir(parents=True, exist_ok=True)
+        path = self.profile_dir / "trace.json.gz"
+        self._profiler.export_chrome_trace(str(path))
+        self._profiler = None
+        print(f"Wrote profiler trace to {path}", flush=True)
+
+    def metrics_due(self, iteration: int) -> bool:
+        return iteration % METRICS_CHECK_INTERVAL == 0 or iteration >= self.total
+
+    @staticmethod
+    def check_finite(metrics_host: Dict[str, float]) -> None:
+        """psnr may be +/-inf (a perfectly fit batch), never NaN; every
+        other metric must be finite."""
+        for k, v in metrics_host.items():
+            arr = np.asarray(v)
+            ok = np.isfinite(arr) | ((k == "psnr") & np.isinf(arr))
+            if not ok.all():
+                raise RuntimeError(f"Train metrics not finite in {k}: {v}")
+
+    def restart_window(self, iteration: int) -> None:
+        """Leave a pause (validation) out of the next throughput sample."""
+        self.t0 = time.perf_counter()
+        self.step0 = iteration
+
+    def throughput(self, iteration: int) -> Optional[float]:
+        """rays/s since the previous metrics step (None on the first)."""
+        now = time.perf_counter()
+        rays = None
+        if self.t0 is not None:
+            rays = (iteration - self.step0) * self.rays_per_step / (now - self.t0)
+        self.t0 = now
+        self.step0 = iteration
+        return rays
+
+
 class Runner:
     def __init__(self, hparams: Namespace, set_experiment_path: bool = True):
         self.hparams = hparams
@@ -101,6 +196,8 @@ class Runner:
         self.experiment_path = (
             self._get_experiment_path() if set_experiment_path else None
         )
+        self.writer: Optional[MetricsWriter] = None
+        self._lpips_nets: Optional[Dict[str, LPIPS]] = None
 
         coords = load_coordinates(hparams.dataset_path)
         self.origin_drb = coords["origin_drb"]
@@ -184,88 +281,131 @@ class Runner:
             self.fg, self.bg, RenderSettings.from_hparams(hp), hp.lr,
             hp.lr_decay_factor, hp.train_iterations, self.sphere_center,
             self.sphere_radius, use_appearance=hp.appearance_dim > 0)
+        generator = torch.Generator(device=self.device).manual_seed(hp.random_seed)
         train_iterations = 0
+        start_epoch = 0
+        discard_index = -1
         if hp.ckpt_path is not None:
             loaded = self._load_weights(hp.ckpt_path)
             step.load_optimizer_states(loaded.get("optimizers", {}))
             train_iterations = int(loaded.get("iteration", 0))
+            if hp.resume_ckpt_state:
+                ds_state = loaded.get("dataset_state") or {}
+                start_epoch = int(ds_state.get("epoch", 0))
+                discard_index = int(ds_state.get("batch_index", -1))
+                if "generator_state" in loaded:
+                    generator.set_state(loaded["generator_state"])
             print(f"Resumed from {hp.ckpt_path} at iteration {train_iterations}")
         self.train_step = step
 
         dataset = self._make_dataset()
-        generator = torch.Generator(device=self.device).manual_seed(hp.random_seed)
-        epoch = 0
-        t0, step0 = time.perf_counter(), train_iterations
-        while train_iterations < hp.train_iterations:
-            epoch_rng = np.random.default_rng((hp.random_seed, epoch))
-            for host_batch in dataset.batches(hp.batch_size, epoch_rng):
-                batch = {
-                    "rgbs": torch.from_numpy(host_batch["rgbs"]),
-                    "rays": torch.from_numpy(host_batch["rays"]),
-                    "img_indices": torch.from_numpy(
-                        host_batch["img_indices"]).long(),
-                }
-                batch = {k: v.to(self.device, non_blocking=True)
-                         for k, v in batch.items()}
-                metrics = step(batch, generator)
-                train_iterations += 1
+        if isinstance(dataset, FilesystemDataset):
+            # One chunk per epoch: the epoch is the chunk position.
+            dataset.set_position(start_epoch)
+        hooks = TrainLoopHooks(
+            hp, None if self.experiment_path is None
+            else self.experiment_path / "profile",
+            hp.batch_size, train_iterations, self.device)
+        epoch = start_epoch
+        dataset_index = -1
+        try:
+            while train_iterations < hp.train_iterations:
+                epoch_rng = np.random.default_rng((hp.random_seed, epoch))
+                for dataset_index, host_batch in enumerate(
+                        dataset.batches(hp.batch_size, epoch_rng)):
+                    if dataset_index <= discard_index:
+                        continue
+                    discard_index = -1
 
-                if (train_iterations % METRICS_CHECK_INTERVAL == 0
-                        or train_iterations >= hp.train_iterations):
-                    host = {k: float(v) for k, v in metrics.items()}
-                    self.check_finite(host)
-                    now = time.perf_counter()
-                    rate = (train_iterations - step0) * hp.batch_size / (now - t0)
-                    t0, step0 = now, train_iterations
-                    print(f"step {train_iterations}: "
-                          + " ".join(f"{k}={v:.5g}" for k, v in host.items())
-                          + f" rays/s={rate:.1f}", flush=True)
+                    metrics = step(batch_to_device(host_batch, self.device),
+                                   generator)
+                    train_iterations += 1
+                    hooks.maybe_profile(train_iterations)
 
-                if train_iterations % hp.ckpt_interval == 0:
-                    self._save_checkpoint(train_iterations)
-                if train_iterations % hp.val_interval == 0:
-                    self._run_validation(train_iterations)
-                    t0, step0 = time.perf_counter(), train_iterations
-                if train_iterations >= hp.train_iterations:
-                    break
-            else:
-                epoch += 1
-                continue
-            break
+                    if hooks.metrics_due(train_iterations):
+                        host = {k: float(v) for k, v in metrics.items()}
+                        hooks.check_finite(host)
+                        rate = hooks.throughput(train_iterations)
+                        if self.writer is not None:
+                            if rate is not None:
+                                self.writer.add_scalar("train/rays_per_sec", rate,
+                                                       train_iterations)
+                            for k, v in host.items():
+                                self.writer.add_scalar(f"train/{k}", v,
+                                                       train_iterations)
+                        print(f"step {train_iterations}: "
+                              + " ".join(f"{k}={v:.5g}" for k, v in host.items())
+                              + ("" if rate is None else f" rays/s={rate:.1f}"),
+                              flush=True)
 
-        self._save_checkpoint(train_iterations)
+                    if train_iterations % hp.ckpt_interval == 0:
+                        self._save_checkpoint(
+                            train_iterations,
+                            {"epoch": epoch, "batch_index": dataset_index},
+                            generator)
+                    if train_iterations % hp.val_interval == 0:
+                        self._run_validation(train_iterations)
+                        hooks.restart_window(train_iterations)
+                    if train_iterations >= hp.train_iterations:
+                        break
+                else:
+                    # Epoch fully consumed: clear the skip marker here too.
+                    # A checkpoint on an epoch's last batch resumes into an
+                    # epoch whose batches are all skipped, so the in-loop
+                    # reset never runs, and the next epoch would be skipped
+                    # as well.
+                    discard_index = -1
+                    epoch += 1
+                    continue
+                # Mid-epoch exit: `epoch` stays, so the final checkpoint
+                # records the last batch consumed of the epoch that ran.
+                break
+            hooks.stop_profile()
+        finally:
+            if isinstance(dataset, FilesystemDataset):
+                dataset.close()
+
+        self._save_checkpoint(
+            train_iterations, {"epoch": epoch, "batch_index": dataset_index},
+            generator)
         val_metrics: Dict[str, float] = {}
         if hp.cluster_mask_path is None:
             val_metrics = self._run_validation(train_iterations)
             self._write_final_metrics(val_metrics)
+        self._close_writer()
         return val_metrics
 
-    @staticmethod
-    def check_finite(metrics: Dict[str, float]) -> None:
-        """psnr may be +/-inf (a perfectly fit batch), never NaN; every
-        other metric must be finite."""
-        for k, v in metrics.items():
-            if not (np.isfinite(v) or (k == "psnr" and np.isinf(v))):
-                raise RuntimeError(f"Train metrics not finite in {k}: {v}")
-
-    def _make_dataset(self) -> MemoryDataset:
+    def _make_dataset(self):
         hp = self.hparams
-        if hp.dataset_type != "memory":
-            raise NotImplementedError(
-                f"--dataset_type {hp.dataset_type} is not ported yet "
-                "(ROADMAP.md A.2); use --dataset_type memory")
-        return MemoryDataset(
-            self.train_items, self.near, self.far, self.ray_altitude_range,
-            hp.center_pixels, np.random.default_rng(hp.random_seed),
-        )
+        # A fresh seed-derived rng: a resumed run rebuilds the dataset with
+        # the same draws (val-pixel rebalancing, disk shuffles) as the
+        # original one.
+        ds_rng = np.random.default_rng(hp.random_seed)
+        if hp.dataset_type == "memory":
+            return MemoryDataset(
+                self.train_items, self.near, self.far, self.ray_altitude_range,
+                hp.center_pixels, ds_rng,
+            )
+        if hp.dataset_type == "filesystem":
+            if not hp.chunk_paths:
+                raise ValueError("--dataset_type filesystem needs --chunk_paths")
+            return FilesystemDataset(
+                self.train_items, self.near, self.far, self.ray_altitude_range,
+                hp.center_pixels, [Path(x) for x in sorted(hp.chunk_paths)],
+                hp.num_chunks, hp.train_scale_factor, hp.disk_flush_size,
+                rng=ds_rng,
+            )
+        raise ValueError(f"Unrecognized dataset type: {hp.dataset_type}")
 
-    def _save_checkpoint(self, iteration: int) -> None:
+    def _save_checkpoint(self, iteration: int, dataset_state: Dict[str, int],
+                         generator: torch.Generator) -> None:
         if self.experiment_path is None:
             return
         checkpoints.save_checkpoint(
             self.experiment_path / "models" / f"{iteration}.pt",
             self.fg.module, None if self.bg is None else self.bg.module,
-            self.train_step.optimizer_states(), iteration)
+            self.train_step.optimizer_states(), iteration, dataset_state,
+            generator.get_state())
 
     # ------------------------------------------------------------------ eval
 
@@ -274,6 +414,7 @@ class Runner:
         self.make_eval_state()
         val_metrics = self._run_validation(0)
         self._write_final_metrics(val_metrics)
+        self._close_writer()
         return val_metrics
 
     def make_eval_state(self) -> None:
@@ -301,6 +442,8 @@ class Runner:
 
     def _run_validation(self, train_index: int) -> Dict[str, float]:
         """Render + score every val image -> per-image AVERAGES."""
+        if self._lpips_nets is None:
+            self._lpips_nets = load_available(device=self.device)
         sums: Dict[str, float] = {}
         img_dir = None
         if self.experiment_path is not None:
@@ -320,7 +463,13 @@ class Runner:
                 "val/psnr": float(psnr_metric(eval_pred, eval_gt)),
                 "val/ssim": float(ssim_metric(eval_pred, eval_gt, 1.0)),
             }
+            for net, value in lpips_metric(eval_pred.to(self.device),
+                                           eval_gt.to(self.device),
+                                           self._lpips_nets).items():
+                per_image[f"val/lpips/{net}"] = value
             for key, value in per_image.items():
+                if self.writer is not None:
+                    self.writer.add_scalar(f"{key}/{i}", value, train_index)
                 sums[key] = sums.get(key, 0.0) + value
 
             depth = results[f"depth_{typ}"].reshape(viz_rgbs.shape[:2])
@@ -332,7 +481,16 @@ class Runner:
 
                 panel = self._create_result_image(viz_rgbs, pred, depth)
                 Image.fromarray(panel).save(img_dir / f"{i}.jpg")
+                if self.writer is not None:
+                    self.writer.add_image(f"val/{i}", panel, train_index)
+        if self.writer is not None:
+            self.writer.flush()
         return {k: v / len(self.val_items) for k, v in sums.items()}
+
+    def _close_writer(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
 
     def _write_final_metrics(self, val_metrics: Dict[str, float]) -> None:
         if self.experiment_path is not None:
@@ -417,6 +575,7 @@ class Runner:
         with (self.experiment_path / "image_indices.txt").open("w") as f:
             for item in self.train_items:
                 f.write(f"{item.image_index},{item.image_path.name}\n")
+        self.writer = MetricsWriter(self.experiment_path / "tb")
 
     def _get_image_metadata(self) -> Tuple[List[ImageMetadata], List[ImageMetadata]]:
         """Scan metadata dirs; val images join the train set."""

@@ -266,7 +266,9 @@ def test_train_cuda_without_card_and_filesystem_dataset_raise(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_train.main(hp)
+    # The filesystem dataset (the default) trains; without --chunk_paths
+    # it has no store to write and raises.
     hp = port_train.get_train_opts(_train_args(ds, tmp_path / "exp2", 2)
                                    + ["--dataset_type", "filesystem"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="needs --chunk_paths"):
         port_train.main(hp)
