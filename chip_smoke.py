@@ -39,6 +39,19 @@ Runs every phase, in order:
               PSNR/SSIM, that the fused kernel launched (4 launches per
               16,384-ray chunk) and the plain version never ran, and renders
               one chunk again through the plain version for comparison.
+3a. serve_mega - a merged Mega-NeRF mixture at the paper width
+              (`configs/mega-nerf/building.yaml`): K = 8 seeded-random fg
+              and bg submodules written as `{iter}.pt` runs, centroids on
+              a 2 x 4 grid over the cameras, merged by
+              `mega_nerf_tpu_torch.scripts.merge_submodules` into the
+              native and the TorchScript container (both load to bit-equal
+              weights), then `eval.main --container_path` on the 128x128
+              view: finite PSNR/SSIM, K x 4 eval launches a view, no plain
+              or eager call, each submodule on its own packed weights; one
+              2,048-ray chunk's fg and bg mixture outputs through the
+              kernel and through the plain version (rgb 1e-2, sigma 1e-2
+              (1 + |sigma|)); s/view, rays/s, peak memory, the view's
+              device time by kernel.
 3b. serve_dense - the same at the `configs/mega-nerf-dense` width (fg and
               bg 8x2048, seeded random weights): `eval.main` on cuda through
               the wide kernels. Checks finite PSNR/SSIM, launches of each
@@ -130,11 +143,16 @@ launches per step, its pass sizes 262,144 and 786,432 held against the plain
 versions in compare_train_wide, no narrow, plain or eager call; `eval.main`
 on its `{iter}.pt`; ms/step and peak memory) and train_sh (10 steps of
 `train.main` and an eval with `configs/mega-nerf-sh-3/building.yaml`, the
-eager module named by the log for every pass, no kernel launch).
+eager module named by the log for every pass, no kernel launch). Last,
+remat: eager_train_wide's steps again, from the same weights, with
+`--remat` (every eager MLP pass checkpointed): peak memory and ms a step
+beside the run without it; fails unless the peak is lower and the loss
+after the steps agrees within 1e-5.
 
-Prints `{"serving": ...}`, `{"serving_dense": ...}`, `{"training": ...}`,
-`{"training_fs": ...}`, `{"training_wide": ...}`, `{"serving_cascade": ...}`, `{"training_cascade": ...}`
-and `{"training_sh": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
+Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
+`{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
+`{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`
+and `{"remat": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -508,6 +526,193 @@ def phase_serve(device, report, tmp: Path):
     ok = ok and diff <= TOL and bool(torch.isfinite(kern["rgb_fine"]).all())
     report["runner"] = runner
     return ok
+
+
+MEGA_CONFIG = "mega-nerf/building.yaml"  # the paper model: fg and bg 8x256, 48-d appearance
+MEGA_GRID = (2, 4)  # the README's --grid_dim 2 4: K = 8 submodules
+MEGA_ITER = 1000  # the `{iter}.pt` the merge reads
+MEGA_CMP_RAYS = 2048
+
+
+def mega_centroids(ds: Path):
+    """create_cluster_masks' grid of centroids over the y/z extent of the
+    dataset's cameras (altitude 0) -> (centroids (K, 3), min, max)."""
+    import numpy as np
+    import torch
+
+    pos = np.stack([torch.load(p, weights_only=False)["c2w"][:, 3].numpy()
+                    for p in sorted(ds.glob("*/metadata/*.pt"))])
+    lo, hi = pos.min(0), pos.max(0)
+    gy, gz = MEGA_GRID
+    span = hi[1:] - lo[1:]
+    cents = np.zeros((gy, gz, 3), np.float32)
+    cents[:, :, 1] = lo[1] + (np.arange(gy)[:, None] + 0.5) * span[0] / gy
+    cents[:, :, 2] = lo[2] + (np.arange(gz)[None, :] + 0.5) * span[1] / gz
+    return cents.reshape(-1, 3), lo.astype(np.float32), hi.astype(np.float32)
+
+
+def phase_serve_mega(device, report, tmp: Path):
+    """The slice's serving path for a merged Mega-NeRF mixture at the paper
+    width (`configs/mega-nerf/building.yaml`: fg and bg 8x256, 48-d
+    appearance, bf16): K = 8 seeded-random fg and bg submodules written as
+    `{iter}.pt` runs, centroids on a 2 x 4 grid over the dataset's camera
+    extent, merged by `mega_nerf_tpu_torch.scripts.merge_submodules` into
+    the native and (`--torchscript`) the viewer's container, both loading to
+    bit-equal weights; then `eval.main --container_path` on the serve
+    phase's 128x128 view. Checks finite PSNR/SSIM, `fused_nerf_eval`
+    launches per view = K x the single model's at the same chunking, each
+    submodule on its own packed weights, no plain or eager call; one
+    2,048-ray chunk's fg and bg mixture outputs through the kernels and
+    through the plain version: rgb <= 1e-2, sigma <= 1e-2 (1 + |sigma|).
+    Prints s/view, rays/s and peak device memory."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch.models.container import load_container
+    from mega_nerf_tpu_torch.models.weights import state_keys
+    from mega_nerf_tpu_torch.ops.geometry import depth2pts_outside, intersect_sphere
+    from mega_nerf_tpu_torch.ops.rays import generate_image_rays
+    from mega_nerf_tpu_torch.render import fused_mlp, rendering
+    from mega_nerf_tpu_torch.runtime.runner import Runner, _eval_chunk_cap
+    from mega_nerf_tpu_torch.scripts import merge_submodules
+
+    ds = tmp / "dataset"
+    if not (ds / "coordinates.pt").exists():
+        write_dataset(ds, hw=128, n_train=4, seed=7)
+    centroids, lo, hi = mega_centroids(ds)
+    k = len(centroids)
+    root = tmp / "mega"
+    hp_sub = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "unused")
+    for i in range(k):
+        fg = seeded_bundle(hp_sub, 5, False, 100 + i, "cpu")
+        bg = seeded_bundle(hp_sub, 5, True, 200 + i, "cpu")
+        models = root / f"submodule_{i}" / "0" / "models"
+        models.mkdir(parents=True)
+        torch.save({"model_state_dict": fg.module.state_dict(),
+                    "bg_model_state_dict": bg.module.state_dict(),
+                    "iteration": MEGA_ITER}, models / f"{MEGA_ITER}.pt")
+    torch.save({"centroids": torch.from_numpy(centroids), "grid_dim": list(MEGA_GRID),
+                "min_position": torch.from_numpy(lo), "max_position": torch.from_numpy(hi),
+                "cluster_2d": False}, root / "params.pt")
+    merged = root / "merged.pt"
+    t0 = time.perf_counter()
+    merge_submodules.main(merge_submodules.get_merge_opts([
+        "--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--exp_name", "unused",
+        "--dataset_path", str(ds), "--ckpt_prefix", str(root / "submodule_"),
+        "--centroid_path", str(root / "params.pt"), "--output", str(merged),
+        "--train_iterations", str(MEGA_ITER), "--torchscript"]))
+    merge_s = time.perf_counter() - t0
+    native, script = load_container(merged), load_container(f"{merged}.ts")
+    formats_equal = all(
+        len(a) == len(b) == k and all(np.array_equal(np.asarray(sa[key]), np.asarray(sb[key]))
+                                      for sa, sb in zip(a, b) for key in sa)
+        for a, b in ((native.fg_states, script.fg_states),
+                     (native.bg_states, script.bg_states)))
+    formats_equal &= bool(np.array_equal(native.centroids, script.centroids))
+    log(f"  merged {k} fg + {k} bg submodules (native and TorchScript) in {merge_s:.2f} s; "
+        f"the two formats load to bit-equal weights: {formats_equal}")
+
+    hp = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "exp_mega",
+                        ["--container_path", str(merged)])
+    n_rays = 128 * 128
+    chunks = -(-n_rays // min(hp.image_pixel_batch_size, n_rays, _eval_chunk_cap(hp)))
+    predicted = k * 4 * chunks  # K x the single model's 4 passes a chunk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.fused_nerf_eval.launches = 0
+    fused_mlp.fused_nerf_eval_plain.calls = 0
+    t0 = time.perf_counter()
+    with EagerCalls() as eager_calls:
+        metrics = port_eval.main(hp)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_mlp.fused_nerf_eval.launches
+    plain = fused_mlp.fused_nerf_eval_plain.calls
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  eval.main --container_path ({MEGA_CONFIG}, K = {k}, margin "
+        f"{hp.boundary_margin}): {metrics} in {wall:.2f} s; peak device memory allocated "
+        f"{peak:.2f} GB; fused_nerf_eval launches {launches} (predicted {predicted} = "
+        f"{k} x 4 passes x {chunks} chunk(s)), plain calls {plain}, eager module calls "
+        f"{eager_calls.count}")
+    ok = (formats_equal and all(np.isfinite(v) for v in metrics.values())
+          and {"val/psnr", "val/ssim"} <= set(metrics) and launches == predicted
+          and plain == 0 and eager_calls.count == 0)
+
+    runner = Runner(hp, set_experiment_path=False)
+    runner.make_eval_state()
+    meta = runner.val_items[0]
+    runner.render_image(meta)  # warm: packs every submodule's weights
+    own_packs = all(set(b.packed) == {("sub", i) for i in range(k)}
+                    for b in (runner.fg, runner.bg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.render_image(meta)
+    torch.cuda.synchronize()
+    s_view = (time.perf_counter() - t0) / reps
+    view_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  mixture serving path: {meta.W}x{meta.H} view, {s_view:.4f} s/view, "
+        f"{n_rays / s_view:.1f} rays/s; peak device memory allocated {view_peak:.2f} GB; "
+        f"each submodule on its own packed weights: {own_packs}")
+    rows, busy, wall_ms = kernel_times(lambda: runner.render_image(meta), 1)
+    profile = None
+    if rows:
+        kern_ms = sum(ms for ms, _, name in rows if "eval_fwd_kernel" in name)
+        kern_n = sum(n for _, n, name in rows if "eval_fwd_kernel" in name)
+        profile = {"busy_ms": busy, "wall_ms": wall_ms, "eval_fwd_ms": kern_ms,
+                   "eval_fwd_launches": kern_n, "other_ms": busy - kern_ms}
+        log(f"  mixture view profile: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
+            f"({100 * busy / wall_ms:.1f}%); eval_fwd {kern_ms:.1f} ms "
+            f"({100 * kern_ms / busy:.1f}%, x{kern_n}), the rest {busy - kern_ms:.1f} ms:")
+        for ms, count, name in [r for r in rows if "eval_fwd_kernel" not in r[2]][:6]:
+            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log("  profiler: no device time recorded (mixture breakdown not measured)")
+    report["serving_mega"] = {
+        "config": MEGA_CONFIG, "submodules": k, "grid_dim": list(MEGA_GRID),
+        "boundary_margin": hp.boundary_margin, "merge_s": merge_s,
+        "eval_main_s": wall, "metrics": metrics, "peak_mem_gb": peak,
+        "launches_per_view": launches, "predicted_launches": predicted,
+        "plain_calls": plain, "eager_calls": eager_calls.count,
+        "s_per_view": s_view, "rays_per_s": n_rays / s_view, "view_peak_mem_gb": view_peak,
+        "profile": profile}
+
+    # One chunk's fg and bg mixture outputs, kernels vs the plain version.
+    rays = generate_image_rays(meta, runner.near, runner.far, runner.ray_altitude_range,
+                               True, device=device)[:MEGA_CMP_RAYS]
+    rays_o, rays_d = rays[:, None, 0:3], rays[:, None, 3:6]
+    idx = torch.full((rays.shape[0],), meta.image_index, device=device)
+    center, radius = runner.sphere_center, runner.sphere_radius
+    fg_far = intersect_sphere(rays[:, 0:3], rays[:, 3:6], center, radius)
+    t = torch.linspace(0, 1, hp.fine_samples, device=device)
+    fg_pts = rays_o + rays_d * (rays[:, 6:7] + (fg_far[:, None] - rays[:, 6:7]) * t)[..., None]
+    bg_z = torch.linspace(0, 1, hp.fine_samples // 2, device=device).expand(rays.shape[0], -1)
+    bg_pts, _ = depth2pts_outside(rays_o, rays_d, bg_z, center, radius, True, False)
+    settings = runner.render_settings()
+    errs = {}
+    with torch.no_grad():
+        for name, bundle, pts in (("fg", runner.fg, fg_pts), ("bg", runner.bg, bg_pts)):
+            kern = rendering._model_eval(bundle, "fine", settings, pts, rays_d, idx, False, None)
+            saved = rendering.fused_nerf_eval
+            rendering.fused_nerf_eval = fused_mlp.fused_nerf_eval_plain
+            try:
+                plain_out = rendering._model_eval(bundle, "fine", settings, pts, rays_d, idx,
+                                                  False, None)
+            finally:
+                rendering.fused_nerf_eval = saved
+            finite = all(bool(torch.isfinite(x).all()) for x in kern)
+            errs[name] = ((kern[0] - plain_out[0]).abs().max().item(),
+                          close_ratio(kern[1], plain_out[1]), finite)
+    log(f"  {MEGA_CMP_RAYS}-ray chunk, mixture through the kernels vs the plain version "
+        f"({hp.fine_samples} fg / {hp.fine_samples // 2} bg points a ray): "
+        + "; ".join(f"{n} rgb max|diff|={e[0]:.3e}, sigma max|diff|/(1+|s|)={e[1]:.3e}"
+                    for n, e in errs.items()))
+    report["serving_mega"]["mixture_vs_plain"] = {n: e[:2] for n, e in errs.items()}
+    return bool(ok and own_packs and all(e[0] <= TOL and e[1] <= TOL and e[2]
+                                         for e in errs.values()))
 
 
 def close_ratio(got, want) -> float:
@@ -2248,9 +2453,13 @@ def phase_eager_train_wide(device, report, tmp: Path):
     from mega_nerf_tpu_torch.parallel.train_step import TrainStep
     from mega_nerf_tpu_torch.render.rendering import RenderSettings
 
-    runner = report.pop("wide_runner")
+    runner = report["wide_runner"]
     hp = copy.copy(runner.hparams)
     hp.use_fused_kernel = False
+    # The weights these steps start from, for the same steps with --remat.
+    report["eager_wide_start"] = [
+        {k: v.to("cpu", copy=True) for k, v in b.module.state_dict().items()}
+        for b in (runner.fg, runner.bg)]
     step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(hp), 5e-4, 0.1,
                      TRAIN_WIDE_STEPS, runner.sphere_center, runner.sphere_radius)
     batches = report["train_batches"]
@@ -2286,8 +2495,76 @@ def phase_eager_train_wide(device, report, tmp: Path):
         f"{n} chained steps = {1024 / step_ms * 1e3:.1f} rays/s; peak device memory "
         f"allocated {peak:.2f} GB; {eager_calls.count} module calls; loss {loss[-1]:.5f}")
     report["training_wide"]["eager"] = {"step_ms": step_ms, "peak_mem_gb": peak,
-                                        "rays_per_s": 1024 / step_ms * 1e3}
+                                        "rays_per_s": 1024 / step_ms * 1e3,
+                                        "steps": len(losses), "loss_last": float(loss[-1])}
     return bool(np.isfinite(loss).all() and eager_calls.count > 0)
+
+
+def phase_remat(device, report, tmp: Path):
+    """`--remat` on the eager module: eager_train_wide's steps (fg and bg
+    8x1024, the same batches, from the same weights, a fresh Adam) again
+    with `--remat`, which recomputes each eager MLP pass's activations in
+    the backward pass (torch.utils.checkpoint). Prints peak device memory
+    and ms a step beside the run without it; fails unless every MLP pass
+    was checkpointed, no kernel launched, the peak is lower and the loss
+    after the steps agrees within 1e-5."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.utils.checkpoint
+
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+
+    runner = report.pop("wide_runner")
+    base = report["training_wide"]["eager"]
+    if "loss_last" not in base:
+        log(f"  the run without --remat did not finish ({base}); nothing to compare")
+        return False
+    for bundle, state in zip((runner.fg, runner.bg), report.pop("eager_wide_start")):
+        bundle.module.load_state_dict(state)
+    hp = copy.copy(runner.hparams)
+    hp.use_fused_kernel, hp.remat = False, True
+    settings = RenderSettings.from_hparams(hp)
+    step = TrainStep(runner.fg, runner.bg, settings, 5e-4, 0.1, TRAIN_WIDE_STEPS,
+                     runner.sphere_center, runner.sphere_radius)
+    batches = report["train_batches"]
+    real, checkpoints = torch.utils.checkpoint.checkpoint, [0]
+
+    def counting(*args, **kwargs):
+        checkpoints[0] += 1
+        return real(*args, **kwargs)
+
+    torch.utils.checkpoint.checkpoint = counting
+    before = all_launches()
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(b)["loss"] for b in batches[:2]]  # warm-up, as without
+        torch.cuda.synchronize()
+        n = base["steps"] - 2
+        t0 = time.perf_counter()
+        losses += [step(b)["loss"] for b in batches[2:2 + n]]
+        torch.cuda.synchronize()
+    finally:
+        torch.utils.checkpoint.checkpoint = real
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(losses[-1])
+    diff = abs(loss - base["loss_last"])
+    log(f"  eager module at {hp.layer_dim}/{hp.bg_layer_dim}, {len(losses)} steps: with "
+        f"--remat {step_ms:.2f} ms/step, peak device memory allocated {peak:.2f} GB; "
+        f"without {base['step_ms']:.2f} ms/step, {base['peak_mem_gb']:.2f} GB; loss after "
+        f"the steps {loss:.7f} vs {base['loss_last']:.7f} (|diff| {diff:.3e}); "
+        f"{checkpoints[0]} checkpointed MLP passes")
+    report["remat"] = {"layer_dim": hp.layer_dim, "bg_layer_dim": hp.bg_layer_dim,
+                       "steps": len(losses), "step_ms": step_ms, "peak_mem_gb": peak,
+                       "no_remat_step_ms": base["step_ms"],
+                       "no_remat_peak_mem_gb": base["peak_mem_gb"], "loss_last": loss,
+                       "loss_diff": diff, "checkpointed_passes": checkpoints[0]}
+    return bool(np.isfinite(loss) and diff <= 1e-5 and peak < base["peak_mem_gb"]
+                and checkpoints[0] == 4 * len(losses) and all_launches() == before)
 
 
 CASCADE_SERVE = "npp/building.yaml"  # cascade, fg and bg 8x2048, no appearance
@@ -2329,8 +2606,8 @@ class LevelLaunches:
         self._saved = packed_params, eval_wide = (rendering.packed_params,
                                                   rendering.fused_nerf_eval_wide)
 
-        def recording_packed(bundle, typ):
-            packed = packed_params(bundle, typ)
+        def recording_packed(bundle, typ, sub=None):
+            packed = packed_params(bundle, typ, sub)
             level = f"{'bg' if bundle.config.xyz_dim == 4 else 'fg'} {typ}"
             owner[id(packed)] = level
             self.packs.setdefault(level, set()).add(id(packed))
@@ -2813,6 +3090,7 @@ def main() -> int:
             ("compare_wide", lambda: phase_compare_wide(device, report)),
             ("compare_train_wide", lambda: phase_compare_train_wide(device, report)),
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
+            ("serve_mega", lambda: phase_serve_mega(device, report, Path(tmp))),
             ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
@@ -2825,6 +3103,7 @@ def main() -> int:
             ("train_sh", lambda: phase_train_sh(device, report, Path(tmp))),
             ("eager_dense", lambda: phase_eager_dense(device, report, Path(tmp))),
             ("eager_train_wide", lambda: phase_eager_train_wide(device, report, Path(tmp))),
+            ("remat", lambda: phase_remat(device, report, Path(tmp))),
         )
         for phase, run in phases:
             log(f"[{phase}]")
@@ -2844,6 +3123,7 @@ def main() -> int:
                                       "render_rgb_diff", "eval_chunk_ms",
                                       "eval_kernel")}
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"serving_mega": report["serving_mega"]}))
     log(json.dumps({"serving_dense": report["serving_dense"]}))
     log(json.dumps({"training": report["training"]}))
     log(json.dumps({"training_fs": report["training_fs"]}))
@@ -2851,6 +3131,7 @@ def main() -> int:
     log(json.dumps({"serving_cascade": report["serving_cascade"]}))
     log(json.dumps({"training_cascade": report["training_cascade"]}))
     log(json.dumps({"training_sh": report["training_sh"]}))
+    log(json.dumps({"remat": report["remat"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """Eval entry point: `python -m mega_nerf_tpu_torch.eval --config_file ...
---dataset_path ... --ckpt_path ... --exp_name ...`.
+--dataset_path ... --ckpt_path ... --exp_name ...`, or with
+`--container_path <merged container>` in place of `--ckpt_path` to serve a
+Mega-NeRF mixture.
 
 Counterpart of the JAX package's `eval.py`. Runs on `--device` (default
 cuda; cuda without a card raises).
@@ -24,8 +26,8 @@ def get_eval_opts(args=None) -> Namespace:
 
 def main(hparams: Namespace) -> Dict[str, float]:
     """Render and score every val view; returns the averaged metrics."""
-    if hparams.ckpt_path is None:
-        raise ValueError("eval needs --ckpt_path")
+    if hparams.ckpt_path is None and hparams.container_path is None:
+        raise ValueError("eval needs --ckpt_path or --container_path")
     return Runner(hparams).eval()
 
 

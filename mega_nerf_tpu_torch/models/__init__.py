@@ -1,5 +1,5 @@
-"""Model layer: the NeRF MLP, the cascade, their factory and weight
-carry-over."""
+"""Model layer: the NeRF MLP, the cascade, the Mega-NeRF mixture, their
+factory and weight carry-over (merged containers: `models/container.py`)."""
 
 from mega_nerf_tpu_torch.models.cascade import Cascade
 from mega_nerf_tpu_torch.models.factory import (
@@ -8,6 +8,7 @@ from mega_nerf_tpu_torch.models.factory import (
     make_nerf,
     nerf_config_from_hparams,
 )
+from mega_nerf_tpu_torch.models.mega import cluster_weights, mega_apply
 from mega_nerf_tpu_torch.models.nerf import (
     NeRF,
     NeRFConfig,
@@ -23,6 +24,8 @@ from mega_nerf_tpu_torch.models.weights import (
 __all__ = [
     "Cascade",
     "ModelBundle",
+    "cluster_weights",
+    "mega_apply",
     "make_bg_nerf",
     "make_nerf",
     "nerf_config_from_hparams",

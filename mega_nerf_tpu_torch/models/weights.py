@@ -45,6 +45,11 @@ def _entries(cfg: NeRFConfig) -> List[_Entry]:
     return entries
 
 
+def state_keys(cfg: NeRFConfig) -> List[str]:
+    """The reference state-dict keys of one NeRF of `cfg`."""
+    return [key for _, _, key, _ in _entries(cfg)]
+
+
 _LEVELS = ("coarse", "fine")
 
 
@@ -90,3 +95,42 @@ def strip_module_prefix(state: Dict) -> Dict:
         (k[len("module."):] if k.startswith("module.") else k): v
         for k, v in state.items()
     }
+
+
+def appearance_count_from_state(state: Dict) -> int:
+    """Rows of the appearance table in a reference-named state dict (0
+    without one)."""
+    for key in ("embedding_a.weight", "coarse.embedding_a.weight"):
+        if key in state:
+            return int(state[key].shape[0])
+    return 0
+
+
+# The names the JAX package's TorchScript mirror gives the reference
+# modules (`mega_nerf_tpu/models/torch_nerf.py`), back to reference names.
+_MIRROR_HEADS = {
+    "sigma_head": "sigma",
+    "trunk_final": "xyz_encoding_final",
+    "rgb_head": "rgb",
+    "appearance": "embedding_a",
+    "affine": "affine",
+}
+
+
+def normalize_torchscript_keys(state: Dict) -> Dict:
+    """A submodule state dict read from a TorchScript container -> reference
+    names: the JAX package's mirror writes `trunk.{i}.*`, `sigma_head.*`,
+    `dir_a.*`, ...; reference-named states pass through unchanged."""
+    if not any(k.startswith("trunk.") for k in state):
+        return state
+    out = {}
+    for k, v in state.items():
+        if k.startswith("trunk."):
+            _, i, p = k.split(".")
+            out[f"xyz_encodings.{i}.0.{p}"] = v
+        elif k.startswith("dir_a."):
+            out[k.replace("dir_a.", "dir_a_encoding.0.")] = v
+        else:
+            head = k.split(".")[0]
+            out[k.replace(head, _MIRROR_HEADS[head], 1)] = v
+    return out

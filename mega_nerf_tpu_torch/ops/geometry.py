@@ -43,12 +43,18 @@ def depth2pts_outside(
     depth: torch.Tensor,
     sphere_center: Optional[torch.Tensor] = None,
     sphere_radius: Optional[torch.Tensor] = None,
+    include_xyz_real: bool = False,
+    cluster_2d: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse-depth samples in [0, 1] -> 4D background coordinates.
 
     rays_o/rays_d: (N, 1, 3); depth: (N, S) inverse distance to the sphere
-    origin (0 = infinity, 1 = sphere surface). Returns (pts (N, S, 4)
-    [unit-sphere point, inverse depth], depth_real (N, S) metric depth)."""
+    origin (0 = infinity, 1 = sphere surface). Returns (pts, depth_real
+    (N, S) metric depth): pts is (N, S, 4) [unit-sphere point, inverse
+    depth], or with `include_xyz_real` (N, S, 7) with real-world routing
+    coordinates first for a mixture background: the real sample point
+    with `cluster_2d`, else the ray's exit point from the sphere."""
+    rays_o_orig, rays_d_orig = rays_o, rays_d
     rays_o, rays_d = _normalize_rays(rays_o, rays_d, sphere_center, sphere_radius)
 
     d1 = -torch.sum(rays_d * rays_o, -1) / torch.sum(rays_d * rays_d, -1)
@@ -77,4 +83,11 @@ def depth2pts_outside(
 
     depth_real = 1.0 / (depth + 1e-8) * torch.cos(theta) + d1  # (N, S)
     pts = torch.cat([p_sphere_new, depth[..., None]], dim=-1)
+    if include_xyz_real:
+        if cluster_2d:
+            real = rays_o_orig + rays_d_orig * depth_real[..., None]
+        else:
+            boundary = rays_o_orig + rays_d_orig * (d1 + d2)[..., None]
+            real = boundary.expand(*p_sphere_new.shape[:-1], 3)
+        pts = torch.cat([real, pts], dim=-1)
     return pts, depth_real

@@ -7,9 +7,13 @@ option names (including negated store_false flags like `no_bg_nerf: true`);
 CLI flags override the file.
 
 Added here: `--device` (default `cuda`). Flags of JAX-package features the
-port has not reached yet (cell culling, occupancy bounds, mixture routing,
-compositor probing, ...) are still accepted so every shipped config parses;
-they have no effect in the port.
+port has not reached yet are still accepted so every shipped config
+parses. Where the feature would change the result, setting the flag
+raises `NotImplementedError`: `--occupancy_path`, `--train_mega_nerf`,
+and `--mega_routing routed|ray` (and `auto` past 32 submodules) with a
+container. The others, such as cell culling (exact in the JAX package)
+and the eval compositor (a choice between equivalent compositors), are
+speed or layout choices and have no effect in the port.
 """
 
 from __future__ import annotations

@@ -30,9 +30,20 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   sampling (`det = perturb == 0`) and uniform sigma noise rounded to the
   compute dtype. Without a generator it is deterministic. Coarse weights
   and fine depths are detached; depth variance uses detached weights.
-  Callers of eval mode wrap it in `torch.no_grad()`.
+  Callers of eval mode wrap it in `torch.no_grad()`. With `remat`
+  (`--remat`) the eager module's activations are recomputed in the
+  backward pass (`torch.utils.checkpoint`, as `jax.checkpoint` in the JAX
+  package); the fused routes ignore it, as the JAX Pallas route does;
+- Mega-NeRF mixtures (eval only): routing weights from the first three
+  columns of the points (`models/mega.py::cluster_weights`; a mixture
+  background gets real-world routing coordinates prepended by
+  `depth2pts_outside`), then every submodule through the route a single
+  model of its architecture takes, on its own packed weights, blended
+  densely (`mega_apply`). The JAX package sends every mixture to XLA; the
+  kernel route here gives the same output to the kernels' tolerance.
 
-Not ported yet: occupancy `fg_bounds`, mega mixtures and their routing.
+Not ported yet: occupancy `fg_bounds`, the routed mixture forms and
+training a mixture.
 """
 
 from __future__ import annotations
@@ -41,8 +52,10 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from mega_nerf_tpu_torch.models.factory import ModelBundle
+from mega_nerf_tpu_torch.models.mega import cluster_weights, mega_apply
 from mega_nerf_tpu_torch.models.nerf import direction_coords
 from mega_nerf_tpu_torch.ops.compositing import (
     composite_weights,
@@ -73,6 +86,9 @@ class RenderSettings:
     perturb: float = 1.0  # train-mode stratified jitter (0 = none)
     sh_deg: Optional[int] = None  # SH output head of this degree
     sigma_noise: bool = True  # train-mode uniform [0, 1) density noise
+    # Recompute the eager module's activations in the backward pass instead
+    # of keeping them (torch.utils.checkpoint); the fused routes ignore it.
+    remat: bool = False
     # False = evaluate the MLP with the eager NeRF module (--no_pallas);
     # otherwise the fused kernel wherever the architecture is covered.
     use_fused_kernel: bool = True
@@ -96,6 +112,7 @@ class RenderSettings:
             use_cascade=getattr(hparams, "use_cascade", False),
             perturb=getattr(hparams, "perturb", 1.0),
             sh_deg=getattr(hparams, "sh_deg", None),
+            remat=getattr(hparams, "remat", False),
             use_fused_kernel=getattr(hparams, "use_fused_kernel", True),
             ref_bg_sampling=getattr(hparams, "ref_bg_sampling", False),
             distortion_loss_weight=getattr(hparams, "distortion_loss_weight", 0.0),
@@ -138,15 +155,18 @@ def fused_gate(bundle: ModelBundle, settings: RenderSettings, train: bool,
     return mlp_route(bundle.config, device_type, train)
 
 
-def packed_params(bundle: ModelBundle, typ: str):
-    """The kernel-layout weights of the module evaluating level `typ`, for
-    eval: packed on first use and kept on the bundle, one cache per level
-    (a cascade's two levels hold different weights), until a parameter of
-    that level changes: each cache is keyed on its parameters' storage and
-    version counters, which optimizer steps and `load_state_dict`
-    (in-place updates) bump."""
-    module = bundle.level(typ)
-    slot = typ if bundle.cascade else "model"
+def packed_params(bundle: ModelBundle, typ: str, sub: Optional[int] = None):
+    """The kernel-layout weights of the module evaluating level `typ` (of a
+    mixture: of submodule `sub`, at every level), for eval: packed on first
+    use and kept on the bundle, one cache per level or submodule (a
+    cascade's two levels and a mixture's submodules hold different
+    weights), until a parameter of that module changes: each cache is
+    keyed on its parameters' storage and version counters, which optimizer
+    steps and `load_state_dict` (in-place updates) bump."""
+    if sub is not None:
+        module, slot = bundle.module[sub], ("sub", sub)
+    else:
+        module, slot = bundle.level(typ), (typ if bundle.cascade else "model")
     key = tuple((p.data_ptr(), p._version) for p in module.parameters())
     if bundle.packed is None:
         bundle.packed = {}
@@ -167,9 +187,9 @@ def _model_eval(
     generator: Optional[torch.Generator],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate level `typ`'s MLP on all samples -> (rgbs (N, S, 3), sigmas
-    (N, S)); with `sh_deg` the SH coefficients become rgb here."""
+    (N, S)); with `sh_deg` the SH coefficients become rgb here. A mixture
+    blends its submodules (eval only)."""
     cfg = bundle.config
-    module = bundle.level(typ)
     n, s, d = xyz.shape
     flat_xyz = xyz.reshape(n * s, d).float().contiguous()
     dirs = None
@@ -188,32 +208,54 @@ def _model_eval(
     kernel = "wide kernel" if wide else "kernel"
     where = kernel if flat_xyz.is_cuda else f"{kernel}'s plain version"
     mode = "train" if train else "eval"
+    mixture = f" x {len(bundle.module)} submodules" if bundle.is_mega else ""
     _log_mlp_path(
         f"MLP path [xyz_dim={cfg.xyz_dim}/{typ}/{mode}]: "
         + (f"fused {mode} ({where})" if fused else f"eager NeRF module ({why})")
+        + mixture
     )
-    if fused:
-        coords = None if dirs is None else \
-            direction_coords(cfg, flat_xyz, dirs).float().contiguous()
-        app = None
-        if cfg.appearance_dim > 0:
-            app = module.appearance(image_indices)  # (N, A) per ray
+
+    def run(sub: Optional[int], points: torch.Tensor) -> torch.Tensor:
+        """The MLP of level `typ` (of a mixture: of submodule `sub`) on
+        `points` (n * s, cfg.xyz_dim) -> (n * s, rgb_dim + 1)."""
+        module = bundle.level(typ) if sub is None else bundle.module[sub]
+        if fused:
+            coords = None if dirs is None else \
+                direction_coords(cfg, points, dirs).float().contiguous()
+            app = None
+            if cfg.appearance_dim > 0:
+                app = module.appearance(image_indices)  # (N, A) per ray
+                if train:
+                    app = app.float()  # bf16-exact f32 rows; grads sum in f32
+                app = app[:, None].expand(n, s, app.shape[-1]).reshape(n * s, -1)
+                app = app.contiguous()
             if train:
-                app = app.float()  # bf16-exact f32 rows; grads sum in f32
-            app = app[:, None].expand(n, s, app.shape[-1]).reshape(n * s, -1)
-            app = app.contiguous()
-        if train:
-            out = fused_nerf_train_apply(module, flat_xyz, coords, app, noise)
-        elif wide:
-            out = fused_nerf_eval_wide(packed_params(bundle, typ), flat_xyz,
-                                       coords, app)
-        else:
-            out = fused_nerf_eval(packed_params(bundle, typ), flat_xyz, coords, app)
-    else:
+                return fused_nerf_train_apply(module, points, coords, app, noise)
+            if wide:
+                return fused_nerf_eval_wide(packed_params(bundle, typ, sub), points,
+                                            coords, app)
+            return fused_nerf_eval(packed_params(bundle, typ, sub), points, coords, app)
         idx = None
         if cfg.appearance_dim > 0:
             idx = image_indices[:, None].expand(n, s).reshape(n * s)
-        out = module(flat_xyz, dirs, idx, noise)
+        if settings.remat and torch.is_grad_enabled():
+            # The noise is drawn above, so the recompute sees the same.
+            return torch.utils.checkpoint.checkpoint(
+                module, points, dirs, idx, noise, use_reentrant=False)
+        return module(points, dirs, idx, noise)
+
+    if bundle.is_mega:
+        if train:
+            raise NotImplementedError(
+                "training a mixture is not ported yet (ROADMAP.md A.3, joint "
+                "mixture training)")
+        # [routing xyz | model input] for a background mixture.
+        points = flat_xyz[:, 3:].contiguous() if bundle.xyz_real else flat_xyz
+        weights = cluster_weights(flat_xyz[:, :3], bundle.centroids,
+                                  bundle.boundary_margin, bundle.cluster_dim_start)
+        out = mega_apply(lambda k: run(k, points), weights)
+    else:
+        out = run(None, flat_xyz)
     if settings.sh_deg is not None:
         k = (settings.sh_deg + 1) ** 2
         coeffs = out[:, :3 * k].reshape(n * s, 3, k)
@@ -436,8 +478,11 @@ def render_rays(
         bg_z = torch.linspace(0.0, 1.0, s_bg, device=rays.device).expand(
             n_rays, s_bg)
         bg_z = expand_and_perturb_z_vals(bg_z, perturb, jitter)
+        # A mixture background routes on real-world coordinates, which
+        # lead its points.
+        real = (bg.is_mega and bg.xyz_real, bg.cluster_dim_start == 1)
         bg_pts, bg_depth_real = depth2pts_outside(
-            rays_o3, rays_d3, bg_z, sphere_center, sphere_radius
+            rays_o3, rays_d3, bg_z, sphere_center, sphere_radius, *real
         )
         bg_results = _get_results(
             bg, settings, rays_d3, image_indices, bg_pts, bg_z,
@@ -447,7 +492,7 @@ def render_rays(
             flip=True,
             depth_real=bg_depth_real,
             xyz_fine_fn=lambda fz: depth2pts_outside(
-                rays_o3, rays_d3, fz, sphere_center, sphere_radius
+                rays_o3, rays_d3, fz, sphere_center, sphere_radius, *real
             ),
             fine_samples=settings.fine_samples // 2,
             train=train,

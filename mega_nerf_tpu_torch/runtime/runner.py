@@ -21,7 +21,10 @@
   one; `--no_resume_ckpt_state` restarts the stream;
 - `make_eval_state` loads a reference-format `{iter}.pt` (--ckpt_path);
   checkpoints carry each module's state dict as it is, so a cascade's
-  hold the reference's `coarse.*` / `fine.*` keys;
+  hold the reference's `coarse.*` / `fine.*` keys. With --container_path
+  the fg and bg models are the merged container's mixtures, which hold
+  their weights already (a container without bg submodules gets no bg
+  model);
 - `render_image` renders a whole view in chunks bounded by an 8M-point
   budget per MLP pass (under the cascade the fine pass has coarse + fine
   points a ray);
@@ -30,9 +33,10 @@
   training) and writes gt | pred | depth panels.
 
 Everything runs on `--device` (default cuda). Asking for cuda without a
-card raises; nothing falls back to the CPU. Not ported yet: occupancy
-bounds, culling, routing, mixtures and multi-process training and
-validation.
+card raises; nothing falls back to the CPU. Not ported yet, and raising:
+occupancy bounds (--occupancy_path) and training a mixture. Not ported
+yet: cell culling (exact, so rendering without it gives the same image),
+routed mixtures, and multi-process training and validation.
 """
 
 from __future__ import annotations
@@ -50,7 +54,12 @@ from mega_nerf_tpu_torch.data.filesystem_dataset import FilesystemDataset
 from mega_nerf_tpu_torch.data.image_metadata import ImageMetadata
 from mega_nerf_tpu_torch.data.memory_dataset import MemoryDataset
 from mega_nerf_tpu_torch.data.torch_io import load_coordinates, load_pt
-from mega_nerf_tpu_torch.models.factory import ModelBundle, make_bg_nerf, make_nerf
+from mega_nerf_tpu_torch.models.factory import (
+    ModelBundle,
+    container_bundles,
+    make_bg_nerf,
+    make_nerf,
+)
 from mega_nerf_tpu_torch.models.nerf import init_weights
 from mega_nerf_tpu_torch.models.weights import strip_module_prefix
 from mega_nerf_tpu_torch.ops.lpips import LPIPS, load_available
@@ -86,7 +95,13 @@ _INFERNO = np.array([
 def _eval_chunk_cap(hparams: Namespace) -> int:
     """Max rays per render call that keeps each MLP pass in budget. The
     cascade's fine pass evaluates the coarse and the fine depths together,
-    so its pass has coarse + fine points per ray."""
+    so its pass has coarse + fine points per ray.
+
+    A mixture does not shrink the cap, where the JAX package divides it by
+    the submodule counts (`submodules`, `bg_submodules`): its dense blend
+    holds the K outputs of a pass at once, while the port's `mega_apply`
+    runs the submodules one after another into one accumulator, so a
+    pass holds one submodule's activations whatever K is."""
     s_max = max(hparams.coarse_samples, hparams.fine_samples, 1)
     if getattr(hparams, "use_cascade", False) and hparams.fine_samples > 0:
         s_max = hparams.coarse_samples + hparams.fine_samples
@@ -192,6 +207,10 @@ class Runner:
     def __init__(self, hparams: Namespace, set_experiment_path: bool = True):
         self.hparams = hparams
         self.device = resolve_device(getattr(hparams, "device", "cuda"))
+        if getattr(hparams, "occupancy_path", None) is not None:
+            raise NotImplementedError(
+                "--occupancy_path: occupancy-tightened sampling bounds are not "
+                "ported yet (ROADMAP.md A.5)")
 
         self.experiment_path = (
             self._get_experiment_path() if set_experiment_path else None
@@ -236,7 +255,9 @@ class Runner:
         self.bg: Optional[ModelBundle] = None
         self.sphere_center = None
         self.sphere_radius = None
-        if hparams.bg_nerf:
+        container_has_bg = (getattr(hparams, "container_path", None) is None
+                            or container_bundles(hparams)[1] is not None)
+        if hparams.bg_nerf and container_has_bg:
             self.bg = make_bg_nerf(hparams, len(self.train_items))
             if hparams.ellipse_bounds:
                 # Ellipsoid fitted over cameras + their copies pinned to the
@@ -272,6 +293,10 @@ class Runner:
         """Train; returns the final validation metrics ({} with a cluster
         mask)."""
         hp = self.hparams
+        if self.fg.is_mega:
+            raise NotImplementedError(
+                "training a merged mixture is not ported yet (ROADMAP.md A.3, "
+                "joint mixture training)")
         self._setup_experiment_dir()
         init_weights(self.fg.module, torch.Generator().manual_seed(hp.random_seed))
         if self.bg is not None:
@@ -419,10 +444,15 @@ class Runner:
 
     def make_eval_state(self) -> None:
         """Load the weights of --ckpt_path (a reference `{iter}.pt`) into
-        the fg/bg modules. A shape mismatch raises."""
+        the fg/bg modules; a shape mismatch raises. The mixtures of
+        --container_path hold the container's weights already."""
         hp = self.hparams
+        if getattr(hp, "container_path", None) is not None:
+            print(f"Serving the {len(self.fg.module)}-submodule mixture of "
+                  f"{hp.container_path}")
+            return
         if hp.ckpt_path is None:
-            raise ValueError("eval needs --ckpt_path")
+            raise ValueError("eval needs --ckpt_path or --container_path")
         loaded = self._load_weights(hp.ckpt_path)
         print(f"Loaded {hp.ckpt_path} (iteration {loaded.get('iteration', 0)})")
 
@@ -569,6 +599,8 @@ class Runner:
         (self.experiment_path / "models").mkdir()
         with (self.experiment_path / "hparams.txt").open("w") as f:
             for key, val in vars(self.hparams).items():
+                if key.startswith("_"):  # caches, such as the container's bundles
+                    continue
                 f.write(f"{key}: {val}\n")
         with (self.experiment_path / "command.txt").open("w") as f:
             f.write(" ".join(sys.argv) + "\n")

@@ -9,6 +9,7 @@ the JAX package's renderer. All inputs come from numpy seeds."""
 import dataclasses
 from argparse import Namespace
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from mega_nerf_tpu.models.nerf import NeRFConfig as JNeRFConfig
 from mega_nerf_tpu.render import RenderSettings as JSettings
 from mega_nerf_tpu.render import pallas_mlp as j_pallas
 from mega_nerf_tpu.render import render_rays as j_render_rays
+from mega_nerf_tpu.render import rendering as j_rendering
 from mega_nerf_tpu_torch.models import (
     NeRFConfig,
     make_bg_nerf,
@@ -56,7 +58,10 @@ def test_gates_match_jax(width, train, dtype, monkeypatch):
     where the port documents a difference: 513-1024 wide in f32 compute
     (the wide kernels are bf16 only), eval and training, take the eager
     module in the port and Pallas in JAX. bf16 training at 513-1024 agrees:
-    the wide training route."""
+    the wide training route. A Mega-NeRF mixture (eval only in the port):
+    the JAX gate sends every mixture to XLA, the port runs each submodule
+    through the route a single model of its architecture takes, with the
+    same output to the kernels' tolerance."""
     monkeypatch.setattr(j_pallas.jax, "default_backend", lambda: "tpu")
     cfg, jcfg = _configs(width, dtype)
     port, why = fused_mlp.supports_fused_kernel(cfg, train)
@@ -68,6 +73,11 @@ def test_gates_match_jax(width, train, dtype, monkeypatch):
         assert port == ref
     if port:
         assert fused_mlp.is_wide(cfg) == (width > 512)
+    mixture = SimpleNamespace(config=cfg, is_mega=True, cascade=False)
+    assert not j_rendering._supports_fused(
+        SimpleNamespace(config=jcfg, is_mega=True, cascade=False), train)
+    if not train:
+        assert rendering.fused_gate(mixture, RenderSettings(), train, "cpu") == (port, why)
 
 
 @pytest.mark.parametrize("width,dtype,admitted", [
