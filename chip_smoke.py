@@ -42,7 +42,8 @@ Runs every phase, in order:
 3a. serve_mega - a merged Mega-NeRF mixture at the paper width
               (`configs/mega-nerf/building.yaml`): K = 8 seeded-random fg
               and bg submodules written as `{iter}.pt` runs, centroids on
-              a 2 x 4 grid over the cameras, merged by
+              a 2 x 4 grid over the cameras (the port's
+              `create_cluster_masks.make_centroids`), merged by
               `mega_nerf_tpu_torch.scripts.merge_submodules` into the
               native and the TorchScript container (both load to bit-equal
               weights), then `eval.main --container_path` on the 128x128
@@ -83,6 +84,19 @@ Runs every phase, in order:
               ms and rays/s), `load_chunk`'s waits on the prefetch in run A,
               and ms per step over 20 chained steps fed from that store
               beside fed from memory (turns memory, store, store, memory).
+4c. train_cells - the README's grid workflow at the paper width
+              (`configs/mega-nerf/building.yaml`, `--grid_dim 2 4`: K = 8)
+              on 17 generated views of 128x128: `scripts.create_cluster_masks`
+              on cuda (1000 samples; one view's ratios against the same pass
+              on the CPU, 1e-5 relative, the masks equal off the 1e-5 band),
+              `train_cells.main` for 20 grid steps (640 launches of each
+              narrow training kernel, no plain or eager call, finite losses,
+              the mean over the cells falling from step 1 to 20; ms per grid
+              step and per cell step over 10 chained steps, peak memory), a
+              run resumed from cell 3's step-10 checkpoint bit-equal to the
+              uninterrupted one in every cell, `scripts.merge_submodules` of
+              the 8 cells and `eval.main --container_path` on the val view
+              (32 `eval_fwd` launches, finite PSNR, s/view).
 5. time     - eval kernel ms per launch and its persistent grid at the
               serving path's four shapes (fg 16,384 x 256 and x 512, bg
               16,384 x 128 and x 256 points), its TFLOP/s, plain ms and bound
@@ -151,8 +165,8 @@ after the steps agrees within 1e-5.
 
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
-`{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`
-and `{"remat": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
+`{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
+`{"remat": ...}` and `{"training_cells": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -534,21 +548,14 @@ MEGA_ITER = 1000  # the `{iter}.pt` the merge reads
 MEGA_CMP_RAYS = 2048
 
 
-def mega_centroids(ds: Path):
-    """create_cluster_masks' grid of centroids over the y/z extent of the
-    dataset's cameras (altitude 0) -> (centroids (K, 3), min, max)."""
+def camera_extent(ds: Path):
+    """(min, max) camera position over the dataset's views, float32."""
     import numpy as np
     import torch
 
     pos = np.stack([torch.load(p, weights_only=False)["c2w"][:, 3].numpy()
                     for p in sorted(ds.glob("*/metadata/*.pt"))])
-    lo, hi = pos.min(0), pos.max(0)
-    gy, gz = MEGA_GRID
-    span = hi[1:] - lo[1:]
-    cents = np.zeros((gy, gz, 3), np.float32)
-    cents[:, :, 1] = lo[1] + (np.arange(gy)[:, None] + 0.5) * span[0] / gy
-    cents[:, :, 2] = lo[2] + (np.arange(gz)[None, :] + 0.5) * span[1] / gz
-    return cents.reshape(-1, 3), lo.astype(np.float32), hi.astype(np.float32)
+    return pos.min(0).astype(np.float32), pos.max(0).astype(np.float32)
 
 
 def phase_serve_mega(device, report, tmp: Path):
@@ -556,7 +563,7 @@ def phase_serve_mega(device, report, tmp: Path):
     width (`configs/mega-nerf/building.yaml`: fg and bg 8x256, 48-d
     appearance, bf16): K = 8 seeded-random fg and bg submodules written as
     `{iter}.pt` runs, centroids on a 2 x 4 grid over the dataset's camera
-    extent, merged by `mega_nerf_tpu_torch.scripts.merge_submodules` into
+    extent (`create_cluster_masks.make_centroids`), merged by `mega_nerf_tpu_torch.scripts.merge_submodules` into
     the native and (`--torchscript`) the viewer's container, both loading to
     bit-equal weights; then `eval.main --container_path` on the serve
     phase's 128x128 view. Checks finite PSNR/SSIM, `fused_nerf_eval`
@@ -576,11 +583,13 @@ def phase_serve_mega(device, report, tmp: Path):
     from mega_nerf_tpu_torch.render import fused_mlp, rendering
     from mega_nerf_tpu_torch.runtime.runner import Runner, _eval_chunk_cap
     from mega_nerf_tpu_torch.scripts import merge_submodules
+    from mega_nerf_tpu_torch.scripts.create_cluster_masks import make_centroids
 
     ds = tmp / "dataset"
     if not (ds / "coordinates.pt").exists():
         write_dataset(ds, hw=128, n_train=4, seed=7)
-    centroids, lo, hi = mega_centroids(ds)
+    lo, hi = camera_extent(ds)
+    centroids = make_centroids(MEGA_GRID, lo, hi)
     k = len(centroids)
     root = tmp / "mega"
     hp_sub = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "unused")
@@ -1363,6 +1372,270 @@ def phase_train_fs(device, report, tmp: Path):
         "val_psnr_b": b_val.get("val/psnr"), "eval_psnr": e_metrics["val/psnr"],
         "loader": loader, "fed_step_ms": fed,
     }
+    return bool(ok)
+
+
+CELLS_GRID = (2, 4)  # the README's --grid_dim 2 4: K = 8 cells
+CELLS_STEPS = 20
+CELLS_RESUME = 10  # the step-10 checkpoint the resumed run starts from
+CELLS_RESUME_FROM = 3  # ... given as this cell's file
+CELLS_TIMED = 10
+CELLS_VIEWS = 16  # train views; with the val view 17 views of 128x128
+MASK_TOL = 1e-5
+
+
+def cell_states_equal(a: Path, b: Path) -> bool:
+    """Two cell checkpoints hold bit-equal weights, Adam states, generator
+    and stream position."""
+    import torch
+
+    ca, cb = (torch.load(p, weights_only=False) for p in (a, b))
+    same = all(torch.equal(ca[key][n], cb[key][n])
+               for key in ("model_state_dict", "bg_model_state_dict") for n in ca[key])
+    for name in ("nerf", "bg_nerf"):
+        sa, sb = ca["optimizers"][name]["state"], cb["optimizers"][name]["state"]
+        same &= sa.keys() == sb.keys() and all(
+            torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
+            for i in sa for k in ("step", "exp_avg", "exp_avg_sq"))
+    return bool(same and torch.equal(ca["generator_state"], cb["generator_state"])
+                and ca["dataset_state"] == cb["dataset_state"])
+
+
+def phase_train_cells(device, report, tmp: Path):
+    """The README's grid workflow on the card at the paper width
+    (`configs/mega-nerf/building.yaml`: fg and bg 8x256, 48-d appearance,
+    bf16, 1024 rays a cell a step, 256 + 512 samples) on a generated
+    dataset of 17 views of 128x128:
+    (a) masks: `scripts.create_cluster_masks` on cuda, `--grid_dim 2 4`
+        (K = 8), `--ray_samples 1000`; one view's ratios on the card held
+        against the same pass on the CPU (1e-5 relative; masks equal
+        wherever |ratio - margin| > 1e-5) and against its written masks;
+        prints seconds, rays/s and the masked rays per cell;
+    (b) training: `train_cells.main`, 20 grid steps (a checkpoint at 10
+        and 20). Checks 4 x 8 x 20 = 640 launches of each narrow training
+        kernel, no plain or eager-module call, every cell's loss finite,
+        the mean loss over the cells at step 20 below step 1's. Prints ms
+        per grid step and per cell step over 10 chained memory-fed steps
+        (a sync at the end), the run's peak memory and one cell step's;
+    (c) resume: `train_cells.main --ckpt_path` cell 3's step-10 file, run
+        to 20: every cell's weights, Adam states, generator and stream
+        position bit-equal to the uninterrupted run's;
+    (d) merge and serve: `scripts.merge_submodules` of the 8 cells, then
+        `eval.main --container_path` on the val view: finite PSNR, 4 x 8
+        `fused_nerf_eval` launches a chunk, no plain or eager call; s/view.
+    """
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train_cells
+    from mega_nerf_tpu_torch.data.cell_dataset import CellDataset
+    from mega_nerf_tpu_torch.data.torch_io import load_mask_zip, load_pt
+    from mega_nerf_tpu_torch.parallel.cell_parallel import CellParallelTrainStep
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.runtime.cell_runner import CellRunner
+    from mega_nerf_tpu_torch.runtime.runner import Runner, _eval_chunk_cap, batch_to_device
+    from mega_nerf_tpu_torch.scripts import create_cluster_masks as ccm
+    from mega_nerf_tpu_torch.scripts import merge_submodules
+
+    ds = tmp / "cells_dataset"
+    write_dataset(ds, hw=128, n_train=CELLS_VIEWS, seed=17, smooth=True)
+    masks = tmp / "cells_masks"
+    grid = [str(x) for x in CELLS_GRID]
+    k = CELLS_GRID[0] * CELLS_GRID[1]
+
+    # (a) Masks on the card; one view again on the CPU.
+    mask_hp = config_hparams(ccm.get_mask_opts, MEGA_CONFIG, ds, tmp / "unused", [
+        "--output", str(masks), "--grid_dim", *grid, "--ray_samples", "1000"])
+    t0 = time.perf_counter()
+    ccm.main(mask_hp)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    stems = sorted(p.stem for p in ds.glob("*/metadata/*.pt"))
+    n_rays = len(stems) * 128 * 128
+    masked = [int(sum(load_mask_zip(masks / str(c) / f"{s}.pt").sum() for s in stems))
+              for c in range(k)]
+    params = load_pt(masks / "params.pt")
+    val_stem = next(ds.glob("val/metadata/*.pt")).stem
+    meta = load_pt(ds / "val" / "metadata" / f"{val_stem}.pt")
+
+    def view_ratios(where):
+        rays = ccm.view_rays(meta, params["near"], params["far"],
+                             params["ray_altitude_range"], True, where)
+        return ccm.view_ratios(rays, torch.from_numpy(params["centroids"]).to(where),
+                               1000, 0, mask_hp.ray_chunk_size)
+
+    card, cpu = view_ratios(device), view_ratios(torch.device("cpu"))
+    ratio_err = float((np.abs(card - cpu) / np.abs(cpu)).max())
+    margin = mask_hp.boundary_margin
+    off = np.abs(cpu - margin) > MASK_TOL
+    masks_agree = bool(((card <= margin) == (cpu <= margin))[off].all())
+    written = np.stack([load_mask_zip(masks / str(c) / f"{val_stem}.pt").reshape(-1)
+                        for c in range(k)], -1)
+    written_agree = bool(np.array_equal(written, card <= margin))
+    log(f"  masks: {len(stems)} views, {n_rays} rays x 1000 samples x K = {k} in "
+        f"{mask_s:.2f} s ({n_rays / mask_s:.4g} rays/s); masked rays per cell {masked}; "
+        f"view {val_stem} card vs CPU ratios max relative diff {ratio_err:.3e}, masks "
+        f"equal off the {MASK_TOL:g} band: {masks_agree} ({int((~off).sum())} ratios "
+        f"in the band); the written masks are the card's: {written_agree}")
+
+    # (b) Training: 20 grid steps.
+    def hparams(exp, extra=()):
+        return config_hparams(train_cells.get_train_cells_opts, MEGA_CONFIG, ds, exp, [
+            *TRAIN_ARGS, "--cluster_mask_path", str(masks), "--train_iterations",
+            str(CELLS_STEPS), "--ckpt_interval", str(CELLS_RESUME), *extra])
+
+    def run(exp, extra=()):
+        losses, runners = [], []
+        step_call, cell_train = CellParallelTrainStep.__call__, CellRunner.train
+
+        def recording(self, batch):
+            metrics = step_call(self, batch)
+            losses.append(metrics["loss"])
+            return metrics
+
+        def capturing(self):
+            runners.append(self)
+            return cell_train(self)
+
+        CellParallelTrainStep.__call__, CellRunner.train = recording, capturing
+        zero_train_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with EagerCalls() as eager:
+                train_cells.main(hparams(exp, extra))
+            torch.cuda.synchronize()
+        finally:
+            CellParallelTrainStep.__call__, CellRunner.train = step_call, cell_train
+        wall = time.perf_counter() - t0
+        loss = torch.stack(losses).float().cpu().numpy()  # (steps, K)
+        return runners[0], loss, train_counters(), eager.count, wall, \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    runner, loss, counts, eager, wall, peak = run(tmp / "cells_exp" / "sub")
+    per_step = loss.mean(1)
+    expected = 4 * k * CELLS_STEPS
+    log(f"  train_cells.main: {CELLS_STEPS} grid steps of K = {k} cells in {wall:.2f} s "
+        f"(with the datasets and checkpoints); mean loss over the cells step 1 "
+        f"{per_step[0]:.5f} -> step {CELLS_STEPS} {per_step[-1]:.5f}; per cell at step "
+        f"{CELLS_STEPS} {np.round(loss[-1], 5).tolist()}; launches {counts} "
+        f"(expected {expected} each), eager module calls {eager}; peak device memory "
+        f"allocated {peak:.2f} GB")
+    ok = (masks_agree and written_agree and ratio_err <= MASK_TOL
+          and loss.shape == (CELLS_STEPS, k) and bool(np.isfinite(loss).all())
+          and per_step[-1] < per_step[0] and counts["plain"] == 0 and eager == 0
+          and all(counts[name] == expected for name in
+                  ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad")))
+
+    # ms per grid step over chained memory-fed steps, and one cell step's peak.
+    hp = runner.hparams
+    dataset = CellDataset(runner.cell_items, runner.near, runner.far,
+                          runner.ray_altitude_range, hp.center_pixels, hp.random_seed + 1)
+    step = CellParallelTrainStep(runner.cells)
+    for _ in range(2):
+        step(batch_to_device(dataset.next_batch(hp.batch_size), device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CELLS_TIMED):
+        step(batch_to_device(dataset.next_batch(hp.batch_size), device))
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) / CELLS_TIMED * 1e3
+    cell = runner.cells[0]
+    one = batch_to_device(dataset.next_batch(hp.batch_size), device)
+    torch.cuda.reset_peak_memory_stats()
+    cell.step({key: v[0] for key, v in one.items()}, cell.generator)
+    torch.cuda.synchronize()
+    cell_peak = torch.cuda.max_memory_allocated() / 1e9
+    cell_rays = [len(stream._dataset) for stream in dataset._streams]
+    log(f"  grid step at the paper width: {grid_ms:.2f} ms ({grid_ms / k:.2f} ms a cell "
+        f"step, {k * hp.batch_size / grid_ms * 1e3:.1f} rays/s) over {CELLS_TIMED} chained "
+        f"memory-fed steps; one cell step's peak {cell_peak:.2f} GB with all {k} cells "
+        f"resident; training rays per cell {cell_rays}")
+    # Device time of a grid step by kernel, beside its unprofiled wall time.
+    prepared = [batch_to_device(dataset.next_batch(hp.batch_size), device)
+                for _ in range(2)]
+    rows, busy, prof_wall = kernel_times(lambda: [step(b) for b in prepared], 2)
+    busy_step = busy / 2
+    train_kernel_ms = sum(ms for ms, _, name in rows if any(
+        key in name for key in ("train_fwd", "train_bwd", "weight_grad")))
+    if rows:
+        log(f"  grid step profile: device busy {busy_step:.2f} ms a grid step "
+            f"({100 * busy_step / grid_ms:.1f}% of the unprofiled {grid_ms:.2f} ms; "
+            f"{100 * busy / prof_wall:.1f}% of the profiled wall), the training kernels "
+            f"{train_kernel_ms:.2f} ms of it; by kernel:")
+        for ms, count, name in rows[:8]:
+            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log("  profiler: no device time recorded (the grid step's busy share not measured)")
+
+    # (c) Resume from cell 3's step-10 checkpoint.
+    full = tmp / "cells_exp"
+    resume_ckpt = full / f"sub{CELLS_RESUME_FROM}" / "0" / "models" / f"{CELLS_RESUME}.pt"
+    resume_state = torch.load(resume_ckpt, weights_only=False)["dataset_state"]
+    _, r_loss, r_counts, r_eager, _, _ = run(tmp / "cells_resumed" / "sub",
+                                             ["--ckpt_path", str(resume_ckpt)])
+    same = [cell_states_equal(full / f"sub{c}" / "0" / "models" / f"{CELLS_STEPS}.pt",
+                              tmp / "cells_resumed" / f"sub{c}" / "0" / "models"
+                              / f"{CELLS_STEPS}.pt") for c in range(k)]
+    r_expected = 4 * k * (CELLS_STEPS - CELLS_RESUME)
+    log(f"  resumed from {resume_ckpt.relative_to(tmp)} (cell {CELLS_RESUME_FROM}'s stream at "
+        f"{resume_state}): steps {CELLS_RESUME + 1}-{CELLS_STEPS} launches {r_counts}; "
+        f"each cell's weights, Adam states, generator and stream bit-equal to the "
+        f"uninterrupted run: {same}")
+    ok = ok and all(same) and r_eager == 0 and r_counts["plain"] == 0 and all(
+        r_counts[name] == r_expected
+        for name in ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad"))
+
+    # (d) Merge the 8 cells, serve the container.
+    merged = tmp / "cells_merged.pt"
+    merge_submodules.main(merge_submodules.get_merge_opts([
+        "--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--exp_name", "unused",
+        "--dataset_path", str(ds), "--ckpt_prefix", str(full / "sub"),
+        "--centroid_path", str(masks / "params.pt"), "--output", str(merged),
+        "--train_iterations", str(CELLS_STEPS)]))
+    e_hp = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "cells_eval",
+                          ["--container_path", str(merged)])
+    view_rays = 128 * 128
+    chunks = -(-view_rays // min(e_hp.image_pixel_batch_size, view_rays,
+                                 _eval_chunk_cap(e_hp)))
+    fused_mlp.fused_nerf_eval.launches = 0
+    fused_mlp.fused_nerf_eval_plain.calls = 0
+    with EagerCalls() as e_eager:
+        metrics = port_eval.main(e_hp)
+        torch.cuda.synchronize()
+    launches = fused_mlp.fused_nerf_eval.launches
+    plain = fused_mlp.fused_nerf_eval_plain.calls
+    served = Runner(e_hp, set_experiment_path=False)
+    served.make_eval_state()
+    view = served.val_items[0]
+    served.render_image(view)  # warm: packs every submodule's weights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        served.render_image(view)
+    torch.cuda.synchronize()
+    s_view = (time.perf_counter() - t0) / 2
+    log(f"  merged {k} trained cells, eval.main --container_path: {metrics}; "
+        f"fused_nerf_eval launches {launches} (expected {4 * k * chunks} = 4 x {k} x "
+        f"{chunks} chunk(s)), plain {plain}, eager {e_eager.count}; {s_view:.4f} s/view")
+    ok = ok and launches == 4 * k * chunks and plain == 0 and e_eager.count == 0 and \
+        bool(np.isfinite(metrics["val/psnr"]))
+
+    report["training_cells"] = {
+        "config": MEGA_CONFIG, "grid_dim": list(CELLS_GRID), "cells": k,
+        "views": len(stems), "mask_s": mask_s, "mask_rays_per_s": n_rays / mask_s,
+        "masked_rays_per_cell": masked, "training_rays_per_cell": cell_rays,
+        "mask_ratio_max_rel_diff": ratio_err, "masks_agree_off_band": masks_agree,
+        "steps": CELLS_STEPS, "loss_mean_step1": float(per_step[0]),
+        "loss_mean_last": float(per_step[-1]), "launches": counts,
+        "grid_step_ms": grid_ms, "cell_step_ms": grid_ms / k,
+        "grid_step_device_busy_ms": busy_step if rows else None,
+        "grid_step_train_kernel_ms": train_kernel_ms if rows else None,
+        "peak_mem_gb": peak, "cell_step_peak_gb": cell_peak,
+        "resumed_from": str(resume_ckpt.relative_to(tmp)), "resume_bit_equal": same,
+        "resume_launches": r_counts, "merged_eval": metrics,
+        "merged_launches": launches, "merged_s_per_view": s_view}
     return bool(ok)
 
 
@@ -3094,6 +3367,7 @@ def main() -> int:
             ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
+            ("train_cells", lambda: phase_train_cells(device, report, Path(tmp))),
             ("train_wide", lambda: phase_train_wide(device, report, Path(tmp))),
             ("time", lambda: phase_time(device, report)),
             ("time_dense", lambda: phase_time_dense(device, report)),
@@ -3132,6 +3406,7 @@ def main() -> int:
     log(json.dumps({"training_cascade": report["training_cascade"]}))
     log(json.dumps({"training_sh": report["training_sh"]}))
     log(json.dumps({"remat": report["remat"]}))
+    log(json.dumps({"training_cells": report["training_cells"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -60,6 +60,15 @@ def load_mask_zip(path) -> np.ndarray:
     return t.numpy().astype(bool)
 
 
+def save_mask_zip(mask: np.ndarray, path) -> None:
+    """Write an (H, W) bool mask in the reference's zip(torch) format."""
+    path = Path(path)
+    buf = io.BytesIO()
+    torch.save(torch.from_numpy(np.ascontiguousarray(mask)), buf)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr(path.name, buf.getvalue())
+
+
 def load_coordinates(dataset_path) -> Dict[str, Any]:
     """`coordinates.pt` -> {origin_drb: (3,) f64, pose_scale_factor: float}."""
     info = load_pt(Path(dataset_path) / "coordinates.pt")

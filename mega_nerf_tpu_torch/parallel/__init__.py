@@ -1,1 +1,2 @@
-"""The training step: render -> loss -> gradients -> Adam."""
+"""The training step: render -> loss -> gradients -> Adam; the grid step
+over K independent cells."""

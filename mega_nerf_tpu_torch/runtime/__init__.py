@@ -1,1 +1,1 @@
-"""The eval runtime."""
+"""The runners (one model; every cell of a grid), checkpoints, metrics log."""

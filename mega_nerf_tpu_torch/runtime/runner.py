@@ -32,6 +32,10 @@
   weight file, on the right half of each val view (the half excluded from
   training) and writes gt | pred | depth panels.
 
+With `--cluster_mask_path` the masks' `params.pt` must describe the scene
+(near, origin, pose scale, altitude range), or the Runner raises. The grid
+of every cell, trained in one process, is `runtime/cell_runner.py`.
+
 Everything runs on `--device` (default cuda). Asking for cuda without a
 card raises; nothing falls back to the CPU. Not ported yet, and raising:
 occupancy bounds (--occupancy_path) and training a mixture. Not ported
@@ -240,6 +244,9 @@ class Runner:
             assert self.ray_altitude_range[0] < self.ray_altitude_range[1]
         else:
             self.ray_altitude_range = None
+        if hparams.cluster_mask_path is not None:
+            self._check_cluster_params(
+                Path(hparams.cluster_mask_path).parent / "params.pt")
 
         self.train_items, self.val_items = self._get_image_metadata()
         print(f"Using {len(self.train_items)} train images and "
@@ -286,6 +293,25 @@ class Runner:
         for b in (self.fg, self.bg):
             if b is not None:
                 b.module.to(self.device).eval()
+
+    def _check_cluster_params(self, path: Path) -> None:
+        """The masks' `params.pt` must describe this scene: the same near
+        bound and pose scale factor, origin and altitude range close;
+        otherwise the masks select the wrong rays."""
+        params = load_pt(path)
+        same = {
+            "near": params["near"] == self.near,
+            "origin_drb": np.allclose(params["origin_drb"], self.origin_drb),
+            "pose_scale_factor": params["pose_scale_factor"] == self.pose_scale_factor,
+            "ray_altitude_range": self.ray_altitude_range is None or np.allclose(
+                np.asarray(params["ray_altitude_range"], np.float32),
+                np.asarray(self.ray_altitude_range, np.float32)),
+        }
+        for key, ok in same.items():
+            if not ok:
+                raise ValueError(
+                    f"cluster masks at {path.parent} were made for another scene: "
+                    f"{key} {params[key]} in {path.name}, {getattr(self, key)} here")
 
     # ----------------------------------------------------------------- train
 
@@ -470,8 +496,10 @@ class Runner:
 
     # ------------------------------------------------------------ validation
 
-    def _run_validation(self, train_index: int) -> Dict[str, float]:
-        """Render + score every val image -> per-image AVERAGES."""
+    def _run_validation(self, train_index: int,
+                        key_prefix: str = "val") -> Dict[str, float]:
+        """Render + score every val image -> per-image AVERAGES, under
+        `key_prefix` (CellRunner passes val/cell{i})."""
         if self._lpips_nets is None:
             self._lpips_nets = load_available(device=self.device)
         sums: Dict[str, float] = {}
@@ -490,13 +518,13 @@ class Runner:
             eval_gt = torch.from_numpy(np.ascontiguousarray(viz_rgbs[:, half:]))
             eval_pred = torch.from_numpy(np.ascontiguousarray(pred[:, half:]))
             per_image = {
-                "val/psnr": float(psnr_metric(eval_pred, eval_gt)),
-                "val/ssim": float(ssim_metric(eval_pred, eval_gt, 1.0)),
+                f"{key_prefix}/psnr": float(psnr_metric(eval_pred, eval_gt)),
+                f"{key_prefix}/ssim": float(ssim_metric(eval_pred, eval_gt, 1.0)),
             }
             for net, value in lpips_metric(eval_pred.to(self.device),
                                            eval_gt.to(self.device),
                                            self._lpips_nets).items():
-                per_image[f"val/lpips/{net}"] = value
+                per_image[f"{key_prefix}/lpips/{net}"] = value
             for key, value in per_image.items():
                 if self.writer is not None:
                     self.writer.add_scalar(f"{key}/{i}", value, train_index)
@@ -512,7 +540,7 @@ class Runner:
                 panel = self._create_result_image(viz_rgbs, pred, depth)
                 Image.fromarray(panel).save(img_dir / f"{i}.jpg")
                 if self.writer is not None:
-                    self.writer.add_image(f"val/{i}", panel, train_index)
+                    self.writer.add_image(f"{key_prefix}/{i}", panel, train_index)
         if self.writer is not None:
             self.writer.flush()
         return {k: v / len(self.val_items) for k, v in sums.items()}

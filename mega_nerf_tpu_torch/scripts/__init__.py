@@ -1,2 +1,3 @@
-"""The merged-model workflows: `merge_submodules`, `convert_to_container`
-and `render_images`, each run as `python -m mega_nerf_tpu_torch.scripts.<name>`."""
+"""The grid workflows: `create_cluster_masks`, `merge_submodules`,
+`convert_to_container`, `render_images` and `remat_steps`, each run as
+`python -m mega_nerf_tpu_torch.scripts.<name>`."""

@@ -32,7 +32,7 @@ def get_convert_opts(args=None) -> Namespace:
 def main(hparams: Namespace) -> None:
     if hparams.ckpt_path is None:
         raise ValueError("convert_to_container needs --ckpt_path")
-    fg_state, bg_state = load_submodule_states(Path(hparams.ckpt_path))
+    fg_state, bg_state = load_submodule_states(Path(hparams.ckpt_path), hparams)
     write_container(ContainerData(
         centroids=np.zeros((1, 3), np.float32),
         grid_dim=(1, 1),

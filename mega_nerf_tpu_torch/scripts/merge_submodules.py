@@ -7,12 +7,13 @@
 Counterpart of the JAX package's `scripts/merge_submodules.py`. For each
 centroid i it takes the newest experiment version under
 `{ckpt_prefix}{i}/` holding `models/{train_iterations}.pt` (the reference
-`{iter}.pt`, as the port's and the reference's trainers write it), reads
-the fg (and bg) state dicts, and writes the native container with the
-centroid metadata of create_cluster_masks' `params.pt`; with
-`--torchscript` also the viewer's TorchScript container at `<output>.ts`.
-It ends with a forward pass of ones through the merged mixtures, on the
-CPU. Reading the JAX package's own `.ckpt` checkpoints is not ported yet.
+`{iter}.pt`, as the port's and the reference's trainers write it) or the
+JAX package's `{iter}.ckpt` (its weights, read without flax or msgpack by
+`runtime/checkpoints.py::read_jax_checkpoint`), reads the fg (and bg)
+state dicts, and writes the native container with the centroid metadata
+of create_cluster_masks' `params.pt`; with `--torchscript` also the
+viewer's TorchScript container at `<output>.ts`. It ends with a forward
+pass of ones through the merged mixtures, on the CPU.
 """
 
 from __future__ import annotations
@@ -31,10 +32,11 @@ from mega_nerf_tpu_torch.models.container import (
     save_native_container,
     save_torchscript_container,
 )
-from mega_nerf_tpu_torch.models.factory import ModelBundle
+from mega_nerf_tpu_torch.models.factory import ModelBundle, nerf_config_from_hparams
 from mega_nerf_tpu_torch.models.mega import cluster_weights, mega_apply
-from mega_nerf_tpu_torch.models.weights import strip_module_prefix
+from mega_nerf_tpu_torch.models.weights import state_from_flax_params, strip_module_prefix
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.runtime.checkpoints import read_jax_checkpoint
 
 
 def get_merge_opts(args=None) -> Namespace:
@@ -47,22 +49,40 @@ def get_merge_opts(args=None) -> Namespace:
     return parse_opts(parser, args, known_only=True)
 
 
-def load_submodule_states(checkpoint_path: Path
+def load_submodule_states(checkpoint_path: Path, hparams: Namespace
                           ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, np.ndarray]]]:
-    """A `{iter}.pt` -> (fg state, bg state or None) as reference-named
-    numpy dicts."""
-    if checkpoint_path.suffix != ".pt":
-        raise NotImplementedError(
-            f"{checkpoint_path}: reading the JAX package's .ckpt checkpoints is not "
-            "ported yet (ROADMAP.md A.3); convert it to a {iter}.pt first")
+    """A `{iter}.pt`, or the JAX package's `.ckpt`, -> (fg state, bg state
+    or None) as reference-named numpy dicts. For a `.ckpt` the hparams give
+    the models' structure; the shapes come from the payload."""
+    if checkpoint_path.suffix == ".ckpt":
+        return _jax_checkpoint_states(checkpoint_path, hparams)
     loaded = load_pt(checkpoint_path)
     fg_state = strip_module_prefix(loaded["model_state_dict"])
     bg_state = loaded.get("bg_model_state_dict")
     return fg_state, None if bg_state is None else strip_module_prefix(bg_state)
 
 
+def _jax_checkpoint_states(checkpoint_path: Path, hparams: Namespace):
+    arrays, _ = read_jax_checkpoint(checkpoint_path)
+    fg_params, bg_params = arrays["fg_params"], arrays.get("bg_params")
+    appearance_count = 1
+    if hparams.appearance_dim > 0:
+        emb = fg_params.get("appearance") or fg_params.get("fine", {}).get("appearance")
+        appearance_count = int(np.asarray(emb["embedding"]).shape[0])
+
+    def states(params, layer_dim, xyz_dim):
+        cfg = nerf_config_from_hparams(hparams, appearance_count, layer_dim, xyz_dim)
+        return {k: v.numpy() for k, v in
+                state_from_flax_params(cfg, params, hparams.use_cascade).items()}
+
+    fg_state = states(fg_params, hparams.layer_dim, 3)
+    bg_state = states(bg_params, hparams.bg_layer_dim, 4) if bg_params else None
+    return fg_state, bg_state
+
+
 def find_checkpoint(centroid_path: Path, train_iterations: int) -> Path:
-    """The newest version directory holding the final-iteration `{iter}.pt`."""
+    """The newest version directory holding the final-iteration `{iter}.pt`
+    (or `.ckpt`)."""
     if not centroid_path.exists():
         raise FileNotFoundError(f"{centroid_path} not found")
     versions = sorted((int(x.name) for x in centroid_path.iterdir() if x.name.isdigit()),
@@ -73,7 +93,7 @@ def find_checkpoint(centroid_path: Path, train_iterations: int) -> Path:
             ckpt = models / f"{train_iterations}{suffix}"
             if ckpt.exists():
                 return ckpt
-    raise FileNotFoundError(f"no {train_iterations}.pt under {centroid_path}")
+    raise FileNotFoundError(f"no {train_iterations}.pt/.ckpt under {centroid_path}")
 
 
 def mixture_forward(bundle: ModelBundle, xyz: torch.Tensor, dirs, idx) -> torch.Tensor:
@@ -118,7 +138,7 @@ def main(hparams: Namespace) -> None:
         ckpt = find_checkpoint(ckpt_prefix.parent / f"{ckpt_prefix.name}{i}",
                                hparams.train_iterations)
         print(f"centroid {i}: {ckpt}")
-        fg_state, bg_state = load_submodule_states(ckpt)
+        fg_state, bg_state = load_submodule_states(ckpt, hparams)
         fg_states.append(fg_state)
         if bg_state is not None:
             bg_states.append(bg_state)

@@ -8,6 +8,10 @@
 - `--occupancy_path`, which makes the JAX package render differently,
   raises in the port's `eval.main` and `train.main` until occupancy bounds
   are ported.
+- `--cluster_mask_path` with masks made for another scene: a `params.pt`
+  whose `near`, `origin_drb`, `pose_scale_factor` or `ray_altitude_range`
+  disagrees with the scene makes the JAX `Runner` and the port's `Runner`
+  raise (the port's names the key); the masks' own `params.pt` passes.
 """
 
 from argparse import Namespace
@@ -23,11 +27,17 @@ from mega_nerf_tpu.parallel.train_step import make_optimizer as j_make_optimizer
 from mega_nerf_tpu.parallel.train_step import make_train_state as j_make_state
 from mega_nerf_tpu.parallel.train_step import make_train_step as j_make_step
 from mega_nerf_tpu.render import RenderSettings as JSettings
+from mega_nerf_tpu.runtime.runner import Runner as JRunner
 from mega_nerf_tpu_torch import eval as port_eval
 from mega_nerf_tpu_torch import train as port_train
 from mega_nerf_tpu_torch.models import flax_params_from_state, state_from_flax_params
 from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+from mega_nerf_tpu_torch.data.torch_io import load_pt, save_pt
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
+from mega_nerf_tpu_torch.runtime.runner import Runner as TRunner
+from mega_nerf_tpu_torch.scripts import create_cluster_masks
+from tests.synthetic import make_synthetic_dataset
+from tests.test_torch_eval import _args, _j_hparams
 from tests.test_models import tiny_hparams
 from tests.test_torch_train_loop import (
     CENTER,
@@ -128,3 +138,44 @@ def test_occupancy_path_raises(tmp_path, entry):
     hp = (port_eval.get_eval_opts if entry == "eval" else port_train.get_train_opts)(args)
     with pytest.raises(NotImplementedError, match="--occupancy_path"):
         module.main(hp)
+
+
+@pytest.fixture(scope="module")
+def masked_scene(tmp_path_factory):
+    root = tmp_path_factory.mktemp("mask_params")
+    ds = make_synthetic_dataset(root / "ds", n_train=2, n_val=1, hw=(8, 8))
+    create_cluster_masks.main(create_cluster_masks.get_mask_opts([
+        "--dataset_path", str(ds), "--output", str(root / "masks"), "--grid_dim", "2", "1",
+        "--ray_samples", "8", "--ray_altitude_range", "-1.0", "1.0", "--near", "0.5",
+        "--device", "cpu"]))
+    return root, ds
+
+
+def _masked_args(root, ds, masks):
+    return _args(ds, root / "exp", True) + ["--cluster_mask_path", str(masks / "0")]
+
+
+@pytest.mark.parametrize("key, value", [
+    ("near", 0.6), ("origin_drb", np.array([0.5, 0.0, 0.0])),
+    ("pose_scale_factor", 2.0), ("ray_altitude_range", [-1.0, 0.8])])
+def test_masks_of_another_scene_raise_in_both_runners(masked_scene, tmp_path, key, value):
+    root, ds = masked_scene
+    masks = tmp_path / "masks"
+    masks.mkdir()
+    params = load_pt(root / "masks" / "params.pt")
+    params[key] = value
+    save_pt(params, masks / "params.pt")
+    with pytest.raises(AssertionError):
+        JRunner(_j_hparams(_masked_args(root, ds, masks)), set_experiment_path=False)
+    with pytest.raises(ValueError, match=key):
+        TRunner(port_train.get_train_opts(_masked_args(root, ds, masks) + ["--device", "cpu"]),
+                set_experiment_path=False)
+
+
+def test_masks_of_this_scene_pass_the_check(masked_scene):
+    root, ds = masked_scene
+    args = _masked_args(root, ds, root / "masks")
+    JRunner(_j_hparams(args), set_experiment_path=False)
+    runner = TRunner(port_train.get_train_opts(args + ["--device", "cpu"]),
+                     set_experiment_path=False)
+    assert runner.train_items[0]._mask_path.parent == root / "masks" / "0"
