@@ -53,6 +53,18 @@ Runs every phase, in order:
               kernel and through the plain version (rgb 1e-2, sigma 1e-2
               (1 + |sigma|)); s/view, rays/s, peak memory, the view's
               device time by kernel.
+3c. bake     - on serve_mega's container and dataset, the grid depth the
+              only reduction (6 for the default 8): the val view culled
+              and with `--no_cell_cull` (launches, largest rgb difference,
+              pixels not bit-equal, s/view); `scripts.create_octree`
+              (seconds per step, leaves, file size, `fused_nerf_eval`
+              launches = K x probe calls, no plain or eager call);
+              `scripts.render_octree` (finite PSNR); `scripts.bake_occupancy
+              --res 128`; `eval.main --occupancy_path` (finite PSNR/SSIM,
+              s/view, launches, peak memory); culled vs dense again with
+              `--occupancy_mode both`; a 2,048-ray bounded chunk through
+              the kernel and the plain version (rgb 1e-2, sigma 1e-2
+              (1 + |sigma|)).
 3b. serve_dense - the same at the `configs/mega-nerf-dense` width (fg and
               bg 8x2048, seeded random weights): `eval.main` on cuda through
               the wide kernels. Checks finite PSNR/SSIM, launches of each
@@ -166,7 +178,7 @@ after the steps agrees within 1e-5.
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
-`{"remat": ...}` and `{"training_cells": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
+`{"remat": ...}`, `{"training_cells": ...}` and `{"baking": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -722,6 +734,294 @@ def phase_serve_mega(device, report, tmp: Path):
     report["serving_mega"]["mixture_vs_plain"] = {n: e[:2] for n, e in errs.items()}
     return bool(ok and own_packs and all(e[0] <= TOL and e[1] <= TOL and e[2]
                                          for e in errs.values()))
+
+
+BAKE_DEPTH = 6  # --init_grid_depth: a 64^3 auto-scale probe, a 128^3 grid (8 is the default)
+BAKE_OCC_RES = 128  # bake_occupancy --res
+BAKE_CMP_RAYS = 2048
+
+
+def eval_launches():
+    """(eval kernel launches, plain calls) so far."""
+    from mega_nerf_tpu_torch.render import fused_mlp
+
+    return fused_mlp.fused_nerf_eval.launches, fused_mlp.fused_nerf_eval_plain.calls
+
+
+def zero_eval_counts() -> None:
+    from mega_nerf_tpu_torch.render import fused_mlp
+
+    fused_mlp.fused_nerf_eval.launches = 0
+    fused_mlp.fused_nerf_eval_plain.calls = 0
+
+
+def timed_view(runner, meta):
+    """(results, s, eval launches, view_stats) of one synchronised view."""
+    import torch
+
+    zero_eval_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.render_image(meta)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, eval_launches()[0], dict(runner.view_stats)
+
+
+def log_culled_vs_dense(label: str, cmp) -> None:
+    log(f"  culled vs dense ({label}): launches {cmp['culled_launches']} vs "
+        f"{cmp['dense_launches']}; max |rgb diff| {cmp['max_rgb_diff']:.3e}, "
+        f"{cmp['pixels_not_bit_equal']} pixel(s) not bit-equal; s/view culled "
+        f"{cmp['culled_s']}, dense {cmp['dense_s']}; culled view {cmp['culled_view']}")
+
+
+def culled_vs_dense(runner, meta):
+    """The view with culling on and with --no_cell_cull, in turns (culled,
+    dense, dense, culled) -> the record: launches each way, the largest rgb
+    difference, the pixels whose rgb is not bit-equal, s/view each way and
+    the culled view's decisions."""
+    import numpy as np
+
+    views = {}
+    for cull in (True, False, False, True):
+        runner.hparams.cell_cull = cull
+        out, secs, launches, stats = timed_view(runner, meta)
+        entry = views.setdefault(cull, {"s": [], "launches": launches, "stats": stats})
+        entry["s"].append(secs)
+        entry["rgb"] = out["rgb_fine"]
+    runner.hparams.cell_cull = True
+    culled, dense = views[True]["rgb"], views[False]["rgb"]
+    return {"culled_launches": views[True]["launches"],
+            "dense_launches": views[False]["launches"],
+            "max_rgb_diff": float(np.abs(culled - dense).max()),
+            "pixels_not_bit_equal": int((culled != dense).any(-1).sum()),
+            "culled_s": views[True]["s"], "dense_s": views[False]["s"],
+            "culled_view": views[True]["stats"], "finite": bool(np.isfinite(culled).all())}
+
+
+def edge_view(meta):
+    """A view a flythrough may hold: from near the ground at the edge of the
+    lattice of cells (`serve_mega`'s centroids at altitude 0, y +-0.3, z
+    -0.3 .. 0.3), looking outward along +z, so its fg samples, which end at
+    the ellipsoid's exit, reach only the cells of the z = 0.3 row."""
+    import numpy as np
+
+    from mega_nerf_tpu_torch.data.image_metadata import ImageMetadata
+
+    pos, fwd = np.array([0.3, 0.0, 0.75]), np.array([0.0, 0.0, 1.0])
+    z_axis = -fwd
+    x_axis = np.cross(np.array([-1.0, 0.0, 0.0]), z_axis)
+    x_axis /= np.linalg.norm(x_axis)
+    c2w = np.stack([x_axis, np.cross(z_axis, x_axis), z_axis, pos], 1).astype(np.float32)
+    return ImageMetadata(Path(""), c2w, meta.W, meta.H, meta.intrinsics, meta.image_index,
+                         None, False)
+
+
+def phase_bake(device, report, tmp: Path):
+    """The bake-and-bounded-serving path on `serve_mega`'s K = 8 paper-width
+    container and 128x128 dataset (`configs/mega-nerf/building.yaml`: fg
+    and bg 8x256, 48-d appearance, bf16); the grid depth is the only
+    reduction (`--init_grid_depth` 6 for the default 8).
+    a. The val view with culling on (the default) and with `--no_cell_cull`,
+       in turns (culled, dense, dense, culled): `fused_nerf_eval` launches
+       each way (culled <= dense), the largest rgb difference and the count
+       of pixels whose rgb is not bit-equal (must be 0: culling drops only
+       zero-weight terms), s/view each way; the same for an outward
+       view at the edge of the cells' lattice (`edge_view`), where the
+       culled path must engage (fewer launches); again in part c with the
+       occupancy grid in `--occupancy_mode both`.
+    b. `scripts.create_octree` from the container (`--masking_mode weight`,
+       the dataset's cameras at 128x128): seconds of each step (scale, step
+       1, grid weight, step 2), leaves, file size, and `fused_nerf_eval`
+       launches = K x the probe calls (`_point_chunk` points a call), with
+       no plain or eager call.
+    c. `scripts.render_octree` of the tree (finite PSNR on the val view);
+       `scripts.bake_occupancy --res 128` (its occupied share); `eval.main
+       --container_path ... --occupancy_path ...` (finite PSNR/SSIM, s/view,
+       launches, whether the support-sorted culled path engaged, peak
+       memory); one 2,048-ray chunk with the occupancy bounds through the
+       kernel and through the plain version: the fg mixture's outputs on
+       the bounded samples (rgb <= 1e-2, sigma <= 1e-2 (1 + |sigma|)) and
+       the chunk's rendered rgb (<= 1e-2).
+    Prints the `{"baking": ...}` record."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch.octree import N3Tree
+    from mega_nerf_tpu_torch.ops.geometry import intersect_sphere
+    from mega_nerf_tpu_torch.ops.rays import generate_image_rays
+    from mega_nerf_tpu_torch.render import fused_mlp, rendering
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+    from mega_nerf_tpu_torch.scripts import bake_occupancy, create_octree, render_octree
+
+    ds, merged = tmp / "dataset", tmp / "mega" / "merged.pt"
+    k = MEGA_GRID[0] * MEGA_GRID[1]
+    container = ["--container_path", str(merged)]
+    record = {"config": MEGA_CONFIG, "submodules": k, "init_grid_depth": BAKE_DEPTH}
+    ok = True
+
+    # a. Culled against dense on the val view.
+    hp = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "exp_bake", container)
+    runner = Runner(hp, set_experiment_path=False)
+    runner.make_eval_state()
+    meta = runner.val_items[0]
+    runner.render_image(meta)  # warm: packs every submodule's weights
+    cmp = record["culled_vs_dense"] = culled_vs_dense(runner, meta)
+    log_culled_vs_dense(f"{meta.W}x{meta.H} val view, K = {k}", cmp)
+    ok &= (cmp["culled_launches"] <= cmp["dense_launches"] and cmp["finite"]
+           and cmp["pixels_not_bit_equal"] == 0)
+    dense_launches = cmp["dense_launches"]
+    edge = edge_view(meta)
+    cmp = record["culled_vs_dense_edge"] = culled_vs_dense(runner, edge)
+    log_culled_vs_dense("an outward view at the lattice's edge", cmp)
+    ok &= (cmp["culled_launches"] < cmp["dense_launches"] and cmp["culled_view"]["cull"]
+           and cmp["finite"] and cmp["pixels_not_bit_equal"] == 0)
+
+    # b. The bake.
+    focal = int(round(float(meta.intrinsics[0])))
+    tree_path = tmp / "bake" / "tree.npz"
+    bake_hp = create_octree._get_extraction_opts(
+        ["--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--dataset_path", str(ds),
+         "--device", device.type, "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+         *container, "--output", str(tree_path), "--init_grid_depth", str(BAKE_DEPTH),
+         "--masking_mode", "weight", "--camera_params", str(meta.W), str(meta.H),
+         str(focal), str(focal), str(meta.W // 2), str(meta.H // 2)])
+    times, calls = {}, []
+    probe = create_octree._probe
+
+    def counting_probe(bundle, settings, points, *args, **kwargs):
+        calls.append(points.shape[0])
+        return probe(bundle, settings, points, *args, **kwargs)
+
+    create_octree._probe = counting_probe
+    zero_eval_counts()
+    try:
+        with EagerCalls() as eager_calls:
+            tree = create_octree.main(bake_hp, times)
+            torch.cuda.synchronize()
+    finally:
+        create_octree._probe = probe
+    launches, plain = eval_launches()
+    chunk = create_octree._point_chunk(bake_hp, runner.fg)
+    leaves = int(tree.n_leaves)
+    record["bake"] = {
+        "times_s": times, "leaves": leaves, "nodes": int(tree.n_internal),
+        "file_bytes": tree_path.stat().st_size, "probe_calls": len(calls),
+        "points_per_call": chunk, "probed_points": int(sum(calls)),
+        "launches": launches, "predicted_launches": k * len(calls),
+        "plain_calls": plain, "eager_calls": eager_calls.count}
+    saved_tree = N3Tree.load(tree_path)
+    data = saved_tree.get_leaf_data(saved_tree.leaf_indices())
+    log(f"  create_octree (depth {BAKE_DEPTH}): {times}; {tree!r}, {leaves} leaves, "
+        f"{tree_path.stat().st_size} bytes; {len(calls)} probe calls of <= {chunk} points "
+        f"({sum(calls)} points), fused_nerf_eval launches {launches} (predicted "
+        f"{k * len(calls)} = {k} x calls), plain calls {plain}, eager module calls "
+        f"{eager_calls.count}")
+    ok &= (launches == k * len(calls) and plain == 0 and eager_calls.count == 0
+           and max(calls) <= chunk and leaves > 8 and bool(np.isfinite(data).all()))
+
+    # c. Preview, occupancy and bounded serving.
+    summary = render_octree.main(render_octree.get_render_octree_opts(
+        ["--tree", str(tree_path), "--dataset_path", str(ds), "--near", "0.05",
+         "--device", device.type]))
+    record["render_octree"] = summary
+    ok &= bool(np.isfinite(summary.get("mean_psnr", np.nan)))
+    occ_path = tmp / "bake" / "occupancy.npz"
+    t0 = time.perf_counter()
+    zero_eval_counts()
+    share = bake_occupancy.main(bake_occupancy.get_bake_opts(
+        ["--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--dataset_path", str(ds),
+         "--device", device.type, "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+         "--val_scale_factor", "1", *container, "--output", str(occ_path),
+         "--res", str(BAKE_OCC_RES)]))
+    torch.cuda.synchronize()
+    record["bake_occupancy"] = {"res": BAKE_OCC_RES, "occupied_share": share,
+                                "s": time.perf_counter() - t0,
+                                "launches": eval_launches()[0]}
+    log(f"  bake_occupancy --res {BAKE_OCC_RES}: {100 * share:.2f}% occupied in "
+        f"{record['bake_occupancy']['s']:.2f} s ({eval_launches()[0]} launches)")
+
+    bounded = ["--occupancy_path", str(occ_path)]
+    hp_b = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "exp_bounded",
+                          container + bounded)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_eval_counts()
+    t0 = time.perf_counter()
+    with EagerCalls() as eager_calls:
+        metrics = port_eval.main(hp_b)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = eval_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    runner_b = Runner(hp_b, set_experiment_path=False)
+    runner_b.make_eval_state()
+    runner_b.render_image(meta)
+    s_views = [timed_view(runner_b, meta)[1] for _ in range(2)]
+    stats = dict(runner_b.view_stats)
+    record["bounded_view"] = {
+        "metrics": metrics, "eval_main_s": wall, "launches": launches, "plain_calls": plain,
+        "eager_calls": eager_calls.count, "peak_mem_gb": peak, "s_per_view": s_views,
+        "view": stats}
+    log(f"  eval.main --occupancy_path: {metrics} in {wall:.2f} s; launches {launches}, "
+        f"plain {plain}, eager {eager_calls.count}; peak {peak:.2f} GB; s/view {s_views}; "
+        f"{stats}")
+    ok &= (all(np.isfinite(v) for v in metrics.values()) and {"val/psnr", "val/ssim"}
+           <= set(metrics) and 0 < launches <= dense_launches and plain == 0
+           and eager_calls.count == 0 and stats["bounded"])
+
+    # Culled against dense again under `--occupancy_mode both`: empty rays
+    # collapse and far ends tighten, so per-ray support sets shrink and the
+    # support-sorted culled path can engage.
+    hp_both = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "exp_both",
+                             container + bounded + ["--occupancy_mode", "both"])
+    runner_both = Runner(hp_both, set_experiment_path=False)
+    runner_both.make_eval_state()
+    runner_both.render_image(meta)
+    cmp = record["culled_vs_dense_both"] = culled_vs_dense(runner_both, meta)
+    log_culled_vs_dense("--occupancy_mode both", cmp)
+    ok &= (cmp["culled_launches"] <= cmp["dense_launches"] and cmp["finite"]
+           and cmp["pixels_not_bit_equal"] == 0)
+
+    # One bounded chunk through the kernel and through the plain version.
+    rays = generate_image_rays(meta, runner_b.near, runner_b.far, runner_b.ray_altitude_range,
+                               True, device=device)[:BAKE_CMP_RAYS]
+    plan = runner_b._view_plan(meta, rays, BAKE_CMP_RAYS)
+    bounds = torch.from_numpy(plan.tighten(rays.cpu().numpy())).to(device)
+    idx = torch.full((rays.shape[0],), meta.image_index, device=device)
+    settings = runner_b.render_settings()
+    fg_far = torch.minimum(rays[:, 7], intersect_sphere(
+        rays[:, :3], rays[:, 3:6], runner_b.sphere_center, runner_b.sphere_radius))
+    lo = torch.maximum(rays[:, 6], bounds[:, 0])
+    hi = torch.maximum(torch.minimum(fg_far, bounds[:, 1]), lo)
+    t = torch.linspace(0, 1, hp_b.fine_samples, device=device)
+    pts = rays[:, None, :3] + rays[:, None, 3:6] * (lo[:, None] + (hi - lo)[:, None] * t)[..., None]
+    args = (runner_b.fg, runner_b.bg, rays, idx, settings, runner_b.sphere_center,
+            runner_b.sphere_radius)
+    with torch.no_grad():
+        kern = rendering._model_eval(runner_b.fg, "fine", settings, pts, rays[:, None, 3:6],
+                                     idx, False, None)
+        kern_img, _ = rendering.render_rays(*args, fg_bounds=bounds)
+        saved = rendering.fused_nerf_eval
+        rendering.fused_nerf_eval = fused_mlp.fused_nerf_eval_plain
+        try:
+            plain_out = rendering._model_eval(runner_b.fg, "fine", settings, pts,
+                                              rays[:, None, 3:6], idx, False, None)
+            plain_img, _ = rendering.render_rays(*args, fg_bounds=bounds)
+        finally:
+            rendering.fused_nerf_eval = saved
+    errs = {"rgb": (kern[0] - plain_out[0]).abs().max().item(),
+            "sigma": close_ratio(kern[1], plain_out[1]),
+            "rendered_rgb": (kern_img["rgb_fine"] - plain_img["rgb_fine"]).abs().max().item()}
+    shrunk = float((bounds[:, 0] > rays[:, 6]).float().mean())
+    record["bounded_chunk_vs_plain"] = {**errs, "rays": BAKE_CMP_RAYS, "shrunk_share": shrunk}
+    log(f"  {BAKE_CMP_RAYS}-ray bounded chunk ({100 * shrunk:.1f}% of rays tightened), kernel "
+        f"vs plain: fg rgb max|diff|={errs['rgb']:.3e}, sigma max|diff|/(1+|s|)="
+        f"{errs['sigma']:.3e}, rendered rgb max|diff|={errs['rendered_rgb']:.3e}")
+    ok &= all(v <= TOL for v in errs.values()) and all(
+        bool(torch.isfinite(x).all()) for x in (*kern, kern_img["rgb_fine"]))
+    report["baking"] = record
+    return bool(ok)
 
 
 def close_ratio(got, want) -> float:
@@ -3364,6 +3664,7 @@ def main() -> int:
             ("compare_train_wide", lambda: phase_compare_train_wide(device, report)),
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
             ("serve_mega", lambda: phase_serve_mega(device, report, Path(tmp))),
+            ("bake", lambda: phase_bake(device, report, Path(tmp))),
             ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
@@ -3407,6 +3708,7 @@ def main() -> int:
     log(json.dumps({"training_sh": report["training_sh"]}))
     log(json.dumps({"remat": report["remat"]}))
     log(json.dumps({"training_cells": report["training_cells"]}))
+    log(json.dumps({"baking": report["baking"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@
 Mega-NeRF mixture.
 
 Counterpart of the JAX package's `eval.py`. Runs on `--device` (default
-cuda; cuda without a card raises).
+cuda; cuda without a card raises). `--occupancy_path <occupancy or octree
+.npz>` (from `scripts.bake_occupancy` or `scripts.create_octree`) tightens
+each ray's fg interval; a mixture is culled per chunk unless
+`--no_cell_cull`.
 """
 
 from __future__ import annotations

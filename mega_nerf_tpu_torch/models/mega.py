@@ -19,7 +19,7 @@ The routed forms (`mega_apply_routed`, `mega_apply_ray_routed`,
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -52,15 +52,24 @@ def cluster_weights(
     return inv / torch.sum(inv, dim=-1, keepdim=True)
 
 
-def mega_apply(apply_fn: Callable[[int], torch.Tensor], weights: torch.Tensor
-               ) -> torch.Tensor:
+def mega_apply(apply_fn: Callable[[int], torch.Tensor], weights: torch.Tensor,
+               active: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Dense blend: sum over k of weights[:, k:k+1] * apply_fn(k).
 
     apply_fn(k) evaluates submodule k on all N points -> (N, C) float32;
-    weights: (N, K) from `cluster_weights`. One submodule's output is live
-    at a time."""
+    weights: (N, K) from `cluster_weights` over all K centroids. One
+    submodule's output is live at a time.
+
+    `active` (ascending submodule indices, from `render/cell_cull.py`)
+    runs only those submodules: the port's counterpart of the JAX
+    package's slice of the stacked params and centroids to a chunk's
+    active cells. The culling proof (`cell_cull.py`) shows every skipped
+    column of `weights` is zero wherever the chunk's points can lie, so
+    skipping it drops only `0 * out_k` terms: the culled blend equals the
+    full one bit for bit where the submodules' outputs are finite (x + 0
+    is x, and the kept terms add in the same order)."""
     out = None
-    for k in range(weights.shape[1]):
+    for k in range(weights.shape[1]) if active is None else active:
         term = weights[:, k:k + 1] * apply_fn(k).float()
         out = term if out is None else out + term
     return out

@@ -92,8 +92,15 @@ def sample_pdf(
     u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Hierarchical resampling: draw fine depths proportional to the
-    (detached) coarse weights. bins: (N, S+1); weights: (N, S)."""
+    (detached) coarse weights. bins: (N, S+1); weights: (N, S).
+
+    The normalizer sums rows zero-padded to a multiple of 4 columns: on the
+    card a contiguous row of another length (the coarse pass's S - 2 = 254)
+    sums in an order set by its start address, so a ray's fine depths would
+    move by an ulp with its place in the batch, and the culled renderer,
+    which reorders rays, would not equal the dense one bit for bit."""
     weights = weights + 1e-8
-    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    padded = torch.nn.functional.pad(weights, (0, -weights.shape[-1] % 4))
+    pdf = weights / torch.sum(padded, -1, keepdim=True)
     cdf = torch.cumsum(pdf, -1)
     return sample_cdf(bins, cdf, fine_samples, det, generator, u)

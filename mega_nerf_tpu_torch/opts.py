@@ -9,14 +9,16 @@ CLI flags override the file.
 Added here: `--device` (default `cuda`). Flags of JAX-package features the
 port has not reached yet are still accepted so every shipped config
 parses. Where the feature would change the result, setting the flag
-raises `NotImplementedError`: `--occupancy_path`, `--train_mega_nerf`,
-and `--mega_routing routed|ray` (and `auto` past 32 submodules) with a
-container. `--cell_axis` and `--data_axis` above 1 describe a device
-mesh: `train_cells` trains every cell in one process on one device and
-raises for them (multi-process training is ROADMAP.md A.4). The others,
-such as cell culling (exact in the JAX package) and the eval compositor (a
-choice between equivalent compositors), are speed or layout choices and
-have no effect in the port.
+raises `NotImplementedError`: `--train_mega_nerf`, and `--mega_routing
+routed|ray` (and `auto` past 32 submodules) with a container (ROADMAP.md
+A.3). `--cell_axis` and `--data_axis` above 1 describe a device mesh:
+`train_cells` trains every cell in one process on one device and raises
+for them (multi-process training is ROADMAP.md A.4). `--occupancy_path`
+(with `--occupancy_thresh`, `_dilate`, `_probes`, `_mode`), `--no_cell_cull`
+and `--bake_cell_cull` act as in the JAX package. The others, such as the
+eval compositor (a choice between equivalent compositors) and
+`--render_dispatch_depth`, are speed or layout choices of the JAX package
+and have no effect in the port.
 """
 
 from __future__ import annotations

@@ -42,14 +42,19 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   densely (`mega_apply`). The JAX package sends every mixture to XLA; the
   kernel route here gives the same output to the kernels' tolerance.
 
-Not ported yet: occupancy `fg_bounds`, the routed mixture forms and
-training a mixture.
+- occupancy-tightened fg intervals (`fg_bounds`, `render/ray_bounds.py`)
+  and exact per-chunk cell culling of a fg mixture (`fg_active`,
+  `render/cell_cull.py`), as the JAX package's `render_rays`;
+- `query_points`, the MLP route of every pass, also serves the octree
+  bake's point probes (`scripts/create_octree.py`).
+
+Not ported yet: the routed mixture forms and training a mixture.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -176,33 +181,49 @@ def packed_params(bundle: ModelBundle, typ: str, sub: Optional[int] = None):
     return hit[1]
 
 
-def _model_eval(
+def query_points(
     bundle: ModelBundle,
     typ: str,
     settings: RenderSettings,
-    xyz: torch.Tensor,  # (N, S, D)
-    rays_d: torch.Tensor,  # (N, 1, 3)
-    image_indices: Optional[torch.Tensor],  # (N,)
-    train: bool,
-    generator: Optional[torch.Generator],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Evaluate level `typ`'s MLP on all samples -> (rgbs (N, S, 3), sigmas
-    (N, S)); with `sh_deg` the SH coefficients become rgb here. A mixture
-    blends its submodules (eval only)."""
+    xyz: torch.Tensor,  # (P, xyz_dim)
+    dirs: Optional[torch.Tensor] = None,  # (P, 3)
+    image_indices: Optional[torch.Tensor] = None,
+    *,
+    samples: int = 1,
+    active: Optional[Sequence[int]] = None,
+    sigma_only: bool = False,
+    train: bool = False,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Evaluate level `typ`'s MLP of `bundle` on flat points -> (P,
+    rgb_dim + 1) raw outputs, sigma last (an SH head's coefficients before
+    `eval_sh`); with `sigma_only` the (P, 1) sigma column.
+
+    The port's counterpart of the JAX package's `ModelBundle.apply(params,
+    typ, xyz, dirs, image_indices, sigma_only=...)`, and the route every
+    MLP pass of the renderer takes: `fused_nerf_eval` (`eval_fwd.cu`) to
+    width 512, `fused_nerf_eval_wide` (`eval_wide.cu`) past it, the eager
+    module for an SH head, f32 on the card or `--no_pallas`
+    (`fused_gate`); in train mode the differentiable
+    `fused_nerf_train_apply`. The kernels have no sigma-only variant, so
+    `sigma_only` computes the full output, as the JAX Pallas kernel does;
+    without `dirs` or `image_indices` it feeds +x and index 0, which do not
+    move sigma.
+
+    `image_indices` holds one appearance index for every `samples`
+    consecutive points (the renderer passes one per ray). A mixture blends
+    its submodules by routing weights over all K centroids (`mega_apply`),
+    running only the submodules in `active` when given
+    (`render/cell_cull.py`: exact)."""
     cfg = bundle.config
-    n, s, d = xyz.shape
-    flat_xyz = xyz.reshape(n * s, d).float().contiguous()
-    dirs = None
-    if cfg.pos_dir_dim > 0:
-        dirs = rays_d.expand(n, s, 3).reshape(n * s, 3)
-
-    noise = None
-    if train and generator is not None and settings.sigma_noise:
-        # Uniform [0, 1) pre-activation density noise, rounded to the
-        # compute dtype as the JAX package does (PARITY.md 2.1).
-        noise = torch.rand((n * s,), generator=generator, device=xyz.device)
-        noise = noise.to(cfg.dtype).float()
-
+    if sigma_only:
+        if dirs is None and cfg.pos_dir_dim > 0:
+            dirs = xyz.new_zeros((xyz.shape[0], 3))
+            dirs[:, 0] = 1.0
+        if image_indices is None and cfg.appearance_dim > 0:
+            image_indices = torch.zeros(xyz.shape[0] // samples, dtype=torch.long,
+                                        device=xyz.device)
+    flat_xyz = xyz.float().contiguous()
     fused, why = fused_gate(bundle, settings, train, flat_xyz.device.type)
     wide = fused and is_wide(cfg)
     kernel = "wide kernel" if wide else "kernel"
@@ -217,18 +238,18 @@ def _model_eval(
 
     def run(sub: Optional[int], points: torch.Tensor) -> torch.Tensor:
         """The MLP of level `typ` (of a mixture: of submodule `sub`) on
-        `points` (n * s, cfg.xyz_dim) -> (n * s, rgb_dim + 1)."""
+        `points` (P, cfg.xyz_dim) -> (P, rgb_dim + 1)."""
         module = bundle.level(typ) if sub is None else bundle.module[sub]
         if fused:
             coords = None if dirs is None else \
                 direction_coords(cfg, points, dirs).float().contiguous()
             app = None
             if cfg.appearance_dim > 0:
-                app = module.appearance(image_indices)  # (N, A) per ray
+                app = module.appearance(image_indices)  # one row per index
                 if train:
                     app = app.float()  # bf16-exact f32 rows; grads sum in f32
-                app = app[:, None].expand(n, s, app.shape[-1]).reshape(n * s, -1)
-                app = app.contiguous()
+                app = app[:, None].expand(app.shape[0], samples, app.shape[-1])
+                app = app.reshape(points.shape[0], -1).contiguous()
             if train:
                 return fused_nerf_train_apply(module, points, coords, app, noise)
             if wide:
@@ -237,9 +258,9 @@ def _model_eval(
             return fused_nerf_eval(packed_params(bundle, typ, sub), points, coords, app)
         idx = None
         if cfg.appearance_dim > 0:
-            idx = image_indices[:, None].expand(n, s).reshape(n * s)
+            idx = image_indices[:, None].expand(-1, samples).reshape(points.shape[0])
         if settings.remat and torch.is_grad_enabled():
-            # The noise is drawn above, so the recompute sees the same.
+            # The noise is drawn by the caller, so the recompute sees the same.
             return torch.utils.checkpoint.checkpoint(
                 module, points, dirs, idx, noise, use_reentrant=False)
         return module(points, dirs, idx, noise)
@@ -253,9 +274,43 @@ def _model_eval(
         points = flat_xyz[:, 3:].contiguous() if bundle.xyz_real else flat_xyz
         weights = cluster_weights(flat_xyz[:, :3], bundle.centroids,
                                   bundle.boundary_margin, bundle.cluster_dim_start)
-        out = mega_apply(lambda k: run(k, points), weights)
+        out = mega_apply(lambda k: run(k, points), weights, active)
     else:
         out = run(None, flat_xyz)
+    return out[:, -1:] if sigma_only else out
+
+
+def _model_eval(
+    bundle: ModelBundle,
+    typ: str,
+    settings: RenderSettings,
+    xyz: torch.Tensor,  # (N, S, D)
+    rays_d: torch.Tensor,  # (N, 1, 3)
+    image_indices: Optional[torch.Tensor],  # (N,)
+    train: bool,
+    generator: Optional[torch.Generator],
+    active: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate level `typ`'s MLP on all samples (`query_points`) ->
+    (rgbs (N, S, 3), sigmas (N, S)); with `sh_deg` the SH coefficients
+    become rgb here. A mixture blends its submodules (eval only), only
+    those in `active` when given."""
+    cfg = bundle.config
+    n, s, d = xyz.shape
+    dirs = None
+    if cfg.pos_dir_dim > 0:
+        dirs = rays_d.expand(n, s, 3).reshape(n * s, 3)
+
+    noise = None
+    if train and generator is not None and settings.sigma_noise:
+        # Uniform [0, 1) pre-activation density noise, rounded to the
+        # compute dtype as the JAX package does (PARITY.md 2.1).
+        noise = torch.rand((n * s,), generator=generator, device=xyz.device)
+        noise = noise.to(cfg.dtype).float()
+
+    out = query_points(bundle, typ, settings, xyz.reshape(n * s, d), dirs,
+                       image_indices, samples=s, active=active, train=train,
+                       noise=noise)
     if settings.sh_deg is not None:
         k = (settings.sh_deg + 1) ** 2
         coeffs = out[:, :3 * k].reshape(n * s, 3, k)
@@ -285,10 +340,11 @@ def _inference(
     depth_real: Optional[torch.Tensor],
     train: bool,
     generator: Optional[torch.Generator],
+    active: Optional[Sequence[int]] = None,
 ) -> None:
     """One sampling level: MLP eval + (optional coarse merge) + compositing.
     The coarse raw outputs are stashed in `results` and merged into the
-    fine pass."""
+    fine pass. `active`: a mixture's submodules to run (`mega_apply`)."""
     merge_prev = "zvals_coarse" in results
 
     if flip and not merge_prev:
@@ -298,7 +354,7 @@ def _inference(
             depth_real = torch.flip(depth_real, dims=(-1,))
 
     rgbs, sigmas = _model_eval(bundle, typ, settings, xyz, rays_d,
-                               image_indices, train, generator)
+                               image_indices, train, generator, active)
 
     if merge_prev:
         # A stable sort of the union: serves both of the JAX package's
@@ -371,6 +427,7 @@ def _get_results(
     fine_samples: int,
     train: bool,
     generator: Optional[torch.Generator],
+    active: Optional[Sequence[int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Coarse pass + hierarchical fine pass. Under the cascade the coarse
     pass composites its own rgb (and bg_lambda) and the fine level
@@ -395,6 +452,7 @@ def _get_results(
         depth_real=depth_real,
         train=train,
         generator=generator,
+        active=active,
     )
     if fine_samples == 0:
         return results
@@ -431,6 +489,7 @@ def _get_results(
         depth_real=depth_real_fine,
         train=train,
         generator=generator,
+        active=active,
     )
     for k in ("zvals_coarse", "raw_rgb_coarse", "raw_sigma_coarse",
               "depth_real_coarse"):
@@ -448,13 +507,22 @@ def render_rays(
     sphere_radius: Optional[torch.Tensor] = None,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    fg_bounds: Optional[torch.Tensor] = None,  # (N, 2)
+    fg_active: Optional[Sequence[int]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Render a batch of rays -> (results, bg_rays_present (bool scalar
     tensor)). Results carry `rgb_fine`, `depth_fine` (with `get_depth`),
     `depth_variance_fine` (with `get_depth_variance`), `fg_rgb_fine` /
     `bg_rgb_fine` (with `get_bg_fg_rgb`), ... as the JAX package's
     `render_rays`. `train` enables perturbation and sigma noise drawn from
-    `generator` (none without one) and the differentiable fused MLP."""
+    `generator` (none without one) and the differentiable fused MLP.
+
+    `fg_bounds`: per-ray [lo, hi] of the occupied foreground interval
+    (`render/ray_bounds.tighten_rays`); the fg samples span
+    [max(near, lo), max(min(far, hi), near)]. `fg_active`: a fg mixture's
+    submodules that can have nonzero weight on these rays
+    (`render/cell_cull.py`); the others are not run. The bg mixture is
+    never culled."""
     n_rays = rays.shape[0]
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
@@ -499,6 +567,30 @@ def render_rays(
             generator=jitter,
         )
 
+    if fg_bounds is not None:
+        # The tightened interval can only shrink. A collapsed (zero-width)
+        # interval means the bake saw nothing on the ray: every fg delta is
+        # 0 and the trailing last_delta is zeroed below, so the fg
+        # contribution is exactly zero wherever the ray collapsed (the cull
+        # boxes rely on it).
+        near = torch.maximum(near, fg_bounds[:, 0:1])
+        far0 = far
+        far = torch.maximum(torch.minimum(far, fg_bounds[:, 1:2]), near)
+        # Where the far end shrank, the span past it is declared empty, so
+        # the final sample's trailing segment must not span it: cap the
+        # (absolute, for values below INF_DELTA) exit depth at one sample
+        # spacing past the tightened far. Only sub-INF rays (a background
+        # composites behind the fg) are capped: a ray whose last_delta is
+        # INF_DELTA ends inside the scene, and its final sample must keep
+        # absorbing all residual transmittance (alpha = 1 for any sigma >
+        # 0); capping it drops that mass (the JAX package measured a -4 dB
+        # darkening of live rays without this rule).
+        seg = (far - near) / settings.coarse_samples
+        shrunk = (far < far0 - 1e-6 * torch.abs(far0)) & (last_delta < INF_DELTA)
+        last_delta = torch.where(shrunk, torch.minimum(last_delta, far + seg), last_delta)
+        # Collapsed rays: depth `far` maps to a zero trailing segment.
+        last_delta = torch.where(far > near, last_delta, far)
+
     z_steps = torch.linspace(0.0, 1.0, settings.coarse_samples,
                              device=rays.device)
     z_vals = near * (1.0 - z_steps) + far * z_steps
@@ -515,6 +607,7 @@ def render_rays(
         fine_samples=settings.fine_samples,
         train=train,
         generator=jitter,
+        active=fg_active,
     )
 
     if bg is not None:

@@ -27,7 +27,10 @@
   model);
 - `render_image` renders a whole view in chunks bounded by an 8M-point
   budget per MLP pass (under the cascade the fine pass has coarse + fine
-  points a ray);
+  points a ray), with occupancy-tightened fg intervals
+  (--occupancy_path, `render/ray_bounds.py`) and, for a fg mixture,
+  exact per-chunk cell culling (on unless --no_cell_cull,
+  `render/cell_cull.py`), as `_view_plan` decides;
 - `_run_validation` scores PSNR/SSIM, and LPIPS for every net with a
   weight file, on the right half of each val view (the half excluded from
   training) and writes gt | pred | depth panels.
@@ -38,18 +41,18 @@ of every cell, trained in one process, is `runtime/cell_runner.py`.
 
 Everything runs on `--device` (default cuda). Asking for cuda without a
 card raises; nothing falls back to the CPU. Not ported yet, and raising:
-occupancy bounds (--occupancy_path) and training a mixture. Not ported
-yet: cell culling (exact, so rendering without it gives the same image),
-routed mixtures, and multi-process training and validation.
+training a mixture and the routed mixture forms (ROADMAP.md A.3). Not
+ported yet: multi-process training and validation (A.4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from argparse import Namespace
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +75,14 @@ from mega_nerf_tpu_torch.ops.metrics import psnr as psnr_metric
 from mega_nerf_tpu_torch.ops.metrics import ssim as ssim_metric
 from mega_nerf_tpu_torch.ops.rays import generate_image_rays
 from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+from mega_nerf_tpu_torch.render.cell_cull import (
+    active_cells,
+    clamp_rays_to_fg,
+    ray_support_masks,
+    support_order,
+    tile_order,
+)
+from mega_nerf_tpu_torch.render.ray_bounds import load_occupancy, tighten_rays
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
 from mega_nerf_tpu_torch.runtime import checkpoints
 from mega_nerf_tpu_torch.runtime.logging import MetricsWriter
@@ -110,6 +121,44 @@ def _eval_chunk_cap(hparams: Namespace) -> int:
     if getattr(hparams, "use_cascade", False) and hparams.fine_samples > 0:
         s_max = hparams.coarse_samples + hparams.fine_samples
     return max(1, EVAL_POINT_BUDGET // s_max)
+
+
+# The culled path with occupancy bounds engages only when the mean support
+# set, bucketed to powers of two, is at most this share of K: the JAX
+# Runner's threshold in `render_image`, kept so both packages take the same
+# path on the same view.
+SUPPORT_GATE = 0.7
+
+
+@dataclasses.dataclass
+class ViewPlan:
+    """`Runner._view_plan`'s decisions for one view. Arrays past `order`
+    are in the permuted ray order."""
+
+    cull: bool = False  # run each chunk's active fg submodules only
+    tighten: Optional[Callable[[np.ndarray], np.ndarray]] = None  # occupancy bounds
+    order: Optional[np.ndarray] = None  # ray permutation (tiles or support sets)
+    fg_bounds: Optional[np.ndarray] = None  # (n, 2), when computed up front
+    cull_rays: Optional[np.ndarray] = None  # fg-clamped, bound-shrunk rays
+    image_mask: Optional[np.ndarray] = None  # (K,) image-level active set
+    ray_masks: Optional[np.ndarray] = None  # (n, K) per-ray support sets
+    routing: Tuple = ()  # (centroids (K, 3), margin, cluster_dim_start)
+
+    def active(self, start: int, stop: int) -> Optional[List[int]]:
+        """The fg submodules chunk [start, stop) runs (None: all): the
+        union of its rays' support sets within the image set, or the
+        active set of the chunk's box."""
+        if not self.cull:
+            return None
+        if self.ray_masks is not None:
+            mask = self.ray_masks[start:stop].any(0) & self.image_mask
+            if not mask.any():
+                # Every ray collapsed: zero fg everywhere, any one set is exact.
+                mask = mask.copy()
+                mask[0] = True
+        else:
+            mask = active_cells(self.cull_rays[start:stop], *self.routing)
+        return None if mask.all() else np.flatnonzero(mask).tolist()
 
 
 def resolve_device(name: str) -> torch.device:
@@ -211,10 +260,8 @@ class Runner:
     def __init__(self, hparams: Namespace, set_experiment_path: bool = True):
         self.hparams = hparams
         self.device = resolve_device(getattr(hparams, "device", "cuda"))
-        if getattr(hparams, "occupancy_path", None) is not None:
-            raise NotImplementedError(
-                "--occupancy_path: occupancy-tightened sampling bounds are not "
-                "ported yet (ROADMAP.md A.5)")
+        self._occupancy = None
+        self.view_stats: Dict = {}
 
         self.experiment_path = (
             self._get_experiment_path() if set_experiment_path else None
@@ -565,9 +612,101 @@ class Runner:
             self.hparams, get_depth=True, get_bg_fg_rgb=True
         )
 
+    def _get_occupancy(self):
+        """Lazy (grid, invradius, offset) from --occupancy_path
+        (render/ray_bounds.load_occupancy), or None when the flag is
+        unset."""
+        hp = self.hparams
+        path = getattr(hp, "occupancy_path", None)
+        if not path:
+            return None
+        if self._occupancy is None:
+            self._occupancy = load_occupancy(
+                path, thresh=float(getattr(hp, "occupancy_thresh", -1.0)),
+                dilate=int(getattr(hp, "occupancy_dilate", 1)))
+            grid = self._occupancy[0]
+            print(f"Occupancy grid {grid.shape} from {path}: "
+                  f"{100.0 * grid.mean():.1f}% occupied")
+        return self._occupancy
+
+    def _view_plan(self, metadata: ImageMetadata, rays: torch.Tensor,
+                   chunk: int) -> ViewPlan:
+        """How `render_image` walks one view: the JAX Runner's decisions
+        (`mega_nerf_tpu/runtime/runner.py::render_image`) with the same
+        gates, so both packages take the same path on the same view.
+
+        - Occupancy bounds (--occupancy_path): for the whole view up front
+          when culling (they shrink the cull boxes), else per chunk.
+        - Culling (a fg mixture of K > 1 unless --no_cell_cull): the
+          image-level active set from the rays clamped to the fg ellipsoid
+          and shrunk by the bounds; with a full set and no bounds the
+          per-chunk boxes never shrink, so the culled path is off. With
+          bounds, per-ray support masks ANDed with the image set; the path
+          engages only if the mean power-of-two-bucketed support is at
+          most 0.7 K (the JAX gate, kept for the same decision), and then
+          the rays are grouped by support set (`support_order`); else a
+          full frame goes in square tiles (`tile_order`)."""
+        hp = self.hparams
+        k = len(self.fg.module) if self.fg.is_mega else 1
+        plan = ViewPlan(cull=bool(getattr(hp, "cell_cull", True) and self.fg.is_mega
+                                  and k > 1))
+        occ = self._get_occupancy()
+        if not plan.cull and occ is None:
+            return plan
+        rays_np = rays.cpu().numpy()
+        center = radius = None
+        if self.sphere_radius is not None:
+            center = self.sphere_center.cpu().numpy().astype(np.float64)
+            radius = self.sphere_radius.cpu().numpy().astype(np.float64)
+        if occ is not None:
+            grid, occ_inv, occ_off = occ
+            plan.tighten = lambda rr: tighten_rays(  # noqa: E731
+                rr, grid, occ_inv, occ_off,
+                probes=int(getattr(hp, "occupancy_probes", 128)),
+                sphere_center=center, sphere_radius=radius,
+                mode=str(getattr(hp, "occupancy_mode", "near")))
+        if not plan.cull:
+            return plan
+
+        plan.routing = (self.fg.centroids.cpu().numpy().astype(np.float32),
+                        self.fg.boundary_margin, self.fg.cluster_dim_start)
+        if plan.tighten is not None:
+            plan.fg_bounds = plan.tighten(rays_np)
+        # Cull boxes end at the fg ellipsoid exit, not the (bg-owned) ray
+        # far: only the mask math sees the clamp.
+        cull_rays = clamp_rays_to_fg(rays_np, center, radius)
+        if plan.fg_bounds is not None:
+            cull_rays[:, 6] = np.maximum(cull_rays[:, 6], plan.fg_bounds[:, 0])
+            cull_rays[:, 7] = np.minimum(cull_rays[:, 7], plan.fg_bounds[:, 1])
+            cull_rays[:, 7] = np.maximum(cull_rays[:, 7], cull_rays[:, 6])
+        plan.image_mask = active_cells(cull_rays, *plan.routing)
+        if plan.fg_bounds is None and plan.image_mask.all():
+            plan.cull = False
+            return plan
+        if plan.fg_bounds is not None:
+            masks = ray_support_masks(cull_rays, *plan.routing)
+            masks &= plan.image_mask[None, :]
+            buckets = 2 ** np.ceil(np.log2(np.maximum(masks.sum(1), 1)))
+            if float(buckets.mean()) / k > SUPPORT_GATE:
+                plan.cull = False
+                return plan
+            plan.ray_masks = masks
+            plan.order = support_order(masks)
+        elif rays_np.shape[0] == metadata.W * metadata.H:
+            plan.order = tile_order(metadata.W, metadata.H, chunk)
+        if plan.order is not None:
+            cull_rays = cull_rays[plan.order]
+            if plan.fg_bounds is not None:
+                plan.fg_bounds = plan.fg_bounds[plan.order]
+            if plan.ray_masks is not None:
+                plan.ray_masks = plan.ray_masks[plan.order]
+        plan.cull_rays = cull_rays
+        return plan
+
     def render_image(self, metadata: ImageMetadata) -> Dict[str, np.ndarray]:
         """Render a full image in chunks (the last one shorter) -> numpy
-        arrays of H*W rows."""
+        arrays of H*W rows, with occupancy bounds and cell culling as
+        `_view_plan` decides; `self.view_stats` records the decisions."""
         hp = self.hparams
         rays = generate_image_rays(
             metadata, self.near, self.far, self.ray_altitude_range,
@@ -575,10 +714,26 @@ class Runner:
         )
         n = rays.shape[0]
         chunk = min(hp.image_pixel_batch_size, n, _eval_chunk_cap(hp))
+        plan = self._view_plan(metadata, rays, chunk)
+        if plan.order is not None:
+            rays = rays[torch.from_numpy(plan.order).to(self.device)]
         settings = self.render_settings()
         results: Dict[str, List[torch.Tensor]] = {}
+        k_fg = len(self.fg.module) if self.fg.is_mega else 1
+        active_counts = []
         for start in range(0, n, chunk):
             chunk_rays = rays[start:start + chunk]
+            stop = start + chunk_rays.shape[0]
+            bounds = None
+            if plan.fg_bounds is not None:
+                bounds = plan.fg_bounds[start:stop]
+            elif plan.tighten is not None:
+                bounds = plan.tighten(chunk_rays.cpu().numpy())
+            if bounds is not None:
+                bounds = torch.from_numpy(np.ascontiguousarray(bounds, np.float32)).to(
+                    self.device)
+            active = plan.active(start, stop)
+            active_counts.append(k_fg if active is None else len(active))
             image_indices = None
             if hp.appearance_dim > 0:
                 image_indices = torch.full(
@@ -589,10 +744,21 @@ class Runner:
                 out, _ = render_rays(
                     self.fg, self.bg, chunk_rays, image_indices,
                     settings, self.sphere_center, self.sphere_radius,
+                    fg_bounds=bounds, fg_active=active,
                 )
             for k, v in out.items():
                 results.setdefault(k, []).append(v.cpu())
-        return {k: torch.cat(v).numpy() for k, v in results.items()}
+        out = {k: torch.cat(v).numpy() for k, v in results.items()}
+        if plan.order is not None:
+            inv = np.empty_like(plan.order)
+            inv[plan.order] = np.arange(n, dtype=plan.order.dtype)
+            out = {k: v[inv] for k, v in out.items()}
+        self.view_stats = {
+            "bounded": plan.tighten is not None, "cull": plan.cull,
+            "support_sorted": plan.ray_masks is not None,
+            "tiled": plan.cull and plan.ray_masks is None and plan.order is not None,
+            "chunks": len(active_counts), "active_per_chunk": active_counts}
+        return out
 
     # ------------------------------------------------------------------- viz
 

@@ -13,7 +13,9 @@ inferno), with `--save_depth_npz` `depths_npz/{i:06d}.npy` (metric depth
 times the pose scale factor), and last `cells/{i:06d}.jpg` (the rgb with
 an overlay of the submodule nearest each pixel's depth point). The output
 directories are made before the first frame; `--resume` accepts existing
-ones and skips frames whose cell overlay reads back. Rendering frames over
+ones and skips frames whose cell overlay reads back. `--occupancy_path`
+tightens the fg intervals and a mixture's frames are culled per chunk
+unless `--no_cell_cull` (`Runner.render_image`). Rendering frames over
 several processes is not ported yet.
 """
 

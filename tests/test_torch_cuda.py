@@ -1082,3 +1082,35 @@ def test_mixture_render_through_the_eval_kernel_matches_plain(cuda_device, margi
     assert (got["rgb_fine"] - want["rgb_fine"]).abs().max().item() <= 1e-2
     depth_err = (got["depth_fine"] - want["depth_fine"]).abs() / (1 + want["depth_fine"].abs())
     assert depth_err.max().item() <= 1e-2
+
+
+def test_render_of_a_ray_does_not_depend_on_its_row(cuda_device):
+    """The culled renderer reorders rays (`support_order`, `tile_order`), so
+    a ray's render must not depend on its row in the batch: the same rays
+    in index order and permuted give the same bits (fg + bg at 256 + 512
+    samples, whose coarse weights give the fine pdf 254-column rows)."""
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
+
+    hp = tiny_hparams(appearance_dim=4, layer_dim=64, bg_layer_dim=64,
+                      compute_dtype="bfloat16")  # the eval kernel's route
+    gen = torch.Generator().manual_seed(0)
+    fg, bg = make_nerf(hp, 3), make_bg_nerf(hp, 3)
+    for b in (fg, bg):
+        init_weights(b.module, gen)
+        b.module.to(cuda_device).eval()
+    n = 1024
+    o = torch.rand((n, 3), generator=gen) * 0.4 - 0.2
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+    far = torch.where(torch.arange(n) % 2 == 0, 1e5, 0.9)[:, None]
+    rays = torch.cat([o, d, torch.full((n, 1), 0.05), far], -1).to(cuda_device)
+    idx = (torch.arange(n) % 3).to(cuda_device)
+    center = torch.tensor([0.0, 0.0, 0.0], device=cuda_device)
+    radius = torch.tensor([1.2, 1.0, 1.1], device=cuda_device)
+    perm = torch.randperm(n, generator=gen).to(cuda_device)
+    settings = RenderSettings(get_depth=True, get_bg_fg_rgb=True)
+    with torch.no_grad():
+        a, _ = render_rays(fg, bg, rays, idx, settings, center, radius)
+        b, _ = render_rays(fg, bg, rays[perm], idx[perm], settings, center, radius)
+    inv = torch.argsort(perm)
+    for key in a:
+        assert torch.equal(a[key], b[key][inv]), key

@@ -113,14 +113,30 @@ def test_render_image_ragged_last_chunk(tmp_path):
                                    err_msg=key)
 
 
+# Modules the walk below must reach (a package without an `__init__.py`
+# would be skipped silently): the octree, the serving features and the
+# bake scripts.
+REQUIRED_MODULES = (
+    "mega_nerf_tpu_torch.octree", "mega_nerf_tpu_torch.octree.n3tree",
+    "mega_nerf_tpu_torch.octree.grid_weight", "mega_nerf_tpu_torch.octree.render",
+    "mega_nerf_tpu_torch.render.cell_cull", "mega_nerf_tpu_torch.render.ray_bounds",
+    "mega_nerf_tpu_torch.scripts.create_octree", "mega_nerf_tpu_torch.scripts.bake_occupancy",
+    "mega_nerf_tpu_torch.scripts.render_octree",
+)
+
+
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port, and chip_smoke, import without jax or
-    mega_nerf_tpu (run in a fresh interpreter)."""
+    mega_nerf_tpu (run in a fresh interpreter); the walk reaches the
+    octree, serving and bake modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mega_nerf_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'mega_nerf_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'mega_nerf_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"missing = set({REQUIRED_MODULES!r}) - set(names)\n"
+        "assert not missing, missing\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'mega_nerf_tpu' or m.startswith('mega_nerf_tpu.')]\n"

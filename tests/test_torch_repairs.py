@@ -5,9 +5,9 @@
   with sigma noise and jitter drawn from one generator; two Adam steps
   with `--remat` on both sides match the JAX package's `make_train_step`
   (its `jax.checkpoint` over the XLA MLP) at 1e-5, lr 1e-3.
-- `--occupancy_path`, which makes the JAX package render differently,
-  raises in the port's `eval.main` and `train.main` until occupancy bounds
-  are ported.
+- `--occupancy_path`, which raised in the port until occupancy bounds
+  were ported, renders as the JAX package's does, in the eval entry point
+  and in the training entry point's Runner.
 - `--cluster_mask_path` with masks made for another scene: a `params.pt`
   whose `near`, `origin_drb`, `pose_scale_factor` or `ray_altitude_range`
   disagrees with the scene makes the JAX `Runner` and the port's `Runner`
@@ -27,6 +27,7 @@ from mega_nerf_tpu.parallel.train_step import make_optimizer as j_make_optimizer
 from mega_nerf_tpu.parallel.train_step import make_train_state as j_make_state
 from mega_nerf_tpu.parallel.train_step import make_train_step as j_make_step
 from mega_nerf_tpu.render import RenderSettings as JSettings
+from mega_nerf_tpu.models.torch_interop import torch_state_from_flax_params
 from mega_nerf_tpu.runtime.runner import Runner as JRunner
 from mega_nerf_tpu_torch import eval as port_eval
 from mega_nerf_tpu_torch import train as port_train
@@ -37,7 +38,8 @@ from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
 from mega_nerf_tpu_torch.runtime.runner import Runner as TRunner
 from mega_nerf_tpu_torch.scripts import create_cluster_masks
 from tests.synthetic import make_synthetic_dataset
-from tests.test_torch_eval import _args, _j_hparams
+from tests.test_torch_cell_cull import write_occupancy
+from tests.test_torch_eval import _args, _j_hparams, _metric
 from tests.test_models import tiny_hparams
 from tests.test_torch_train_loop import (
     CENTER,
@@ -131,13 +133,41 @@ def test_remat_two_adam_steps_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["eval", "train"])
 def test_occupancy_path_raises(tmp_path, entry):
-    args = ["--exp_name", str(tmp_path / "exp"), "--dataset_path", str(tmp_path),
-            "--device", "cpu", "--ckpt_path", str(tmp_path / "0.pt"),
-            "--occupancy_path", str(tmp_path / "occupancy.npz")]
-    module = port_eval if entry == "eval" else port_train
-    hp = (port_eval.get_eval_opts if entry == "eval" else port_train.get_train_opts)(args)
-    with pytest.raises(NotImplementedError, match="--occupancy_path"):
-        module.main(hp)
+    """`--occupancy_path` (which raised until occupancy bounds were ported)
+    renders as the JAX package's does: eval.main's PSNR within 0.01 dB of
+    the JAX Runner's and the view's rgb within 1e-4, and the training entry
+    point's Runner (its validation renders) likewise."""
+    ds = make_synthetic_dataset(tmp_path / "ds", n_train=3, n_val=1, hw=(16, 16))
+    init = JRunner(_j_hparams(_args(ds, tmp_path / "init", True)), set_experiment_path=False)
+    state = init.make_eval_state()
+    save_pt({"model_state_dict": torch_state_from_flax_params(
+        init.fg.config, jax.device_get(state.fg_params)),
+        "bg_model_state_dict": torch_state_from_flax_params(
+            init.bg.config, jax.device_get(state.bg_params)), "iteration": 7},
+        tmp_path / "7.pt")
+    ckpt = ["--ckpt_path", str(tmp_path / "7.pt")]
+    occupancy = ["--occupancy_path", str(write_occupancy(tmp_path / "occupancy.npz")),
+                 "--occupancy_mode", "both"]
+    j_runner = JRunner(_j_hparams(_args(ds, tmp_path / "jexp", True) + ckpt + occupancy))
+    want = j_runner.render_image(j_runner.val_items[0], j_runner.make_eval_state())
+    args = _args(ds, tmp_path / "texp", True) + ckpt + occupancy + ["--device", "cpu"]
+    if entry == "eval":
+        j_runner.eval()
+        metrics = port_eval.main(port_eval.get_eval_opts(args))
+        assert abs(_metric(tmp_path / "jexp", "val/psnr") - metrics["val/psnr"]) < 0.01
+        runner = TRunner(port_eval.get_eval_opts(args), set_experiment_path=False)
+        runner.make_eval_state()
+    else:
+        runner = TRunner(port_train.get_train_opts(args), set_experiment_path=False)
+        runner._load_weights(tmp_path / "7.pt")
+    got = runner.render_image(runner.val_items[0])
+    assert runner.view_stats["bounded"]
+    plain = TRunner(port_eval.get_eval_opts(_args(ds, tmp_path / "plain", True) + ckpt
+                                            + ["--device", "cpu"]), set_experiment_path=False)
+    plain.make_eval_state()
+    assert not np.allclose(plain.render_image(plain.val_items[0])["rgb_fine"],
+                           got["rgb_fine"], atol=1e-3)  # the bounds change the view
+    np.testing.assert_allclose(got["rgb_fine"], want["rgb_fine"], rtol=0, atol=1e-4)
 
 
 @pytest.fixture(scope="module")
