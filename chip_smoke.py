@@ -65,6 +65,22 @@ Runs every phase, in order:
               `--occupancy_mode both`; a 2,048-ray bounded chunk through
               the kernel and the plain version (rgb 1e-2, sigma 1e-2
               (1 + |sigma|)).
+3d. serve_routed - routed serving of merged mixtures at the paper width:
+              `serve_mega`'s K = 8 container, then a K = 25 mixture merged
+              from 25 seeded-random submodules (`--grid_dim 5 5`), each on
+              the val view and `bake`'s outward edge view under
+              `--mega_routing dense`, `routed` (per point, top M = 4 at
+              margin 1.15, and M = K), `ray` (per ray, behind the 0.45 cost
+              gate) and `ray` with the gate open: `fused_nerf_eval` launches a view
+              and no other kernel, plain or eager call; s/view against
+              dense; the ray path's decision and plan cost; peak memory;
+              against dense the largest rgb difference and the pixels not
+              bit-equal, at most 1e-4 on every pixel for ray routing and,
+              for per-point routing, on every pixel none of whose points
+              holds more than M nonzero weights (those are counted); each
+              M = 4 per-point routed view rendered again through the
+              plain version (rgb 1e-2 on every pixel). Every kernel's counter is
+              set to 0 before the phase and read after it.
 3b. serve_dense - the same at the `configs/mega-nerf-dense` width (fg and
               bg 8x2048, seeded random weights): `eval.main` on cuda through
               the wide kernels. Checks finite PSNR/SSIM, launches of each
@@ -109,6 +125,20 @@ Runs every phase, in order:
               uninterrupted one in every cell, `scripts.merge_submodules` of
               the 8 cells and `eval.main --container_path` on the val view
               (32 `eval_fwd` launches, finite PSNR, s/view).
+4d. train_mega - joint Mega-NeRF training: `train.main --train_mega_nerf`
+              with `serve_mega`'s K = 8 centroids on `train`'s dataset at
+              the paper config, 20 steps (finite metrics, a falling loss,
+              each training kernel's launches a step equal and at most
+              4 x K, no plain or eager call, each pass's points per
+              submodule summing to the pass), ms a step over 20 chained
+              steps beside `train`'s single-model step, peak memory, a
+              profile of the joint step (device busy ms, the training
+              kernels' part), `eval.main --train_mega_nerf --ckpt_path`
+              (finite PSNR), every kernel's counter set to 0 before
+              `train.main` and read after `eval.main`; then one joint step
+              at the paper width through the training kernels and through
+              their plain versions on the same batch (loss and every
+              gradient relative 1e-2).
 5. time     - eval kernel ms per launch and its persistent grid at the
               serving path's four shapes (fg 16,384 x 256 and x 512, bg
               16,384 x 128 and x 256 points), its TFLOP/s, plain ms and bound
@@ -178,7 +208,10 @@ after the steps agrees within 1e-5.
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
-`{"remat": ...}`, `{"training_cells": ...}` and `{"baking": ...}` lines, a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
+`{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
+`{"serving_routed": ...}` and `{"training_mega": ...}` lines, a
+`{"kernels": [...]}` line (with each kernel's launches in serve_routed and
+in train_mega's `train.main` and `eval.main`), the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -759,12 +792,13 @@ def timed_view(runner, meta):
     """(results, s, eval launches, view_stats) of one synchronised view."""
     import torch
 
-    zero_eval_counts()
+    before = eval_launches()[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = runner.render_image(meta)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, eval_launches()[0], dict(runner.view_stats)
+    secs = time.perf_counter() - t0
+    return out, secs, eval_launches()[0] - before, dict(runner.view_stats)
 
 
 def log_culled_vs_dense(label: str, cmp) -> None:
@@ -1022,6 +1056,253 @@ def phase_bake(device, report, tmp: Path):
         bool(torch.isfinite(x).all()) for x in (*kern, kern_img["rgb_fine"]))
     report["baking"] = record
     return bool(ok)
+
+
+ROUTED_TOL = 1e-4  # routed and ray-routed views against the dense view's rgb
+MEGA25_GRID = (5, 5)  # --grid_dim 5 5: the reference's 25-submodule models
+# (label, --mega_routing, extra flags): per point at M = 4 and at M = K
+# (every nonzero weight: no truncation, the dense blend's terms), ray at its
+# default gate (0.45) and with the gate open, so the ray-routed path runs
+# whatever the plan costs (its cost can pass K: the plan pads).
+ROUTED_MODES = (("dense", "dense", []), ("routed", "routed", []),
+                ("routed_all", "routed", ["--routing_max_experts", "64"]),
+                ("ray", "ray", []), ("ray_open", "ray", ["--ray_routing_gate", "1e6"]))
+
+
+class PlainEval:
+    """While open, the renderer's eval MLP calls go to `fused_nerf_eval`'s
+    plain version (its calls count as plain, never as launches)."""
+
+    def __enter__(self):
+        from mega_nerf_tpu_torch.render import fused_mlp, rendering
+
+        self._saved = rendering.fused_nerf_eval
+        rendering.fused_nerf_eval = fused_mlp.fused_nerf_eval_plain
+        return self
+
+    def __exit__(self, *exc):
+        from mega_nerf_tpu_torch.render import rendering
+
+        rendering.fused_nerf_eval = self._saved
+
+
+class Truncation:
+    """While open: for each view the Runner renders, which of its rays (in
+    render order) hold a point with more nonzero routing weights than the
+    M that `mega_apply_routed` keeps, in any pass of the fg mixture
+    (`fg`) or of either mixture (`any`)."""
+
+    def __enter__(self):
+        import torch
+
+        from mega_nerf_tpu_torch.render import rendering
+        from mega_nerf_tpu_torch.runtime import runner as runner_mod
+
+        self.chunks = {"fg": [], "any": []}
+        self._saved = (runner_mod.render_rays, rendering.query_points,
+                       rendering.mega_apply_routed)
+        render_rays, query_points, routed = self._saved
+        side = {}
+
+        def recording_render(fg, bg, rays, *args, **kwargs):
+            for chunks in self.chunks.values():
+                chunks.append(torch.zeros(rays.shape[0], dtype=torch.bool))
+            return render_rays(fg, bg, rays, *args, **kwargs)
+
+        def recording_query(bundle, *args, **kwargs):
+            side["bg"] = bundle.xyz_real
+            return query_points(bundle, *args, **kwargs)
+
+        def recording_routed(apply_rows, weights, max_experts, out_dim, log=None):
+            n = self.chunks["any"][-1].shape[0]
+            over = ((weights > 0).sum(-1) > max_experts).reshape(n, -1).any(1).cpu()
+            for key in ("any",) if side["bg"] else ("any", "fg"):
+                self.chunks[key][-1] |= over
+            return routed(apply_rows, weights, max_experts, out_dim, log=log)
+
+        runner_mod.render_rays = recording_render
+        rendering.query_points = recording_query
+        rendering.mega_apply_routed = recording_routed
+        return self
+
+    def __exit__(self, *exc):
+        from mega_nerf_tpu_torch.render import rendering
+        from mega_nerf_tpu_torch.runtime import runner as runner_mod
+
+        (runner_mod.render_rays, rendering.query_points,
+         rendering.mega_apply_routed) = self._saved
+
+    def rays(self, key: str):
+        import torch
+
+        return torch.cat(self.chunks[key]).numpy()
+
+
+def write_mixture(root: Path, ds: Path, grid, seed: int) -> Path:
+    """K = gy x gz seeded-random paper-width fg and bg submodules as
+    `{iter}.pt` runs, centroids on the grid over the dataset's cameras,
+    merged by `scripts.merge_submodules` into a native container."""
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch.scripts import merge_submodules
+    from mega_nerf_tpu_torch.scripts.create_cluster_masks import make_centroids
+
+    lo, hi = camera_extent(ds)
+    centroids = make_centroids(grid, lo, hi)
+    hp_sub = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, root / "unused")
+    for i in range(len(centroids)):
+        fg = seeded_bundle(hp_sub, 5, False, seed + i, "cpu")
+        bg = seeded_bundle(hp_sub, 5, True, seed + 1000 + i, "cpu")
+        models = root / f"submodule_{i}" / "0" / "models"
+        models.mkdir(parents=True)
+        torch.save({"model_state_dict": fg.module.state_dict(),
+                    "bg_model_state_dict": bg.module.state_dict(),
+                    "iteration": MEGA_ITER}, models / f"{MEGA_ITER}.pt")
+    torch.save({"centroids": torch.from_numpy(centroids), "grid_dim": list(grid),
+                "min_position": torch.from_numpy(lo), "max_position": torch.from_numpy(hi),
+                "cluster_2d": False}, root / "params.pt")
+    merged = root / "merged.pt"
+    merge_submodules.main(merge_submodules.get_merge_opts([
+        "--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--exp_name", "unused",
+        "--dataset_path", str(ds), "--ckpt_prefix", str(root / "submodule_"),
+        "--centroid_path", str(root / "params.pt"), "--output", str(merged),
+        "--train_iterations", str(MEGA_ITER)]))
+    return merged
+
+
+def routed_views(ds: Path, container: Path, tmp: Path, k: int, label: str):
+    """Every view (the val view, `edge_view`) under every mode of
+    `ROUTED_MODES` -> ({view: {mode: record}}, ok). Each record: eval
+    launches a view, s/view (2 timed after a warm one), the view's
+    decisions, peak memory; against dense: the largest rgb difference, the
+    pixels not bit-equal, and for per-point routing the pixels with a
+    truncated point and the largest difference off them."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    out, rgbs, fg_rgbs, ok = {}, {}, {}, True
+    for mode, routing, extra in ROUTED_MODES:
+        hp = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "unused",
+                            ["--container_path", str(container), "--mega_routing", routing,
+                             *extra])
+        runner = Runner(hp, set_experiment_path=False)
+        runner.make_eval_state()
+        meta = runner.val_items[0]
+        for view, m in (("val", meta), ("edge", edge_view(meta))):
+            with Truncation() as trunc:
+                runner.render_image(m)  # warm: packs every submodule's weights
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = wide_counters()
+            with EagerCalls() as eager_calls:
+                timed = [timed_view(runner, m) for _ in range(2)]
+            counts = {n: c - before[n] for n, c in wide_counters().items()}
+            rgb, _, launches, stats = timed[-1]
+            rec = {"launches": launches, "s": [t[1] for t in timed],
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "ray_routed": stats["ray_routed"], "ray_eff": stats["ray_eff"],
+                   "routed": stats["routed"], "cull": stats["cull"],
+                   "active_per_chunk": stats["active_per_chunk"]}
+            only_eval = (counts["plain"] == 0 and eager_calls.count == 0
+                         and all(counts[w] == 0 for w in WIDE_KERNELS)
+                         and timed[0][2] == launches > 0)
+            ok &= only_eval and bool(np.isfinite(rgb["rgb_fine"]).all())
+            if mode == "dense":
+                rgbs[view], fg_rgbs[view] = rgb["rgb_fine"], rgb["fg_rgb_fine"]
+            else:
+                diff = np.abs(rgb["rgb_fine"] - rgbs[view]).max(-1)
+                rec.update(max_rgb_diff=float(diff.max()),
+                           pixels_not_bit_equal=int((diff > 0).sum()))
+                if routing == "routed":
+                    truncated, fg_truncated = trunc.rays("any"), trunc.rays("fg")
+                    fg_diff = np.abs(rgb["fg_rgb_fine"] - fg_rgbs[view]).max(-1)
+                    rec.update(pixels_truncated=int(truncated.sum()),
+                               max_rgb_diff_untruncated=float(diff[~truncated].max(
+                                   initial=0.0)),
+                               pixels_fg_truncated=int(fg_truncated.sum()),
+                               max_fg_rgb_diff_fg_untruncated=float(
+                                   fg_diff[~fg_truncated].max(initial=0.0)))
+                    ok &= (rec["max_rgb_diff_untruncated"] <= ROUTED_TOL
+                           and rec["max_fg_rgb_diff_fg_untruncated"] <= ROUTED_TOL)
+                    if mode == "routed":
+                        # The truncating route through the plain version, on
+                        # every pixel (at M = K the plain version's f32
+                        # activations of whole chunks do not fit beside it).
+                        with PlainEval():
+                            plain = runner.render_image(m)["rgb_fine"]
+                        rec["max_rgb_diff_plain"] = float(
+                            np.abs(rgb["rgb_fine"] - plain).max())
+                        ok &= rec["max_rgb_diff_plain"] <= TOL
+                else:
+                    ok &= rec["max_rgb_diff"] <= ROUTED_TOL
+            out.setdefault(view, {})[mode] = rec
+            dense_s = out[view]["dense"]["s"]
+            log(f"  {label} {view} view, {mode}: {launches} fused_nerf_eval launches, "
+                f"s/view {rec['s']} (dense {dense_s}); ray path {rec['ray_routed']} "
+                f"(eff {rec['ray_eff']} of K = {k}), routed {rec['routed']}, culled "
+                f"{rec['cull']}; peak {rec['peak_mem_gb']:.2f} GB; only the eval kernel "
+                f"{only_eval}"
+                + ("" if mode == "dense" else
+                   f"; vs dense max|rgb diff| {rec['max_rgb_diff']:.3e}, "
+                   f"{rec['pixels_not_bit_equal']} pixel(s) not bit-equal")
+                + ("" if routing != "routed" else
+                   f", {rec['pixels_truncated']} pixel(s) with a truncated point, "
+                   f"max|diff| off them {rec['max_rgb_diff_untruncated']:.3e}; "
+                   f"{rec['pixels_fg_truncated']} with a truncated fg point, fg rgb "
+                   f"max|diff| off them {rec['max_fg_rgb_diff_fg_untruncated']:.3e}")
+                + ("" if mode != "routed" else
+                   f"; vs the same route through the plain version max|rgb diff| "
+                   f"{rec['max_rgb_diff_plain']:.3e} (limit {TOL})"))
+        del runner
+        torch.cuda.empty_cache()
+    return out, ok
+
+
+def phase_serve_routed(device, report, tmp: Path):
+    """Routed serving of merged mixtures at the paper width
+    (`configs/mega-nerf/building.yaml`: fg and bg 8x256, 48-d appearance,
+    bf16), each view under `--mega_routing dense`, `routed` (per point: the
+    top M = 4 weights at margin 1.15, and M = K: every nonzero weight, the
+    dense blend's terms), `ray` (per ray, behind the JAX
+    Runner's cost gate, 0.45) and `ray` with the gate open:
+    a. `serve_mega`'s K = 8 container (`--grid_dim 2 4`) on the val view
+       and on `bake`'s outward `edge_view`;
+    b. a K = 25 mixture merged from 25 seeded-random submodules
+       (`--grid_dim 5 5`) on the same two views.
+    For each view and mode: `fused_nerf_eval` launches a view and no other
+    kernel, plain or eager call; s/view against dense; the ray path's
+    decision and plan cost; peak memory; against dense the largest rgb
+    difference and the pixels not bit-equal: at most 1e-4 on every pixel
+    for ray routing (supports are supersets) and, for per-point routing,
+    on every pixel none of whose points holds more than M nonzero weights
+    (printed with the count of those that do; far bg points hold all K at
+    margin 1.15), and likewise the fg rgb where no fg point does; each
+    per-point routed view against the same route through the plain
+    version at M = 4, rgb 1e-2 on every pixel. Every kernel's counter is set to 0
+    before the phase and read after it (`launches_serve_routed`: every
+    view of every mode, warm views included). Prints the
+    `{"serving_routed": ...}` record."""
+    ds, merged = tmp / "dataset", tmp / "mega" / "merged.pt"
+    k8 = MEGA_GRID[0] * MEGA_GRID[1]
+    k25 = MEGA25_GRID[0] * MEGA25_GRID[1]
+    record = {"config": MEGA_CONFIG}
+    zero_all_counters()
+    views8, ok8 = routed_views(ds, merged, tmp, k8, f"K = {k8}")
+    t0 = time.perf_counter()
+    merged25 = write_mixture(tmp / "mega25", ds, MEGA25_GRID, 500)
+    record["merge25_s"] = time.perf_counter() - t0
+    views25, ok25 = routed_views(ds, merged25, tmp, k25, f"K = {k25}")
+    launches = kernel_launches()
+    for name, count in launches.items():
+        report["kernels"][name]["launches_serve_routed"] = count
+    log(f"  launches in the phase: {launches}")
+    record.update({f"k{k8}": views8, f"k{k25}": views25, "launches": launches})
+    report["serving_routed"] = record
+    return bool(ok8 and ok25)
 
 
 def close_ratio(got, want) -> float:
@@ -1939,6 +2220,225 @@ def phase_train_cells(device, report, tmp: Path):
     return bool(ok)
 
 
+MEGA_TRAIN_STEPS = 20
+MEGA_TIMED_STEPS = 20
+TRAIN_KERNELS = ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad")
+
+
+def chained_step_ms(step, batches, n: int) -> float:
+    """ms per step over `n` chained steps after 5 warm ones (a sync at the
+    end only)."""
+    import torch
+
+    if len(batches) < 5 + n:
+        raise ValueError(f"{len(batches)} batches for 5 + {n} steps")
+    for b in batches[:5]:
+        step(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[5:5 + n]:
+        step(b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def joint_step_vs_plain(step, batch, device):
+    """One joint step's loss and gradients (fg and bg mixtures, every
+    parameter that gets a gradient) through the training kernels and
+    through their plain versions on the same batch and noise -> (loss
+    relative difference, gradient tensors, (worst relative norm difference,
+    its tensor's name)). The plain calls are comparisons, not launches."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    def loss_and_grads():
+        for opt in (step.fg_opt, step.bg_opt):
+            opt.zero_grad(set_to_none=True)
+        loss, _, _ = step.loss(batch, torch.Generator(device=device).manual_seed(5))
+        loss.backward()
+        return loss.item(), {f"{side}.{name}": p.grad.detach().clone()
+                             for side, b in (("fg", step.fg), ("bg", step.bg))
+                             for name, p in b.module.named_parameters()
+                             if p.grad is not None}
+
+    k_loss, k_grads = loss_and_grads()
+    names = ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad")
+    saved = [getattr(ft, n) for n in names]
+    try:
+        for n in names:
+            setattr(ft, n, getattr(ft, f"{n}_plain"))
+        p_loss, p_grads = loss_and_grads()
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(ft, n, fn)
+    for opt in (step.fg_opt, step.bg_opt):
+        opt.zero_grad(set_to_none=True)
+    worst = (float("inf"), "a gradient missing on one side")
+    if set(k_grads) == set(p_grads) and p_grads:
+        worst = max((rel_err(k_grads[n], g), n) for n, g in p_grads.items())
+    return abs(k_loss - p_loss) / abs(p_loss), len(p_grads), worst
+
+
+def phase_train_mega(device, report, tmp: Path):
+    """Joint Mega-NeRF training on the card (`train.main --train_mega_nerf`):
+    `configs/mega-nerf/building.yaml` (fg and bg 8x256, 48-d appearance,
+    bf16, 1024 rays a step, 256 + 512 samples) with `serve_mega`'s K = 8
+    centroids (`params.pt`, `--grid_dim 2 4`) on `train`'s smooth 128x128
+    dataset: both mixtures under one Adam each, every submodule through the
+    training kernels on the points assigned to it (hard assignment).
+    `MEGA_TRAIN_STEPS` steps: finite metrics, the mean loss of the last 5
+    steps below the first 5's, each training kernel's launches a step
+    (equal for the three, at most 4 x K), no plain or eager-module call,
+    each pass's points per submodule summing to the pass (fg 262,144 and
+    524,288, bg 131,072 and 262,144); then ms a step over 20 chained steps
+    from the written `{iter}.pt` beside `train`'s single-model step in the
+    same phase, peak memory, and a profile of 3 steps (device busy ms a
+    step, the training kernels' share, the largest kernels). After
+    `train.main`, `eval.main --train_mega_nerf --ckpt_path` with a finite
+    PSNR; every kernel's counter is set to 0 before `train.main` and read
+    after `eval.main` (`launches_train_mega`: the 20 steps, the final
+    validation and the eval). Last, one joint step at the paper width on
+    one batch through the training kernels and through their plain
+    versions: the loss and every gradient relative 1e-2. Prints the
+    `{"training_mega": ...}` record."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+    from mega_nerf_tpu_torch.runtime.runner import Runner, batch_to_device
+
+    ds, params = tmp / "train_dataset", tmp / "mega" / "params.pt"
+    k = MEGA_GRID[0] * MEGA_GRID[1]
+    extra = TRAIN_ARGS + ["--train_iterations", str(MEGA_TRAIN_STEPS),
+                          "--train_mega_nerf", str(params)]
+    hp = config_hparams(port_train.get_train_opts, MEGA_CONFIG, ds, tmp / "mega_train",
+                        extra)
+    losses, per_step, steps = [], [], []
+    step_call = TrainStep.__call__
+
+    def recording_call(self, batch, generator=None):
+        if not steps:
+            steps.append(self)
+            self.fg.route_log, self.bg.route_log = [], []
+        before = train_counters()
+        metrics = step_call(self, batch, generator)
+        after = train_counters()
+        per_step.append({n: after[n] - before[n] for n in TRAIN_KERNELS})
+        losses.append(metrics["loss"])
+        return metrics
+
+    TrainStep.__call__ = recording_call
+    zero_all_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager_calls:
+            val = port_train.main(hp)
+            torch.cuda.synchronize()
+    finally:
+        TrainStep.__call__ = step_call
+    wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = train_counters()
+    ckpt = tmp / "mega_train" / "0" / "models" / f"{MEGA_TRAIN_STEPS}.pt"
+    e_hp = config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, ds, tmp / "mega_train_eval",
+                          ["--train_mega_nerf", str(params), "--ckpt_path", str(ckpt)])
+    with EagerCalls() as e_eager:
+        e_metrics = port_eval.main(e_hp)
+        torch.cuda.synchronize()
+    launches = kernel_launches()
+    plain_calls = train_wide_counters()["plain"]
+    for name, count in launches.items():
+        report["kernels"][name]["launches_train_mega"] = count
+    log(f"  eval.main --train_mega_nerf --ckpt_path {ckpt.name}: {e_metrics}; eager module "
+        f"calls {e_eager.count}; launches of train.main and eval.main {launches}, plain "
+        f"calls {plain_calls}")
+    loss = torch.stack(losses).float().cpu().numpy()
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    fg, bg = steps[0].fg, steps[0].bg
+    sizes = {"fg": (1024 * hp.coarse_samples, 1024 * hp.fine_samples),
+             "bg": (1024 * hp.coarse_samples // 2, 1024 * hp.fine_samples // 2)}
+    passes_ok = all(
+        len(b.route_log) == 2 * MEGA_TRAIN_STEPS and all(
+            sum(c) == sizes[side][i % 2] and len(c) == k for i, c in enumerate(b.route_log))
+        for side, b in (("fg", fg), ("bg", bg)))
+    share = {side: (np.asarray(b.route_log[-1]) / sum(b.route_log[-1])).round(4).tolist()
+             for side, b in (("fg", fg), ("bg", bg))}
+    launches_ok = all(s[n] == s[TRAIN_KERNELS[0]] and 4 <= s[n] <= 4 * k
+                      for s in per_step for n in TRAIN_KERNELS)
+    log(f"  train.main --train_mega_nerf (K = {k}): {MEGA_TRAIN_STEPS} steps + final "
+        f"validation in {wall:.2f} s, peak {run_peak:.2f} GB; loss first 5 {first:.5f} -> "
+        f"last 5 {last:.5f}; val {val}; launches a step {per_step[0]} .. {per_step[-1]} "
+        f"(at most {4 * k}); plain calls {counts['plain']}, eager module calls "
+        f"{eager_calls.count}; each pass's points per submodule sum to the pass "
+        f"{passes_ok}; the last step's fine-pass shares fg {share['fg']}, bg {share['bg']}")
+    ok = (len(loss) == MEGA_TRAIN_STEPS and np.isfinite(loss).all() and last < first
+          and launches_ok and passes_ok and plain_calls == 0
+          and eager_calls.count == e_eager.count == 0
+          and all(np.isfinite(v) for v in val.values())
+          and bool(np.isfinite(e_metrics["val/psnr"])))
+
+    # Chained steps from the written checkpoint, beside the single model's.
+    runner = Runner(config_hparams(port_train.get_train_opts, MEGA_CONFIG, ds,
+                                   tmp / "unused", extra), set_experiment_path=False)
+    runner._load_weights(ckpt)
+    step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(runner.hparams),
+                     5e-4, 0.1, MEGA_TRAIN_STEPS, runner.sphere_center,
+                     runner.sphere_radius)
+    batches = [batch_to_device(b, device) for _, b in zip(
+        range(5 + MEGA_TIMED_STEPS), runner._make_dataset().batches(
+            1024, np.random.default_rng(3)))]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mega_ms = chained_step_ms(step, batches, MEGA_TIMED_STEPS)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    single_ms = chained_step_ms(report["train_step"], report["train_batches"],
+                                MEGA_TIMED_STEPS)
+    log(f"  joint step (K = {k}): {mega_ms:.2f} ms/step over {MEGA_TIMED_STEPS} chained "
+        f"steps, peak {step_peak:.2f} GB; the single paper model's step in this phase "
+        f"{single_ms:.2f} ms ({mega_ms / single_ms:.2f}x)")
+    # Device time of a joint step by kernel, beside its unprofiled wall time.
+    rows, busy, prof_wall = kernel_times(lambda: [step(b) for b in batches[:3]], 3)
+    profile = None
+    if rows:
+        busy_step = busy / 3
+        kernel_ms = sum(ms for ms, _, name in rows if any(
+            key in name for key in ("train_fwd", "train_bwd", "weight_grad")))
+        profile = {"busy_ms": busy_step, "train_kernels_ms": kernel_ms,
+                   "busy_share": busy_step / mega_ms}
+        log(f"  joint step profile: device busy {busy_step:.2f} ms a step "
+            f"({100 * busy_step / mega_ms:.1f}% of the unprofiled {mega_ms:.2f} ms), the "
+            f"training kernels {kernel_ms:.2f} ms of it; by kernel:")
+        for ms, count, name in rows[:8]:
+            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log("  profiler: no device time recorded (the joint step's busy share not measured)")
+
+    # One joint step's loss and gradients, the kernels against the plain versions.
+    plain_loss, plain_grads, plain_worst = joint_step_vs_plain(step, batches[0], device)
+    log(f"  joint step vs the plain versions (K = {k}, 1024 rays): loss relative "
+        f"{plain_loss:.3e}, worst gradient relative {plain_worst[0]:.3e} ({plain_worst[1]}), "
+        f"{plain_grads} gradient tensors (limit {TOL})")
+    ok = ok and plain_loss <= TOL and plain_worst[0] <= TOL
+    report["training_mega"] = {
+        "config": MEGA_CONFIG, "submodules": k, "steps": MEGA_TRAIN_STEPS,
+        "train_main_s": wall, "run_peak_mem_gb": run_peak, "loss_first5": first,
+        "loss_last5": last, "val": val, "launches_per_step_first": per_step[0],
+        "launches_per_step_last": per_step[-1], "plain_calls": plain_calls,
+        "eager_calls": eager_calls.count + e_eager.count, "passes_sum_to_pass_size": passes_ok,
+        "fine_pass_share_last_step": share, "step_ms": mega_ms,
+        "single_model_step_ms": single_ms, "step_peak_mem_gb": step_peak,
+        "profile": profile, "eval_metrics": e_metrics, "launches": launches,
+        "vs_plain": {"loss_rel": plain_loss, "grad_rel_worst": plain_worst[0],
+                     "grad_worst": plain_worst[1], "grad_tensors": plain_grads}}
+    return bool(ok)
+
+
 def weight_grad_boxes(plan, c: int) -> int:
     """64-column boxes one point row of cluster c brings in through TMA
     (weight_grad.cu's producer: a shared operand's boxes are loaded once for
@@ -2427,6 +2927,23 @@ def zero_train_wide_counters() -> None:
         getattr(ftw, k).launches = 0
     for fn in train_wide_plains():
         fn.calls = 0
+
+
+def zero_all_counters() -> None:
+    """Zero every kernel's launch count and every plain version's calls."""
+    zero_train_wide_counters()
+
+
+def kernel_launches():
+    """{kernel: launches so far} for every kernel of `KERNELS`."""
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    module = {"fused_nerf_eval": fused_mlp, **dict.fromkeys(TRAIN_KERNELS, ft),
+              **dict.fromkeys(WIDE_KERNELS, fw), **dict.fromkeys(TRAIN_WIDE_KERNELS, ftw)}
+    return {name: getattr(module[name], name).launches for name, _, _ in KERNELS}
 
 
 def train_wide_plains():
@@ -3654,7 +4171,8 @@ def main() -> int:
 
     report = {"kernels": {name: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "library_ms": None} for name, source, replaces in KERNELS}}
+        "library_ms": None, "launches_serve_routed": None, "launches_train_mega": None}
+        for name, source, replaces in KERNELS}}
     ok = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phases = (
@@ -3665,10 +4183,12 @@ def main() -> int:
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
             ("serve_mega", lambda: phase_serve_mega(device, report, Path(tmp))),
             ("bake", lambda: phase_bake(device, report, Path(tmp))),
+            ("serve_routed", lambda: phase_serve_routed(device, report, Path(tmp))),
             ("serve_dense", lambda: phase_serve_dense(device, report, Path(tmp))),
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
             ("train_cells", lambda: phase_train_cells(device, report, Path(tmp))),
+            ("train_mega", lambda: phase_train_mega(device, report, Path(tmp))),
             ("train_wide", lambda: phase_train_wide(device, report, Path(tmp))),
             ("time", lambda: phase_time(device, report)),
             ("time_dense", lambda: phase_time_dense(device, report)),
@@ -3692,7 +4212,8 @@ def main() -> int:
         return 1
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_serve_routed", "launches_train_mega")
     kernels = [{k: entry[k] for k in keys} for entry in report["kernels"].values()]
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
                                       "render_rgb_diff", "eval_chunk_ms",
@@ -3709,6 +4230,8 @@ def main() -> int:
     log(json.dumps({"remat": report["remat"]}))
     log(json.dumps({"training_cells": report["training_cells"]}))
     log(json.dumps({"baking": report["baking"]}))
+    log(json.dumps({"serving_routed": report["serving_routed"]}))
+    log(json.dumps({"training_mega": report["training_mega"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Eval entry point: `python -m mega_nerf_tpu_torch.eval --config_file ...
 --dataset_path ... --ckpt_path ... --exp_name ...`, or with
 `--container_path <merged container>` in place of `--ckpt_path` to serve a
-Mega-NeRF mixture.
+Mega-NeRF mixture, or with `--train_mega_nerf params.pt` to serve the
+jointly trained mixture of `--ckpt_path` (densely or routed, by
+`--mega_routing`).
 
 Counterpart of the JAX package's `eval.py`. Runs on `--device` (default
 cuda; cuda without a card raises). `--occupancy_path <occupancy or octree

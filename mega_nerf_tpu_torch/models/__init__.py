@@ -8,7 +8,14 @@ from mega_nerf_tpu_torch.models.factory import (
     make_nerf,
     nerf_config_from_hparams,
 )
-from mega_nerf_tpu_torch.models.mega import cluster_weights, mega_apply
+from mega_nerf_tpu_torch.models.mega import (
+    cluster_weights,
+    mega_apply,
+    mega_apply_ray_routed,
+    mega_apply_routed,
+    ray_route_capacity,
+    ray_route_plan,
+)
 from mega_nerf_tpu_torch.models.nerf import (
     NeRF,
     NeRFConfig,
@@ -26,6 +33,10 @@ __all__ = [
     "ModelBundle",
     "cluster_weights",
     "mega_apply",
+    "mega_apply_ray_routed",
+    "mega_apply_routed",
+    "ray_route_capacity",
+    "ray_route_plan",
     "make_bg_nerf",
     "make_nerf",
     "nerf_config_from_hparams",

@@ -33,7 +33,6 @@ from torch import nn
 
 from mega_nerf_tpu_torch.models.factory import (
     ModelBundle,
-    check_mixture_route,
     nerf_config_from_hparams,
 )
 from mega_nerf_tpu_torch.models.nerf import NeRF, NeRFConfig
@@ -190,7 +189,6 @@ def container_to_bundles(data: ContainerData, hparams: Namespace
     container's own need_viewdir / need_appearance_embedding win over the
     command line's defaults."""
     routing = getattr(hparams, "mega_routing", "auto")
-    check_mixture_route(routing, len(data.centroids))
 
     bundles = []
     for _, states, xyz_dim, layer_dim in _sides(data, hparams):

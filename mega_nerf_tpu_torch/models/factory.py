@@ -1,20 +1,22 @@
 """Model factory: build foreground/background NeRF bundles from hparams.
 
 Counterpart of the JAX package's `models/factory.py`: a single NeRF, the
-coarse/fine cascade (`--use_cascade`, `models/cascade.py`), or a merged
-Mega-NeRF mixture loaded from `--container_path` (`models/container.py`;
-K NeRFs blended densely by `models/mega.py`, eval only). Joint mixture
-training (`--train_mega_nerf`) and the routed mixture forms
-(`--mega_routing routed|ray`, and `auto` past 32 submodules, where the JAX
-package routes) raise `NotImplementedError`.
+coarse/fine cascade (`--use_cascade`, `models/cascade.py`), a merged
+Mega-NeRF mixture loaded from `--container_path` (`models/container.py`),
+or the mixture of `--train_mega_nerf` (its centroid metadata on
+`hparams._mega_centroid_metadata`: K fresh NeRFs, hard assignment, trained
+jointly). A mixture blends its K NeRFs by `models/mega.py`: densely, per
+point routed (`--mega_routing routed`, and `auto` past 32 submodules) or per
+ray routed (`--mega_routing ray`, where the Runner gives per-ray supports).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from argparse import Namespace
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -44,8 +46,8 @@ def nerf_config_from_hparams(
     )
 
 
-# Mixtures of more submodules than this are routed by the JAX package under
-# `--mega_routing auto` (its `ModelBundle.use_routed`).
+# `--mega_routing auto` routes mixtures of more submodules than this per
+# point, as the JAX package's `ModelBundle.use_routed` does.
 AUTO_ROUTED_ABOVE = 32
 
 
@@ -73,15 +75,50 @@ class ModelBundle:
     xyz_real: bool = False
     routing: str = "auto"
     routing_max_experts: int = 4
+    # Rows each submodule evaluated in each routed pass (points, or rays
+    # under ray routing), appended while this is a list.
+    route_log: Optional[List[List[int]]] = None
 
     @property
     def is_mega(self) -> bool:
         return self.centroids is not None
 
     @property
+    def use_routed(self) -> bool:
+        """Per-point routed blend (`mega_apply_routed`): `routed`, or `auto`
+        past `AUTO_ROUTED_ABOVE` submodules."""
+        if not self.is_mega:
+            return False
+        if self.routing == "auto":
+            return int(self.centroids.shape[0]) > AUTO_ROUTED_ABOVE
+        return self.routing == "routed"
+
+    @property
+    def use_ray_routed(self) -> bool:
+        """Ray-routed serving (`mega_apply_ray_routed`): the Runner builds
+        the per-ray supports; elsewhere the blend stays dense."""
+        return self.is_mega and self.routing == "ray"
+
+    @property
+    def max_experts(self) -> int:
+        """Submodules a point keeps under the routed blend: 1 at margin 1."""
+        return 1 if self.boundary_margin == 1 else int(self.routing_max_experts)
+
+    @property
     def eval_submodule_cost(self) -> int:
-        """MLP evaluations per point at query time: K for the dense blend."""
-        return int(self.centroids.shape[0]) if self.is_mega else 1
+        """MLP evaluations per point at query time: min(M, K) routed, else K."""
+        if not self.is_mega:
+            return 1
+        k = int(self.centroids.shape[0])
+        return min(self.max_experts, k) if self.use_routed else k
+
+    def to(self, device) -> "ModelBundle":
+        """Move the module, and a mixture's centroids (read by every routed
+        or blended pass), to `device`."""
+        self.module.to(device)
+        if self.centroids is not None:
+            self.centroids = self.centroids.to(device)
+        return self
 
     def level(self, typ: str) -> NeRF:
         """The module that evaluates sampling level `typ` ("coarse" or
@@ -91,25 +128,21 @@ class ModelBundle:
         return self.module.level(typ) if self.cascade else self.module
 
 
-def check_mixture_route(routing: str, submodules: int) -> None:
-    """Raise for the mixture forms the port does not run: the JAX package's
-    routed forms can differ from the dense blend (they keep at most
-    `routing_max_experts` submodules a point), so none runs dense here."""
-    if routing in ("routed", "ray") or (routing == "auto"
-                                        and submodules > AUTO_ROUTED_ABOVE):
-        raise NotImplementedError(
-            f"--mega_routing {routing} with {submodules} submodules: the routed "
-            "mixture forms are not ported yet (ROADMAP.md A.3, routed mixtures); "
-            "--mega_routing dense runs the dense blend")
-
-
 def _make_bundle(hparams: Namespace, appearance_count: int, layer_dim: int,
                  xyz_dim: int) -> ModelBundle:
-    if getattr(hparams, "train_mega_nerf", None) is not None:
-        raise NotImplementedError(
-            "--train_mega_nerf: joint mixture training is not ported yet "
-            "(ROADMAP.md A.3, joint mixture training)")
     cfg = nerf_config_from_hparams(hparams, appearance_count, layer_dim, xyz_dim)
+    meta = getattr(hparams, "_mega_centroid_metadata", None)
+    if meta is not None:
+        # Joint mixture training (--train_mega_nerf): K NeRFs, hard
+        # assignment; a background mixture routes on the real-world
+        # coordinates its input carries first.
+        centroids = torch.as_tensor(np.asarray(meta["centroids"], np.float32))
+        return ModelBundle(
+            module=nn.ModuleList(NeRF(cfg) for _ in range(centroids.shape[0])),
+            config=cfg, centroids=centroids, boundary_margin=1.0,
+            cluster_dim_start=1 if bool(meta["cluster_2d"]) else 0,
+            xyz_real=xyz_dim == 4, routing=getattr(hparams, "mega_routing", "auto"),
+            routing_max_experts=getattr(hparams, "routing_max_experts", 4))
     if getattr(hparams, "use_cascade", False):
         return ModelBundle(module=Cascade(cfg), config=cfg, cascade=True)
     return ModelBundle(module=NeRF(cfg), config=cfg)

@@ -9,9 +9,12 @@ CLI flags override the file.
 Added here: `--device` (default `cuda`). Flags of JAX-package features the
 port has not reached yet are still accepted so every shipped config
 parses. Where the feature would change the result, setting the flag
-raises `NotImplementedError`: `--train_mega_nerf`, and `--mega_routing
-routed|ray` (and `auto` past 32 submodules) with a container (ROADMAP.md
-A.3). `--cell_axis` and `--data_axis` above 1 describe a device mesh:
+raises `NotImplementedError`: training with `--container_path` (the JAX
+Runner ignores the container's weights there; ROADMAP.md C).
+`--train_mega_nerf` (joint mixture training) and `--mega_routing
+dense|routed|ray|auto` with `--routing_max_experts` and
+`--ray_routing_gate` act as in the JAX package (`auto` routes per point
+past 32 submodules). `--cell_axis` and `--data_axis` above 1 describe a device mesh:
 `train_cells` trains every cell in one process on one device and raises
 for them (multi-process training is ROADMAP.md A.4). `--occupancy_path`
 (with `--occupancy_thresh`, `_dilate`, `_probes`, `_mode`), `--no_cell_cull`

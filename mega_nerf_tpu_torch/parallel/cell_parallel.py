@@ -15,8 +15,9 @@ step over it. Here the K cells are K independent states:
   (a cell whose rows hold no background ray leaves its bg parameters,
   Adam state and schedule as they were).
 
-`cell_states_from_flax` carries the JAX package's stacked cell parameters
-across: one reference-named state dict per cell.
+`mixture_states_from_flax` carries the JAX package's stacked cell or
+mixture parameters across: one reference-named state dict per cell or
+submodule.
 """
 
 from __future__ import annotations
@@ -106,9 +107,11 @@ def _take(tree, cell: int):
     return np.asarray(tree)[cell]
 
 
-def cell_states_from_flax(cfg: NeRFConfig, stacked_params: Mapping, num_cells: int,
-                          cascade: bool = False) -> List[Dict[str, torch.Tensor]]:
-    """The JAX package's stacked cell parameters (a `make_cell_train_state`
-    params tree as numpy, leading axis = cell) -> K state dicts of the port."""
+def mixture_states_from_flax(cfg: NeRFConfig, stacked_params: Mapping, k: int,
+                             cascade: bool = False) -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's stacked parameters (a params tree as numpy, leading
+    axis K: the cells of `make_cell_train_state`, or the submodules of a
+    `--train_mega_nerf` mixture) -> K state dicts of the port."""
     return [state_from_flax_params(cfg, _take(stacked_params, c), cascade)
-            for c in range(num_cells)]
+            for c in range(k)]
+

@@ -9,8 +9,12 @@ Counterpart of the JAX package's `parallel/train_step.py` for one process:
   (`coarse_loss`, `distortion`), `loss`;
 - `torch.optim.Adam` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
   over the module's parameters in state-dict order (a cascade's coarse
-  level, then its fine level), its learning rate `lr * decay^(t / T)`
-  applied per step by a `LambdaLR`;
+  level, then its fine level; a mixture's K submodules in order, one Adam
+  for all of them), its learning rate `lr * decay^(t / T)` applied per
+  step by a `LambdaLR`. A parameter the step did not reach (a mixture's
+  submodule that got no point) gets a zero gradient, as optax applies one:
+  its moments decay and momentum still moves it, where `torch.optim.Adam`
+  would skip it and hold back its step count;
 - the background step is skipped when the batch holds no background ray:
   its parameters, Adam state and schedule stay as they were.
 """
@@ -143,12 +147,23 @@ class TrainStep:
         loss, metrics, bg_present = self.loss(batch, generator)
         bg_present = _host_flag(bg_present)
         loss.backward()
+        for opt in (self.fg_opt, self.bg_opt):
+            if opt is not None:
+                _zero_missing_grads(opt)
         self.fg_opt.step()
         self.fg_sched.step()
         if self.bg_opt is not None and bg_present():
             self.bg_opt.step()
             self.bg_sched.step()
         return metrics
+
+
+def _zero_missing_grads(opt: torch.optim.Optimizer) -> None:
+    """Give every parameter of `opt` without a gradient a zero one."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def _host_flag(flag: torch.Tensor):

@@ -34,21 +34,24 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   (`--remat`) the eager module's activations are recomputed in the
   backward pass (`torch.utils.checkpoint`, as `jax.checkpoint` in the JAX
   package); the fused routes ignore it, as the JAX Pallas route does;
-- Mega-NeRF mixtures (eval only): routing weights from the first three
-  columns of the points (`models/mega.py::cluster_weights`; a mixture
-  background gets real-world routing coordinates prepended by
-  `depth2pts_outside`), then every submodule through the route a single
-  model of its architecture takes, on its own packed weights, blended
-  densely (`mega_apply`). The JAX package sends every mixture to XLA; the
-  kernel route here gives the same output to the kernels' tolerance.
+- Mega-NeRF mixtures: routing weights from the first three columns of the
+  points (`models/mega.py::cluster_weights`; a mixture background gets
+  real-world routing coordinates prepended by `depth2pts_outside`), then
+  each submodule through the route a single model of its architecture
+  takes, on its own packed weights: blended densely (`mega_apply`), per
+  point routed (`mega_apply_routed`, `--mega_routing routed` or `auto` past
+  32 submodules), or, for the fg mixture of a view with per-ray supports
+  (`fg_ray_support`), per ray routed (`mega_apply_ray_routed`). In train
+  mode each submodule runs the training kernels on the points assigned to
+  it (`mega_apply_routed`: at margin 1 the one-hot blend, exactly). The JAX
+  package sends every mixture to XLA; the kernel route here gives the same
+  output to the kernels' tolerance.
 
 - occupancy-tightened fg intervals (`fg_bounds`, `render/ray_bounds.py`)
   and exact per-chunk cell culling of a fg mixture (`fg_active`,
   `render/cell_cull.py`), as the JAX package's `render_rays`;
 - `query_points`, the MLP route of every pass, also serves the octree
   bake's point probes (`scripts/create_octree.py`).
-
-Not ported yet: the routed mixture forms and training a mixture.
 """
 
 from __future__ import annotations
@@ -60,7 +63,13 @@ import torch
 import torch.utils.checkpoint
 
 from mega_nerf_tpu_torch.models.factory import ModelBundle
-from mega_nerf_tpu_torch.models.mega import cluster_weights, mega_apply
+from mega_nerf_tpu_torch.models.mega import (
+    cluster_weights,
+    mega_apply,
+    mega_apply_ray_routed,
+    mega_apply_routed,
+    ray_route_experts,
+)
 from mega_nerf_tpu_torch.models.nerf import direction_coords
 from mega_nerf_tpu_torch.ops.compositing import (
     composite_weights,
@@ -191,6 +200,7 @@ def query_points(
     *,
     samples: int = 1,
     active: Optional[Sequence[int]] = None,
+    ray_experts: Optional[Sequence[Tuple[int, torch.Tensor]]] = None,
     sigma_only: bool = False,
     train: bool = False,
     noise: Optional[torch.Tensor] = None,
@@ -212,9 +222,12 @@ def query_points(
 
     `image_indices` holds one appearance index for every `samples`
     consecutive points (the renderer passes one per ray). A mixture blends
-    its submodules by routing weights over all K centroids (`mega_apply`),
-    running only the submodules in `active` when given
-    (`render/cell_cull.py`: exact)."""
+    its submodules by routing weights over all K centroids: densely
+    (`mega_apply`), running only the submodules in `active` when given
+    (`render/cell_cull.py`: exact); per point routed when the bundle routes
+    (`use_routed`) and always in train mode, where `noise` (one value a
+    point) is gathered with the points; per ray routed over `ray_experts`
+    (`models/mega.py::ray_route_experts`, eval only)."""
     cfg = bundle.config
     if sigma_only:
         if dirs is None and cfg.pos_dir_dim > 0:
@@ -236,47 +249,75 @@ def query_points(
         + mixture
     )
 
-    def run(sub: Optional[int], points: torch.Tensor) -> torch.Tensor:
+    def run(sub: Optional[int], points: torch.Tensor, d: Optional[torch.Tensor],
+            indices: Optional[torch.Tensor], per: int, nz: Optional[torch.Tensor],
+            ray_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The MLP of level `typ` (of a mixture: of submodule `sub`) on
-        `points` (P, cfg.xyz_dim) -> (P, rgb_dim + 1)."""
+        `points` (P, cfg.xyz_dim) with dirs `d` (P, 3), one appearance
+        index in `indices` for every `per` points (or, for routed points,
+        the index in row `ray_rows` of `indices`) and sigma noise `nz` ->
+        (P, rgb_dim + 1)."""
         module = bundle.level(typ) if sub is None else bundle.module[sub]
         if fused:
-            coords = None if dirs is None else \
-                direction_coords(cfg, points, dirs).float().contiguous()
+            coords = None if d is None else \
+                direction_coords(cfg, points, d).float().contiguous()
             app = None
             if cfg.appearance_dim > 0:
-                app = module.appearance(image_indices)  # one row per index
+                # One row per index (per ray), then spread over the points: a
+                # lookup per point would sum each table row's gradient over
+                # every point of its image one after another.
+                app = module.appearance(indices)
                 if train:
                     app = app.float()  # bf16-exact f32 rows; grads sum in f32
-                app = app[:, None].expand(app.shape[0], samples, app.shape[-1])
+                if ray_rows is not None:
+                    app = app[ray_rows]
+                else:
+                    app = app[:, None].expand(app.shape[0], per, app.shape[-1])
                 app = app.reshape(points.shape[0], -1).contiguous()
             if train:
-                return fused_nerf_train_apply(module, points, coords, app, noise)
+                return fused_nerf_train_apply(module, points, coords, app, nz)
             if wide:
                 return fused_nerf_eval_wide(packed_params(bundle, typ, sub), points,
                                             coords, app)
             return fused_nerf_eval(packed_params(bundle, typ, sub), points, coords, app)
         idx = None
         if cfg.appearance_dim > 0:
-            idx = image_indices[:, None].expand(-1, samples).reshape(points.shape[0])
+            idx = indices[ray_rows] if ray_rows is not None else \
+                indices[:, None].expand(-1, per).reshape(points.shape[0])
         if settings.remat and torch.is_grad_enabled():
             # The noise is drawn by the caller, so the recompute sees the same.
             return torch.utils.checkpoint.checkpoint(
-                module, points, dirs, idx, noise, use_reentrant=False)
-        return module(points, dirs, idx, noise)
+                module, points, d, idx, nz, use_reentrant=False)
+        return module(points, d, idx, nz)
 
-    if bundle.is_mega:
-        if train:
-            raise NotImplementedError(
-                "training a mixture is not ported yet (ROADMAP.md A.3, joint "
-                "mixture training)")
+    def take(t: Optional[torch.Tensor], rows: torch.Tensor) -> Optional[torch.Tensor]:
+        return None if t is None else t[rows].contiguous()
+
+    out_dim = cfg.rgb_dim + 1
+    if not bundle.is_mega:
+        out = run(None, flat_xyz, dirs, image_indices, samples, noise)
+    else:
         # [routing xyz | model input] for a background mixture.
         points = flat_xyz[:, 3:].contiguous() if bundle.xyz_real else flat_xyz
         weights = cluster_weights(flat_xyz[:, :3], bundle.centroids,
                                   bundle.boundary_margin, bundle.cluster_dim_start)
-        out = mega_apply(lambda k: run(k, points), weights, active)
-    else:
-        out = run(None, flat_xyz)
+        if ray_experts is not None and not train:
+            out = mega_apply_ray_routed(
+                lambda k, rows, rays: run(k, points[rows], take(dirs, rows),
+                                          take(image_indices, rays), samples, None),
+                weights, ray_experts, samples, out_dim, log=bundle.route_log)
+        elif train or bundle.use_routed:
+            # A trained mixture is hard-assigned (margin 1): M = 1.
+            out = mega_apply_routed(
+                lambda k, rows: run(
+                    k, points[rows], take(dirs, rows), image_indices, 1,
+                    take(noise, rows),
+                    torch.div(rows, samples, rounding_mode="floor")),
+                weights, bundle.max_experts, out_dim, log=bundle.route_log)
+        else:
+            out = mega_apply(
+                lambda k: run(k, points, dirs, image_indices, samples, None),
+                weights, active)
     return out[:, -1:] if sigma_only else out
 
 
@@ -290,11 +331,12 @@ def _model_eval(
     train: bool,
     generator: Optional[torch.Generator],
     active: Optional[Sequence[int]] = None,
+    ray_experts: Optional[Sequence[Tuple[int, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate level `typ`'s MLP on all samples (`query_points`) ->
     (rgbs (N, S, 3), sigmas (N, S)); with `sh_deg` the SH coefficients
-    become rgb here. A mixture blends its submodules (eval only), only
-    those in `active` when given."""
+    become rgb here. A mixture runs only the submodules in `active` when
+    given, or routes the rays over `ray_experts` (eval)."""
     cfg = bundle.config
     n, s, d = xyz.shape
     dirs = None
@@ -309,8 +351,8 @@ def _model_eval(
         noise = noise.to(cfg.dtype).float()
 
     out = query_points(bundle, typ, settings, xyz.reshape(n * s, d), dirs,
-                       image_indices, samples=s, active=active, train=train,
-                       noise=noise)
+                       image_indices, samples=s, active=active,
+                       ray_experts=ray_experts, train=train, noise=noise)
     if settings.sh_deg is not None:
         k = (settings.sh_deg + 1) ** 2
         coeffs = out[:, :3 * k].reshape(n * s, 3, k)
@@ -341,10 +383,12 @@ def _inference(
     train: bool,
     generator: Optional[torch.Generator],
     active: Optional[Sequence[int]] = None,
+    ray_experts: Optional[Sequence[Tuple[int, torch.Tensor]]] = None,
 ) -> None:
     """One sampling level: MLP eval + (optional coarse merge) + compositing.
     The coarse raw outputs are stashed in `results` and merged into the
-    fine pass. `active`: a mixture's submodules to run (`mega_apply`)."""
+    fine pass. `active`: a mixture's submodules to run (`mega_apply`);
+    `ray_experts`: its per-ray routing (`mega_apply_ray_routed`)."""
     merge_prev = "zvals_coarse" in results
 
     if flip and not merge_prev:
@@ -354,7 +398,7 @@ def _inference(
             depth_real = torch.flip(depth_real, dims=(-1,))
 
     rgbs, sigmas = _model_eval(bundle, typ, settings, xyz, rays_d,
-                               image_indices, train, generator, active)
+                               image_indices, train, generator, active, ray_experts)
 
     if merge_prev:
         # A stable sort of the union: serves both of the JAX package's
@@ -428,6 +472,7 @@ def _get_results(
     train: bool,
     generator: Optional[torch.Generator],
     active: Optional[Sequence[int]] = None,
+    ray_experts: Optional[Sequence[Tuple[int, torch.Tensor]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Coarse pass + hierarchical fine pass. Under the cascade the coarse
     pass composites its own rgb (and bg_lambda) and the fine level
@@ -453,6 +498,7 @@ def _get_results(
         train=train,
         generator=generator,
         active=active,
+        ray_experts=ray_experts,
     )
     if fine_samples == 0:
         return results
@@ -490,6 +536,7 @@ def _get_results(
         train=train,
         generator=generator,
         active=active,
+        ray_experts=ray_experts,
     )
     for k in ("zvals_coarse", "raw_rgb_coarse", "raw_sigma_coarse",
               "depth_real_coarse"):
@@ -509,6 +556,7 @@ def render_rays(
     generator: Optional[torch.Generator] = None,
     fg_bounds: Optional[torch.Tensor] = None,  # (N, 2)
     fg_active: Optional[Sequence[int]] = None,
+    fg_ray_support=None,  # (N, K) bool, numpy or tensor
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Render a batch of rays -> (results, bg_rays_present (bool scalar
     tensor)). Results carry `rgb_fine`, `depth_fine` (with `get_depth`),
@@ -521,8 +569,12 @@ def render_rays(
     (`render/ray_bounds.tighten_rays`); the fg samples span
     [max(near, lo), max(min(far, hi), near)]. `fg_active`: a fg mixture's
     submodules that can have nonzero weight on these rays
-    (`render/cell_cull.py`); the others are not run. The bg mixture is
-    never culled."""
+    (`render/cell_cull.py`); the others are not run. `fg_ray_support`:
+    which cells (columns) each ray's fg samples can route to
+    (`cell_cull.ray_support_masks`, a superset); a fg mixture then routes
+    whole rays to their supported cells
+    (`mega_apply_ray_routed`; eval only, as in the JAX package). The bg
+    mixture is never culled or ray-routed."""
     n_rays = rays.shape[0]
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
@@ -597,6 +649,9 @@ def render_rays(
     z_vals = expand_and_perturb_z_vals(z_vals, perturb, jitter)
     xyz_coarse = rays_o3 + rays_d3 * z_vals[..., None]
 
+    fg_experts = None
+    if fg_ray_support is not None and fg.is_mega and not train:
+        fg_experts = ray_route_experts(fg_ray_support, rays.device)
     results = _get_results(
         fg, settings, rays_d3, image_indices, xyz_coarse, z_vals, last_delta,
         get_depth=settings.get_depth,
@@ -608,6 +663,7 @@ def render_rays(
         train=train,
         generator=jitter,
         active=fg_active,
+        ray_experts=fg_experts,
     )
 
     if bg is not None:

@@ -21,16 +21,22 @@
   one; `--no_resume_ckpt_state` restarts the stream;
 - `make_eval_state` loads a reference-format `{iter}.pt` (--ckpt_path);
   checkpoints carry each module's state dict as it is, so a cascade's
-  hold the reference's `coarse.*` / `fine.*` keys. With --container_path
-  the fg and bg models are the merged container's mixtures, which hold
-  their weights already (a container without bg submodules gets no bg
-  model);
+  hold the reference's `coarse.*` / `fine.*` keys and a mixture's its
+  submodules' under `0.`, `1.`, .... With --container_path the fg and bg
+  models are the merged container's mixtures, which hold their weights
+  already (a container without bg submodules gets no bg model);
+- `--train_mega_nerf params.pt` (a `create_cluster_masks` centroid file)
+  makes fg and bg mixtures of K NeRFs with hard assignment, trained
+  jointly under one Adam per side (each submodule through the training
+  kernels on the points assigned to it) and served by `--mega_routing`;
 - `render_image` renders a whole view in chunks bounded by an 8M-point
   budget per MLP pass (under the cascade the fine pass has coarse + fine
   points a ray), with occupancy-tightened fg intervals
   (--occupancy_path, `render/ray_bounds.py`) and, for a fg mixture,
   exact per-chunk cell culling (on unless --no_cell_cull,
-  `render/cell_cull.py`), as `_view_plan` decides;
+  `render/cell_cull.py`) or, with `--mega_routing ray`, per-ray routing
+  behind the JAX Runner's cost gate (`--ray_routing_gate`), as
+  `_view_plan` decides;
 - `_run_validation` scores PSNR/SSIM, and LPIPS for every net with a
   weight file, on the right half of each val view (the half excluded from
   training) and writes gt | pred | depth panels.
@@ -40,9 +46,10 @@ With `--cluster_mask_path` the masks' `params.pt` must describe the scene
 of every cell, trained in one process, is `runtime/cell_runner.py`.
 
 Everything runs on `--device` (default cuda). Asking for cuda without a
-card raises; nothing falls back to the CPU. Not ported yet, and raising:
-training a mixture and the routed mixture forms (ROADMAP.md A.3). Not
-ported yet: multi-process training and validation (A.4).
+card raises; nothing falls back to the CPU. Training from --container_path
+raises (the JAX Runner trains a fresh mixture there and ignores the
+container's weights: ROADMAP.md C). Not ported yet: multi-process
+training, validation and rendering (A.4).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from mega_nerf_tpu_torch.models.factory import (
     make_bg_nerf,
     make_nerf,
 )
+from mega_nerf_tpu_torch.models.mega import ray_route_plan
 from mega_nerf_tpu_torch.models.nerf import init_weights
 from mega_nerf_tpu_torch.models.weights import strip_module_prefix
 from mega_nerf_tpu_torch.ops.lpips import LPIPS, load_available
@@ -136,12 +144,14 @@ class ViewPlan:
     are in the permuted ray order."""
 
     cull: bool = False  # run each chunk's active fg submodules only
+    ray: bool = False  # route each chunk's rays by their support rows
+    ray_eff: Optional[int] = None  # the image-level plan's submodules per ray
     tighten: Optional[Callable[[np.ndarray], np.ndarray]] = None  # occupancy bounds
     order: Optional[np.ndarray] = None  # ray permutation (tiles or support sets)
     fg_bounds: Optional[np.ndarray] = None  # (n, 2), when computed up front
     cull_rays: Optional[np.ndarray] = None  # fg-clamped, bound-shrunk rays
     image_mask: Optional[np.ndarray] = None  # (K,) image-level active set
-    ray_masks: Optional[np.ndarray] = None  # (n, K) per-ray support sets
+    ray_masks: Optional[np.ndarray] = None  # (n, K) per-ray support sets (cull or ray)
     routing: Tuple = ()  # (centroids (K, 3), margin, cluster_dim_start)
 
     def active(self, start: int, stop: int) -> Optional[List[int]]:
@@ -305,6 +315,8 @@ class Runner:
         min_position = camera_positions.min(axis=0)
         max_position = camera_positions.max(axis=0)
 
+        if getattr(hparams, "train_mega_nerf", None) is not None:
+            hparams._mega_centroid_metadata = load_pt(hparams.train_mega_nerf)
         self.fg = make_nerf(hparams, len(self.train_items))
         self.bg: Optional[ModelBundle] = None
         self.sphere_center = None
@@ -339,7 +351,7 @@ class Runner:
 
         for b in (self.fg, self.bg):
             if b is not None:
-                b.module.to(self.device).eval()
+                b.to(self.device).module.eval()
 
     def _check_cluster_params(self, path: Path) -> None:
         """The masks' `params.pt` must describe this scene: the same near
@@ -366,10 +378,11 @@ class Runner:
         """Train; returns the final validation metrics ({} with a cluster
         mask)."""
         hp = self.hparams
-        if self.fg.is_mega:
+        if getattr(hp, "container_path", None) is not None:
             raise NotImplementedError(
-                "training a merged mixture is not ported yet (ROADMAP.md A.3, "
-                "joint mixture training)")
+                "training from --container_path: the JAX Runner trains a freshly "
+                "initialised mixture there and ignores the container's weights, "
+                "which is an open check, not ported (ROADMAP.md C)")
         self._setup_experiment_dir()
         init_weights(self.fg.module, torch.Generator().manual_seed(hp.random_seed))
         if self.bg is not None:
@@ -636,22 +649,32 @@ class Runner:
         gates, so both packages take the same path on the same view.
 
         - Occupancy bounds (--occupancy_path): for the whole view up front
-          when culling (they shrink the cull boxes), else per chunk.
-        - Culling (a fg mixture of K > 1 unless --no_cell_cull): the
-          image-level active set from the rays clamped to the fg ellipsoid
-          and shrunk by the bounds; with a full set and no bounds the
-          per-chunk boxes never shrink, so the culled path is off. With
-          bounds, per-ray support masks ANDed with the image set; the path
-          engages only if the mean power-of-two-bucketed support is at
-          most 0.7 K (the JAX gate, kept for the same decision), and then
-          the rays are grouped by support set (`support_order`); else a
-          full frame goes in square tiles (`tile_order`)."""
+          when culling or ray routing (they shrink the cull boxes and the
+          supports), else per chunk.
+        - Ray routing (a fg mixture of K > 1 under --mega_routing ray):
+          per-ray support sets over the rays clamped to the fg ellipsoid
+          and shrunk by the bounds; the image-level `ray_route_plan`
+          costs eff = ceil(Kv * capacity / n) submodule evaluations a ray,
+          and the path engages only if eff is at most --ray_routing_gate x
+          K (the JAX gate, kept for the same decision). Then the rays are
+          grouped by support set (`support_order`) and each chunk's rays
+          route by their own support rows. It excludes culling.
+        - Culling (a dense fg mixture of K > 1 unless --no_cell_cull; not
+          per-point routed ones): the image-level active set from the
+          clamped, shrunk rays; with a full set and no bounds the per-chunk
+          boxes never shrink, so the culled path is off. With bounds,
+          per-ray support masks ANDed with the image set; the path engages
+          only if the mean power-of-two-bucketed support is at most 0.7 K
+          (the JAX gate, kept for the same decision), and then the rays are
+          grouped by support set (`support_order`); else a full frame goes
+          in square tiles (`tile_order`)."""
         hp = self.hparams
         k = len(self.fg.module) if self.fg.is_mega else 1
+        use_ray = self.fg.use_ray_routed and k > 1
         plan = ViewPlan(cull=bool(getattr(hp, "cell_cull", True) and self.fg.is_mega
-                                  and k > 1))
+                                  and not self.fg.use_routed and not use_ray and k > 1))
         occ = self._get_occupancy()
-        if not plan.cull and occ is None:
+        if not (plan.cull or use_ray) and occ is None:
             return plan
         rays_np = rays.cpu().numpy()
         center = radius = None
@@ -665,35 +688,44 @@ class Runner:
                 probes=int(getattr(hp, "occupancy_probes", 128)),
                 sphere_center=center, sphere_radius=radius,
                 mode=str(getattr(hp, "occupancy_mode", "near")))
-        if not plan.cull:
+        if not (plan.cull or use_ray):
             return plan
 
         plan.routing = (self.fg.centroids.cpu().numpy().astype(np.float32),
                         self.fg.boundary_margin, self.fg.cluster_dim_start)
         if plan.tighten is not None:
             plan.fg_bounds = plan.tighten(rays_np)
-        # Cull boxes end at the fg ellipsoid exit, not the (bg-owned) ray
-        # far: only the mask math sees the clamp.
+        # Cull boxes and supports end at the fg ellipsoid exit, not the
+        # (bg-owned) ray far: only the mask math sees the clamp.
         cull_rays = clamp_rays_to_fg(rays_np, center, radius)
         if plan.fg_bounds is not None:
             cull_rays[:, 6] = np.maximum(cull_rays[:, 6], plan.fg_bounds[:, 0])
             cull_rays[:, 7] = np.minimum(cull_rays[:, 7], plan.fg_bounds[:, 1])
             cull_rays[:, 7] = np.maximum(cull_rays[:, 7], cull_rays[:, 6])
-        plan.image_mask = active_cells(cull_rays, *plan.routing)
-        if plan.fg_bounds is None and plan.image_mask.all():
-            plan.cull = False
-            return plan
-        if plan.fg_bounds is not None:
+        if use_ray:
             masks = ray_support_masks(cull_rays, *plan.routing)
-            masks &= plan.image_mask[None, :]
-            buckets = 2 ** np.ceil(np.log2(np.maximum(masks.sum(1), 1)))
-            if float(buckets.mean()) / k > SUPPORT_GATE:
+            _, cells, cap = ray_route_plan(masks)
+            plan.ray_eff = max(1, -(-len(cells) * int(cap) // max(rays_np.shape[0], 1)))
+            if plan.ray_eff / k > float(getattr(hp, "ray_routing_gate", 0.45)):
+                return plan
+            plan.ray, plan.ray_masks = True, masks
+            plan.order = support_order(masks)
+        else:
+            plan.image_mask = active_cells(cull_rays, *plan.routing)
+            if plan.fg_bounds is None and plan.image_mask.all():
                 plan.cull = False
                 return plan
-            plan.ray_masks = masks
-            plan.order = support_order(masks)
-        elif rays_np.shape[0] == metadata.W * metadata.H:
-            plan.order = tile_order(metadata.W, metadata.H, chunk)
+            if plan.fg_bounds is not None:
+                masks = ray_support_masks(cull_rays, *plan.routing)
+                masks &= plan.image_mask[None, :]
+                buckets = 2 ** np.ceil(np.log2(np.maximum(masks.sum(1), 1)))
+                if float(buckets.mean()) / k > SUPPORT_GATE:
+                    plan.cull = False
+                    return plan
+                plan.ray_masks = masks
+                plan.order = support_order(masks)
+            elif rays_np.shape[0] == metadata.W * metadata.H:
+                plan.order = tile_order(metadata.W, metadata.H, chunk)
         if plan.order is not None:
             cull_rays = cull_rays[plan.order]
             if plan.fg_bounds is not None:
@@ -705,8 +737,11 @@ class Runner:
 
     def render_image(self, metadata: ImageMetadata) -> Dict[str, np.ndarray]:
         """Render a full image in chunks (the last one shorter) -> numpy
-        arrays of H*W rows, with occupancy bounds and cell culling as
-        `_view_plan` decides; `self.view_stats` records the decisions."""
+        arrays of H*W rows, with occupancy bounds, cell culling and ray
+        routing as `_view_plan` decides; `self.view_stats` records the
+        decisions and, per chunk, the fg submodules each pass runs (all K
+        for a per-point routed mixture, whose counts depend on the
+        points)."""
         hp = self.hparams
         rays = generate_image_rays(
             metadata, self.near, self.far, self.ray_altitude_range,
@@ -733,7 +768,10 @@ class Runner:
                 bounds = torch.from_numpy(np.ascontiguousarray(bounds, np.float32)).to(
                     self.device)
             active = plan.active(start, stop)
-            active_counts.append(k_fg if active is None else len(active))
+            support = plan.ray_masks[start:stop] if plan.ray else None
+            active_counts.append(
+                int(support.any(0).sum()) if plan.ray
+                else k_fg if active is None else len(active))
             image_indices = None
             if hp.appearance_dim > 0:
                 image_indices = torch.full(
@@ -744,7 +782,7 @@ class Runner:
                 out, _ = render_rays(
                     self.fg, self.bg, chunk_rays, image_indices,
                     settings, self.sphere_center, self.sphere_radius,
-                    fg_bounds=bounds, fg_active=active,
+                    fg_bounds=bounds, fg_active=active, fg_ray_support=support,
                 )
             for k, v in out.items():
                 results.setdefault(k, []).append(v.cpu())
@@ -755,8 +793,9 @@ class Runner:
             out = {k: v[inv] for k, v in out.items()}
         self.view_stats = {
             "bounded": plan.tighten is not None, "cull": plan.cull,
-            "support_sorted": plan.ray_masks is not None,
+            "support_sorted": plan.cull and plan.ray_masks is not None,
             "tiled": plan.cull and plan.ray_masks is None and plan.order is not None,
+            "routed": self.fg.use_routed, "ray_routed": plan.ray, "ray_eff": plan.ray_eff,
             "chunks": len(active_counts), "active_per_chunk": active_counts}
         return out
 

@@ -13,7 +13,10 @@ the svox-layout `.npz` (`octree/n3tree.py`).
 
 The model is `--container_path`'s merged mixture (a container of either
 package), a port `{iter}.pt`, or a JAX package `.ckpt` (`--ckpt_path`;
-its weights through `runtime/checkpoints.py::read_jax_checkpoint`). Every
+its weights through `runtime/checkpoints.py::read_jax_checkpoint`); with
+`--train_mega_nerf params.pt` the checkpoint holds a jointly trained
+mixture (a port `{iter}.pt` of its K submodules, or the JAX package's
+stacked `.ckpt`), built from the centroid metadata first. Every
 probe goes through `render/rendering.py::query_points` on `--device`, the
 route a rendered view takes: the eval kernel (`eval_fwd.cu`, or
 `eval_wide.cu` past width 512) for the covered architectures, the eager
@@ -22,8 +25,6 @@ the eval kernel once per submodule it runs (K, or the active count with
 `--bake_cell_cull on`). Step 2's leaf samples come from
 `np.random.default_rng(--random_seed)` as in the JAX script, so on the
 same tree both packages query the same points.
-
-Not ported: `--train_mega_nerf` (joint mixture training, ROADMAP.md A.3).
 """
 
 from __future__ import annotations
@@ -41,8 +42,10 @@ from mega_nerf_tpu_torch.models.factory import ModelBundle, make_nerf
 from mega_nerf_tpu_torch.models.weights import strip_module_prefix
 from mega_nerf_tpu_torch.octree import N3Tree, grid_weight_render_max
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.parallel.cell_parallel import mixture_states_from_flax
 from mega_nerf_tpu_torch.render.cell_cull import active_cells_for_points
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, query_points
+from mega_nerf_tpu_torch.runtime.checkpoints import read_jax_checkpoint
 from mega_nerf_tpu_torch.runtime.runner import EVAL_POINT_BUDGET, resolve_device
 from mega_nerf_tpu_torch.scripts.merge_submodules import load_submodule_states
 
@@ -215,19 +218,25 @@ def step2_average(hparams: Namespace, bundle: ModelBundle, settings: RenderSetti
 
 
 def load_bake_model(hparams: Namespace, appearance_count: int, device) -> ModelBundle:
-    """The fg model to bake: the container's mixture, or one NeRF with the
-    weights of a port `{iter}.pt` or a JAX `.ckpt`."""
+    """The fg model to bake: the container's mixture, the jointly trained
+    mixture of `--train_mega_nerf`, or one NeRF, with the weights of a port
+    `{iter}.pt` or a JAX `.ckpt`."""
     if getattr(hparams, "train_mega_nerf", None) is not None:
-        raise NotImplementedError(
-            "--train_mega_nerf: joint mixture checkpoints are not ported yet "
-            "(ROADMAP.md A.3, joint mixture training)")
+        hparams._mega_centroid_metadata = load_pt(hparams.train_mega_nerf)
     bundle = make_nerf(hparams, appearance_count)
     if getattr(hparams, "container_path", None) is None:
-        fg_state, _ = load_submodule_states(Path(hparams.ckpt_path), hparams)
-        bundle.module.load_state_dict(
-            {k: torch.as_tensor(np.asarray(v)) for k, v in
-             strip_module_prefix(fg_state).items()})
-    bundle.module.to(device).eval()
+        path = Path(hparams.ckpt_path)
+        if bundle.is_mega and path.suffix == ".ckpt":  # stacked submodules
+            stacked = read_jax_checkpoint(path)[0]["fg_params"]
+            states = mixture_states_from_flax(bundle.config, stacked, len(bundle.module))
+            for sub, state in zip(bundle.module, states):
+                sub.load_state_dict(state)
+        else:
+            fg_state, _ = load_submodule_states(path, hparams)
+            bundle.module.load_state_dict(
+                {k: torch.as_tensor(np.asarray(v)) for k, v in
+                 strip_module_prefix(fg_state).items()})
+    bundle.to(device).module.eval()
     return bundle
 
 

@@ -53,7 +53,7 @@ from mega_nerf_tpu_torch.data.torch_io import load_mask_zip, load_pt, save_mask_
 from mega_nerf_tpu_torch.models import flax_params_from_state, make_bg_nerf, make_nerf
 from mega_nerf_tpu_torch.parallel.cell_parallel import (
     CellParallelTrainStep,
-    cell_states_from_flax,
+    mixture_states_from_flax,
     make_cell_train_state,
 )
 from mega_nerf_tpu_torch.render.rendering import RenderSettings
@@ -334,7 +334,7 @@ def test_grid_steps_match_jax_and_each_cell_keeps_its_bg_skip():
     host = jax.device_get(state)
     for side in ("fg", "bg"):
         cfg = getattr(port[0], side).config
-        for c, sd in enumerate(cell_states_from_flax(cfg, getattr(host, f"{side}_params"),
+        for c, sd in enumerate(mixture_states_from_flax(cfg, getattr(host, f"{side}_params"),
                                                      cells)):
             getattr(port[c], side).module.load_state_dict(sd)
     step = CellParallelTrainStep(port)

@@ -1114,3 +1114,207 @@ def test_render_of_a_ray_does_not_depend_on_its_row(cuda_device):
     inv = torch.argsort(perm)
     for key in a:
         assert torch.equal(a[key], b[key][inv]), key
+
+
+# Three cells around the origin, and a fourth far away that no point reaches.
+MIX_CENTROIDS = [[0.0, -0.5, -0.2], [0.1, 0.5, -0.3], [-0.1, 0.0, 0.6], [0.0, 60.0, 0.0]]
+
+
+def _mixture(cuda_device, bg, routing, margin, k=3, width=64, seed=0):
+    """A fg or bg mixture of K paper-layout submodules (8 layers, 48-d
+    appearance, bf16) on the card, seeded random weights."""
+    import numpy as np
+
+    hp = tiny_hparams(pos_xyz_dim=12, pos_dir_dim=4, layers=8, skip_layers=[4],
+                      layer_dim=width, bg_layer_dim=width, appearance_dim=48,
+                      compute_dtype="bfloat16", mega_routing=routing,
+                      routing_max_experts=4)
+    hp._mega_centroid_metadata = {"centroids": np.asarray(MIX_CENTROIDS[:k], np.float32),
+                                  "cluster_2d": False}
+    bundle = (make_bg_nerf if bg else make_nerf)(hp, 7)
+    bundle.boundary_margin = margin
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(bundle.module, gen)
+    with torch.no_grad():  # small random biases so no layer starts dead
+        for name, p in bundle.module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    bundle.module.to(cuda_device).eval()
+    return bundle
+
+
+def _chunk_points(cuda_device, rays, samples, gen):
+    """`samples` points on each of `rays` rays through the cells, with the
+    rays' unit directions and appearance indices."""
+    o = torch.rand((rays, 1, 3), generator=gen) * 0.4 - 0.2
+    d = torch.nn.functional.normalize(torch.randn((rays, 1, 3), generator=gen), dim=-1)
+    t = torch.linspace(0.05, 1.2, samples)[None, :, None]
+    xyz = (o + d * t).reshape(-1, 3)
+    dirs = d.expand(rays, samples, 3).reshape(-1, 3)
+    idx = torch.randint(0, 7, (rays,), generator=gen)
+    return xyz.to(cuda_device), dirs.to(cuda_device), idx.to(cuda_device)
+
+
+@pytest.mark.parametrize("margin", [1.0, 1.15])
+@pytest.mark.parametrize("routing", ["routed", "ray"])
+def test_routed_mixture_chunk_matches_plain(cuda_device, routing, margin, monkeypatch):
+    """A routed (per point) and a ray-routed fg mixture chunk of K = 3
+    through the eval kernel against the same route through the plain
+    version: rgb 1e-2, sigma 1e-2 (1 + |sigma|). Each submodule launches
+    once (at most K launches), and the routed blend stays within the
+    same tolerance of the dense one (ray routing with full supports, and
+    per-point routing where no point holds more than M = 4 weights)."""
+    from mega_nerf_tpu_torch.models import mega
+    from mega_nerf_tpu_torch.render import rendering
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings, query_points
+
+    bundle = _mixture(cuda_device, False, routing, margin)
+    rays, samples = 300, 64
+    xyz, dirs, idx = _chunk_points(cuda_device, rays, samples, torch.Generator().manual_seed(2))
+    experts = None
+    if routing == "ray":
+        experts = mega.ray_route_experts(torch.ones((rays, 3), dtype=torch.bool),
+                                         device=cuda_device)
+    settings = RenderSettings()
+
+    def query():
+        with torch.no_grad():
+            return query_points(bundle, "fine", settings, xyz, dirs, idx, samples=samples,
+                                ray_experts=experts)
+
+    launches = fused_mlp.fused_nerf_eval.launches
+    got = query()
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_nerf_eval.launches - launches == 3
+    bundle.routing = "dense"
+    dense = query()
+    bundle.routing = routing
+    monkeypatch.setattr(rendering, "fused_nerf_eval", fused_mlp.fused_nerf_eval_plain)
+    want = query()
+    for ref in (want, dense):
+        err = (got - ref).abs()
+        assert torch.isfinite(got).all()
+        assert err[:, :3].max().item() <= 1e-2
+        assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-2
+
+
+def _train_launches():
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    return [ft.fused_nerf_train_fwd.launches, ft.train_bwd_data.launches,
+            ft.weight_grad.launches]
+
+
+def test_joint_mixture_train_step_matches_plain(cuda_device, monkeypatch):
+    """One joint-mixture step (K = 3 fg and bg submodules, hard assignment)
+    through the training kernels against the plain versions on the same
+    batch: loss and every gradient relative 1e-2. Each kernel launches once
+    per submodule and pass that got points: at most 4 x K. The same step
+    again gives the same bits (the per-point appearance rows' gradient
+    included)."""
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+
+    fg = _mixture(cuda_device, False, "auto", 1.0)
+    bg = _mixture(cuda_device, True, "auto", 1.0, seed=1)
+    center = torch.tensor([0.05, -0.1, 0.0], device=cuda_device)
+    radius = torch.tensor([1.4, 1.1, 1.2], device=cuda_device)
+    step = TrainStep(fg, bg, RenderSettings(coarse_samples=32, fine_samples=64),
+                     1e-3, 0.1, 10, center, radius)
+    gen = torch.Generator().manual_seed(3)
+    n = 256
+    o = torch.rand((n, 3), generator=gen) * 0.3 - 0.15
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+    far = torch.where(torch.arange(n) % 2 == 0, 1e5, 0.8)[:, None]
+    batch = {"rays": torch.cat([o, d, torch.full((n, 1), 0.05), far], -1).to(cuda_device),
+             "rgbs": torch.rand((n, 3), generator=gen).to(cuda_device),
+             "img_indices": torch.randint(0, 7, (n,), generator=gen).to(cuda_device)}
+
+    def loss_and_grads():
+        for opt in (step.fg_opt, step.bg_opt):
+            opt.zero_grad(set_to_none=True)
+        loss, _, _ = step.loss(batch, torch.Generator(device=cuda_device).manual_seed(5))
+        loss.backward()
+        return loss.item(), {f"{side}.{name}": p.grad.detach().clone()
+                             for side, b in (("fg", fg), ("bg", bg))
+                             for name, p in b.module.named_parameters()
+                             if p.grad is not None}
+
+    before = _train_launches()
+    k_loss, k_grads = loss_and_grads()
+    torch.cuda.synchronize()
+    used = [a - b for a, b in zip(_train_launches(), before)]
+    assert used[0] == used[1] == used[2] and 4 <= used[0] <= 4 * 3
+    again_loss, again = loss_and_grads()
+    assert again_loss == k_loss
+    assert [n for n, g in k_grads.items() if not torch.equal(again[n], g)] == []
+    for name in ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad"):
+        monkeypatch.setattr(ft, name, getattr(ft, f"{name}_plain"))
+    p_loss, p_grads = loss_and_grads()
+    assert abs(k_loss - p_loss) <= 1e-2 * abs(p_loss)
+    assert set(k_grads) == set(p_grads) and len(p_grads) > 0
+    for name, g in p_grads.items():
+        assert _rel(k_grads[name], g) <= 1e-2, name
+
+
+def test_mixture_submodule_without_points_does_not_launch(cuda_device):
+    """A fg mixture whose fourth cell lies far from every sample: a train
+    step launches each training kernel for the three others only (2 passes
+    x 3), and the fourth submodule gets a zero gradient, as optax gives it,
+    so Adam moves it only by its momentum (none on a first step)."""
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+
+    fg = _mixture(cuda_device, False, "auto", 1.0, k=4)
+    step = TrainStep(fg, None, RenderSettings(coarse_samples=32, fine_samples=32),
+                     1e-3, 0.1, 10)
+    gen = torch.Generator().manual_seed(4)
+    n = 200
+    o = torch.rand((n, 3), generator=gen) * 0.3 - 0.15
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+    batch = {"rays": torch.cat([o, d, torch.full((n, 1), 0.05), torch.full((n, 1), 1.0)],
+                               -1).to(cuda_device),
+             "rgbs": torch.rand((n, 3), generator=gen).to(cuda_device),
+             "img_indices": torch.randint(0, 7, (n,), generator=gen).to(cuda_device)}
+    far_before = [p.detach().clone() for p in fg.module[3].parameters()]
+    before = _train_launches()
+    step(batch, torch.Generator(device=cuda_device).manual_seed(1))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_train_launches(), before)] == [6, 6, 6]
+    for p, p0 in zip(fg.module[3].parameters(), far_before):
+        assert p.grad is not None and not p.grad.any()
+        assert torch.equal(p, p0)
+        assert int(step.fg_opt.state[p]["step"]) == 1
+
+
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("m", [1, 7, 300])
+def test_kernels_at_small_point_counts(cuda_device, bg, m):
+    """The point counts a routed pass can hand one submodule: the eval and
+    the three training kernels at M = 1, 7 and 300 (the paper layout at
+    width 256) against their plain versions: rgb 1e-2, sigma 1e-2
+    (1 + |sigma|), backward tensors relative 1e-2."""
+    kw = {"appearance_dim": 48, "layer_dim": 256}
+    ft, packed, xyz, dirs, app, noise, g = _train_case(cuda_device, bg, kw, m)
+    eval_app = app.to(torch.bfloat16)  # the eval kernel's rows (bf16-exact values)
+    with torch.no_grad():
+        got = fused_mlp.fused_nerf_eval(packed, xyz, dirs, eval_app)
+        want = fused_mlp.fused_nerf_eval_plain(packed, xyz, dirs, eval_app)
+    out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+    p_out, p_act = ft.fused_nerf_train_fwd_plain(packed, xyz, dirs, app, noise)
+    grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+    p_grad, p_d_app = ft.train_bwd_data_plain(packed, act, g, noise)
+    flat = ft.weight_grad(packed, act, grad)
+    p_flat = ft.weight_grad_plain(packed, act, grad)
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (out, p_out)):
+        err = (a - b).abs()
+        assert torch.isfinite(a).all()
+        assert err[:, :3].max().item() <= 1e-2
+        assert (err[:, 3] / (1 + b[:, 3].abs())).max().item() <= 1e-2
+    assert _rel(act, p_act) <= 1e-2
+    assert _rel(grad, p_grad) <= 1e-2 and _rel(d_app, p_d_app) <= 1e-2
+    offs = ft._offsets(ft.packed_shapes(packed))
+    for i in range(len(offs) - 1):
+        assert _rel(flat[offs[i]:offs[i + 1]], p_flat[offs[i]:offs[i + 1]]) <= 1e-2, i

@@ -11,10 +11,10 @@ seeds:
 - eval `render_rays` with fg and bg mixtures against the JAX renderer (XLA
   mixture, pairwise merge compositor): rgb 1e-4, depth rtol 5e-4, through
   the kernels' plain versions and through the eager module;
-- the mixture forms the port does not run raise.
+- training from --container_path raises (the routed forms and joint
+  training: `tests/test_torch_mega_routing.py`,
+  `tests/test_torch_joint_mega.py`).
 """
-
-from argparse import Namespace
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +31,6 @@ from mega_nerf_tpu.models.torch_interop import torch_state_from_flax_params
 from mega_nerf_tpu.ops.geometry import depth2pts_outside as j_depth2pts_outside
 from mega_nerf_tpu.render import RenderSettings as JSettings
 from mega_nerf_tpu.render import render_rays as j_render_rays
-from mega_nerf_tpu_torch.models import make_nerf
 from mega_nerf_tpu_torch.models.container import ContainerData, container_to_bundles
 from mega_nerf_tpu_torch.models.mega import cluster_weights
 from mega_nerf_tpu_torch.ops.geometry import depth2pts_outside
@@ -172,29 +171,22 @@ def test_render_rays_mixture_matches_jax(margin, cluster_2d, mlp):
         assert set(tfg.packed) == {("sub", k) for k in range(3)}
 
 
-@pytest.mark.parametrize("routing,k", [("routed", 3), ("ray", 3), ("auto", 33)])
-def test_routed_mixtures_raise(routing, k):
-    """The JAX package routes these (its routed forms keep at most
-    `routing_max_experts` submodules a point), so the port raises rather
-    than run them dense; `dense`, and `auto` to 32 submodules, load."""
-    hp = mixture_hparams(mega_routing=routing)
-    data = container_data(hp, k=3, bg=False)
-    data.centroids = np.resize(CENTROIDS, (k, 3))
-    data.fg_states = data.fg_states * (k // 3) + data.fg_states[:k % 3]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        container_to_bundles(data, hp)
-    hp.mega_routing = "dense"
-    fg, bg = container_to_bundles(data, hp)
-    assert fg.is_mega and fg.eval_submodule_cost == k and bg is None
+def test_training_from_container_path_raises(tmp_path):
+    """The JAX Runner trains a freshly initialised mixture from
+    --container_path and ignores the container's weights (an open check in
+    ROADMAP.md C), so the port's Runner raises there rather than guess."""
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.models.container import save_native_container
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+    from tests.synthetic import make_synthetic_dataset
+    from tests.test_torch_eval import _args
 
-
-def test_mixture_training_and_joint_training_raise():
-    hp = mixture_hparams()
-    _, (tfg, tbg) = both_bundles(hp)
-    rays = torch.from_numpy(_rays(8, seed=4))
-    with pytest.raises(NotImplementedError, match="training a mixture"):
-        render_rays(tfg, tbg, rays, torch.zeros(8, dtype=torch.long),
-                    RenderSettings(coarse_samples=8, fine_samples=8),
-                    torch.from_numpy(CENTER), torch.from_numpy(RADIUS), train=True)
-    with pytest.raises(NotImplementedError, match="--train_mega_nerf"):
-        make_nerf(Namespace(**vars(hp), train_mega_nerf="params.pt"), 5)
+    ds = make_synthetic_dataset(tmp_path / "ds", n_train=2, n_val=1, hw=(8, 8))
+    hp = port_train.get_train_opts(_args(ds, tmp_path / "exp", True) + [
+        "--dataset_type", "memory", "--device", "cpu"])
+    save_native_container(tmp_path / "c.pt", container_data(hp, count=3))
+    hp.container_path = str(tmp_path / "c.pt")
+    runner = Runner(hp)
+    assert runner.fg.is_mega
+    with pytest.raises(NotImplementedError, match="ROADMAP.md C"):
+        runner.train()

@@ -178,25 +178,6 @@ def test_unported_heads_raise(kw, why):
     assert out.shape == (5, cfg.rgb_dim + 1)
 
 
-@pytest.mark.parametrize("flag", ["container_path", "train_mega_nerf"])
-def test_mega_mixture_flags_still_raise(flag, tmp_path):
-    """Joint mixture training is not ported; a container loads, and raises
-    for the routed mixture forms the port does not run."""
-    hp = tiny_hparams(**{flag: "somewhere"})
-    match = f"--{flag}"
-    if flag == "container_path":
-        from tests.test_torch_mega import container_data, mixture_hparams
-        from mega_nerf_tpu_torch.models.container import save_native_container
-
-        hp = mixture_hparams(mega_routing="routed")
-        save_native_container(tmp_path / "c.pt", container_data(hp))
-        hp.container_path = str(tmp_path / "c.pt")
-        match = "--mega_routing routed"
-    for make in (make_nerf, make_bg_nerf):
-        with pytest.raises(NotImplementedError, match=match):
-            make(hp, 3)
-
-
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 

@@ -12,7 +12,7 @@
   same weights (a K = 4 container, and a JAX `.ckpt` of one NeRF): the same
   voxels (f32 compute; no voxel sits on a threshold here), leaf data within
   1e-4 before the f16 save; `render_octree` of the two trees reports the
-  same PSNR. `--train_mega_nerf` raises naming ROADMAP.md A.3.
+  same PSNR. (`--train_mega_nerf`: `tests/test_torch_joint_mega.py`.)
 """
 
 import json
@@ -201,12 +201,3 @@ def test_create_octree_matches_jax(mixture_scene, tmp_path, captured_jax_tree, m
         summaries.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
     assert summaries[0]["views"] == summaries[1]["views"] == 1
     assert abs(summaries[0]["mean_psnr"] - summaries[1]["mean_psnr"]) <= 0.01
-
-
-def test_create_octree_train_mega_nerf_raises(mixture_scene, tmp_path):
-    ds, container, _ = mixture_scene
-    hp = create_octree._get_extraction_opts(bake_args(
-        ds, ["--ckpt_path", str(tmp_path / "x.pt"), "--train_mega_nerf",
-             str(tmp_path / "params.pt")], tmp_path / "t.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        create_octree.main(hp)
