@@ -125,6 +125,21 @@ Runs every phase, in order:
               uninterrupted one in every cell, `scripts.merge_submodules` of
               the 8 cells and `eval.main --container_path` on the val view
               (32 `eval_fwd` launches, finite PSNR, s/view).
+4e. multiproc - 2 ranks on the one card through torchrun and gloo (this
+              script again, `--multiproc_worker`): the first global batch's
+              gradients averaged over the ranks against one process's
+              kernel step (1e-2 relative per tensor); `train.main`
+              data-parallel at the paper config, 20 steps of 512 rays a
+              rank (80 launches of each training kernel on each rank, both
+              ranks' weights bit-equal, a falling loss; ms a step over 20
+              chained steps beside the one-process step's); masks over both
+              ranks, `train_cells --cell_axis 2` on K = 3 cells (a padding
+              cell on rank 1) from each rank's filesystem stores, a resume
+              bit-equal in every real cell, the merge and a view; then
+              `render_images` over both ranks, frames byte-equal to one
+              process's. Sets `launches_multiproc`: both ranks' counts
+              from just before `train.main` to just after `render_images`
+              (the gradient check and the chained timing left out).
 4d. train_mega - joint Mega-NeRF training: `train.main --train_mega_nerf`
               with `serve_mega`'s K = 8 centroids on `train`'s dataset at
               the paper config, 20 steps (finite metrics, a falling loss,
@@ -209,9 +224,10 @@ Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
-`{"serving_routed": ...}` and `{"training_mega": ...}` lines, a
-`{"kernels": [...]}` line (with each kernel's launches in serve_routed and
-in train_mega's `train.main` and `eval.main`), the nvidia-smi name/power-limit line,
+`{"serving_routed": ...}`, `{"training_mega": ...}` and `{"multiproc": ...}`
+lines, a `{"kernels": [...]}` line (with each kernel's launches in
+serve_routed, in train_mega's `train.main` and `eval.main`, and over both
+ranks of multiproc), the nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -220,6 +236,8 @@ port is not beside this script.
 from __future__ import annotations
 
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2128,7 +2146,7 @@ def phase_train_cells(device, report, tmp: Path):
     cell.step({key: v[0] for key, v in one.items()}, cell.generator)
     torch.cuda.synchronize()
     cell_peak = torch.cuda.max_memory_allocated() / 1e9
-    cell_rays = [len(stream._dataset) for stream in dataset._streams]
+    cell_rays = [len(stream._dataset) for stream in dataset._streams.values()]
     log(f"  grid step at the paper width: {grid_ms:.2f} ms ({grid_ms / k:.2f} ms a cell "
         f"step, {k * hp.batch_size / grid_ms * 1e3:.1f} rays/s) over {CELLS_TIMED} chained "
         f"memory-fed steps; one cell step's peak {cell_peak:.2f} GB with all {k} cells "
@@ -2218,6 +2236,381 @@ def phase_train_cells(device, report, tmp: Path):
         "resume_launches": r_counts, "merged_eval": metrics,
         "merged_launches": launches, "merged_s_per_view": s_view}
     return bool(ok)
+
+
+MP_RANKS = 2  # ranks on the one card (gloo: NCCL refuses two ranks on one device)
+MP_STEPS = 20  # data-parallel Runner.train steps, then as many chained
+MP_GRID = (1, 3)  # K = 3 cells over --cell_axis 2: rank 1 holds cell 2 and a padding cell
+MP_CELL_STEPS = 10
+MP_CELL_RESUME = 5
+MP_FRAMES = 4
+MP_TIMEOUT = 900  # seconds for both ranks
+
+
+def mp_hparams(get_opts, ds: Path, exp: Path, extra=()):
+    return config_hparams(get_opts, MEGA_CONFIG, ds, exp, [*TRAIN_ARGS, *extra])
+
+
+def multiproc_worker(tmp: Path) -> int:
+    """One rank of the `multiproc` phase (started by torchrun with
+    `--multiproc_worker <tmp>`): (a) the data-parallel `Runner.train`, (b)
+    `train_cells --cell_axis 2` with a resume, the merge and a view, (c)
+    `render_images`; writes `mp_result_{rank}.json` under `tmp`."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch import train_cells
+    from mega_nerf_tpu_torch.data.memory_dataset import MemoryDataset
+    from mega_nerf_tpu_torch.models import init_weights
+    from mega_nerf_tpu_torch.parallel import distributed
+    from mega_nerf_tpu_torch.parallel.cell_parallel import CellParallelTrainStep
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+    from mega_nerf_tpu_torch.runtime.runner import Runner, batch_to_device
+    from mega_nerf_tpu_torch.scripts import create_cluster_masks as ccm
+    from mega_nerf_tpu_torch.scripts import merge_submodules, render_images
+
+    device = distributed.init_from_env("cuda")
+    rank = distributed.rank()
+
+    def say(msg: str) -> None:
+        print(f"  [rank {rank}] {msg}", flush=True)
+
+    def weights_hash(*bundles) -> str:
+        h = hashlib.sha256()
+        for b in bundles:
+            for v in b.module.state_dict().values():
+                h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {"backend": distributed.backend(), "device": str(device)}
+    ds = tmp / "train_dataset"
+
+    # (a0) The first global batch's averaged gradients against one process's.
+    hp = mp_hparams(port_train.get_train_opts, ds, tmp / "unused",
+                    ["--train_iterations", str(MP_STEPS)])
+    runner = Runner(hp, set_experiment_path=False)
+    init_weights(runner.fg.module, torch.Generator().manual_seed(hp.random_seed))
+    init_weights(runner.bg.module, torch.Generator().manual_seed(hp.random_seed + 1))
+    full = MemoryDataset(runner.train_items, runner.near, runner.far,
+                         runner.ray_altitude_range, hp.center_pixels,
+                         np.random.default_rng(hp.random_seed), process_scope="private")
+    host = next(full.batches(hp.batch_size, np.random.default_rng((hp.random_seed, 0))))
+    half = hp.batch_size // distributed.world_size()
+    local = {k: v[rank * half:(rank + 1) * half] for k, v in host.items()}
+    settings = RenderSettings.from_hparams(hp)
+
+    def grads(step, batch):
+        step.gradients(batch_to_device(batch, device), None)
+        return {f"{side}.{n}": p.grad.detach().clone()
+                for side, b in (("fg", runner.fg), ("bg", runner.bg))
+                for n, p in b.module.named_parameters()}
+
+    dp = grads(TrainStep(runner.fg, runner.bg, settings, hp.lr, hp.lr_decay_factor,
+                         hp.train_iterations, runner.sphere_center, runner.sphere_radius,
+                         group=distributed.world_group()), local)
+    if rank == 0:
+        one = grads(TrainStep(runner.fg, runner.bg, settings, hp.lr, hp.lr_decay_factor,
+                              hp.train_iterations, runner.sphere_center,
+                              runner.sphere_radius), host)
+        out["grad_worst"] = max((rel_err(dp[n], one[n]), n) for n in one)
+        say(f"first global batch: averaged gradients of {distributed.world_size()} ranks "
+            f"vs one process's kernel step, worst relative error "
+            f"{out['grad_worst'][0]:.3e} ({out['grad_worst'][1]})")
+    del runner, dp
+    distributed.barrier("grads_compared")
+
+    # (a) The data-parallel Runner.train.
+    losses, steps = [], []
+    step_call = TrainStep.__call__
+
+    def recording(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        losses.append(metrics["loss"])
+        return metrics
+
+    # The path's launches: counted from here to the end of (c).
+    zero_all_counters()
+    before = kernel_launches()
+    TrainStep.__call__ = recording
+    captured = []
+    runner_init = Runner.__init__
+
+    def capturing(self, *args, **kwargs):
+        runner_init(self, *args, **kwargs)
+        captured.append(self)
+
+    Runner.__init__ = capturing
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager:
+            val = port_train.main(mp_hparams(port_train.get_train_opts, ds,
+                                             tmp / "mp_train",
+                                             ["--train_iterations", str(MP_STEPS)]))
+            torch.cuda.synchronize()
+    finally:
+        TrainStep.__call__, Runner.__init__ = step_call, runner_init
+    wall = time.perf_counter() - t0
+    after = kernel_launches()
+    runner = captured[0]
+    loss = torch.stack(losses).float().cpu().numpy()
+    out["train"] = {
+        "launches": {n: after[n] - before[n] for n in after},
+        "loss_first5": float(loss[:5].mean()), "loss_last5": float(loss[-5:].mean()),
+        "finite": bool(np.isfinite(loss).all()), "steps": len(loss), "val": val,
+        "wall_s": wall, "hash": weights_hash(runner.fg, runner.bg), "eager": eager.count}
+    say(f"train.main: {MP_STEPS} steps of {half} rays (global {hp.batch_size}) + final "
+        f"validation in {wall:.2f} s; loss first 5 {out['train']['loss_first5']:.5f} -> "
+        f"last 5 {out['train']['loss_last5']:.5f}; launches {out['train']['launches']}")
+    torch.cuda.empty_cache()
+
+    # (b) train_cells --cell_axis 2: masks over both ranks, 10 grid steps from
+    # each rank's filesystem stores, a resume from step 5, the merge, a view.
+    cds = tmp / "cells_dataset"
+    masks = tmp / "mp_masks"
+    ccm.main(config_hparams(ccm.get_mask_opts, MEGA_CONFIG, cds, tmp / "unused", [
+        "--output", str(masks), "--grid_dim", *map(str, MP_GRID),
+        "--ray_samples", "1000"]))
+
+    def cells(exp, extra=()):
+        grid_losses = []
+        grid_call = CellParallelTrainStep.__call__
+
+        def rec(self, batch):
+            metrics = grid_call(self, batch)
+            grid_losses.append(metrics["loss"])
+            return metrics
+
+        b = kernel_launches()
+        CellParallelTrainStep.__call__ = rec
+        try:
+            with EagerCalls() as e:
+                train_cells.main(mp_hparams(
+                    train_cells.get_train_cells_opts, cds, exp,
+                    ["--dataset_type", "filesystem", "--chunk_paths", str(tmp / "mp_chunks"),
+                     "--cluster_mask_path", str(masks), "--train_iterations",
+                     str(MP_CELL_STEPS), "--ckpt_interval", str(MP_CELL_RESUME),
+                     "--cell_axis", "2", "--data_axis", "1", *extra]))
+                torch.cuda.synchronize()
+        finally:
+            CellParallelTrainStep.__call__ = grid_call
+        a = kernel_launches()
+        gl = torch.stack(grid_losses).float().cpu().numpy()
+        return {"launches": {n: a[n] - b[n] for n in a}, "eager": e.count,
+                "loss_first": gl[0].tolist(), "loss_last": gl[-1].tolist(),
+                "finite": bool(np.isfinite(gl).all()), "steps": len(gl)}
+
+    out["cells"] = cells(tmp / "mp_cells" / "sub")
+    resume_from = tmp / "mp_cells" / "sub2" / "0" / "models" / f"{MP_CELL_RESUME}.pt"
+    out["cells_resumed"] = cells(tmp / "mp_cells_resumed" / "sub",
+                                 ["--ckpt_path", str(resume_from)])
+    say(f"train_cells --cell_axis 2: grid steps {out['cells']['steps']}, launches "
+        f"{out['cells']['launches']}; resumed from cell 2's step {MP_CELL_RESUME}: "
+        f"launches {out['cells_resumed']['launches']}")
+    merged = tmp / "mp_merged.pt"
+    if rank == 0:
+        merge_submodules.main(merge_submodules.get_merge_opts([
+            "--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--exp_name", "unused",
+            "--dataset_path", str(cds), "--ckpt_prefix", str(tmp / "mp_cells" / "sub"),
+            "--centroid_path", str(masks / "params.pt"), "--output", str(merged),
+            "--train_iterations", str(MP_CELL_STEPS)]))
+    distributed.barrier("merged")
+    b = kernel_launches()
+    with EagerCalls() as e:
+        metrics = port_eval.main(config_hparams(port_eval.get_eval_opts, MEGA_CONFIG, cds,
+                                                tmp / "mp_eval",
+                                                ["--container_path", str(merged)]))
+        torch.cuda.synchronize()
+    a = kernel_launches()
+    out["eval"] = {"metrics": metrics, "eager": e.count,
+                   "launches": {n: a[n] - b[n] for n in a}}
+
+    # (c) render_images over both ranks.
+    b = kernel_launches()
+    render_images.main(render_images.get_render_opts(
+        mp_render_args(cds, merged, masks, tmp / "mp_poses", tmp / "mp_frames")))
+    torch.cuda.synchronize()
+    a = kernel_launches()
+    out["render"] = {"launches": {n: a[n] - b[n] for n in a}}
+    out["launches"] = kernel_launches()
+
+    # Past the path: ms a data-parallel step, chained.
+    dataset = runner._make_dataset()
+    batches = [batch_to_device(b, device) for _, b in zip(
+        range(25), dataset.batches(hp.batch_size, np.random.default_rng(3)))]
+    out["train"]["chained_ms"] = chained_step_ms(runner.train_step, batches, MP_STEPS)
+    say(f"chained data-parallel step {out['train']['chained_ms']:.2f} ms")
+    (tmp / f"mp_result_{rank}.json").write_text(json.dumps(out))
+    distributed.barrier("written")
+    return 0
+
+
+def mp_render_args(ds: Path, merged: Path, masks: Path, poses: Path, output: Path):
+    return ["--config_file", str(ROOT / "configs" / MEGA_CONFIG), "--dataset_path",
+            str(ds), "--container_path", str(merged), "--centroids_path",
+            str(masks / "params.pt"), "--input", str(poses), "--output", str(output),
+            "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+            "--val_scale_factor", "1", "--device", "cuda"]
+
+
+def phase_multiproc(device, report, tmp: Path):
+    """Two ranks on the one card (torchrun, gloo: NCCL refuses two ranks on
+    one device), each its own process and CUDA context, every kernel on the
+    card; `multiproc_worker` is each rank's program:
+    (a) the first global batch's gradients averaged over both ranks against
+        one process's kernel step on the whole batch (relative error per
+        tensor <= 1e-2); `train.main` data-parallel at the paper config
+        from the memory dataset, 20 steps of 512 rays a rank (global 1024):
+        4 launches of each training kernel a step on each rank, no plain or
+        eager call, both ranks' weights bit-equal, a falling loss; then ms a
+        step over 20 chained steps on each rank, beside the one-process
+        step's in this process (both ranks share the card: these times say
+        nothing about scaling over cards);
+    (b) `create_cluster_masks` over both ranks (`--grid_dim 1 3`), then
+        `train_cells --cell_axis 2 --data_axis 1` at the paper width from
+        each rank's filesystem stores, 10 grid steps (rank 0: cells 0 and 1,
+        rank 1: cell 2 and a padding cell), a resume from cell 2's step-5
+        file bit-equal in every real cell, the merge of the 3 written cells
+        and `eval.main --container_path` over both ranks through the eval
+        kernel;
+    (c) `render_images` over both ranks on the merged grid: frames
+        byte-equal to one process's (rendered here after the ranks exit).
+    A rank that fails fails the phase. `launches_multiproc` is the sum of
+    both ranks' counters, zeroed just before `train.main` and read just
+    after `render_images`: the gradient check before it and the chained
+    timing after it are not counted."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch.data.torch_io import load_pt
+    from mega_nerf_tpu_torch.scripts import render_images
+
+    single_ms = chained_step_ms(report["train_step"], report["train_batches"], MP_STEPS)
+    poses = tmp / "mp_poses"
+    poses.mkdir()
+    metas = sorted((tmp / "cells_dataset").glob("train/metadata/*.pt"))[:MP_FRAMES]
+    lines, intr = [], []
+    for meta_path in metas:
+        meta = load_pt(meta_path)
+        lines.append(" ".join(str(float(v)) for v in np.asarray(meta["c2w"]).reshape(-1)))
+        intr.append(f"{int(meta['W'])} {int(meta['H'])} "
+                    + " ".join(str(float(v)) for v in np.asarray(meta["intrinsics"])))
+    (poses / "poses.txt").write_text("\n".join(lines) + "\n")
+    (poses / "intrinsics.txt").write_text("\n".join(intr) + "\n")
+    (poses / "embeddings.txt").write_text("".join(f"{i}\n" for i in range(MP_FRAMES)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MP_RANKS), str(ROOT / "chip_smoke.py"),
+           "--multiproc_worker", str(tmp)]
+    log(f"  {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), start_new_session=True)
+    try:
+        rc = proc.wait(timeout=MP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = None
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        log(f"  the ranks failed: exit code {rc} after {wall:.1f} s")
+        return False
+    results = [json.loads((tmp / f"mp_result_{r}.json").read_text())
+               for r in range(MP_RANKS)]
+
+    launches = {n: sum(r["launches"][n] for r in results) for n in results[0]["launches"]}
+    for name, count in launches.items():
+        report["kernels"][name]["launches_multiproc"] = count
+    runs = {n: sum(r[k]["launches"][n] for r in results
+                   for k in ("train", "cells", "cells_resumed", "eval", "render"))
+            for n in launches}
+    train = [r["train"] for r in results]
+    worst, worst_name = results[0]["grad_worst"]
+    bit_equal = train[0]["hash"] == train[1]["hash"]
+    per_rank = 4 * MP_STEPS
+    train_ok = all(t["steps"] == MP_STEPS and t["finite"] and t["eager"] == 0
+                   and t["loss_last5"] < t["loss_first5"]
+                   and all(t["launches"][n] == per_rank for n in TRAIN_KERNELS)
+                   for t in train)
+    smi = report.get("device_line", "")
+    log(f"  backend {results[0]['backend']} ({MP_RANKS} ranks on {results[0]['device']}); "
+        f"{wall:.1f} s for both ranks with their start")
+    log(f"  (a) data parallel: averaged gradients vs one process, worst relative error "
+        f"{worst:.3e} ({worst_name}); ranks' weights bit-equal {bit_equal}; loss "
+        f"{[round(t['loss_first5'], 5) for t in train]} -> "
+        f"{[round(t['loss_last5'], 5) for t in train]}; training launches by rank "
+        f"{[{n: t['launches'][n] for n in TRAIN_KERNELS} for t in train]} (expected "
+        f"{per_rank} each), eval launches by rank "
+        f"{[t['launches']['fused_nerf_eval'] for t in train]}; val {train[0]['val']}")
+    log(f"  (a) ms a step over {MP_STEPS} chained steps: rank 0 "
+        f"{train[0]['chained_ms']:.2f}, rank 1 {train[1]['chained_ms']:.2f} (512 rays "
+        f"each, both ranks on one card) vs one process {single_ms:.2f} (1024 rays) on "
+        f"{smi}; two ranks share one card, so these times say nothing about scaling "
+        "over cards")
+
+    cell_steps = [r["cells"] for r in results]
+    resumed = [r["cells_resumed"] for r in results]
+    same = [cell_states_equal(
+        tmp / "mp_cells" / f"sub{c}" / "0" / "models" / f"{MP_CELL_STEPS}.pt",
+        tmp / "mp_cells_resumed" / f"sub{c}" / "0" / "models" / f"{MP_CELL_STEPS}.pt")
+        for c in range(MP_GRID[0] * MP_GRID[1])]
+    padding_written = (tmp / "mp_cells" / "sub3").exists()
+    cells_ok = (all(c["steps"] == MP_CELL_STEPS and c["finite"] and c["eager"] == 0
+                    and all(c["launches"][n] == 4 * 2 * MP_CELL_STEPS for n in TRAIN_KERNELS)
+                    for c in cell_steps)
+                and all(c["eager"] == 0 and all(
+                    c["launches"][n] == 4 * 2 * (MP_CELL_STEPS - MP_CELL_RESUME)
+                    for n in TRAIN_KERNELS) for c in resumed)
+                and all(same) and not padding_written)
+    evals = [r["eval"] for r in results]
+    eval_ok = (np.isfinite(evals[0]["metrics"]["val/psnr"])
+               and evals[0]["metrics"] == evals[1]["metrics"]
+               and sum(e["launches"]["fused_nerf_eval"] for e in evals) > 0
+               and all(e["eager"] == 0 for e in evals))
+    log(f"  (b) train_cells --cell_axis 2, K = 3 at paper width: training launches by rank "
+        f"{[{n: c['launches'][n] for n in TRAIN_KERNELS} for c in cell_steps]} (expected "
+        f"{4 * 2 * MP_CELL_STEPS} each: two cells a rank); loss by cell, rank 0 "
+        f"{cell_steps[0]['loss_first']} -> {cell_steps[0]['loss_last']}, rank 1 "
+        f"{cell_steps[1]['loss_first']} -> {cell_steps[1]['loss_last']}; resumed from "
+        f"step {MP_CELL_RESUME}: every real cell bit-equal {same}, launches by rank "
+        f"{[{n: c['launches'][n] for n in TRAIN_KERNELS} for c in resumed]}; padding cell "
+        f"written: {padding_written}; merged eval {evals[0]['metrics']}, eval launches by "
+        f"rank {[e['launches']['fused_nerf_eval'] for e in evals]}")
+
+    torch.cuda.empty_cache()
+    one = tmp / "mp_frames_1p"
+    render_images.main(render_images.get_render_opts(
+        mp_render_args(tmp / "cells_dataset", tmp / "mp_merged.pt", tmp / "mp_masks",
+                       poses, one)))
+    names = [(sub, f"{i:06d}.jpg") for sub in ("rgbs", "depths", "cells")
+             for i in range(MP_FRAMES)]
+    frames_equal = all((tmp / "mp_frames" / s / n).read_bytes() == (one / s / n).read_bytes()
+                       for s, n in names)
+    renders = [r["render"]["launches"]["fused_nerf_eval"] for r in results]
+    log(f"  (c) render_images over {MP_RANKS} ranks: {MP_FRAMES} frames, eval launches by "
+        f"rank {renders}; every file byte-equal to one process's: {frames_equal}")
+    log(f"  launches_multiproc (both ranks): {launches}; the sum of the five runs' "
+        f"{runs}")
+
+    report["multiproc"] = {
+        "ranks": MP_RANKS, "backend": results[0]["backend"], "wall_s": wall,
+        "grad_worst_rel_err": worst, "grad_worst_tensor": worst_name,
+        "ranks_bit_equal": bit_equal, "chained_ms_by_rank": [t["chained_ms"] for t in train],
+        "single_process_ms": single_ms,
+        "train_launches_by_rank": [t["launches"] for t in train],
+        "loss_first5": [t["loss_first5"] for t in train],
+        "loss_last5": [t["loss_last5"] for t in train],
+        "cells_launches_by_rank": [c["launches"] for c in cell_steps],
+        "cells_resume_bit_equal": same, "merged_eval": evals[0]["metrics"],
+        "frames_byte_equal": frames_equal, "render_launches_by_rank": renders}
+    return bool(worst <= TOL and bit_equal and train_ok and cells_ok and eval_ok
+                and frames_equal and all(r > 0 for r in renders))
 
 
 MEGA_TRAIN_STEPS = 20
@@ -4160,6 +4553,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--multiproc_worker":
+        return multiproc_worker(Path(sys.argv[2]))
     device = torch.device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4171,8 +4566,9 @@ def main() -> int:
 
     report = {"kernels": {name: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "library_ms": None, "launches_serve_routed": None, "launches_train_mega": None}
-        for name, source, replaces in KERNELS}}
+        "library_ms": None, "launches_serve_routed": None, "launches_train_mega": None,
+        "launches_multiproc": None}
+        for name, source, replaces in KERNELS}, "device_line": smi_line}
     ok = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phases = (
@@ -4188,6 +4584,7 @@ def main() -> int:
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
             ("train_cells", lambda: phase_train_cells(device, report, Path(tmp))),
+            ("multiproc", lambda: phase_multiproc(device, report, Path(tmp))),
             ("train_mega", lambda: phase_train_mega(device, report, Path(tmp))),
             ("train_wide", lambda: phase_train_wide(device, report, Path(tmp))),
             ("time", lambda: phase_time(device, report)),
@@ -4213,7 +4610,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_serve_routed", "launches_train_mega")
+            "launches_serve_routed", "launches_train_mega", "launches_multiproc")
     kernels = [{k: entry[k] for k in keys} for entry in report["kernels"].values()]
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
                                       "render_rgb_diff", "eval_chunk_ms",
@@ -4232,6 +4629,7 @@ def main() -> int:
     log(json.dumps({"baking": report["baking"]}))
     log(json.dumps({"serving_routed": report["serving_routed"]}))
     log(json.dumps({"training_mega": report["training_mega"]}))
+    log(json.dumps({"multiproc": report["multiproc"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,10 @@
-"""Per-cell masked ray streams for training every submodule in one process.
+"""Per-cell masked ray streams for training every submodule of a grid.
 
-Counterpart of the JAX package's `data/cell_dataset.py` for one process
-(every cell's stream built here). The reference trains each spatial
-submodule as an independent job on its own cluster-masked ray stream (one
-`train.py --cluster_mask_path masks/{i}` per centroid); this module builds
-those K streams side by side and stacks them into `(cells, batch, ...)`
-batches:
+Counterpart of the JAX package's `data/cell_dataset.py`. The reference
+trains each spatial submodule as an independent job on its own
+cluster-masked ray stream (one `train.py --cluster_mask_path masks/{i}` per
+centroid); this module builds those K streams side by side and stacks them
+into `(cells, batch, ...)` batches:
 
 - each cell has its own dataset (a MemoryDataset, or a FilesystemDataset
   with its own chunk store under `{chunk_path}/cell{c}`), built with the
@@ -14,7 +13,14 @@ batches:
   `default_rng((seed, epoch, cell))`: cells never synchronize on epoch
   boundaries (their streams have different lengths);
 - stream positions (epoch, batch_index per cell) are checkpointable and
-  fast-forward deterministically for an exact mid-stream resume.
+  fast-forward deterministically for an exact mid-stream resume;
+- a rank of a multi-process grid (`cells`, `data_index`, `data_size`)
+  builds the streams of the cells its group owns only, and emits rows
+  `[d * B / D, (d + 1) * B / D)` of each one's global batch; the group's
+  padding cells (indices past the real cells) get the JAX package's
+  synthetic stream in the same shape, also on a rank that owns nothing
+  else. A stream's filesystem store is then the rank's own
+  (`process_scope="private"`).
 """
 
 from __future__ import annotations
@@ -93,6 +99,9 @@ class CellDataset:
         scale_factor: int = 1,
         disk_flush_size: int = 10_000_000,
         min_chunk_rays: int = 0,
+        cells: Optional[Sequence[int]] = None,
+        data_index: int = 0,
+        data_size: int = 1,
     ):
         """min_chunk_rays: clamp each cell's chunk count so that its chunks
         hold at least this many rays. Masked cell streams are uneven (border
@@ -100,16 +109,26 @@ class CellDataset:
         hundreds of thousands); a global --num_chunks sized for the big
         cells would cut the small ones into chunks smaller than a batch,
         which FilesystemDataset.batches refuses. CellRunner passes 4 x the
-        batch."""
+        batch.
+
+        cells: the cells this rank trains (default all), in the padded
+        numbering: those past `len(cell_items)` are padding. data_index /
+        data_size: this rank's place in its cell group."""
         self.num_cells = len(cell_items)
-        self._streams: List[_CellStream] = []
-        for cell, items in enumerate(cell_items):
+        self.cells = list(range(self.num_cells)) if cells is None else list(cells)
+        self._data_index, self._data_size = data_index, data_size
+        scope = "global" if cells is None else "private"
+        self._streams: Dict[int, _CellStream] = {}
+        for cell in self.cells:
+            if cell >= self.num_cells:
+                continue
+            items = cell_items[cell]
             # Seeded as an independent job's dataset would be; the cell
             # index keeps the val-pixel draws distinct per cell.
             ds_rng = np.random.default_rng((seed, cell))
             if dataset_type == "memory":
                 ds = MemoryDataset(items, near, far, ray_altitude_range,
-                                   center_pixels, ds_rng)
+                                   center_pixels, ds_rng, process_scope="private")
             elif dataset_type == "filesystem":
                 if not chunk_paths:
                     raise ValueError("--dataset_type filesystem needs --chunk_paths")
@@ -120,10 +139,11 @@ class CellDataset:
                 ds = FilesystemDataset(
                     items, near, far, ray_altitude_range, center_pixels,
                     [Path(p) / f"cell{cell}" for p in chunk_paths],
-                    cell_chunks, scale_factor, disk_flush_size, rng=ds_rng)
+                    cell_chunks, scale_factor, disk_flush_size, rng=ds_rng,
+                    process_scope=scope)
             else:
                 raise ValueError(f"Unrecognized dataset type: {dataset_type}")
-            self._streams.append(_CellStream(ds, seed, cell))
+            self._streams[cell] = _CellStream(ds, seed, cell)
 
     @staticmethod
     def _count_rays(items: List[ImageMetadata]) -> int:
@@ -137,22 +157,49 @@ class CellDataset:
         return total
 
     def next_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
-        """One (num_cells, batch_size, ...) batch; cells advance
-        independently."""
-        per_cell = [s.next_batch(batch_size) for s in self._streams]
+        """One (cells, batch_size / data_size, ...) batch of this rank's
+        cells (padding included); cells advance independently."""
+        if batch_size % self._data_size:
+            raise ValueError(f"batch_size {batch_size} is not a multiple of the "
+                             f"{self._data_size} ranks of a cell group")
+        local = batch_size // self._data_size
+        rows = slice(self._data_index * local, (self._data_index + 1) * local)
+        per_cell = [
+            {k: v[rows] for k, v in self._streams[c].next_batch(batch_size).items()}
+            if c in self._streams else padding_rows(local)
+            for c in self.cells]
         return {k: np.stack([b[k] for b in per_cell]) for k in per_cell[0]}
 
-    def state(self) -> List[Dict[str, int]]:
-        return [s.state() for s in self._streams]
+    def state(self) -> List[Optional[Dict[str, int]]]:
+        """Each real cell's stream position (None for a cell this rank does
+        not stream)."""
+        return [self._streams[c].state() if c in self._streams else None
+                for c in range(self.num_cells)]
 
-    def set_state(self, states: List[Dict[str, int]], batch_size: int) -> None:
+    def set_state(self, states: List[Optional[Dict[str, int]]],
+                  batch_size: int) -> None:
         if len(states) != self.num_cells:
             raise ValueError(f"{len(states)} stream states for {self.num_cells} cells")
-        for stream, st in zip(self._streams, states):
-            stream.set_state(st, batch_size)
+        for cell, stream in self._streams.items():
+            if states[cell] is None:
+                raise ValueError(f"no stream state for cell {cell}")
+            stream.set_state(states[cell], batch_size)
 
     def close(self) -> None:
         """Stop the chunk stores' prefetch threads."""
-        for s in self._streams:
+        for s in self._streams.values():
             if isinstance(s._dataset, FilesystemDataset):
                 s._dataset.close()
+
+
+def padding_rows(n: int) -> Dict[str, np.ndarray]:
+    """n rows of a padding cell's synthetic stream (the JAX CellRunner's
+    `_pad_batch`): origin 0, unit +z direction, interval [0.5, 1.0] inside
+    the fg ellipsoid, mid-gray targets, image 0; finite on every rank
+    without a real stream behind it."""
+    rays = np.zeros((n, 8), np.float32)
+    rays[:, 5] = 1.0
+    rays[:, 6] = 0.5
+    rays[:, 7] = 1.0
+    return {"rgbs": np.full((n, 3), 0.5, np.float32), "rays": rays,
+            "img_indices": np.zeros((n,), np.int32)}

@@ -20,6 +20,21 @@ chunks served and `set_position` fast-forwards the deterministic cycle
 (checkpoint resume: the runner's epoch is the chunk position). A chunk's
 rays are regenerated on the host in float32 by one batched product
 (`ops.rays.get_rays_flat`).
+
+With P ranks and a store shared by all of them (`process_scope="global"`),
+rank 0 checks or writes the store while the others wait at a barrier, and
+each rank yields `batch_size / P` rows a step in one of two modes:
+
+- per-rank chunk streams (a stamped store of at least P chunks): epoch e of
+  rank p reads chunk `(e * P + p) % N`, and the epoch's batch count is the
+  smallest of its P chunks' `chunk_rows` over the local batch, the same on
+  every rank without communication;
+- a shared chunk (a store without `chunk_rows`, such as the reference's):
+  every rank reads the same chunk and takes its slice of one shuffle.
+
+A rank's private store (`process_scope="private"`, a cell's under a
+multi-process `CellRunner`) is written by that rank with no barrier and
+yields whole batches.
 """
 
 from __future__ import annotations
@@ -44,6 +59,13 @@ from mega_nerf_tpu_torch.ops.rays import (
     get_ray_directions,
     get_rays_flat,
 )
+from mega_nerf_tpu_torch.parallel.distributed import (
+    barrier,
+    is_master,
+    main_print,
+    rank,
+    world_size,
+)
 
 
 def _check(condition: bool, message: str) -> None:
@@ -66,7 +88,11 @@ class FilesystemDataset:
         scale_factor: int,
         disk_flush_size: int,
         rng: Optional[np.random.Generator] = None,
+        process_scope: str = "global",
     ):
+        if process_scope not in ("global", "private"):
+            raise ValueError(f"process_scope {process_scope!r}")
+        private = process_scope == "private"
         self._near = near
         self._far = far
         self._ray_altitude_range = ray_altitude_range
@@ -91,19 +117,34 @@ class FilesystemDataset:
             print("Differing intrinsics", flush=True)
             self._directions = None
 
-        existing = self._check_existing_paths(
-            chunk_paths, center_pixels, scale_factor, len(metadata_items))
-        if existing is not None:
-            print(f"Reusing {len(existing)} chunks from previous run", flush=True)
-            self._parquet_paths = existing
-        else:
-            self._parquet_paths = []
-            self._write_chunks(metadata_items, chunk_paths, num_chunks,
-                               scale_factor, disk_flush_size)
+        # Rank 0 probes or writes first; the others look only after the
+        # barrier, or they would see a half-written store.
+        if private or is_master():
+            existing = self._check_existing_paths(
+                chunk_paths, center_pixels, scale_factor, len(metadata_items))
+            if existing is not None:
+                print(f"Reusing {len(existing)} chunks from previous run", flush=True)
+                self._parquet_paths = existing
+            else:
+                self._parquet_paths = []
+                self._write_chunks(metadata_items, chunk_paths, num_chunks,
+                                   scale_factor, disk_flush_size)
+        if not private:
+            barrier("chunk_store_written")
+            if not is_master():
+                self._parquet_paths = self._check_existing_paths(
+                    chunk_paths, center_pixels, scale_factor, len(metadata_items)) or []
         self._parquet_paths.sort(key=lambda x: x.name)
         # Rows per chunk file (None for stores written without the field,
-        # such as the reference's): what per-process chunk streams need.
+        # such as the reference's): what per-rank chunk streams need.
         self._chunk_rows = self._load_chunk_rows(chunk_paths)
+        self._procs, self._index = (1, 0) if private else (world_size(), rank())
+        self._shard_chunks = (self._procs > 1 and self._chunk_rows is not None
+                              and len(self._parquet_paths) >= self._procs)
+        if self._procs > 1:
+            main_print("Multi-process data feeding: " + (
+                "per-rank chunk streams" if self._shard_chunks
+                else "shared chunks, sliced shuffle"))
 
         self.position = 0  # chunks served so far (resume token)
         self._executor = ThreadPoolExecutor(max_workers=1)
@@ -131,8 +172,23 @@ class FilesystemDataset:
         self._future.cancel()
         self._executor.shutdown(wait=True)
 
+    def _chunk_for(self, position: int) -> Path:
+        n = len(self._parquet_paths)
+        if self._shard_chunks:
+            return self._parquet_paths[(position * self._procs + self._index) % n]
+        return self._parquet_paths[position % n]
+
+    def _aligned_num_batches(self, position: int, local: int) -> int:
+        """Epoch `position`'s batch count under per-rank chunk streams: the
+        smallest of its P chunks' rows over the local batch, from the
+        stamps, so every rank takes the same number of steps."""
+        n = len(self._parquet_paths)
+        return min(
+            self._chunk_rows[self._parquet_paths[(position * self._procs + p) % n].name]
+            for p in range(self._procs)) // local
+
     def _load_chunk_inner(self, position: int) -> Dict[str, np.ndarray]:
-        path = self._parquet_paths[position % len(self._parquet_paths)]
+        path = self._chunk_for(position)
         table = pq.read_table(path)
         img_indices = table["img_indices"].to_numpy().astype(np.int32)
         rgbs = np.stack([table[f"rgbs_{i}"].to_numpy() for i in range(3)], axis=1)
@@ -157,9 +213,33 @@ class FilesystemDataset:
         rng: np.random.Generator,
         drop_remainder: bool = True,
     ) -> Iterator[Dict[str, np.ndarray]]:
-        """Load the next chunk and yield its shuffled minibatches."""
+        """Load the next chunk and yield its shuffled minibatches;
+        `batch_size` is the global batch, of which each of P ranks yields
+        its rows."""
+        if batch_size % self._procs:
+            raise ValueError(f"batch_size {batch_size} is not a multiple of the "
+                             f"{self._procs} ranks")
+        local = batch_size // self._procs
+        epoch_position = self.position
         chunk = self.load_chunk()
         n = chunk["rgbs"].shape[0]
+        if self._shard_chunks:
+            # Each rank its own chunk; the stamps align the step counts.
+            order = rng.permutation(n)
+            num_batches = self._aligned_num_batches(epoch_position, local)
+            if drop_remainder and num_batches == 0:
+                raise ValueError(
+                    f"epoch {epoch_position}: the smallest chunk of this cycle "
+                    f"step holds fewer rays than the per-rank batch {local}; "
+                    f"rewrite the store with fewer chunks")
+            for b in range(num_batches):
+                sel = order[b * local:(b + 1) * local]
+                yield {
+                    "rgbs": chunk["rgbs"][sel].astype(np.float32) / 255.0,
+                    "rays": chunk["rays"][sel],
+                    "img_indices": chunk["img_indices"][sel],
+                }
+            return
         if drop_remainder and n < batch_size:
             # A chunk smaller than one batch would yield no batch, and the
             # training loop would load chunks forever without a step.
@@ -171,7 +251,7 @@ class FilesystemDataset:
         order = rng.permutation(n)
         stop = (n // batch_size) * batch_size if drop_remainder else n
         for start in range(0, stop, batch_size):
-            sel = order[start:start + batch_size]
+            sel = order[start + self._index * local:start + (self._index + 1) * local]
             yield {
                 "rgbs": chunk["rgbs"][sel].astype(np.float32) / 255.0,
                 "rays": chunk["rays"][sel],

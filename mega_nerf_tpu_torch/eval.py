@@ -9,7 +9,8 @@ Counterpart of the JAX package's `eval.py`. Runs on `--device` (default
 cuda; cuda without a card raises). `--occupancy_path <occupancy or octree
 .npz>` (from `scripts.bake_occupancy` or `scripts.create_octree`) tightens
 each ray's fg interval; a mixture is culled per chunk unless
-`--no_cell_cull`.
+`--no_cell_cull`. Under torchrun the val views are strided over the ranks
+and the metrics gathered.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from argparse import Namespace
 from typing import Dict
 
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.parallel.distributed import init_from_env
 from mega_nerf_tpu_torch.runtime.runner import Runner
 
 
@@ -33,6 +35,7 @@ def main(hparams: Namespace) -> Dict[str, float]:
     """Render and score every val view; returns the averaged metrics."""
     if hparams.ckpt_path is None and hparams.container_path is None:
         raise ValueError("eval needs --ckpt_path or --container_path")
+    init_from_env(hparams.device)
     return Runner(hparams).eval()
 
 

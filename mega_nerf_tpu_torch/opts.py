@@ -14,9 +14,9 @@ Runner ignores the container's weights there; ROADMAP.md C).
 `--train_mega_nerf` (joint mixture training) and `--mega_routing
 dense|routed|ray|auto` with `--routing_max_experts` and
 `--ray_routing_gate` act as in the JAX package (`auto` routes per point
-past 32 submodules). `--cell_axis` and `--data_axis` above 1 describe a device mesh:
-`train_cells` trains every cell in one process on one device and raises
-for them (multi-process training is ROADMAP.md A.4). `--occupancy_path`
+past 32 submodules). `--cell_axis C` and `--data_axis D` lay the ranks of a
+torchrun `train_cells` run out as C cell groups of D ranks (C x D must be
+the world size; one process takes 1 x 1). `--occupancy_path`
 (with `--occupancy_thresh`, `_dilate`, `_probes`, `_mode`), `--no_cell_cull`
 and `--bake_cell_cull` act as in the JAX package. The others, such as the
 eval compositor (a choice between equivalent compositors) and

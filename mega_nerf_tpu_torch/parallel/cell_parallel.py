@@ -1,5 +1,5 @@
-"""Cell-parallel Mega-NeRF training on one device: every submodule, one
-grid step at a time.
+"""Cell-parallel Mega-NeRF training: every submodule, one grid step at a
+time.
 
 Counterpart of the JAX package's `parallel/cell_parallel.py`
 (`make_cell_train_state`, `make_cell_parallel_train_step`), which stacks
@@ -15,6 +15,12 @@ step over it. Here the K cells are K independent states:
   (a cell whose rows hold no background ray leaves its bg parameters,
   Adam state and schedule as they were).
 
+Over several ranks, a rank holds the states of the cells its group owns
+(`cells`), and each cell's step averages its gradients and metrics over the
+group's D ranks (`group`; the JAX `pmean` over 'data'); nothing crosses
+cell groups. The D ranks of a group start a cell from the same weights and
+draw their samples from their own generators.
+
 `mixture_states_from_flax` carries the JAX package's stacked cell or
 mixture parameters across: one reference-named state dict per cell or
 submodule.
@@ -23,7 +29,7 @@ submodule.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,12 +37,14 @@ import torch
 from mega_nerf_tpu_torch.models.factory import ModelBundle
 from mega_nerf_tpu_torch.models.nerf import NeRFConfig, init_weights
 from mega_nerf_tpu_torch.models.weights import state_from_flax_params
+from mega_nerf_tpu_torch.parallel.distributed import Group, rank_seed
 from mega_nerf_tpu_torch.parallel.train_step import TrainStep
 from mega_nerf_tpu_torch.render.rendering import RenderSettings
 
 
 @dataclasses.dataclass
 class CellState:
+    index: int  # the cell's number in the grid (past the real cells: padding)
     fg: ModelBundle
     bg: Optional[ModelBundle]
     step: TrainStep
@@ -63,11 +71,14 @@ def make_cell_train_state(
     sphere_center: Optional[torch.Tensor] = None,
     sphere_radius: Optional[torch.Tensor] = None,
     use_appearance: bool = True,
+    cells: Optional[Sequence[int]] = None,
+    group: Optional[Group] = None,
 ) -> List[CellState]:
-    """K cells, each with freshly built and independently seeded modules on
-    `device`, its own TrainStep and its own sample generator."""
-    cells = []
-    for cell in range(num_cells):
+    """K cells (or those of `cells`), each with freshly built and
+    independently seeded modules on `device`, its own TrainStep (averaging
+    over `group`) and its own sample generator (seeded per group rank)."""
+    out = []
+    for cell in (range(num_cells) if cells is None else cells):
         bundles = []
         for stream, make in enumerate((make_fg, make_bg)):
             if make is None:
@@ -80,14 +91,17 @@ def make_cell_train_state(
             bundles.append(bundle)
         fg, bg = bundles
         step = TrainStep(fg, bg, settings, lr, lr_decay_factor, train_iterations,
-                         sphere_center, sphere_radius, use_appearance=use_appearance)
-        generator = torch.Generator(device=device).manual_seed(cell_seed(seed, cell, 2))
-        cells.append(CellState(fg, bg, step, generator))
-    return cells
+                         sphere_center, sphere_radius, use_appearance=use_appearance,
+                         group=group, pmean_psnr=True)
+        generator = torch.Generator(device=device).manual_seed(
+            rank_seed(cell_seed(seed, cell, 2), 0 if group is None else group.index))
+        out.append(CellState(cell, fg, bg, step, generator))
+    return out
 
 
 class CellParallelTrainStep:
-    """One grid step: `(K, B, ...)` batch -> `(K,)` metrics per key."""
+    """One grid step: `(K, B, ...)` batch -> `(K,)` metrics per key (K the
+    cells this rank holds)."""
 
     def __init__(self, cells: List[CellState]):
         self.cells = cells

@@ -1,6 +1,6 @@
 """The training step: render -> loss -> gradients -> optimizer update.
 
-Counterpart of the JAX package's `parallel/train_step.py` for one process:
+Counterpart of the JAX package's `parallel/train_step.py`:
 
 - loss = MSE on the fine rgb; under the coarse/fine cascade the mean of
   it and the coarse rgb's MSE (`coarse_loss`); plus the Mip-NeRF 360
@@ -16,7 +16,17 @@ Counterpart of the JAX package's `parallel/train_step.py` for one process:
   its moments decay and momentum still moves it, where `torch.optim.Adam`
   would skip it and hold back its step count;
 - the background step is skipped when the batch holds no background ray:
-  its parameters, Adam state and schedule stay as they were.
+  its parameters, Adam state and schedule stay as they were;
+- over a data group of D ranks (`group`, `parallel/distributed.py`), each
+  rank's gradients, metrics and background flag are summed in one
+  all-reduce and divided by D (the JAX `pmean`), after the missing
+  gradients got their zeros, so every rank reduces the same tensors (a
+  mixture submodule may get points on one rank and none on another). The
+  background step is skipped only when no rank saw a background ray (the
+  JAX `pmax`). The data-parallel Runner, one program over the global batch
+  in the JAX package, reports the psnr of the mean photo loss; the cell
+  step (`pmean_psnr`) the mean of the ranks' psnrs, as the JAX `pmean` of
+  the cell metrics does.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mega_nerf_tpu_torch.models.factory import ModelBundle
+from mega_nerf_tpu_torch.parallel.distributed import Group, all_reduce_
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
 
 ADAM_BETAS = (0.9, 0.999)
@@ -75,8 +86,12 @@ class TrainStep:
         sphere_center: Optional[torch.Tensor] = None,
         sphere_radius: Optional[torch.Tensor] = None,
         use_appearance: bool = True,
+        group: Optional[Group] = None,
+        pmean_psnr: bool = False,
     ):
         self.fg, self.bg = fg, bg
+        self.group = group if group is not None and group.size > 1 else None
+        self.pmean_psnr = pmean_psnr
         self.settings = dataclasses.replace(
             settings, get_depth=False, get_depth_variance=True,
             get_bg_fg_rgb=False)
@@ -137,19 +152,51 @@ class TrainStep:
         metrics["loss"] = loss
         return loss, {k: v.detach() for k, v in metrics.items()}, bg_present
 
+    def gradients(self, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None):
+        """Render and backpropagate into every parameter's `.grad`, averaged
+        over the data group -> (metrics, a function reading whether any
+        rank's batch held a background ray)."""
+        opts = [opt for opt in (self.fg_opt, self.bg_opt) if opt is not None]
+        for opt in opts:
+            opt.zero_grad(set_to_none=True)
+        loss, metrics, bg_present = self.loss(batch, generator)
+        if self.group is None:
+            bg_present = _host_flag(bg_present)
+        loss.backward()
+        for opt in opts:
+            _zero_missing_grads(opt)
+        if self.group is not None:
+            metrics, bg_present = self._average(opts, metrics, bg_present)
+            bg_present = _host_flag(bg_present)
+        return metrics, bg_present
+
+    def _average(self, opts, metrics: Dict[str, torch.Tensor],
+                 bg_present: torch.Tensor):
+        """One all-reduce of every gradient, metric and the bg flag over
+        the group, divided by its size -> (metrics, flag of any rank)."""
+        grads = [p.grad for opt in opts for g in opt.param_groups for p in g["params"]]
+        keys = list(metrics)
+        dtype = grads[0].dtype
+        flat = torch.cat([t.reshape(-1).to(dtype) for t in grads]
+                         + [metrics[k].reshape(1).to(dtype) for k in keys]
+                         + [bg_present.reshape(1).to(dtype)])
+        all_reduce_(flat, self.group)
+        flat /= self.group.size
+        offset = 0
+        for t in grads:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+        out = {k: flat[offset + i] for i, k in enumerate(keys)}
+        if not self.pmean_psnr:
+            out["psnr"] = -10.0 * torch.log10(out["photo_loss"])
+        return out, flat[-1] > 0
+
     def __call__(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, torch.Tensor]:
         """Render, backpropagate, update -> metrics (device scalars)."""
-        for opt in (self.fg_opt, self.bg_opt):
-            if opt is not None:
-                opt.zero_grad(set_to_none=True)
-        loss, metrics, bg_present = self.loss(batch, generator)
-        bg_present = _host_flag(bg_present)
-        loss.backward()
-        for opt in (self.fg_opt, self.bg_opt):
-            if opt is not None:
-                _zero_missing_grads(opt)
+        metrics, bg_present = self.gradients(batch, generator)
         self.fg_opt.step()
         self.fg_sched.step()
         if self.bg_opt is not None and bg_present():

@@ -69,7 +69,7 @@ def load_checkpoint(path) -> Dict:
         raise NotImplementedError(
             f"{path} is the JAX package's checkpoint: resuming or evaluating "
             "from it needs its optax Adam state mapped to torch's (ROADMAP.md "
-            "A.4); scripts/merge_submodules.py reads its weights")
+            "A.5); scripts/merge_submodules.py reads its weights")
     return torch.load(Path(path), map_location="cpu", weights_only=False)
 
 

@@ -1,9 +1,12 @@
 """Experiment metrics: a `metrics.jsonl` file, plus TensorBoard event files
 when `torch.utils.tensorboard` imports.
 
-Counterpart of the JAX package's `runtime/logging.py` `MetricsWriter`, for
-one process. Each `add_scalar` appends one JSON line
-`{"t": <unix time>, "step": <iteration>, <key>: <value>}`.
+Counterpart of the JAX package's `runtime/logging.py` `MetricsWriter`. Each
+`add_scalar` appends one JSON line
+`{"t": <unix time>, "step": <iteration>, <key>: <value>}`. In a
+multi-process run only rank 0 makes a writer (the runners keep None on every
+other rank), and `main_print` (`parallel/distributed.py`) prints on rank 0
+only.
 """
 
 from __future__ import annotations

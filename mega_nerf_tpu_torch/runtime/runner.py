@@ -1,4 +1,4 @@
-"""The orchestrator: the JAX package's `Runner` for one process.
+"""The orchestrator: the JAX package's `Runner`.
 
 - scene space (`coordinates.pt`, near/far, altitude range) and the
   foreground ellipsoid fitted over the cameras and their copies pinned to
@@ -43,13 +43,23 @@
 
 With `--cluster_mask_path` the masks' `params.pt` must describe the scene
 (near, origin, pose scale, altitude range), or the Runner raises. The grid
-of every cell, trained in one process, is `runtime/cell_runner.py`.
+of every cell is `runtime/cell_runner.py`.
 
-Everything runs on `--device` (default cuda). Asking for cuda without a
-card raises; nothing falls back to the CPU. Training from --container_path
-raises (the JAX Runner trains a fresh mixture there and ignores the
-container's weights: ROADMAP.md C). Not ported yet: multi-process
-training, validation and rendering (A.4).
+Several processes (torchrun's environment, `parallel/distributed.py`)
+train one model data-parallel: every rank starts from the same weights
+(the same seed, or the same --ckpt_path; nothing is broadcast), trains on its `batch_size / P` rows of each
+global batch with its own sample generator (seeded from the seed and the
+rank), and averages gradients over all ranks; rank 0 alone makes the
+experiment directory and writes checkpoints (with every rank's generator
+state, gathered), scalars, panels and `metrics.txt`; validation strides
+the val views over the ranks and averages the gathered sums over the
+gathered counts per metric.
+
+Everything runs on `--device` (default cuda; a rank's card is
+`cuda:{LOCAL_RANK % device_count}`). Asking for cuda without a card raises;
+nothing falls back to the CPU. Training from --container_path raises (the
+JAX Runner trains a fresh mixture there and ignores the container's
+weights: ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -82,6 +92,8 @@ from mega_nerf_tpu_torch.ops.metrics import lpips as lpips_metric
 from mega_nerf_tpu_torch.ops.metrics import psnr as psnr_metric
 from mega_nerf_tpu_torch.ops.metrics import ssim as ssim_metric
 from mega_nerf_tpu_torch.ops.rays import generate_image_rays
+from mega_nerf_tpu_torch.parallel import distributed
+from mega_nerf_tpu_torch.parallel.distributed import is_master, main_print
 from mega_nerf_tpu_torch.parallel.train_step import TrainStep
 from mega_nerf_tpu_torch.render.cell_cull import (
     active_cells,
@@ -172,14 +184,15 @@ class ViewPlan:
 
 
 def resolve_device(name: str) -> torch.device:
-    """`--device` -> torch.device; cuda without a card raises."""
+    """`--device` -> this rank's torch.device; cuda without a card
+    raises."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda was asked for but no CUDA device is available "
             "(pass --device cpu to run on the CPU)"
         )
-    return device
+    return distributed.rank_device(name)
 
 
 def batch_to_device(host_batch: Dict[str, np.ndarray],
@@ -274,7 +287,7 @@ class Runner:
         self.view_stats: Dict = {}
 
         self.experiment_path = (
-            self._get_experiment_path() if set_experiment_path else None
+            self._get_experiment_path() if set_experiment_path and is_master() else None
         )
         self.writer: Optional[MetricsWriter] = None
         self._lpips_nets: Optional[Dict[str, LPIPS]] = None
@@ -282,7 +295,7 @@ class Runner:
         coords = load_coordinates(hparams.dataset_path)
         self.origin_drb = coords["origin_drb"]
         self.pose_scale_factor = coords["pose_scale_factor"]
-        print(f"Origin: {self.origin_drb}, scale factor: {self.pose_scale_factor}")
+        main_print(f"Origin: {self.origin_drb}, scale factor: {self.pose_scale_factor}")
 
         self.near = hparams.near / self.pose_scale_factor
         if hparams.far is not None:
@@ -291,7 +304,7 @@ class Runner:
             self.far = 1e5
         else:
             self.far = 2.0
-        print(f"Ray bounds: {self.near}, {self.far}")
+        main_print(f"Ray bounds: {self.near}, {self.far}")
 
         if hparams.ray_altitude_range is not None:
             self.ray_altitude_range = [
@@ -306,8 +319,8 @@ class Runner:
                 Path(hparams.cluster_mask_path).parent / "params.pt")
 
         self.train_items, self.val_items = self._get_image_metadata()
-        print(f"Using {len(self.train_items)} train images and "
-              f"{len(self.val_items)} val images")
+        main_print(f"Using {len(self.train_items)} train images and "
+                   f"{len(self.val_items)} val images")
 
         camera_positions = np.stack(
             [x.c2w[:3, 3] for x in self.train_items + self.val_items]
@@ -347,7 +360,7 @@ class Runner:
                     center, dtype=torch.float32, device=self.device)
                 self.sphere_radius = torch.as_tensor(
                     radius, dtype=torch.float32, device=self.device)
-            print(f"Sphere center: {self.sphere_center}, radius: {self.sphere_radius}")
+            main_print(f"Sphere center: {self.sphere_center}, radius: {self.sphere_radius}")
 
         for b in (self.fg, self.bg):
             if b is not None:
@@ -384,15 +397,22 @@ class Runner:
                 "initialised mixture there and ignores the container's weights, "
                 "which is an open check, not ported (ROADMAP.md C)")
         self._setup_experiment_dir()
+        # Every rank draws the same weights from the same seed and loads the
+        # same --ckpt_path below: the ranks start equal without a broadcast.
         init_weights(self.fg.module, torch.Generator().manual_seed(hp.random_seed))
         if self.bg is not None:
             init_weights(self.bg.module,
                          torch.Generator().manual_seed(hp.random_seed + 1))
+        if hp.batch_size % distributed.world_size():
+            raise ValueError(f"--batch_size {hp.batch_size} is not a multiple of the "
+                             f"{distributed.world_size()} ranks")
         step = TrainStep(
             self.fg, self.bg, RenderSettings.from_hparams(hp), hp.lr,
             hp.lr_decay_factor, hp.train_iterations, self.sphere_center,
-            self.sphere_radius, use_appearance=hp.appearance_dim > 0)
-        generator = torch.Generator(device=self.device).manual_seed(hp.random_seed)
+            self.sphere_radius, use_appearance=hp.appearance_dim > 0,
+            group=distributed.world_group())
+        generator = torch.Generator(device=self.device).manual_seed(
+            distributed.rank_seed(hp.random_seed, distributed.rank()))
         train_iterations = 0
         start_epoch = 0
         discard_index = -1
@@ -404,9 +424,8 @@ class Runner:
                 ds_state = loaded.get("dataset_state") or {}
                 start_epoch = int(ds_state.get("epoch", 0))
                 discard_index = int(ds_state.get("batch_index", -1))
-                if "generator_state" in loaded:
-                    generator.set_state(loaded["generator_state"])
-            print(f"Resumed from {hp.ckpt_path} at iteration {train_iterations}")
+                self._restore_generator(generator, loaded)
+            main_print(f"Resumed from {hp.ckpt_path} at iteration {train_iterations}")
         self.train_step = step
 
         dataset = self._make_dataset()
@@ -444,10 +463,9 @@ class Runner:
                             for k, v in host.items():
                                 self.writer.add_scalar(f"train/{k}", v,
                                                        train_iterations)
-                        print(f"step {train_iterations}: "
-                              + " ".join(f"{k}={v:.5g}" for k, v in host.items())
-                              + ("" if rate is None else f" rays/s={rate:.1f}"),
-                              flush=True)
+                        main_print(f"step {train_iterations}: "
+                                   + " ".join(f"{k}={v:.5g}" for k, v in host.items())
+                                   + ("" if rate is None else f" rays/s={rate:.1f}"))
 
                     if train_iterations % hp.ckpt_interval == 0:
                         self._save_checkpoint(
@@ -510,13 +528,32 @@ class Runner:
 
     def _save_checkpoint(self, iteration: int, dataset_state: Dict[str, int],
                          generator: torch.Generator) -> None:
+        """Rank 0 writes `{iteration}.pt`; with several ranks it holds every
+        rank's generator state (`generator_states`, in rank order; rank 0's
+        is also `generator_state`). Every rank must call this."""
+        states = distributed.all_gather_object(generator.get_state())
         if self.experiment_path is None:
             return
         checkpoints.save_checkpoint(
             self.experiment_path / "models" / f"{iteration}.pt",
             self.fg.module, None if self.bg is None else self.bg.module,
             self.train_step.optimizer_states(), iteration, dataset_state,
-            generator.get_state())
+            states[0], extra={"generator_states": states} if len(states) > 1 else None)
+
+    @staticmethod
+    def _restore_generator(generator: torch.Generator, loaded: Dict) -> None:
+        """This rank's sample generator from a `{iter}.pt`: its own state
+        where the checkpoint holds one (a run of as many ranks or more),
+        else the run keeps its fresh seed past rank 0."""
+        states = loaded.get("generator_states")
+        if states is None and "generator_state" in loaded:
+            states = [loaded["generator_state"]]
+        rank = distributed.rank()
+        if states and rank < len(states):
+            generator.set_state(states[rank])
+        elif states:
+            print(f"rank {rank}: the checkpoint holds the generators of "
+                  f"{len(states)} ranks; this rank keeps its fresh seed", flush=True)
 
     # ------------------------------------------------------------------ eval
 
@@ -534,13 +571,13 @@ class Runner:
         --container_path hold the container's weights already."""
         hp = self.hparams
         if getattr(hp, "container_path", None) is not None:
-            print(f"Serving the {len(self.fg.module)}-submodule mixture of "
-                  f"{hp.container_path}")
+            main_print(f"Serving the {len(self.fg.module)}-submodule mixture of "
+                       f"{hp.container_path}")
             return
         if hp.ckpt_path is None:
             raise ValueError("eval needs --ckpt_path or --container_path")
         loaded = self._load_weights(hp.ckpt_path)
-        print(f"Loaded {hp.ckpt_path} (iteration {loaded.get('iteration', 0)})")
+        main_print(f"Loaded {hp.ckpt_path} (iteration {loaded.get('iteration', 0)})")
 
     def _load_weights(self, path) -> Dict:
         """Load a `{iter}.pt`'s weights into the modules -> the whole dict."""
@@ -558,17 +595,22 @@ class Runner:
 
     def _run_validation(self, train_index: int,
                         key_prefix: str = "val") -> Dict[str, float]:
-        """Render + score every val image -> per-image AVERAGES, under
-        `key_prefix` (CellRunner passes val/cell{i})."""
+        """Render + score the val images, strided over the ranks ->
+        per-image AVERAGES under `key_prefix` (CellRunner passes
+        val/cell{i}). With several ranks the sums and the counts of each
+        metric are gathered, so a metric averages over the images it was
+        computed on. Every rank must call this."""
         if self._lpips_nets is None:
             self._lpips_nets = load_available(device=self.device)
         sums: Dict[str, float] = {}
+        counts: Dict[str, int] = {}
         img_dir = None
         if self.experiment_path is not None:
             img_dir = self.experiment_path / "val_images" / str(train_index)
             img_dir.mkdir(parents=True, exist_ok=True)
 
-        for i, metadata in enumerate(self.val_items):
+        for i in range(distributed.rank(), len(self.val_items), distributed.world_size()):
+            metadata = self.val_items[i]
             viz_rgbs = metadata.load_image().astype(np.float32) / 255.0
             results = self.render_image(metadata)
             typ = "fine" if "rgb_fine" in results else "coarse"
@@ -589,6 +631,7 @@ class Runner:
                 if self.writer is not None:
                     self.writer.add_scalar(f"{key}/{i}", value, train_index)
                 sums[key] = sums.get(key, 0.0) + value
+                counts[key] = counts.get(key, 0) + 1
 
             depth = results[f"depth_{typ}"].reshape(viz_rgbs.shape[:2])
             if f"fg_depth_{typ}" in results:
@@ -603,7 +646,13 @@ class Runner:
                     self.writer.add_image(f"{key_prefix}/{i}", panel, train_index)
         if self.writer is not None:
             self.writer.flush()
-        return {k: v / len(self.val_items) for k, v in sums.items()}
+        total: Dict[str, float] = {}
+        total_counts: Dict[str, int] = {}
+        for rank_sums, rank_counts in distributed.all_gather_object((sums, counts)):
+            for k, v in rank_sums.items():
+                total[k] = total.get(k, 0.0) + v
+                total_counts[k] = total_counts.get(k, 0) + rank_counts[k]
+        return {k: v / total_counts[k] for k, v in total.items()}
 
     def _close_writer(self) -> None:
         if self.writer is not None:
@@ -615,7 +664,7 @@ class Runner:
             with (self.experiment_path / "metrics.txt").open("w") as f:
                 for key, avg in val_metrics.items():
                     message = f"Average {key}: {avg}"
-                    print(message)
+                    main_print(message)
                     f.write(message + "\n")
 
     # ---------------------------------------------------------------- render
@@ -638,8 +687,8 @@ class Runner:
                 path, thresh=float(getattr(hp, "occupancy_thresh", -1.0)),
                 dilate=int(getattr(hp, "occupancy_dilate", 1)))
             grid = self._occupancy[0]
-            print(f"Occupancy grid {grid.shape} from {path}: "
-                  f"{100.0 * grid.mean():.1f}% occupied")
+            main_print(f"Occupancy grid {grid.shape} from {path}: "
+                       f"{100.0 * grid.mean():.1f}% occupied")
         return self._occupancy
 
     def _view_plan(self, metadata: ImageMetadata, rays: torch.Tensor,

@@ -3,8 +3,7 @@
     python -m mega_nerf_tpu_torch.scripts.create_cluster_masks --config_file ... \
         --dataset_path <scene> --output <masks> --grid_dim 2 4
 
-Counterpart of the JAX package's `scripts/create_cluster_masks.py`, in one
-process. For a `grid_dim[0] x grid_dim[1]` grid of centroids over the
+Counterpart of the JAX package's `scripts/create_cluster_masks.py`. For a `grid_dim[0] x grid_dim[1]` grid of centroids over the
 camera y/z extent (altitude zeroed), every ray of every image is sampled at
 `--ray_samples` depths between its near and far bounds; the ray belongs to
 cell j iff the minimum over its samples of (distance to centroid j /
@@ -21,8 +20,10 @@ blocks of 100 samples so that the (rays, samples, cells) distance tensor
 never exists. Distances are norms of explicit differences (a
 matrix-product distance loses the digits that decide `ratio <= margin`).
 `--segmentation_path` ANDs each mask with the view's segmentation mask;
-`--resume` keeps views whose masks all read back. Striding the views over
-several processes is not ported yet (ROADMAP.md A.4).
+`--resume` keeps views whose masks all read back. Under torchrun the views
+are split `rank::world_size`: rank 0 makes the output directories and
+writes `params.pt` while the others wait at a barrier, and every rank
+passes a last barrier once its masks are written.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ from mega_nerf_tpu_torch.data.torch_io import (
 )
 from mega_nerf_tpu_torch.ops.rays import get_ray_directions, get_rays
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.parallel import distributed
+from mega_nerf_tpu_torch.parallel.distributed import main_print
 from mega_nerf_tpu_torch.runtime.runner import resolve_device
 
 
@@ -122,9 +125,10 @@ def view_ratios(rays: torch.Tensor, centroids: torch.Tensor, ray_samples: int,
 def main(hparams: Namespace) -> None:
     if hparams.ray_altitude_range is None:
         raise ValueError("create_cluster_masks needs --ray_altitude_range")
+    distributed.init_from_env(getattr(hparams, "device", "cuda"))
     device = resolve_device(getattr(hparams, "device", "cuda"))
+    rank, world = distributed.rank(), distributed.world_size()
     output_path = Path(hparams.output)
-    output_path.mkdir(parents=True, exist_ok=hparams.resume)
 
     dataset_path = Path(hparams.dataset_path)
     coords = load_coordinates(dataset_path)
@@ -138,38 +142,42 @@ def main(hparams: Namespace) -> None:
         (dataset_path / 'val' / 'metadata').iterdir())
     camera_positions = np.stack(
         [np.asarray(load_pt(p)["c2w"])[:3, 3] for p in metadata_paths])
-    print(f"Number of images in dir: {camera_positions.shape}")
+    main_print(f"Number of images in dir: {camera_positions.shape}")
     min_position = camera_positions.min(axis=0)
     max_position = camera_positions.max(axis=0)
-    print(f"Coord range: {min_position} {max_position}")
+    main_print(f"Coord range: {min_position} {max_position}")
 
     centroids = make_centroids(hparams.grid_dim, min_position, max_position)
-    print(f"Centroids: {centroids}")
+    main_print(f"Centroids: {centroids}")
 
     near = hparams.near / pose_scale_factor
     far = hparams.far / pose_scale_factor if hparams.far is not None else 2.0
 
-    save_pt({
-        "origin_drb": origin_drb,
-        "pose_scale_factor": pose_scale_factor,
-        "ray_altitude_range": ray_altitude_range,
-        "near": near,
-        "far": far,
-        "centroids": centroids,
-        "grid_dim": list(hparams.grid_dim),
-        "min_position": min_position.astype(np.float32),
-        "max_position": max_position.astype(np.float32),
-        "cluster_2d": hparams.cluster_2d,
-    }, output_path / "params.pt")
-    if not hparams.resume:
-        for j in range(centroids.shape[0]):
-            (output_path / str(j)).mkdir(parents=True)
+    if rank == 0:
+        output_path.mkdir(parents=True, exist_ok=hparams.resume)
+        save_pt({
+            "origin_drb": origin_drb,
+            "pose_scale_factor": pose_scale_factor,
+            "ray_altitude_range": ray_altitude_range,
+            "near": near,
+            "far": far,
+            "centroids": centroids,
+            "grid_dim": list(hparams.grid_dim),
+            "min_position": min_position.astype(np.float32),
+            "max_position": max_position.astype(np.float32),
+            "cluster_2d": hparams.cluster_2d,
+        }, output_path / "params.pt")
+        if not hparams.resume:
+            for j in range(centroids.shape[0]):
+                (output_path / str(j)).mkdir(parents=True)
+    distributed.barrier("cluster_mask_dirs")
 
     cluster_dim_start = 1 if hparams.cluster_2d else 0
     centroids_t = torch.from_numpy(centroids).to(device)
     t0, n_rays = time.perf_counter(), 0
     for subdir in ("train", "val"):
-        for metadata_path in list((dataset_path / subdir / "metadata").iterdir()):
+        paths = sorted((dataset_path / subdir / "metadata").iterdir())
+        for metadata_path in paths[rank::world]:
             filename = metadata_path.stem + ".pt"
             if hparams.resume and _all_masks_valid(output_path, centroids.shape[0],
                                                    filename):
@@ -192,7 +200,9 @@ def main(hparams: Namespace) -> None:
                 save_mask_zip(mask, output_path / str(j) / filename)
     seconds = time.perf_counter() - t0
     print(f"Masks of {n_rays} rays in {seconds:.2f} s "
-          f"({n_rays / max(seconds, 1e-9):.1f} rays/s) on {device}")
+          f"({n_rays / max(seconds, 1e-9):.1f} rays/s) on {device}"
+          + (f" (rank {rank} of {world})" if world > 1 else ""), flush=True)
+    distributed.barrier("cluster_masks_written")
 
 
 def _all_masks_valid(output_path: Path, k: int, filename: str) -> bool:

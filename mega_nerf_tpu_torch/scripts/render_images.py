@@ -4,8 +4,7 @@
         --container_path merged.pt --dataset_path <scene> \
         --centroids_path <masks>/params.pt --input <poses dir> --output <dir>
 
-Counterpart of the JAX package's `scripts/render_images.py`, in one
-process. The input directory holds `poses.txt` (a 3x4 c2w per line),
+Counterpart of the JAX package's `scripts/render_images.py`. The input directory holds `poses.txt` (a 3x4 c2w per line),
 `intrinsics.txt` (W H fx fy cx cy per line, divided by
 `--val_scale_factor`) and `embeddings.txt` (an appearance index per line).
 Per frame it writes `rgbs/{i:06d}.jpg`, `depths/{i:06d}.jpg` (log
@@ -15,8 +14,10 @@ an overlay of the submodule nearest each pixel's depth point). The output
 directories are made before the first frame; `--resume` accepts existing
 ones and skips frames whose cell overlay reads back. `--occupancy_path`
 tightens the fg intervals and a mixture's frames are culled per chunk
-unless `--no_cell_cull` (`Runner.render_image`). Rendering frames over
-several processes is not ported yet.
+unless `--no_cell_cull` (`Runner.render_image`). Under torchrun the frames
+are split `rank::world_size`; rank 0 makes the output directories and every
+rank passes a barrier before its first frame (the JAX script lets the other
+ranks race rank 0's mkdir instead).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from mega_nerf_tpu_torch.data.image_metadata import ImageMetadata
 from mega_nerf_tpu_torch.data.torch_io import load_coordinates, load_pt
 from mega_nerf_tpu_torch.ops.rays import generate_image_rays
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.parallel import distributed
 from mega_nerf_tpu_torch.runtime.runner import Runner
 
 
@@ -90,11 +92,15 @@ def main(hparams: Namespace) -> None:
 
     if hparams.ckpt_path is None and hparams.container_path is None:
         raise ValueError("render_images needs --ckpt_path or --container_path")
+    distributed.init_from_env(getattr(hparams, "device", "cuda"))
+    rank, world = distributed.rank(), distributed.world_size()
     input_path = Path(hparams.input)
     output = Path(hparams.output)
-    for sub in ("rgbs", "depths", "cells") + (("depths_npz",) if hparams.save_depth_npz
-                                              else ()):
-        (output / sub).mkdir(parents=True, exist_ok=hparams.resume)
+    if rank == 0:
+        for sub in ("rgbs", "depths", "cells") + (("depths_npz",) if hparams.save_depth_npz
+                                                  else ()):
+            (output / sub).mkdir(parents=True, exist_ok=hparams.resume)
+    distributed.barrier("render_dirs_made")
 
     runner = Runner(hparams, set_experiment_path=False)
     runner.make_eval_state()
@@ -105,7 +111,8 @@ def main(hparams: Namespace) -> None:
                   for row in _lines(input_path / "intrinsics.txt")]
     embeddings = [int(row[0]) for row in _lines(input_path / "embeddings.txt")]
 
-    for i, c2w in enumerate(c2ws):
+    for i in range(rank, len(c2ws), world):
+        c2w = c2ws[i]
         cell_path = output / "cells" / f"{i:06d}.jpg"
         if hparams.resume and cell_path.exists():
             try:
@@ -119,6 +126,7 @@ def main(hparams: Namespace) -> None:
                                  None, False)
         write_frame(i, runner, metadata, runner.render_image(metadata), centroids, output,
                     pose_scale_factor, hparams.save_depth_npz)
+    distributed.barrier("frames_written")
 
 
 if __name__ == '__main__':

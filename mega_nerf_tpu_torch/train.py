@@ -3,7 +3,9 @@
 
 Counterpart of the JAX package's `train.py`. Runs on `--device` (default
 cuda; cuda without a card raises). `--detect_anomalies` turns on torch
-autograd anomaly mode.
+autograd anomaly mode. Under torchrun (`torchrun --nproc_per_node N -m
+mega_nerf_tpu_torch.train ...`) the N ranks train one model data-parallel
+(`runtime/runner.py`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict
 import torch
 
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.parallel.distributed import init_from_env
 from mega_nerf_tpu_torch.runtime.runner import Runner
 
 
@@ -28,6 +31,7 @@ def get_train_opts(args=None) -> Namespace:
 def main(hparams: Namespace) -> Dict[str, float]:
     """Train; returns the final validation metrics (empty with a cluster
     mask, which skips the final validation)."""
+    init_from_env(hparams.device)
     torch.autograd.set_detect_anomaly(bool(hparams.detect_anomalies))
     return Runner(hparams).train()
 

@@ -1,11 +1,13 @@
-"""Grid training entry point: every submodule of a Mega-NeRF in one process.
+"""Grid training entry point: every submodule of a Mega-NeRF in one run.
 
     python -m mega_nerf_tpu_torch.train_cells --config_file configs/mega-nerf/building.yaml \
         --exp_name exps/building-sub --dataset_path <scene> \
         --cluster_mask_path <masks> [--dataset_type filesystem --chunk_paths <dir>]
 
-Counterpart of the JAX package's `train_cells.py`, on one device
-(`--device`, default cuda; cuda without a card raises). `--cluster_mask_path`
+Counterpart of the JAX package's `train_cells.py` (`--device`, default
+cuda; cuda without a card raises). Under torchrun, `--cell_axis C
+--data_axis D` spreads the cells over C groups of D ranks
+(`runtime/cell_runner.py`). `--cluster_mask_path`
 is the masks ROOT written by `scripts/create_cluster_masks.py` (params.pt
 and the per-cell directories 0..K-1); `--exp_name` is the per-cell prefix:
 cell i writes `{exp_name}{i}/{version}/models/{iter}.pt`, which
@@ -20,6 +22,7 @@ from argparse import Namespace
 import torch
 
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
+from mega_nerf_tpu_torch.parallel.distributed import init_from_env
 from mega_nerf_tpu_torch.runtime.cell_runner import CellRunner
 
 
@@ -36,6 +39,7 @@ def main(hparams: Namespace) -> None:
         raise ValueError(
             "cell-parallel training needs --cluster_mask_path (the masks root "
             "written by scripts/create_cluster_masks.py)")
+    init_from_env(hparams.device)
     torch.autograd.set_detect_anomaly(bool(hparams.detect_anomalies))
     CellRunner(hparams).train()
 

@@ -20,7 +20,9 @@ grid, shared by the module:
   keys, a run resumed from cell 1's mid-run checkpoint bit-equal to the
   uninterrupted one (memory and filesystem), the per-cell metric keys,
   validation of cell i rendering cell i's current weights, and
-  `--cell_axis` / `--data_axis` above 1 raising.
+  `--cell_axis` / `--data_axis` above 1 in one process raising, naming
+  both numbers and the world size (the layouts over several processes are
+  `tests/test_torch_multiprocess_cells.py`).
 """
 
 import json
@@ -524,7 +526,9 @@ def test_mesh_axes_raise_naming_the_roadmap(scene, tmp_path, flag):
     root, ds = scene
     hp = train_cells.get_train_cells_opts(_port_args(ds, tmp_path / "sub", root / "masks",
                                                      [flag, "2"]))
-    with pytest.raises(NotImplementedError, match="A.4"):
+    want = ("--cell_axis 2 x --data_axis 1" if flag == "--cell_axis"
+            else "--cell_axis 1 x --data_axis 2")
+    with pytest.raises(ValueError, match=f"{want} = 2 ranks, but the world has 1"):
         train_cells.main(hp)
 
 

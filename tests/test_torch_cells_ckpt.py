@@ -8,7 +8,7 @@ A tiny 2-cell grid (fg + bg, appearance) trained for two steps by the JAX
   the same aux; it runs in an interpreter without jax, flax or msgpack;
 - the port's `merge_submodules` and the JAX script merge the two cells into
   containers holding bit-equal weights, centroids and metadata;
-- training from a `.ckpt` raises in the port, naming ROADMAP.md A.4;
+- training from a `.ckpt` raises in the port, naming ROADMAP.md A.5;
 - the decoder against the `msgpack` package on every type flax writes for
   a train state, and flax's chunked arrays.
 """
@@ -158,7 +158,7 @@ def test_training_from_a_jax_ckpt_raises_naming_the_adam_mapping(jax_grid, tmp_p
         hp = train_cells.get_train_cells_opts(
             args + ["--cluster_mask_path", str(root / "masks")])
         main = train_cells.main
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="A.5"):
         main(hp)
 
 

@@ -1318,3 +1318,23 @@ def test_kernels_at_small_point_counts(cuda_device, bg, m):
     offs = ft._offsets(ft.packed_shapes(packed))
     for i in range(len(offs) - 1):
         assert _rel(flat[offs[i]:offs[i + 1]], p_flat[offs[i]:offs[i + 1]]) <= 1e-2, i
+
+
+def test_data_parallel_step_on_the_card_matches_one_process(cuda_device, tmp_path):
+    """Two ranks on the card (`tests/torch_multiprocess_worker.py
+    cuda_step`; gloo where they share one card, NCCL where each has its
+    own), each with half of a 2,048-ray batch through the training kernels
+    at width 64 (paper layout, bf16, fg + bg), gradients averaged over the
+    ranks: every averaged gradient within 1e-2 relative of one process's
+    kernel step on the whole batch (the card's backward tolerance; another
+    summation order and bf16 operands), the same bits on both ranks, and 4
+    launches of each training kernel on each rank."""
+    # Beside this file: pytest puts the tests directory on the path.
+    from torch_multiprocess_worker import spawn
+
+    results = spawn("cuda_step", tmp_path, 2)
+    assert results[0]["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    assert results[0]["hash"] == results[1]["hash"]
+    assert all(r["launches"] == [4, 4, 4] for r in results)
+    rel = results[0]["rel"]
+    assert len(rel) > 0 and max(rel.values()) <= 1e-2, rel

@@ -231,13 +231,16 @@ def _render_pair(hp, rays, fg_support=None, fg_cells=None, mlp="fused"):
     kw = {}
     if fg_support is not None:
         kw = dict(fg_ray_support=jnp.asarray(fg_support),
-                  fg_ray_capacity=j_capacity(fg_support),
                   fg_ray_cells=None if fg_cells is None else jnp.asarray(fg_cells))
+    capacity = None if fg_support is None else j_capacity(fg_support)
     as_jax = lambda tree: jax.tree.map(jnp.asarray, tree)  # noqa: E731
-    want, _ = j_render_rays(jfg, jbg, as_jax(jfg.pretrained_params),
-                            as_jax(jbg.pretrained_params),
-                            jnp.asarray(rays), jnp.asarray(idx), jset, jnp.asarray(CENTER),
-                            jnp.asarray(RADIUS), train=False, **kw)
+    # One compiled program, as the JAX Runner renders, in place of hundreds
+    # of op-by-op compiles.
+    render = jax.jit(lambda fp, bp, r, i, **k: j_render_rays(
+        jfg, jbg, fp, bp, r, i, jset, jnp.asarray(CENTER), jnp.asarray(RADIUS),
+        train=False, fg_ray_capacity=capacity, **k))
+    want, _ = render(as_jax(jfg.pretrained_params), as_jax(jbg.pretrained_params),
+                     jnp.asarray(rays), jnp.asarray(idx), **kw)
     tset = RenderSettings(coarse_samples=16, fine_samples=24, get_depth=True,
                           get_bg_fg_rgb=True, use_fused_kernel=(mlp == "fused"))
     tfg.route_log = []
