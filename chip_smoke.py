@@ -219,15 +219,30 @@ remat: eager_train_wide's steps again, from the same weights, with
 `--remat` (every eager MLP pass checkpointed): peak memory and ms a step
 beside the run without it; fails unless the peak is lower and the loss
 after the steps agrees within 1e-5.
+Then resume_jax: a run moved from the JAX package's `.ckpt`. `train.main`
+at the paper config on `train`'s scene, 20 steps with a checkpoint at 10;
+the step-10 state written as the JAX package's `10.ckpt` by this script's
+own writer (`write_jax_checkpoint`: the `MNTPU001` header, a hand-written
+msgpack encoder of the flax tree with ext 1 ndarrays, the pickled aux; the
+card's machine has no jax, flax or msgpack) and as a `10.pt` whose generator
+state is a fresh run's; each resumed to 20 by `train.main` and evaluated by
+`eval.main`. Checks: the two `20.pt` files bit-equal (weights, Adam states,
+stream position), iteration 20, each schedule at its Adam step; 40 launches
+of each narrow training kernel in the resumed run, `eval_fwd` launches in
+its validation and again in `eval.main` (every counter set to 0 before the
+`.ckpt` resume and read after its eval: `launches_resume_jax`), no plain
+call; the two evals' PSNR within 1e-6; the phase's seconds and the resumed
+ms a step beside the card's name and power limit.
 
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
-`{"serving_routed": ...}`, `{"training_mega": ...}` and `{"multiproc": ...}`
-lines, a `{"kernels": [...]}` line (with each kernel's launches in
-serve_routed, in train_mega's `train.main` and `eval.main`, and over both
-ranks of multiproc), the nvidia-smi name/power-limit line,
+`{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}` and
+`{"resume_jax": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
+launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
+both ranks of multiproc, and in resume_jax's resumed run and its eval), the
+nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
 port is not beside this script.
@@ -238,6 +253,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -4469,6 +4485,263 @@ def phase_train_sh(device, report, tmp: Path):
                 and launches == 0 and plain == 0 and eager_calls.count > 0)
 
 
+# ------------------------------------------------------------ resume_jax
+
+RESUME_JAX_AT = 10  # the step the JAX-format checkpoint is written at
+RESUME_JAX_STEPS = 20  # ... and the step both resumed runs end at
+MAX_EXT_ARRAY = 1 << 30  # flax splits arrays past this many bytes into chunks
+
+
+def msgpack_encode(obj) -> bytes:
+    """msgpack of what a flax train state serialises to: maps with string
+    keys, None, and numpy arrays as flax writes them (ext type 1: msgpack of
+    (shape, dtype name, C-order bytes), so also lists, non-negative ints and
+    bytes). A numpy scalar is written as a 0-d array, as flax writes a jax
+    scalar."""
+    import numpy as np
+
+    out = bytearray()
+
+    def length(n: int, small, tags) -> None:
+        """A fix-format tag holding n (`small`: (bound, tag bits)), else
+        the first of `tags` (bound, tag, struct format) that holds it."""
+        if small is not None and n < small[0]:
+            out.append(small[1] | n)
+            return
+        for limit, tag, fmt in tags:
+            if n < limit:
+                out.append(tag)
+                out.extend(struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack: length {n} too large")
+
+    def enc(x) -> None:
+        if x is None:
+            out.append(0xc0)
+        elif isinstance(x, (np.ndarray, np.generic)):
+            a = np.asarray(x)  # (ascontiguousarray would make a 0-d array 1-d)
+            if a.nbytes >= MAX_EXT_ARRAY:
+                raise ValueError(f"an array of {a.nbytes} bytes: flax would chunk it")
+            payload = msgpack_encode([list(a.shape), a.dtype.name, a.tobytes("C")])
+            n = len(payload)
+            fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+            if n in fixext:
+                out.append(fixext[n])
+            else:
+                length(n, None, ((1 << 8, 0xc7, ">B"), (1 << 16, 0xc8, ">H"),
+                                 (1 << 32, 0xc9, ">I")))
+            out.append(1)
+            out.extend(payload)
+        elif isinstance(x, int) and x >= 0:
+            length(x, (128, 0x00), ((1 << 8, 0xcc, ">B"), (1 << 16, 0xcd, ">H"),
+                                    (1 << 32, 0xce, ">I"), (1 << 64, 0xcf, ">Q")))
+        elif isinstance(x, str):
+            data = x.encode("utf-8")
+            length(len(data), (32, 0xa0), ((1 << 8, 0xd9, ">B"), (1 << 16, 0xda, ">H"),
+                                           (1 << 32, 0xdb, ">I")))
+            out.extend(data)
+        elif isinstance(x, (bytes, bytearray)):
+            length(len(x), None, ((1 << 8, 0xc4, ">B"), (1 << 16, 0xc5, ">H"),
+                                  (1 << 32, 0xc6, ">I")))
+            out.extend(x)
+        elif isinstance(x, (list, tuple)):
+            length(len(x), (16, 0x90), ((1 << 16, 0xdc, ">H"), (1 << 32, 0xdd, ">I")))
+            for item in x:
+                enc(item)
+        elif isinstance(x, dict):
+            length(len(x), (16, 0x80), ((1 << 16, 0xde, ">H"), (1 << 32, 0xdf, ">I")))
+            for k, v in x.items():
+                enc(k)
+                enc(v)
+        else:
+            raise TypeError(f"msgpack: cannot encode {type(x).__name__}")
+
+    enc(obj)
+    return bytes(out)
+
+
+def write_jax_checkpoint(path: Path, tree: dict, aux: dict) -> Path:
+    """The JAX package's `.ckpt` (`MNTPU001`, a `<QQ` header of the two
+    payload lengths, the flax msgpack tree, the pickled aux), written
+    without jax, flax or msgpack: the card's machine has none of them."""
+    import pickle
+
+    packed = msgpack_encode(tree)
+    aux_bytes = pickle.dumps(aux)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"MNTPU001")
+        f.write(struct.pack("<QQ", len(packed), len(aux_bytes)))
+        f.write(packed)
+        f.write(aux_bytes)
+    return path
+
+
+def jax_train_state_tree(loaded: dict, fg, bg, key) -> dict:
+    """A port `{iter}.pt` (as loaded) of a single fg + bg model -> the
+    JAX package's TrainState as flax serialises it: `step`, `key`, each
+    side's params and its optax `adam(exponential_decay)` state
+    `{"0": {count, mu, nu}, "1": {count}}`, the count its own Adam step.
+    `fg` / `bg` give the configs and the parameter order of the saved
+    Adam states."""
+    import numpy as np
+
+    from mega_nerf_tpu_torch.models.weights import flax_params_from_state
+
+    tree = {"step": np.asarray(loaded["iteration"], np.int32),
+            "key": np.asarray(key, np.uint32)}
+    for side, bundle, state_key, opt_key in (
+            ("fg", fg, "model_state_dict", "nerf"),
+            ("bg", bg, "bg_model_state_dict", "bg_nerf")):
+        names = [name for name, _ in bundle.module.named_parameters()]
+        entries = loaded["optimizers"][opt_key]["state"]
+        count = np.asarray(int(entries[0]["step"]) if entries else 0, np.int32)
+
+        def moments(m, names=names, entries=entries, bundle=bundle):
+            return flax_params_from_state(
+                bundle.config, {n: entries[i][m] for i, n in enumerate(names)})
+
+        tree[f"{side}_params"] = flax_params_from_state(bundle.config, loaded[state_key])
+        tree[f"{side}_opt"] = {"0": {"count": count, "mu": moments("exp_avg"),
+                                     "nu": moments("exp_avg_sq")},
+                               "1": {"count": count}}
+    return tree
+
+
+def state_dicts_equal(a: dict, b: dict) -> bool:
+    """Two `{iter}.pt` dicts hold bit-equal weights, Adam states (moments,
+    steps, hyperparameters) and stream positions."""
+    import torch
+
+    def same(x, y) -> bool:
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y))
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and x.keys() == y.keys()
+                    and all(same(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                    and all(same(p, q) for p, q in zip(x, y)))
+        return x == y
+
+    keys = ("model_state_dict", "bg_model_state_dict", "optimizers", "dataset_state",
+            "iteration")
+    return all(same(a[k], b[k]) for k in keys)
+
+
+def phase_resume_jax(device, report, tmp: Path):
+    """A paper-width run moved from the JAX package's `.ckpt`: `train.main`
+    for 20 steps (a checkpoint at 10); its step-10 state written as the JAX
+    package's `10.ckpt` (this script's own writer) and as a `10.pt` whose
+    generator state is a fresh run's (a `.ckpt` holds no torch generator);
+    each resumed to 20 by `train.main` and evaluated by `eval.main`."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.models import make_bg_nerf, make_nerf
+    from mega_nerf_tpu_torch.parallel.distributed import rank_seed
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep, adam_steps
+    from mega_nerf_tpu_torch.runtime.checkpoints import load_checkpoint
+
+    t_phase = time.perf_counter()
+    ds = tmp / "train_dataset"  # phase_train's scene
+    if not ds.exists():
+        write_dataset(ds, hw=128, n_train=4, seed=11, smooth=True)
+    steps = ["--train_iterations", str(RESUME_JAX_STEPS)]
+    hp = train_hparams(ds, tmp / "rj_first", steps + ["--ckpt_interval", str(RESUME_JAX_AT)])
+    port_train.main(hp)
+    loaded = load_checkpoint(tmp / "rj_first" / "0" / "models" / f"{RESUME_JAX_AT}.pt")
+    count = int(loaded["model_state_dict"]["embedding_a.weight"].shape[0])
+    with torch.device("meta"):
+        fg, bg = make_nerf(hp, count), make_bg_nerf(hp, count)
+    tree = jax_train_state_tree(loaded, fg, bg, key=[0, hp.random_seed])
+    ckpt = write_jax_checkpoint(tmp / "rj_src" / f"{RESUME_JAX_AT}.ckpt", tree, {
+        "iteration": RESUME_JAX_AT, "dataset_state": loaded["dataset_state"],
+        "np_rng_state": np.random.default_rng(hp.random_seed).bit_generator.state})
+    fresh = torch.Generator(device=device).manual_seed(rank_seed(hp.random_seed, 0))
+    pt = tmp / "rj_src" / f"{RESUME_JAX_AT}.pt"
+    torch.save({**loaded, "generator_state": fresh.get_state()}, pt)
+    log(f"  wrote {ckpt.name} ({ckpt.stat().st_size} bytes) and {pt.name} at step "
+        f"{RESUME_JAX_AT}; fg / bg Adam counts {int(tree['fg_opt']['0']['count'])} / "
+        f"{int(tree['bg_opt']['0']['count'])}")
+
+    steps_seen = []
+    step_call = TrainStep.__call__
+
+    def timed_call(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        steps_seen.append(self)
+        if len(steps_seen) in (1, RESUME_JAX_STEPS - RESUME_JAX_AT):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return metrics
+
+    def resume(src: Path, name: str):
+        steps_seen.clear()
+        stamps.clear()
+        TrainStep.__call__ = timed_call
+        try:
+            port_train.main(train_hparams(ds, tmp / name, steps + ["--ckpt_path", str(src)]))
+        finally:
+            TrainStep.__call__ = step_call
+        step = steps_seen[-1]
+        scheds = [(step.fg_sched.last_epoch, adam_steps(step.fg_opt)),
+                  (step.bg_sched.last_epoch, adam_steps(step.bg_opt))]
+        ms = (stamps[1] - stamps[0]) / (len(steps_seen) - 1) * 1e3
+        return (load_checkpoint(tmp / name / "0" / "models" / f"{RESUME_JAX_STEPS}.pt"),
+                len(steps_seen), scheds, ms)
+
+    def evaluate(src: Path, name: str):
+        return port_eval.main(paper_hparams([
+            "--dataset_path", str(ds), "--exp_name", str(tmp / name),
+            "--ckpt_path", str(src), "--ray_altitude_range", "-1.3", "0.6",
+            "--near", "0.05", "--val_scale_factor", "1", "--device", "cuda"]))
+
+    stamps = []
+    from_pt, _, pt_scheds, pt_ms = resume(pt, "rj_from_pt")
+    e_pt = evaluate(pt, "rj_eval_pt")
+    # The main path: the `.ckpt` resumed, then served.
+    zero_all_counters()
+    from_ckpt, n_steps, scheds, ms = resume(ckpt, "rj_from_ckpt")
+    after_train = kernel_launches()
+    e_ckpt = evaluate(ckpt, "rj_eval_ckpt")
+    counts = kernel_launches()
+    plain = train_counters()["plain"]
+    for name, entry in report["kernels"].items():
+        entry["launches_resume_jax"] = counts[name]
+    val_eval = after_train["fused_nerf_eval"]
+    eval_eval = counts["fused_nerf_eval"] - val_eval
+    bit_equal = state_dicts_equal(from_ckpt, from_pt)
+    psnr_diff = abs(e_ckpt["val/psnr"] - e_pt["val/psnr"])
+    seconds = time.perf_counter() - t_phase
+    resumed = RESUME_JAX_STEPS - RESUME_JAX_AT
+    log(f"  resumed {n_steps} steps from {ckpt.name} and from {pt.name}: 20.pt bit-equal "
+        f"(weights, Adam states, dataset_state) {bit_equal}; iteration "
+        f"{from_ckpt['iteration']}; schedules (last_epoch, Adam step) fg / bg {scheds} "
+        f"({pt_scheds} from the .pt)")
+    log(f"  launches from {ckpt.name}: {counts} (eval_fwd {val_eval} in validation, "
+        f"{eval_eval} in eval.main); plain calls {plain}")
+    log(f"  eval.main PSNR {e_ckpt['val/psnr']:.6f} ({ckpt.name}) vs "
+        f"{e_pt['val/psnr']:.6f} ({pt.name}), diff {psnr_diff:.3e}")
+    log(f"  phase {seconds:.2f} s; resumed step {ms:.2f} ms from {ckpt.name}, "
+        f"{pt_ms:.2f} ms from {pt.name} ({report['device_line']})")
+    report["resume_jax"] = {
+        "steps_resumed": n_steps, "bit_equal": bit_equal, "ms_per_step": ms,
+        "ms_per_step_from_pt": pt_ms, "psnr": e_ckpt["val/psnr"], "psnr_diff": psnr_diff,
+        "eval_launches_validation": val_eval, "eval_launches_eval": eval_eval,
+        "seconds": seconds}
+    return bool(
+        bit_equal and n_steps == resumed and from_ckpt["iteration"] == RESUME_JAX_STEPS
+        and all(last == adam for last, adam in scheds) and scheds[0][0] == RESUME_JAX_STEPS
+        and all(counts[k] == 4 * resumed for k in TRAIN_KERNELS)
+        and val_eval > 0 and eval_eval == val_eval and plain == 0
+        and all(counts[k] == 0 for k in WIDE_KERNELS + TRAIN_WIDE_KERNELS)
+        and np.isfinite(e_ckpt["val/psnr"]) and psnr_diff <= 1e-6)
+
+
 def kernel_times(run, reps: int):
     """Device time by kernel over `run()`, which makes `reps` repetitions
     (torch.profiler) -> (rows [(ms per rep, launches per rep, name)],
@@ -4567,7 +4840,7 @@ def main() -> int:
     report = {"kernels": {name: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "library_ms": None, "launches_serve_routed": None, "launches_train_mega": None,
-        "launches_multiproc": None}
+        "launches_multiproc": None, "launches_resume_jax": None}
         for name, source, replaces in KERNELS}, "device_line": smi_line}
     ok = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4596,6 +4869,7 @@ def main() -> int:
             ("eager_dense", lambda: phase_eager_dense(device, report, Path(tmp))),
             ("eager_train_wide", lambda: phase_eager_train_wide(device, report, Path(tmp))),
             ("remat", lambda: phase_remat(device, report, Path(tmp))),
+            ("resume_jax", lambda: phase_resume_jax(device, report, Path(tmp))),
         )
         for phase, run in phases:
             log(f"[{phase}]")
@@ -4610,7 +4884,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_serve_routed", "launches_train_mega", "launches_multiproc")
+            "launches_serve_routed", "launches_train_mega", "launches_multiproc",
+            "launches_resume_jax")
     kernels = [{k: entry[k] for k in keys} for entry in report["kernels"].values()]
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
                                       "render_rgb_diff", "eval_chunk_ms",
@@ -4630,6 +4905,7 @@ def main() -> int:
     log(json.dumps({"serving_routed": report["serving_routed"]}))
     log(json.dumps({"training_mega": report["training_mega"]}))
     log(json.dumps({"multiproc": report["multiproc"]}))
+    log(json.dumps({"resume_jax": report["resume_jax"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 `--container_path <merged container>` in place of `--ckpt_path` to serve a
 Mega-NeRF mixture, or with `--train_mega_nerf params.pt` to serve the
 jointly trained mixture of `--ckpt_path` (densely or routed, by
-`--mega_routing`).
+`--mega_routing`). `--ckpt_path` may be the port's `{iter}.pt` or the JAX
+package's `{iter}.ckpt`; eval reads only its weights.
 
 Counterpart of the JAX package's `eval.py`. Runs on `--device` (default
 cuda; cuda without a card raises). `--occupancy_path <occupancy or octree

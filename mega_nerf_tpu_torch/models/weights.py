@@ -53,6 +53,15 @@ def state_keys(cfg: NeRFConfig) -> List[str]:
 _LEVELS = ("coarse", "fine")
 
 
+def flax_param_paths(cfg: NeRFConfig, cascade: bool = False) -> Dict[str, str]:
+    """'/'-joined path of each leaf of the Flax params tree of one NeRF of
+    `cfg` (or of its cascade) -> the state-dict key it maps to."""
+    if cascade:
+        return {f"{level}/{path}": f"{level}.{key}" for level in _LEVELS
+                for path, key in flax_param_paths(cfg).items()}
+    return {f"{mod}/{name}": key for mod, name, key, _ in _entries(cfg)}
+
+
 def state_from_flax_params(
     cfg: NeRFConfig, params_np: Dict, cascade: bool = False
 ) -> Dict[str, torch.Tensor]:

@@ -45,7 +45,10 @@ def get_opts_base() -> argparse.ArgumentParser:
 
     parser.add_argument('--cluster_mask_path', type=str, default=None)
 
-    parser.add_argument('--ckpt_path', type=str, default=None)
+    parser.add_argument('--ckpt_path', type=str, default=None,
+                        help="the port's {iter}.pt or the JAX package's "
+                             "{iter}.ckpt: resumes training, or gives eval "
+                             "its weights")
     parser.add_argument('--container_path', type=str, default=None)
 
     parser.add_argument('--near', type=float, default=1)

@@ -107,8 +107,10 @@ class TrainStep:
                 bg.module, lr, lr_decay_factor, train_iterations)
 
     def load_optimizer_states(self, states: Dict) -> None:
-        """Adam states by the reference names ("nerf", "bg_nerf"); the
-        schedules resume at each optimizer's own step count."""
+        """Adam states by the reference names ("nerf", "bg_nerf"), as a port
+        `{iter}.pt` holds them or as `runtime/checkpoints.py` maps a JAX
+        `.ckpt`'s optax states; each schedule resumes at its optimizer's own
+        step count (the background's may lag behind after skipped steps)."""
         pairs = [("nerf", "fg")] + ([("bg_nerf", "bg")] if self.bg else [])
         for name, side in pairs:
             if name not in states:

@@ -14,7 +14,8 @@ reference's fan-out of one `train.py` job per centroid:
   `{exp_name}{i}/{version}/models/`, the layout
   `scripts/merge_submodules.py` walks, each with its cell's stream
   position and generator state plus `cell_index`, `num_cells` and
-  `exp_prefix`; `--ckpt_path` to any one cell's checkpoint resumes all K;
+  `exp_prefix`; `--ckpt_path` to any one cell's checkpoint resumes all K,
+  from the port's `{iter}.pt` or the JAX package's `{iter}.ckpt` files;
 - `--val_interval` validates every cell's model alone on the val views
   under `val/cell{i}/...` (no final validation, as in the JAX loop);
   scalars go to cell 0's `tb/metrics.jsonl`: `train/{k}` (the mean over
@@ -312,11 +313,17 @@ class CellRunner(Runner):
         distributed.barrier("cell_checkpoints_written")
 
     def _restore_cells(self, ckpt_path: Path):
-        """Load this rank's real cells given any one cell's `{iter}.pt` (its
-        siblings come from the `exp_prefix` it records) -> (iteration,
-        per-cell stream states, None for a cell this rank does not hold).
-        Padding cells start afresh."""
-        first = checkpoints.load_checkpoint(ckpt_path)
+        """Load this rank's real cells given any one cell's `{iter}.pt`, or
+        the JAX package's `{iter}.ckpt` (its siblings come from the
+        `exp_prefix` it records) -> (iteration, per-cell stream states, None
+        for a cell this rank does not hold). Padding cells start afresh, and
+        so does the generator of a cell whose file holds none (a `.ckpt`)."""
+        hp, count = self.hparams, len(self.train_items)
+        first = checkpoints.load_checkpoint(ckpt_path, hp, count)
+        if checkpoints.is_jax_checkpoint(ckpt_path):
+            main_print(f"Importing the JAX package's cell checkpoints {ckpt_path.name} "
+                       f"(weights, Adam states, iteration {first['iteration']}, "
+                       f"stream positions); {checkpoints.JAX_STATE_NOT_CARRIED}")
         if first.get("num_cells") != self.num_cells:
             raise ValueError(f"{ckpt_path} is a checkpoint of {first.get('num_cells')} "
                              f"cells; this run has {self.num_cells}")
@@ -327,7 +334,7 @@ class CellRunner(Runner):
             if cell >= self.num_cells:
                 continue
             path = Path(f"{first['exp_prefix']}{cell}") / version / "models" / ckpt_path.name
-            loaded = checkpoints.load_checkpoint(path)
+            loaded = checkpoints.load_checkpoint(path, hp, count)
             if loaded["cell_index"] != cell:
                 raise ValueError(f"{path} holds cell {loaded['cell_index']}, not {cell}")
             state.fg.module.load_state_dict(strip_module_prefix(loaded["model_state_dict"]))
@@ -335,8 +342,9 @@ class CellRunner(Runner):
                 state.bg.module.load_state_dict(
                     strip_module_prefix(loaded["bg_model_state_dict"]))
             state.step.load_optimizer_states(loaded.get("optimizers", {}))
-            if self.hparams.resume_ckpt_state:
-                gens = loaded.get("generator_states") or [loaded["generator_state"]]
+            if hp.resume_ckpt_state:
+                gens = loaded.get("generator_states") or (
+                    [loaded["generator_state"]] if "generator_state" in loaded else [])
                 if self.data_index < len(gens):
                     state.generator.set_state(gens[self.data_index])
             stream_states[cell] = loaded["dataset_state"]

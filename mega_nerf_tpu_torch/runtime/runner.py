@@ -18,13 +18,18 @@
   with `--resume_ckpt_state` (the default) also the batch stream (epoch and
   the batch of it last consumed, which the resumed epoch skips) and the
   sample generator, so a resumed run continues exactly as the uninterrupted
-  one; `--no_resume_ckpt_state` restarts the stream;
-- `make_eval_state` loads a reference-format `{iter}.pt` (--ckpt_path);
-  checkpoints carry each module's state dict as it is, so a cascade's
-  hold the reference's `coarse.*` / `fine.*` keys and a mixture's its
-  submodules' under `0.`, `1.`, .... With --container_path the fg and bg
-  models are the merged container's mixtures, which hold their weights
-  already (a container without bg submodules gets no bg model);
+  one; `--no_resume_ckpt_state` restarts the stream. The path may be a
+  reference-format `{iter}.pt` or the JAX package's `{iter}.ckpt`
+  (`runtime/checkpoints.py::read_jax_train_state`: weights, optax Adam
+  state, iteration and stream position; it holds no torch generator
+  state, so the sample generator starts from the seed, as in a fresh run);
+- `make_eval_state` loads the weights of --ckpt_path (either format; no
+  Adam state is needed); checkpoints carry each module's state dict as it
+  is, so a cascade's hold the reference's `coarse.*` / `fine.*` keys and a
+  mixture's its submodules' under `0.`, `1.`, .... With --container_path
+  the fg and bg models are the merged container's mixtures, which hold
+  their weights already (a container without bg submodules gets no bg
+  model);
 - `--train_mega_nerf params.pt` (a `create_cluster_masks` centroid file)
   makes fg and bg mixtures of K NeRFs with hard assignment, trained
   jointly under one Adam per side (each submodule through the training
@@ -566,9 +571,10 @@ class Runner:
         return val_metrics
 
     def make_eval_state(self) -> None:
-        """Load the weights of --ckpt_path (a reference `{iter}.pt`) into
-        the fg/bg modules; a shape mismatch raises. The mixtures of
-        --container_path hold the container's weights already."""
+        """Load the weights of --ckpt_path (a reference `{iter}.pt` or a JAX
+        `.ckpt`) into the fg/bg modules; a shape mismatch raises. The
+        mixtures of --container_path hold the container's weights
+        already."""
         hp = self.hparams
         if getattr(hp, "container_path", None) is not None:
             main_print(f"Serving the {len(self.fg.module)}-submodule mixture of "
@@ -580,8 +586,15 @@ class Runner:
         main_print(f"Loaded {hp.ckpt_path} (iteration {loaded.get('iteration', 0)})")
 
     def _load_weights(self, path) -> Dict:
-        """Load a `{iter}.pt`'s weights into the modules -> the whole dict."""
-        loaded = checkpoints.load_checkpoint(path)
+        """Load a `{iter}.pt`'s or a JAX `.ckpt`'s weights into the modules
+        -> the whole dict, in the `{iter}.pt` layout."""
+        loaded = checkpoints.load_checkpoint(path, self.hparams, len(self.train_items))
+        if checkpoints.is_jax_checkpoint(path):
+            main_print(f"Imported the JAX package's checkpoint {path} (weights, Adam "
+                       f"states for {'+'.join(loaded['optimizers']) or 'none'}, "
+                       f"iteration {loaded['iteration']}, stream position "
+                       f"{loaded['dataset_state'] or 'none'}); "
+                       f"{checkpoints.JAX_STATE_NOT_CARRIED}")
         self.fg.module.load_state_dict(
             strip_module_prefix(loaded["model_state_dict"]))
         if self.bg is not None:

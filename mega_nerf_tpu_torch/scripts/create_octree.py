@@ -13,7 +13,7 @@ the svox-layout `.npz` (`octree/n3tree.py`).
 
 The model is `--container_path`'s merged mixture (a container of either
 package), a port `{iter}.pt`, or a JAX package `.ckpt` (`--ckpt_path`;
-its weights through `runtime/checkpoints.py::read_jax_checkpoint`); with
+its weights through `runtime/checkpoints.py::load_checkpoint`); with
 `--train_mega_nerf params.pt` the checkpoint holds a jointly trained
 mixture (a port `{iter}.pt` of its K submodules, or the JAX package's
 stacked `.ckpt`), built from the centroid metadata first. Every
@@ -42,12 +42,10 @@ from mega_nerf_tpu_torch.models.factory import ModelBundle, make_nerf
 from mega_nerf_tpu_torch.models.weights import strip_module_prefix
 from mega_nerf_tpu_torch.octree import N3Tree, grid_weight_render_max
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
-from mega_nerf_tpu_torch.parallel.cell_parallel import mixture_states_from_flax
 from mega_nerf_tpu_torch.render.cell_cull import active_cells_for_points
 from mega_nerf_tpu_torch.render.rendering import RenderSettings, query_points
-from mega_nerf_tpu_torch.runtime.checkpoints import read_jax_checkpoint
+from mega_nerf_tpu_torch.runtime.checkpoints import load_checkpoint
 from mega_nerf_tpu_torch.runtime.runner import EVAL_POINT_BUDGET, resolve_device
-from mega_nerf_tpu_torch.scripts.merge_submodules import load_submodule_states
 
 
 def _get_extraction_opts(args=None) -> Namespace:
@@ -225,17 +223,8 @@ def load_bake_model(hparams: Namespace, appearance_count: int, device) -> ModelB
         hparams._mega_centroid_metadata = load_pt(hparams.train_mega_nerf)
     bundle = make_nerf(hparams, appearance_count)
     if getattr(hparams, "container_path", None) is None:
-        path = Path(hparams.ckpt_path)
-        if bundle.is_mega and path.suffix == ".ckpt":  # stacked submodules
-            stacked = read_jax_checkpoint(path)[0]["fg_params"]
-            states = mixture_states_from_flax(bundle.config, stacked, len(bundle.module))
-            for sub, state in zip(bundle.module, states):
-                sub.load_state_dict(state)
-        else:
-            fg_state, _ = load_submodule_states(path, hparams)
-            bundle.module.load_state_dict(
-                {k: torch.as_tensor(np.asarray(v)) for k, v in
-                 strip_module_prefix(fg_state).items()})
+        loaded = load_checkpoint(hparams.ckpt_path, hparams, appearance_count)
+        bundle.module.load_state_dict(strip_module_prefix(loaded["model_state_dict"]))
     bundle.to(device).module.eval()
     return bundle
 

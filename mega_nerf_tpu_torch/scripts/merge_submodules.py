@@ -9,7 +9,7 @@ centroid i it takes the newest experiment version under
 `{ckpt_prefix}{i}/` holding `models/{train_iterations}.pt` (the reference
 `{iter}.pt`, as the port's and the reference's trainers write it) or the
 JAX package's `{iter}.ckpt` (its weights, read without flax or msgpack by
-`runtime/checkpoints.py::read_jax_checkpoint`), reads the fg (and bg)
+`runtime/checkpoints.py::load_checkpoint`), reads the fg (and bg)
 state dicts, and writes the native container with the centroid metadata
 of create_cluster_masks' `params.pt`; with `--torchscript` also the
 viewer's TorchScript container at `<output>.ts`. It ends with a forward
@@ -32,11 +32,11 @@ from mega_nerf_tpu_torch.models.container import (
     save_native_container,
     save_torchscript_container,
 )
-from mega_nerf_tpu_torch.models.factory import ModelBundle, nerf_config_from_hparams
+from mega_nerf_tpu_torch.models.factory import ModelBundle
 from mega_nerf_tpu_torch.models.mega import cluster_weights, mega_apply
-from mega_nerf_tpu_torch.models.weights import state_from_flax_params, strip_module_prefix
+from mega_nerf_tpu_torch.models.weights import strip_module_prefix
 from mega_nerf_tpu_torch.opts import get_opts_base, parse_opts
-from mega_nerf_tpu_torch.runtime.checkpoints import read_jax_checkpoint
+from mega_nerf_tpu_torch.runtime.checkpoints import load_checkpoint
 
 
 def get_merge_opts(args=None) -> Namespace:
@@ -53,31 +53,15 @@ def load_submodule_states(checkpoint_path: Path, hparams: Namespace
                           ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, np.ndarray]]]:
     """A `{iter}.pt`, or the JAX package's `.ckpt`, -> (fg state, bg state
     or None) as reference-named numpy dicts. For a `.ckpt` the hparams give
-    the models' structure; the shapes come from the payload."""
-    if checkpoint_path.suffix == ".ckpt":
-        return _jax_checkpoint_states(checkpoint_path, hparams)
-    loaded = load_pt(checkpoint_path)
-    fg_state = strip_module_prefix(loaded["model_state_dict"])
-    bg_state = loaded.get("bg_model_state_dict")
-    return fg_state, None if bg_state is None else strip_module_prefix(bg_state)
+    the models' structure and the payload its appearance rows."""
+    loaded = load_checkpoint(checkpoint_path, hparams)
 
+    def numpy_state(key):
+        state = loaded.get(key)
+        return None if state is None else {
+            k: np.asarray(v) for k, v in strip_module_prefix(state).items()}
 
-def _jax_checkpoint_states(checkpoint_path: Path, hparams: Namespace):
-    arrays, _ = read_jax_checkpoint(checkpoint_path)
-    fg_params, bg_params = arrays["fg_params"], arrays.get("bg_params")
-    appearance_count = 1
-    if hparams.appearance_dim > 0:
-        emb = fg_params.get("appearance") or fg_params.get("fine", {}).get("appearance")
-        appearance_count = int(np.asarray(emb["embedding"]).shape[0])
-
-    def states(params, layer_dim, xyz_dim):
-        cfg = nerf_config_from_hparams(hparams, appearance_count, layer_dim, xyz_dim)
-        return {k: v.numpy() for k, v in
-                state_from_flax_params(cfg, params, hparams.use_cascade).items()}
-
-    fg_state = states(fg_params, hparams.layer_dim, 3)
-    bg_state = states(bg_params, hparams.bg_layer_dim, 4) if bg_params else None
-    return fg_state, bg_state
+    return numpy_state("model_state_dict"), numpy_state("bg_model_state_dict")
 
 
 def find_checkpoint(centroid_path: Path, train_iterations: int) -> Path:

@@ -5,7 +5,10 @@ Counterpart of the JAX package's `train.py`. Runs on `--device` (default
 cuda; cuda without a card raises). `--detect_anomalies` turns on torch
 autograd anomaly mode. Under torchrun (`torchrun --nproc_per_node N -m
 mega_nerf_tpu_torch.train ...`) the N ranks train one model data-parallel
-(`runtime/runner.py`).
+(`runtime/runner.py`). `--ckpt_path` resumes a run from the port's
+`{iter}.pt` or from the JAX package's `{iter}.ckpt` (a run moved from a
+TPU to the card: weights, Adam states, iteration and stream position).
+Training from `--container_path` raises.
 """
 
 from __future__ import annotations

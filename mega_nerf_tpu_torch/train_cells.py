@@ -11,7 +11,9 @@ cuda; cuda without a card raises). Under torchrun, `--cell_axis C
 is the masks ROOT written by `scripts/create_cluster_masks.py` (params.pt
 and the per-cell directories 0..K-1); `--exp_name` is the per-cell prefix:
 cell i writes `{exp_name}{i}/{version}/models/{iter}.pt`, which
-`scripts/merge_submodules.py --ckpt_prefix {exp_name}` reads.
+`scripts/merge_submodules.py --ckpt_prefix {exp_name}` reads. `--ckpt_path`
+to any one cell's `{iter}.pt`, or to the JAX package's `{iter}.ckpt` of a
+cell, resumes every cell of the grid.
 `--detect_anomalies` turns on torch autograd anomaly mode.
 """
 

@@ -8,7 +8,9 @@ A tiny 2-cell grid (fg + bg, appearance) trained for two steps by the JAX
   the same aux; it runs in an interpreter without jax, flax or msgpack;
 - the port's `merge_submodules` and the JAX script merge the two cells into
   containers holding bit-equal weights, centroids and metadata;
-- training from a `.ckpt` raises in the port, naming ROADMAP.md A.5;
+- training resumes from cell 0's `.ckpt`: `train` one model, `train_cells`
+  every cell of the grid, each restored to its own cell's weights and Adam
+  moments exactly;
 - the decoder against the `msgpack` package on every type flax writes for
   a train state, and flax's chunked arrays.
 """
@@ -20,19 +22,25 @@ from argparse import Namespace
 from pathlib import Path
 
 import flax.serialization
+import jax
 import msgpack
 import numpy as np
 import pytest
+import torch
 
+import mega_nerf_tpu.runtime.cell_runner as j_cell_runner_mod
 import scripts.create_cluster_masks as j_ccm
 import scripts.merge_submodules as j_merge
 from mega_nerf_tpu.opts import get_opts_base as j_opts
+from mega_nerf_tpu.parallel.cell_parallel import make_cell_train_state as j_make_cell_state
 from mega_nerf_tpu.opts import parse_opts as j_parse
 from mega_nerf_tpu.runtime import checkpoints as j_ckpt
 from mega_nerf_tpu.runtime.cell_runner import CellRunner as JCellRunner
 from mega_nerf_tpu_torch import train as port_train
 from mega_nerf_tpu_torch import train_cells
+from mega_nerf_tpu_torch.models import flax_params_from_state
 from mega_nerf_tpu_torch.models.container import load_container
+from mega_nerf_tpu_torch.parallel.train_step import TrainStep
 from mega_nerf_tpu_torch.runtime.checkpoints import msgpack_decode, read_jax_checkpoint
 from mega_nerf_tpu_torch.scripts import merge_submodules
 from tests.synthetic import make_synthetic_dataset
@@ -53,6 +61,12 @@ def _j_hparams(args):
     return j_parse(parser, args)
 
 
+def _jit_cell_state(fg, bg, optimizer, key, num_cells):
+    """The JAX `make_cell_train_state` as one compiled program: run eagerly,
+    its vmapped flax init compiles each op on its own (~20 s on the CPU)."""
+    return jax.jit(lambda k: j_make_cell_state(fg, bg, optimizer, k, num_cells))(key)
+
+
 @pytest.fixture(scope="module")
 def jax_grid(tmp_path_factory):
     root = tmp_path_factory.mktemp("jax_grid")
@@ -66,7 +80,9 @@ def jax_grid(tmp_path_factory):
             "--cluster_mask_path", str(root / "masks"), "--dataset_type", "memory",
             "--batch_size", "64", "--lr", "5e-3", "--ckpt_interval", "100",
             "--cell_axis", "2", *MODEL]
-    JCellRunner(_j_hparams(args)).train()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_cell_runner_mod, "make_cell_train_state", _jit_cell_state)
+        JCellRunner(_j_hparams(args)).train()
     return root, ds
 
 
@@ -81,7 +97,7 @@ def _assert_same_tree(got, want, path="root"):
             _assert_same_tree(got[k], want[k], f"{path}/{k}")
     elif isinstance(want, np.ndarray):
         assert isinstance(got, np.ndarray) and got.dtype == want.dtype, path
-        np.testing.assert_array_equal(got, want, err_msg=path)
+        np.testing.assert_array_equal(got, want, err_msg=path, strict=True)
     else:
         assert got == want and type(got) is type(want), path
 
@@ -147,19 +163,59 @@ def test_reader_needs_no_jax_flax_or_msgpack(jax_grid):
 
 
 @pytest.mark.parametrize("entry", ["train", "train_cells"])
-def test_training_from_a_jax_ckpt_raises_naming_the_adam_mapping(jax_grid, tmp_path, entry):
+def test_training_resumes_from_a_jax_ckpt(jax_grid, tmp_path, entry):
+    """`--ckpt_path` to cell 0's `.ckpt`: `train` resumes one model from it,
+    `train_cells` every cell of the grid (the siblings found through the
+    aux's `exp_prefix`). Right after the restore each model's weights, Adam
+    moments and counts equal its cell's `.ckpt` exactly; the run goes on to
+    step STEPS + 1."""
     root, ds = jax_grid
-    args = ["--dataset_path", str(ds), "--exp_name", str(tmp_path / "exp"),
+    exp = tmp_path / "exp"
+    args = ["--dataset_path", str(ds), "--exp_name", str(exp),
             "--dataset_type", "memory", "--batch_size", "64", "--device", "cpu",
-            "--ckpt_path", str(_ckpt(root, 0)), *MODEL]
+            "--ckpt_path", str(_ckpt(root, 0)), *MODEL,
+            "--train_iterations", str(STEPS + 1)]
     if entry == "train":
         hp, main = port_train.get_train_opts(args), port_train.main
+        written = [exp / "0" / "models" / f"{STEPS + 1}.pt"]
     else:
         hp = train_cells.get_train_cells_opts(
             args + ["--cluster_mask_path", str(root / "masks")])
         main = train_cells.main
-    with pytest.raises(NotImplementedError, match="A.5"):
+        written = [Path(f"{exp}{cell}") / "0" / "models" / f"{STEPS + 1}.pt"
+                   for cell in range(2)]
+    restored = []
+    load = TrainStep.load_optimizer_states
+
+    def snapshot(self, states):
+        load(self, states)
+        sides = {}
+        for side, bundle, opt in (("fg", self.fg, self.fg_opt), ("bg", self.bg, self.bg_opt)):
+            named = list(bundle.module.named_parameters())
+            sides[side] = {  # copies: training goes on in place
+                "params": flax_params_from_state(bundle.config, {
+                    n: p.detach().clone() for n, p in named}),
+                # torch holds no state before a first step; optax zeros.
+                **{m: flax_params_from_state(bundle.config, {
+                    n: opt.state[p].get(key, torch.zeros_like(p)).clone() for n, p in named})
+                   for m, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))},
+                "count": {int(opt.state[p].get("step", 0)) for _, p in named}}
+        restored.append(sides)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TrainStep, "load_optimizer_states", snapshot)
         main(hp)
+    assert len(restored) == len(written)
+    for cell, sides in enumerate(restored):
+        arrays, _ = read_jax_checkpoint(_ckpt(root, cell))
+        for side, got in sides.items():
+            adam = arrays[f"{side}_opt"]["0"]
+            _assert_same_tree(got["params"], arrays[f"{side}_params"], f"cell {cell} {side}")
+            _assert_same_tree(got["mu"], adam["mu"], f"cell {cell} {side} mu")
+            _assert_same_tree(got["nu"], adam["nu"], f"cell {cell} {side} nu")
+            assert got["count"] == {int(adam["count"])}
+    for path in written:
+        assert torch.load(path, weights_only=False)["iteration"] == STEPS + 1
 
 
 # ------------------------------------------------------------------ msgpack
