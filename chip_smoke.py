@@ -32,6 +32,14 @@ Runs every phase, in order:
               (the encode also 99.9% of its bf16 elements bit-equal, the
               rest one bf16 ulp away), rgb 1e-2 absolute, sigma 1e-2
               (1 + |sigma|).
+2c. compare_f32 - compare's six configurations in f32 compute
+              (`--compute_dtype float32`, TF32 off) through the f32 kernels
+              (`csrc/eval_f32.cu`, `csrc/train_f32.cu`) against their plain
+              versions: rgb <= 1e-4, sigma <= 1e-4 (1 + |sigma|), saved rows,
+              gradient rows, d_app and every weight-gradient tensor <= 1e-4
+              relative; at the paper shapes the eval kernel equals the
+              training forward without noise bit for bit; two weight-gradient
+              launches give the same bits; every launch an f32 kernel's.
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -234,12 +242,26 @@ its validation and again in `eval.main` (every counter set to 0 before the
 call; the two evals' PSNR within 1e-6; the phase's seconds and the resumed
 ms a step beside the card's name and power limit.
 
+Last, train_f32: `train.main --compute_dtype float32` at the paper config on
+`train`'s scene, 20 steps, then `eval.main` on its `{iter}.pt`, every counter
+set to 0 just before `train.main` and read just after `eval.main`: 4 launches
+a step of each f32 training kernel, 4 `eval_f32` launches a chunk of every
+view, no other kernel's launch, no plain or eager-module call, a falling loss
+(mean of the last 5 steps below the first 5), a finite PSNR; then ms a step
+over 20 chained steps and s/view through the f32 kernels and through the
+eager module (`--no_pallas`), in turns (eager, kernels, kernels, eager), and
+each f32 kernel per launch at the main path's shapes (eval at the four passes
+of a 16,384-ray chunk, the plain version at fg fine in 1,048,576-point
+pieces; the training kernels at the four passes of a 1024-ray step, plain and
+bound at fg fine, the weight gradient beside torch.mm in f32 with TF32 off;
+bounds at 67 TFLOP/s of f32 FFMA).
+
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
-`{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}` and
-`{"resume_jax": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
+`{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}`,
+`{"resume_jax": ...}` and `{"training_f32": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
 launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
 both ranks of multiproc, and in resume_jax's resumed run and its eval), the
 nvidia-smi name/power-limit line,
@@ -264,6 +286,8 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-2
+F32_TOL = 1e-4  # the f32 kernels against their plain versions (TF32 off)
+F32 = ["--compute_dtype", "float32"]
 # (name, source, the TPU kernel it replaces)
 KERNELS = (
     ("fused_nerf_eval", "mega_nerf_tpu_torch/render/csrc/eval_fwd.cu",
@@ -291,7 +315,19 @@ KERNELS = (
      "mega_nerf_tpu/render/pallas_train.py:171"),
     ("train_wide_dw", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
+    # f32 compute (--compute_dtype float32) to width 512: the three TPU
+    # kernels' f32 range, in true f32 (FFMA products, f32 sums).
+    ("fused_nerf_eval_f32", "mega_nerf_tpu_torch/render/csrc/eval_f32.cu",
+     "mega_nerf_tpu/render/pallas_mlp.py:401"),
+    ("fused_nerf_train_fwd_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
+     "mega_nerf_tpu/render/pallas_train.py:138"),
+    ("train_bwd_data_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
+     "mega_nerf_tpu/render/pallas_train.py:171"),
+    ("weight_grad_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
+     "mega_nerf_tpu/render/pallas_train.py:171"),
 )
+F32_KERNELS = ("fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
+               "weight_grad_f32")
 WIDE_KERNELS = ("eval_wide_encode", "eval_wide_layer", "eval_wide_heads")
 TRAIN_WIDE_KERNELS = ("train_wide_heads_fwd", "train_wide_heads_bwd", "train_wide_dx",
                       "train_wide_dw")
@@ -365,13 +401,13 @@ def phase_build(device, report):
     return ok
 
 
-def compare_case(name, hp, bg, m, seed, device, against_train=False):
+def compare_case(name, hp, bg, m, seed, device, against_train=False, tol=TOL):
     """Kernel vs plain on one configuration -> (max_abs_err, ok). With
     `against_train`, the eval kernel must also equal the training forward
     without noise bit for bit."""
     import torch
 
-    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
     from mega_nerf_tpu_torch.render import fused_train as ft
 
     bundle = seeded_bundle(hp, 16, bg, seed, device)
@@ -387,14 +423,16 @@ def compare_case(name, hp, bg, m, seed, device, against_train=False):
     rgb_err = err[:, :3].max().item()
     sig_ratio = (err[:, 3] / (1 + want[:, 3].abs())).max().item()
     finite = bool(torch.isfinite(got).all())
-    ok = finite and rgb_err <= TOL and sig_ratio <= TOL
+    ok = finite and rgb_err <= tol and sig_ratio <= tol
     same = ""
     if against_train:
-        launches = ft.fused_nerf_train_fwd.launches
+        counters = (ft.fused_nerf_train_fwd, fused_f32.fused_nerf_train_fwd_f32)
+        launches = [f.launches for f in counters]
         with torch.no_grad():
             train_out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, None)
             torch.cuda.synchronize()
-        ft.fused_nerf_train_fwd.launches = launches  # not a main-path launch
+        for f, n in zip(counters, launches):  # not main-path launches
+            f.launches = n
         bits = torch.equal(got, train_out)
         ok = ok and bits
         same = f" equals the training forward without noise bit for bit={bits}"
@@ -412,9 +450,9 @@ def rel_err(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def compare_train_case(name, hp, bg, m, seed, device):
+def compare_train_case(name, hp, bg, m, seed, device, tol=TOL, suffix=""):
     """Training kernels vs their plain versions on one configuration ->
-    ({kernel: max_abs_err}, ok)."""
+    ({kernel + suffix: max_abs_err}, ok)."""
     import torch
 
     from mega_nerf_tpu_torch.render import fused_mlp
@@ -427,7 +465,7 @@ def compare_train_case(name, hp, bg, m, seed, device):
     app = bundle.module.appearance(idx).float() if cfg.appearance_dim else None
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     noise = torch.rand((m,), generator=gen, device=device)
-    noise = noise.to(torch.bfloat16).float()
+    noise = noise.to(cfg.dtype).float()
     g = torch.randn((m, 4), generator=gen, device=device)
     with torch.no_grad():
         out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
@@ -461,8 +499,8 @@ def compare_train_case(name, hp, bg, m, seed, device):
                     for i in range(len(offs) - 1))
         wg_err = (flat - p_flat).abs().max().item()
     finite = bool(torch.isfinite(out).all() and torch.isfinite(flat).all())
-    ok = (finite and fwd_rgb <= TOL and fwd_sig <= TOL and act_rel <= TOL
-          and rows_rel <= TOL and w_rel <= TOL and same_bits)
+    ok = (finite and fwd_rgb <= tol and fwd_sig <= tol and act_rel <= tol
+          and rows_rel <= tol and w_rel <= tol and same_bits)
     log(f"  train {name}: M={m} fwd rgb max|err|={fwd_rgb:.3e} sigma "
         f"max|err|/(1+|s|)={fwd_sig:.3e} rows rel={act_rel:.3e}; bwd-data "
         f"worst rel={rows_rel:.3e}; weight-grad worst rel={w_rel:.3e}, two "
@@ -470,25 +508,30 @@ def compare_train_case(name, hp, bg, m, seed, device):
         f"{'ok' if ok else 'FAIL'}")
     del act, grad, flat, p_flat
     torch.cuda.empty_cache()
-    return {"fused_nerf_train_fwd": fwd_err, "train_bwd_data": bwd_err,
-            "weight_grad": wg_err}, ok
+    return {"fused_nerf_train_fwd" + suffix: fwd_err, "train_bwd_data" + suffix: bwd_err,
+            "weight_grad" + suffix: wg_err}, ok
+
+
+def compare_cases(extra=()):
+    """phase_compare's configurations, each with the flags `extra`."""
+    def hp(flags=()):
+        return paper_hparams([*flags, *extra])
+
+    return [
+        ("fg paper", hp(), False, 1_000_003),
+        ("bg paper", hp(), True, 1_000_003),
+        ("fg 64-wide, dirs, no appearance",
+         hp(["--layer_dim", "64", "--appearance_dim", "0"]), False, 4_097),
+        ("fg 48-wide, no dirs, no appearance",
+         hp(["--layer_dim", "48", "--appearance_dim", "0", "--pos_dir_dim", "0",
+             "--layers", "6", "--skip_layers", "3"]), False, 1_000),
+        ("bg 128-wide, appearance, dirs", hp(["--bg_layer_dim", "128"]), True, 70_001),
+        ("fg 512-wide, appearance, dirs", hp(["--layer_dim", "512"]), False, 50_001),
+    ]
 
 
 def phase_compare(device, report):
-    cases = [
-        ("fg paper", paper_hparams(), False, 1_000_003),
-        ("bg paper", paper_hparams(), True, 1_000_003),
-        ("fg 64-wide, dirs, no appearance",
-         paper_hparams(["--layer_dim", "64", "--appearance_dim", "0"]), False, 4_097),
-        ("fg 48-wide, no dirs, no appearance",
-         paper_hparams(["--layer_dim", "48", "--appearance_dim", "0",
-                        "--pos_dir_dim", "0", "--layers", "6",
-                        "--skip_layers", "3"]), False, 1_000),
-        ("bg 128-wide, appearance, dirs",
-         paper_hparams(["--bg_layer_dim", "128"]), True, 70_001),
-        ("fg 512-wide, appearance, dirs",
-         paper_hparams(["--layer_dim", "512"]), False, 50_001),
-    ]
+    cases = compare_cases()
     kernels = report["kernels"]
     worst = 0.0
     all_ok = True
@@ -504,6 +547,48 @@ def phase_compare(device, report):
             kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err", 0.0), v)
         all_ok &= ok
     return all_ok
+
+
+def f32_launches():
+    """{f32 kernel: launches so far}."""
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    return {k: getattr(fused_f32, k).launches for k in F32_KERNELS}
+
+
+def phase_compare_f32(device, report):
+    """phase_compare's six configurations in f32 compute through the f32
+    kernels against their plain versions, TF32 off: rgb <= 1e-4, sigma <=
+    1e-4 (1 + |sigma|), rows, gradient rows, d_app and weight gradients
+    <= 1e-4 relative; at the paper shapes the eval kernel equals the
+    training forward without noise bit for bit; the weight gradient
+    repeats bit for bit. Every launch is an f32 kernel's."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = report["kernels"]
+    before, bf16_before = f32_launches(), sum(kernel_launches().values())
+    worst, all_ok = 0.0, True
+    cases = compare_cases(F32)
+    for i, (name, hp, bg, m) in enumerate(cases):
+        err, ok = compare_case(f"f32 {name}", hp, bg, m, 300 + i, device,
+                               against_train=name in ("fg paper", "bg paper"),
+                               tol=F32_TOL)
+        worst = max(worst, err)
+        all_ok &= ok
+    kernels["fused_nerf_eval_f32"]["max_abs_err"] = worst
+    for i, (name, hp, bg, m) in enumerate(cases):
+        errs, ok = compare_train_case(f"f32 {name}", hp, bg, m, 400 + i, device,
+                                      tol=F32_TOL, suffix="_f32")
+        for k, v in errs.items():
+            kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err", 0.0), v)
+        all_ok &= ok
+    after = f32_launches()
+    f32_new = {k: after[k] - before[k] for k in F32_KERNELS}
+    bf16_new = sum(kernel_launches().values()) - bf16_before - sum(f32_new.values())
+    log(f"  f32 kernel launches in this phase {f32_new}; other kernels' {bf16_new}")
+    return bool(all_ok and all(v > 0 for v in f32_new.values()) and bf16_new == 0)
 
 
 def write_dataset(root: Path, hw: int, n_train: int, seed: int,
@@ -2886,8 +2971,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -3340,18 +3425,23 @@ def zero_train_wide_counters() -> None:
 
 def zero_all_counters() -> None:
     """Zero every kernel's launch count and every plain version's calls."""
+    from mega_nerf_tpu_torch.render import fused_f32
+
     zero_train_wide_counters()
+    for k in F32_KERNELS:
+        getattr(fused_f32, k).launches = 0
 
 
 def kernel_launches():
     """{kernel: launches so far} for every kernel of `KERNELS`."""
-    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
     from mega_nerf_tpu_torch.render import fused_train as ft
     from mega_nerf_tpu_torch.render import fused_train_wide as ftw
     from mega_nerf_tpu_torch.render import fused_wide as fw
 
     module = {"fused_nerf_eval": fused_mlp, **dict.fromkeys(TRAIN_KERNELS, ft),
-              **dict.fromkeys(WIDE_KERNELS, fw), **dict.fromkeys(TRAIN_WIDE_KERNELS, ftw)}
+              **dict.fromkeys(WIDE_KERNELS, fw), **dict.fromkeys(TRAIN_WIDE_KERNELS, ftw),
+              **dict.fromkeys(F32_KERNELS, fused_f32)}
     return {name: getattr(module[name], name).launches for name, _, _ in KERNELS}
 
 
@@ -4089,7 +4179,8 @@ def config_hparams(get_opts, config: str, ds: Path, exp: Path, extra=()):
 def all_launches() -> int:
     """Launches of every kernel of the port so far."""
     counts = train_wide_counters()
-    return sum(counts[k] for k in TRAIN_WIDE_KERNELS + WIDE_KERNELS) + counts["narrow"]
+    return (sum(counts[k] for k in TRAIN_WIDE_KERNELS + WIDE_KERNELS) + counts["narrow"]
+            + sum(f32_launches().values()))
 
 
 class LevelLaunches:
@@ -4742,6 +4833,302 @@ def phase_resume_jax(device, report, tmp: Path):
         and np.isfinite(e_ckpt["val/psnr"]) and psnr_diff <= 1e-6)
 
 
+TRAIN_F32_STEPS = 20
+F32_PLAIN_PIECE = 1 << 20  # the eval plain version in pieces at 8,388,608 points
+
+
+def views_and_chunks(record):
+    """Wrap `Runner.render_image` so that each view appends its chunk count
+    to `record` -> the original method (to restore)."""
+    from mega_nerf_tpu_torch.runtime import runner as runner_mod
+
+    original = runner_mod.Runner.render_image
+
+    def counting(self, meta):
+        n = meta.W * meta.H
+        chunk = min(self.hparams.image_pixel_batch_size, n,
+                    runner_mod._eval_chunk_cap(self.hparams))
+        record.append(-(-n // chunk))
+        return original(self, meta)
+
+    runner_mod.Runner.render_image = counting
+    return original
+
+
+def phase_train_f32(device, report, tmp: Path):
+    """`train.main --compute_dtype float32` at the paper config on train's
+    scene for TRAIN_F32_STEPS steps, then `eval.main` on the written
+    `{iter}.pt`, every counter zeroed just before `train.main` and read just
+    after `eval.main`: 4 launches a step of each f32 training kernel, 4 f32
+    eval launches a chunk of every view, no other kernel's launch, no plain
+    or eager-module call, a falling loss, a finite PSNR. Then ms a step
+    over 20 chained steps and s/view through the f32 kernels and through
+    the eager module (`--no_pallas`), in turns, and each f32 kernel per
+    launch at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.runtime import runner as runner_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = tmp / "train_dataset"  # phase_train's scene
+    hp = train_hparams(ds, tmp / "train_f32_exp",
+                       ["--train_iterations", str(TRAIN_F32_STEPS), *F32])
+    snaps, train_views, eval_views = [], [], []
+    step_call = TrainStep.__call__
+
+    def recording_call(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        snaps.append((metrics["loss"], kernel_launches()))
+        return metrics
+
+    TrainStep.__call__ = recording_call
+    render_image = views_and_chunks(train_views)
+    zero_all_counters()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager_calls:
+            val = port_train.main(hp)
+            torch.cuda.synchronize()
+            after_train = kernel_launches()
+            ckpt = tmp / "train_f32_exp" / "0" / "models" / f"{TRAIN_F32_STEPS}.pt"
+            e_hp = paper_hparams(["--dataset_path", str(ds), "--exp_name",
+                                  str(tmp / "train_f32_eval"), "--ckpt_path", str(ckpt),
+                                  "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+                                  "--val_scale_factor", "1", "--device", "cuda", *F32])
+            runner_mod.Runner.render_image = render_image
+            views_and_chunks(eval_views)
+            e_metrics = port_eval.main(e_hp)
+            torch.cuda.synchronize()
+    finally:
+        TrainStep.__call__ = step_call
+        runner_mod.Runner.render_image = render_image
+    wall = time.perf_counter() - t0
+    counts = kernel_launches()
+    plain = train_wide_counters()["plain"]
+    loss = torch.stack([s_[0] for s_ in snaps]).float().cpu().numpy()
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    steps = len(snaps)
+    per_steps = snaps[-1][1]  # after the last step, before the final validation
+    want = {k: 4 * steps for k in F32_KERNELS[1:]}
+    want_eval_train = 4 * sum(train_views)
+    want_eval = 4 * sum(eval_views)
+    others = sum(v for k, v in counts.items() if k not in F32_KERNELS)
+    log(f"  train.main --compute_dtype float32: {steps} steps + final validation, "
+        f"eval.main on {ckpt.name}: {wall:.2f} s; loss first 5 {first:.5f} -> last 5 "
+        f"{last:.5f}; val {val}; eval {e_metrics}; f32 launches after the steps "
+        f"{ {k: per_steps[k] for k in F32_KERNELS} }, after train.main "
+        f"{ {k: after_train[k] for k in F32_KERNELS} }, after eval.main "
+        f"{ {k: counts[k] for k in F32_KERNELS} }; chunks of the views {train_views} "
+        f"(train.main) {eval_views} (eval.main); other kernels' launches {others}; "
+        f"plain calls {plain}; eager module calls {eager_calls.count}")
+    ok = (steps == TRAIN_F32_STEPS and np.isfinite(loss).all() and last < first
+          and all(per_steps[k] == n for k, n in want.items())
+          and per_steps["fused_nerf_eval_f32"] == 0
+          and after_train["fused_nerf_eval_f32"] == want_eval_train
+          and counts["fused_nerf_eval_f32"] == want_eval_train + want_eval
+          and all(counts[k] == n for k, n in want.items())
+          and want_eval > 0 and others == 0 and plain == 0 and eager_calls.count == 0
+          and all(np.isfinite(v) for v in val.values())
+          and ckpt.exists() and np.isfinite(e_metrics["val/psnr"]))
+    for k in F32_KERNELS:
+        report["kernels"][k]["launches"] = counts[k]
+    report["training_f32"] = {
+        "steps": steps, "loss_first5": first, "loss_last5": last,
+        "val_psnr": val.get("val/psnr"), "ckpt_eval_psnr": e_metrics["val/psnr"],
+        "launches": {k: counts[k] for k in F32_KERNELS}, "phase_main_s": wall}
+
+    saved = f32_launches()
+    ok = f32_step_and_view(report, tmp, ckpt, e_hp) and ok
+    time_f32_kernels(device, report)
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    for k, n in saved.items():  # timing launches are not main-path launches
+        getattr(fused_f32, k).launches = n
+    report["training_f32"]["device_line"] = report["device_line"]
+    return bool(ok)
+
+
+def f32_step_and_view(report, tmp: Path, ckpt: Path, e_hp) -> bool:
+    """ms a step over 20 chained steps (the train phase's batches) and
+    s/view of the val view, from the f32 checkpoint, through the f32 kernels
+    and through the eager module, in turns (eager, kernels, kernels, eager)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    runner = Runner(train_hparams(tmp / "train_dataset", tmp / "unused_f32", F32),
+                    set_experiment_path=False)
+    runner._load_weights(ckpt)
+    batches = report["train_batches"]
+    steps, step_ms = {}, {"kernels": [], "eager": []}
+    for route in ("eager", "kernels"):
+        hp = copy.copy(runner.hparams)
+        hp.use_fused_kernel = route == "kernels"
+        steps[route] = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(hp),
+                                 5e-4, 0.1, TRAIN_F32_STEPS, runner.sphere_center,
+                                 runner.sphere_radius)
+    with EagerCalls() as eager_calls:
+        for route in ("eager", "kernels", "kernels", "eager"):
+            before = eager_calls.count
+            step_ms[route].append(chained_step_ms(steps[route], batches, 20))
+            if (eager_calls.count > before) != (route == "eager"):
+                log(f"  the {route} steps took the wrong route")
+                return False
+    del steps
+    torch.cuda.empty_cache()
+    view = Runner(copy.copy(e_hp), set_experiment_path=False)
+    view.make_eval_state()
+    meta = view.val_items[0]
+    s_view = {"kernels": [], "eager": []}
+    for route in ("eager", "kernels", "kernels", "eager"):
+        view.hparams.use_fused_kernel = route == "kernels"
+        view.render_image(meta)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            view.render_image(meta)
+        torch.cuda.synchronize()
+        s_view[route].append((time.perf_counter() - t0) / 2)
+    k_ms, e_ms = float(np.mean(step_ms["kernels"])), float(np.mean(step_ms["eager"]))
+    k_s, e_s = float(np.mean(s_view["kernels"])), float(np.mean(s_view["eager"]))
+    log(f"  f32 training step, 20 chained steps (paper fg+bg, batch 1024), turns "
+        f"eager/kernels/kernels/eager: kernels {step_ms['kernels']} ms, eager module "
+        f"{step_ms['eager']} ms; mean {k_ms:.2f} vs {e_ms:.2f} ms/step "
+        f"({e_ms / k_ms:.3f}x) [{report['device_line']}]")
+    log(f"  f32 view {meta.W}x{meta.H}, turns eager/kernels/kernels/eager: kernels "
+        f"{s_view['kernels']} s, eager module {s_view['eager']} s; mean {k_s:.4f} vs "
+        f"{e_s:.4f} s/view ({e_s / k_s:.3f}x)")
+    report["training_f32"].update(
+        step_ms=k_ms, eager_step_ms=e_ms, step_ms_turns=step_ms, s_per_view=k_s,
+        eager_s_per_view=e_s, s_per_view_turns=s_view, rays_per_s=1024 / k_ms * 1e3)
+    return True
+
+
+def time_f32_kernels(device, report):
+    """Each f32 kernel per launch at the main path's shapes: eval at the four
+    passes of a 16,384-ray chunk (plain, bound and TFLOP/s at fg fine, the
+    plain version in pieces of F32_PLAIN_PIECE points: the whole pass's f32
+    intermediates do not fit the card), the training kernels at the four
+    passes of a 1024-ray step (plain, bound and the weight gradient's
+    torch.mm in f32 with TF32 off at fg fine)."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    hp = paper_hparams(F32)
+    kernels = report["kernels"]
+    out = report["training_f32"]
+    chunk_ms = 0.0
+    for name, bg, m, seed in SERVING_SHAPES:
+        bundle = seeded_bundle(hp, 16, bg, seed, device)
+        cfg = bundle.config
+        packed = fused_mlp.pack_params(bundle.module)
+        xyz, dirs, idx = mlp_inputs(cfg, m, seed + 1, device)
+        app = bundle.module.appearance(idx).contiguous()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fused_mlp.fused_nerf_eval(packed, xyz, dirs, app), 3, 1)
+        chunk_ms += ms
+        log(f"  f32 eval kernel, {name} ({m} points): {ms:.3f} ms/launch")
+        if name != "fg fine":
+            continue
+        pieces = [(i, min(m, i + F32_PLAIN_PIECE)) for i in range(0, m, F32_PLAIN_PIECE)]
+
+        def plain():
+            for a, b in pieces:
+                fused_mlp.fused_nerf_eval_plain(packed, xyz[a:b], dirs[a:b], app[a:b])
+
+        with torch.no_grad():
+            plain_ms = cuda_ms(plain, 1, 1)
+        flops = fused_mlp.flops_per_point(cfg) * m
+        nbytes = fused_mlp.io_bytes_per_point(cfg) * m
+        bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        kernels["fused_nerf_eval_f32"].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                              bound_by=by)
+        log(f"  fused_nerf_eval_f32 at fg fine: {ms:.3f} ms/launch = "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of {PEAK_F32_FLOPS / 1e12:.0f} f32; plain "
+            f"{plain_ms:.3f} ms ({len(pieces)} pieces); bound {bms:.3f} ms ({by}: "
+            f"{flops:.4g} FLOP, {nbytes:.4g} B); tile "
+            f"{fused_f32.f32_fwd_plan(cfg).tm} points, "
+            f"{fused_f32.f32_fwd_plan(cfg).smem_bytes} B shared memory")
+        del xyz, dirs, app
+        torch.cuda.empty_cache()
+    out["eval_chunk_ms"] = chunk_ms
+    log(f"  f32 eval kernel per 16,384-ray chunk (4 launches): {chunk_ms:.3f} ms")
+
+    per_step = 0.0
+    shapes = [("fg coarse", False, 1024 * 256), ("fg fine", False, 1024 * 512),
+              ("bg coarse", True, 1024 * 128), ("bg fine", True, 1024 * 256)]
+    for name, bg, m in shapes:
+        bundle = seeded_bundle(hp, 16, bg, 21, device)
+        cfg = bundle.config
+        packed = fused_mlp.pack_params(bundle.module)
+        xyz, dirs, idx = mlp_inputs(cfg, m, 22, device)
+        app = bundle.module.appearance(idx).float()
+        noise = torch.rand((m,), device=device)
+        g = torch.randn((m, 4), device=device)
+        with torch.no_grad():
+            _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+            grad, _ = ft.train_bwd_data(packed, act, g, noise)
+            t_fwd = cuda_ms(lambda: ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise), 3)
+            t_bwd = cuda_ms(lambda: ft.train_bwd_data(packed, act, g, noise), 3)
+            t_wg = cuda_ms(lambda: ft.weight_grad(packed, act, grad), 3)
+        per_step += t_fwd + t_bwd + t_wg
+        log(f"  f32 train kernels, {name} ({m} points): fwd {t_fwd:.3f} ms, bwd-data "
+            f"{t_bwd:.3f} ms, weight-grad {t_wg:.3f} ms")
+        if name != "fg fine":
+            del act, grad
+            continue
+        flops = fused_mlp.flops_per_point(cfg) * m
+        dx_flops = dx_flops_per_point(cfg) * m
+        named = dict(bundle.module.named_parameters())
+        n_params = sum(named[k].numel() for k in fused_mlp.mlp_param_names(cfg))
+        fwd_b = (fused_mlp.io_bytes_per_point(cfg) + 4) * m
+        bwd_b = fwd_b + 4 * cfg.appearance_dim * m + 4 * n_params
+        jobs = ft.weight_grad_jobs(packed)
+
+        def library():
+            for d_col, n, x_col, k, *_ in jobs:
+                torch.mm(grad[:, d_col:d_col + n].T, act[:, x_col:x_col + k])
+
+        with torch.no_grad():
+            lib_ms = cuda_ms(library, 3)
+            p_fwd = cuda_ms(lambda: ft.fused_nerf_train_fwd_plain(packed, xyz, dirs, app,
+                                                                  noise), 1, 1)
+            p_bwd = cuda_ms(lambda: ft.train_bwd_data_plain(packed, act, g, noise), 1, 1)
+            p_wg = cuda_ms(lambda: ft.weight_grad_plain(packed, act, grad), 1, 1)
+        kernels["weight_grad_f32"]["library_ms"] = lib_ms
+        log(f"  weight_grad_f32 library (torch.mm per job, f32, TF32 off, no bias sums) "
+            f"at fg fine: {lib_ms:.3f} ms")
+        rows = {"fused_nerf_train_fwd_f32": (t_fwd, p_fwd, flops, fwd_b),
+                "train_bwd_data_f32": (t_bwd, p_bwd, dx_flops, bwd_b),
+                "weight_grad_f32": (t_wg, p_wg, flops, bwd_b)}
+        for k, (ms, plain_ms, fl, nb) in rows.items():
+            bms, by = bound(fl, nb, PEAK_F32_FLOPS)
+            kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            log(f"  {k} at fg fine: {ms:.3f} ms/launch = {fl / ms / 1e9:.1f} TFLOP/s; "
+                f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, "
+                f"{nb:.4g} B); saved rows {act.numel() * 4:.4g} B, gradient rows "
+                f"{grad.numel() * 4:.4g} B")
+        wplan = fused_f32.f32_wg_plan(packed, m)
+        log(f"  f32 plans at fg fine: forward tile {fused_f32.f32_fwd_plan(cfg).tm}, "
+            f"backward tile {fused_f32.f32_bwd_plan(cfg).tm} points; weight gradient "
+            f"{len(wplan.tiles)} tiles x {wplan.splits} splits of {wplan.split_len} points")
+        del act, grad
+        torch.cuda.empty_cache()
+    out["train_kernel_ms_per_step"] = per_step
+    log(f"  f32 training kernels per step (12 launches): {per_step:.3f} ms")
+
+
 def kernel_times(run, reps: int):
     """Device time by kernel over `run()`, which makes `reps` repetitions
     (torch.profiler) -> (rows [(ms per rep, launches per rep, name)],
@@ -4849,6 +5236,7 @@ def main() -> int:
             ("compare", lambda: phase_compare(device, report)),
             ("compare_wide", lambda: phase_compare_wide(device, report)),
             ("compare_train_wide", lambda: phase_compare_train_wide(device, report)),
+            ("compare_f32", lambda: phase_compare_f32(device, report)),
             ("serve", lambda: phase_serve(device, report, Path(tmp))),
             ("serve_mega", lambda: phase_serve_mega(device, report, Path(tmp))),
             ("bake", lambda: phase_bake(device, report, Path(tmp))),
@@ -4870,6 +5258,7 @@ def main() -> int:
             ("eager_train_wide", lambda: phase_eager_train_wide(device, report, Path(tmp))),
             ("remat", lambda: phase_remat(device, report, Path(tmp))),
             ("resume_jax", lambda: phase_resume_jax(device, report, Path(tmp))),
+            ("train_f32", lambda: phase_train_f32(device, report, Path(tmp))),
         )
         for phase, run in phases:
             log(f"[{phase}]")
@@ -4906,6 +5295,7 @@ def main() -> int:
     log(json.dumps({"training_mega": report["training_mega"]}))
     log(json.dumps({"multiproc": report["multiproc"]}))
     log(json.dumps({"resume_jax": report["resume_jax"]}))
+    log(json.dumps({"training_f32": report["training_f32"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Each `csrc/*.cu` source compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes` (no PyTorch headers,
 so a build takes seconds). Builds happen at first use, into `build/` at the
-repository root (listed in `.gitignore`), and are redone when the source is
-newer than the library. `build_all()` starts one `nvcc` per source, all at
+repository root (listed in `.gitignore`), and are redone when the source, or
+a header beside it (`csrc/*.cuh`, which a source may include), is newer than
+the library. `build_all()` starts one `nvcc` per source, all at
 once, and waits for them.
 """
 
@@ -20,7 +21,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("eval_fwd", "eval_wide", "train_fwd", "train_bwd", "weight_grad",
-           "train_wide")
+           "train_wide", "eval_f32", "train_f32")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,8 +43,8 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -1,0 +1,361 @@
+"""The f32-compute kernels of the fused MLP (`--compute_dtype float32`) to
+layer width 512: plans and wrappers.
+
+Counterparts of the JAX package's Pallas kernels in f32 compute
+(`render/pallas_mlp.py::_mlp_kernel`, `render/pallas_train.py::
+_train_fwd_kernel` and `::_train_bwd_kernel`, which run f32 to width 1024).
+The hand-written Hopper kernels compute in true f32: f32 operands, FFMA
+products, f32 sums; no TF32 and no bf16 tensor-core product, so an f32
+run gets the numbers of the port's f32 eager module and of the JAX
+package's f32 kernels, to summation order.
+
+- `csrc/eval_f32.cu` (`fused_nerf_eval_f32`): the eval chain.
+- `csrc/train_f32.cu`: the training forward (`fused_nerf_train_fwd_f32`,
+  the eval chain plus sigma noise, writing the f32 saved rows of
+  `fused_train.act_layout`), backward-data (`train_bwd_data_f32`: f32
+  gradient rows of `fused_train.grad_layout` and d_app) and the weight
+  gradient (`weight_grad_f32`: dW and bias sums per job of
+  `fused_train.weight_grad_jobs`, fixed-order split sums, no float
+  atomics).
+- Both sources walk the layer chain with `csrc/f32_chain.cuh`, so the eval
+  kernel equals the training forward without noise bit for bit.
+
+`fused_mlp.fused_nerf_eval` and the wrappers of `fused_train.py` call these
+on CUDA tensors when the packed weights are f32; CPU tensors run the plain
+versions there, for either dtype. Each wrapper here counts its launches in
+`.launches` (apart from the bf16 kernels' counts); a failed build or
+launch raises, nothing falls back.
+
+`f32_fwd_plan(cfg)` and `f32_bwd_plan(cfg)` give a CTA's tile and shared
+memory (the kernels take them as launch arguments); `f32_wg_plan(packed,
+m)` the weight gradient's output tiles and point ranges.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, NamedTuple, Tuple
+
+import torch
+
+from mega_nerf_tpu_torch.models.nerf import NeRFConfig
+from mega_nerf_tpu_torch.render.fused_mlp import (
+    MMA_K,
+    PackedMLP,
+    _raise_if,
+    _round_up,
+    is_wide,
+    launch_tables,
+    skip_mask,
+    supports_fused_kernel,
+)
+
+F32_COLS = 256  # output columns of one pass of a product (NB)
+F32_KS = 16  # k rows of a weight chunk (KS)
+F32_TILES = (64, 32)  # points of a CTA, the first that fits
+F32_SMEM_LIMIT = 232_448  # shared memory one CTA may use on an H100
+F32_WG_TILE = 128  # weight-gradient output tile: 128 (n) x 128 (k) (WG_T)
+F32_WG_CHUNK = 32  # points a weight-gradient CTA stages at once (WG_P)
+F32_WG_ELEMS = F32_WG_TILE * F32_WG_TILE + F32_WG_TILE
+F32_WG_CTAS = 1024  # split the points until about this many CTAs
+F32_WG_MIN_SPLIT = 2048  # points a split at least
+_WIDE_WHY = "layer_dim past 512 (the f32 kernels take widths to 512)"
+
+
+class F32Plan(NamedTuple):
+    """A CTA's tile of `tm` points and its shared memory: `offsets` in bytes
+    (forward: enc, dir, app, x, y, w, sig; backward: x, y, w, heads) and
+    `smem_bytes` in all."""
+    tm: int
+    offsets: Dict[str, int]
+    smem_bytes: int
+
+
+def _layout(widths: Dict[str, int]) -> Tuple[Dict[str, int], int]:
+    offsets, o = {}, 0
+    for name, nbytes in widths.items():
+        offsets[name] = o
+        o += _round_up(nbytes, 16)
+    return offsets, o
+
+
+def _fit(cfg: NeRFConfig, kind: str, widths) -> F32Plan:
+    ok, why = supports_fused_kernel(cfg, train=True)
+    if not ok or is_wide(cfg):
+        raise NotImplementedError(f"fused kernel does not cover: {why or _WIDE_WHY}")
+    for tm in F32_TILES:
+        offsets, total = _layout(widths(tm))
+        if total <= F32_SMEM_LIMIT:
+            return F32Plan(tm, offsets, total)
+    raise ValueError(f"f32 {kind}: no tile fits {F32_SMEM_LIMIT} B of shared memory "
+                     f"for {cfg}")
+
+
+@functools.lru_cache(maxsize=None)
+def f32_fwd_plan(cfg: NeRFConfig) -> F32Plan:
+    """The f32 forward's tile (eval and training forward): 64 points where
+    the encode, direction, appearance and two activation tiles and the two
+    weight chunks fit, else 32. Raises NotImplementedError where the
+    kernels do not cover the architecture, ValueError where no tile fits."""
+    ep = _round_up(cfg.enc_in, MMA_K)
+    dp = _round_up(cfg.dir_in, MMA_K)
+    ap = _round_up(cfg.appearance_dim, MMA_K)
+    return _fit(cfg, "forward", lambda tm: {
+        "enc": 4 * ep * tm, "dir": 4 * dp * tm, "app": 4 * ap * tm,
+        "x": 4 * cfg.layer_dim * tm, "y": 4 * cfg.layer_dim * tm,
+        "w": 4 * 2 * F32_KS * F32_COLS, "sig": 4 * tm})
+
+
+@functools.lru_cache(maxsize=None)
+def f32_bwd_plan(cfg: NeRFConfig) -> F32Plan:
+    """The f32 backward-data kernel's tile: two gradient tiles, the two
+    weight chunks and the heads' four derivatives a point; 64 points where
+    they fit, else 32."""
+    return _fit(cfg, "backward", lambda tm: {
+        "x": 4 * cfg.layer_dim * tm, "y": 4 * cfg.layer_dim * tm,
+        "w": 4 * 2 * F32_KS * F32_COLS, "heads": 16 * tm})
+
+
+class F32WgPlan(NamedTuple):
+    """The f32 weight gradient's work: `jobs` (fused_train.weight_grad_jobs),
+    `tiles` (job, n0, k0) of F32_WG_TILE x F32_WG_TILE outputs, each summed
+    over `splits` point ranges of `split_len` (a multiple of F32_WG_CHUNK;
+    the last ends at M), the partials added in range order."""
+    jobs: List[Tuple[int, ...]]
+    tiles: List[Tuple[int, int, int]]
+    splits: int
+    split_len: int
+
+
+def f32_wg_plan(packed: PackedMLP, m: int) -> F32WgPlan:
+    """Tiles and point ranges of one launch over m points: about
+    F32_WG_CTAS CTAs, at least F32_WG_MIN_SPLIT points a range. The plan
+    depends on the model and m only, so two launches sum alike."""
+    from mega_nerf_tpu_torch.render.fused_train import weight_grad_jobs
+
+    jobs = weight_grad_jobs(packed)
+    tiles = [(j, n0, k0) for j, job in enumerate(jobs)
+             for n0 in range(0, job[1], F32_WG_TILE)
+             for k0 in range(0, job[3], F32_WG_TILE)]
+    splits = max(1, min(-(-F32_WG_CTAS // len(tiles)), -(-m // F32_WG_MIN_SPLIT)))
+    split_len = _round_up(max(-(-m // splits), 1), F32_WG_CHUNK)
+    return F32WgPlan(jobs, tiles, max(1, -(-m // split_len)), split_len)
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def _library(name: str, exports):
+    from mega_nerf_tpu_torch.render._build import load_library
+
+    lib = load_library(name)
+    if not getattr(lib, "_f32_bound", False):
+        for fn, nargs in exports:
+            getattr(lib, fn).argtypes = [ctypes.c_void_p] * nargs
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.error_string = getattr(lib, f"{name}_error_string")
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._f32_bound = True
+    return lib
+
+
+def _eval_lib():
+    return _library("eval_f32", [("eval_f32_launch", 5)])
+
+
+def _train_lib():
+    return _library("train_f32", [("train_f32_fwd_launch", 7),
+                                  ("train_f32_bwd_launch", 5),
+                                  ("weight_grad_f32_launch", 3)])
+
+
+def _ints(values) -> ctypes.Array:
+    values = list(values)
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def _ptrs(values) -> ctypes.Array:
+    values = list(values)
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_packed(packed: PackedMLP) -> None:
+    if packed.config.dtype != torch.float32:
+        raise ValueError("the f32 kernels take float32 packed weights, got "
+                         f"{packed.config.compute_dtype}")
+    for w in packed.mats:
+        if w.dtype != torch.float32:
+            raise ValueError("the f32 kernels take float32 packed weights")
+
+
+def transposed(packed: PackedMLP) -> List[torch.Tensor]:
+    """(Ktot, N) copies of the packed matrices: the forward kernels read a
+    chunk of 16 input columns as 16 contiguous rows."""
+    return [w.t().contiguous() for w in packed.mats]
+
+
+def _fwd_tables(packed: PackedMLP, xyz, dirs, app, out, wts):
+    """`fused_mlp.launch_tables` with the transposed matrices in place of
+    the packed ones (`wts` keeps them alive through the launch)."""
+    c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
+    for i, w in enumerate(wts):
+        c_ptrs[8 + 2 * i] = w.data_ptr()
+    return c_ptrs, c_dims
+
+
+def _fwd_plan_ints(plan: F32Plan) -> List[int]:
+    o = plan.offsets
+    return [plan.tm, o["enc"], o["dir"], o["app"], o["x"], o["y"], o["w"], o["sig"],
+            plan.smem_bytes]
+
+
+def fused_nerf_eval_f32(packed: PackedMLP, xyz, dirs, app) -> torch.Tensor:
+    """The f32 eval kernel (`csrc/eval_f32.cu`) on CUDA tensors -> (M, 4)
+    f32 [rgb, sigma]; inputs as `fused_mlp.fused_nerf_eval` checks them."""
+    _check_packed(packed)
+    plan = f32_fwd_plan(packed.config)
+    m = xyz.shape[0]
+    out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
+    if m == 0:
+        return out
+    lib = _eval_lib()
+    wts = transposed(packed)
+    c_ptrs, c_dims = _fwd_tables(packed, xyz, dirs, app, out, wts)
+    shapes = [v for w in packed.mats for v in w.shape]
+    err = lib.eval_f32_launch(c_ptrs, c_dims, _ints(_fwd_plan_ints(plan)),
+                              _ints(shapes), _stream(xyz))
+    fused_nerf_eval_f32.launches += 1
+    _raise_if(lib, err, "fused_nerf_eval_f32")
+    return out
+
+
+fused_nerf_eval_f32.launches = 0
+
+
+def fused_nerf_train_fwd_f32(packed: PackedMLP, xyz, dirs, app, noise):
+    """The f32 training forward (`csrc/train_f32.cu`) on CUDA tensors ->
+    ((M, 4) f32, saved rows (M, act width) f32)."""
+    from mega_nerf_tpu_torch.render.fused_train import act_layout
+
+    _check_packed(packed)
+    plan = f32_fwd_plan(packed.config)
+    lay = act_layout(packed)
+    m = xyz.shape[0]
+    out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
+    act = torch.empty((m, lay["width"]), dtype=torch.float32, device=xyz.device)
+    if m == 0:
+        return out, act
+    lib = _train_lib()
+    wts = transposed(packed)
+    c_ptrs, c_dims = _fwd_tables(packed, xyz, dirs, app, out, wts)
+    shapes = [v for w in packed.mats for v in w.shape]
+    extra = [0 if noise is None else noise.data_ptr(), act.data_ptr()]
+    cols = [lay["width"], lay["final"], lay["dir"], lay["app"], lay["branch"]]
+    err = lib.train_f32_fwd_launch(c_ptrs, c_dims, _ints(_fwd_plan_ints(plan)),
+                                   _ints(shapes), _ptrs(extra), _ints(cols), _stream(xyz))
+    fused_nerf_train_fwd_f32.launches += 1
+    _raise_if(lib, err, "fused_nerf_train_fwd_f32")
+    return out, act
+
+
+fused_nerf_train_fwd_f32.launches = 0
+
+
+def train_bwd_data_f32(packed: PackedMLP, act, g, noise):
+    """The f32 backward-data kernel (`csrc/train_f32.cu`) on CUDA tensors ->
+    (gradient rows (M, grad width) f32, d_app (M, appearance_dim) f32 or
+    None); inputs as `fused_train.train_bwd_data` checks them."""
+    from mega_nerf_tpu_torch.render.fused_train import act_layout, branch_k, grad_layout
+
+    _check_packed(packed)
+    cfg = packed.config
+    plan = f32_bwd_plan(cfg)
+    al, gl = act_layout(packed), grad_layout(packed)
+    m = act.shape[0]
+    grad = torch.empty((m, gl["width"]), dtype=torch.float32, device=act.device)
+    d_app = None
+    if packed.ap:
+        d_app = torch.empty((m, cfg.appearance_dim), dtype=torch.float32,
+                            device=act.device)
+    if m == 0:
+        return grad, d_app
+    lib = _train_lib()
+    ptrs = [act.data_ptr(), grad.data_ptr(), g.data_ptr(),
+            0 if noise is None else noise.data_ptr(),
+            0 if d_app is None else d_app.data_ptr(),
+            packed.sigma_w.data_ptr(), packed.sigma_b.data_ptr(),
+            packed.rgb_w.data_ptr(), packed.rgb_b.data_ptr()]
+    ptrs += [w.data_ptr() for w in packed.mats]
+    dims = [m, cfg.layer_dim, cfg.layers, int(packed.has_branch),
+            int(cfg.shifted_softplus), cfg.appearance_dim, skip_mask(cfg), packed.ep,
+            packed.dp, branch_k(cfg), al["width"], gl["width"], al["h0"],
+            al["branch"] if packed.has_branch else 0,
+            gl["dfinal"] if packed.has_branch else 0,
+            gl["da"] if packed.has_branch else 0, gl["heads"]]
+    o = plan.offsets
+    ints = [plan.tm, o["x"], o["y"], o["w"], o["heads"], plan.smem_bytes]
+    shapes = [v for w in packed.mats for v in w.shape]
+    err = lib.train_f32_bwd_launch(_ptrs(ptrs), _ints(dims), _ints(ints), _ints(shapes),
+                                   _stream(act))
+    train_bwd_data_f32.launches += 1
+    _raise_if(lib, err, "train_bwd_data_f32")
+    return grad, d_app
+
+
+train_bwd_data_f32.launches = 0
+
+
+def weight_grad_f32(packed: PackedMLP, act, grad) -> torch.Tensor:
+    """The f32 weight-gradient kernel (`csrc/train_f32.cu`) on CUDA tensors
+    -> flat f32 gradients in `fused_train.packed_shapes` order."""
+    from mega_nerf_tpu_torch.render.fused_train import (
+        _offsets,
+        act_layout,
+        grad_layout,
+        packed_shapes,
+    )
+
+    _check_packed(packed)
+    m = act.shape[0]
+    if act.shape[1] != act_layout(packed)["width"] or \
+            grad.shape[1] != grad_layout(packed)["width"]:
+        raise ValueError("weight_grad_f32: act and grad must be the saved and "
+                         "gradient rows of this model (act_layout, grad_layout)")
+    out = torch.empty(_offsets(packed_shapes(packed))[-1], dtype=torch.float32,
+                      device=act.device)
+    if m == 0:
+        return out.zero_()
+    lib = _train_lib()
+    plan = f32_wg_plan(packed, m)
+    ntiles = len(plan.tiles)
+    tables = torch.tensor([v for j in plan.jobs for v in j]
+                          + [v for t in plan.tiles for v in t],
+                          dtype=torch.int32).to(act.device)
+    scratch = torch.empty(plan.splits * ntiles * F32_WG_ELEMS, dtype=torch.float32,
+                          device=act.device)
+    ptrs = [act.data_ptr(), grad.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            tables.data_ptr(), tables.data_ptr() + 4 * 7 * len(plan.jobs)]
+    dims = [m, act.shape[1], grad.shape[1], ntiles, plan.splits, plan.split_len]
+    err = lib.weight_grad_f32_launch(_ptrs(ptrs), _ints(dims), _stream(act))
+    weight_grad_f32.launches += 1
+    _raise_if(lib, err, "weight_grad_f32")
+    return out
+
+
+weight_grad_f32.launches = 0
+
+
+F32_KERNELS = (fused_nerf_eval_f32, fused_nerf_train_fwd_f32, train_bwd_data_f32,
+               weight_grad_f32)
+
+__all__ = [
+    "F32Plan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
+    "fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
+    "weight_grad_f32", "F32_KERNELS",
+]

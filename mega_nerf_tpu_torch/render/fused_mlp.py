@@ -2,13 +2,15 @@
 
 Counterpart of the JAX package's `render/pallas_mlp.py`. The hand-written
 Hopper kernel is `csrc/eval_fwd.cu` (it replaces
-`mega_nerf_tpu/render/pallas_mlp.py::_mlp_kernel` to width 512): the
-training forward's `wgmma` layer chain without noise or saved rows, one
-persistent CTA per SM walking the point tiles, its tile and shared memory
-from `fused_train.py::train_fwd_plan`. Past width 512 eval runs the wide
-route, `fused_wide.py` (one layer GEMM at a time, `csrc/eval_wide.cu`),
-on the same packed weights; training past 512 runs `fused_train_wide.py`
-on that GEMM and the kernels of `csrc/train_wide.cu`.
+`mega_nerf_tpu/render/pallas_mlp.py::_mlp_kernel` to width 512 in bf16
+compute): the training forward's `wgmma` layer chain without noise or
+saved rows, one persistent CTA per SM walking the point tiles, its tile and
+shared memory from `fused_train.py::train_fwd_plan`. In f32 compute to
+width 512 the wrapper launches `csrc/eval_f32.cu` instead (`fused_f32.py`:
+true f32 FFMA products). Past width 512 eval runs the wide route,
+`fused_wide.py` (one layer GEMM at a time, `csrc/eval_wide.cu`, bf16
+compute), on the same packed weights; training past 512 runs
+`fused_train_wide.py` on that GEMM and the kernels of `csrc/train_wide.cu`.
 
 - `supports_fused_kernel(cfg, train)` is the gate, as the JAX package's
   `supports_fused_kernels(cfg, train)`; `is_wide(cfg)` says whether an
@@ -22,7 +24,9 @@ on that GEMM and the kernels of `csrc/train_wide.cu`.
   same encode form (cos as sin(x 2^k + pi/2)), operands rounded to the
   compute dtype, float32 accumulation and bias, rounding after each layer.
 - `fused_nerf_eval` is the wrapper: on a CPU tensor it runs the plain
-  version; on a CUDA tensor it launches the kernel or raises. Each counts
+  version; on a CUDA tensor it launches the kernel of the compute dtype
+  (bf16: `eval_fwd.cu`, f32: `fused_f32.fused_nerf_eval_f32`) or raises.
+  Each counts
   its calls in a `launches` / `calls` attribute. `eval_plan` checks the
   packed weights against the plan; `eval_grid` says how many CTAs a launch
   has (CTA b walks tiles b, b + grid, ...).
@@ -89,9 +93,10 @@ def supports_fused_kernel(cfg: NeRFConfig, train: bool = False) -> Tuple[bool, s
       with layer_dim a multiple of 64, as the JAX gate trains through
       Pallas to 1024. Past 1024 the eager module trains, as JAX falls back
       to XLA.
-    - f32 compute past 512: the JAX gate runs Pallas eval and training to
-      1024 in f32, the port's wide kernels are bf16 only, so the eager
-      module runs."""
+    - f32 compute: to width 512 the f32 kernels (`fused_f32.py`, true f32
+      FFMA products) take eval and training. Past 512 the JAX gate runs
+      Pallas eval and training to 1024 in f32, the port's wide kernels are
+      bf16 only, so the eager module runs."""
     ok, why = _architecture_ok(cfg)
     if not ok or cfg.layer_dim <= MAX_LAYER_DIM:
         return ok, why
@@ -327,15 +332,20 @@ def fused_nerf_eval(
     ref_packed_dirs swap) when the model reads directions; app
     (M, appearance_dim) per-point appearance rows when it has appearance.
     CPU tensors run `fused_nerf_eval_plain`; CUDA tensors launch the kernel
-    of `csrc/eval_fwd.cu` (bf16 compute only) or raise. `grid` sets the
-    number of CTAs of the persistent walk (tests only; default: as many as
-    the card holds at once, at most one per tile)."""
+    of `csrc/eval_fwd.cu` in bf16 compute, of `csrc/eval_f32.cu`
+    (`fused_f32.fused_nerf_eval_f32`) in f32, or raise. `grid` sets the
+    number of CTAs of the bf16 kernel's persistent walk (tests only;
+    default: as many as the card holds at once, at most one per tile)."""
     if xyz.device.type == "cpu":
         return fused_nerf_eval_plain(packed, xyz, dirs, app)
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_nerf_eval: unsupported device {xyz.device}")
     m = xyz.shape[0]
     check_inputs(packed, xyz, dirs, app)
+    if packed.config.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_f32 import fused_nerf_eval_f32
+
+        return fused_nerf_eval_f32(packed, xyz, dirs, app)
     plan = eval_plan(packed)
     lib = _eval_library()
     out = torch.empty((m, 4), dtype=torch.float32, device=xyz.device)
@@ -383,21 +393,21 @@ def launch_grid(packed: PackedMLP, m: int, device: torch.device) -> int:
 
 
 def check_inputs(packed: PackedMLP, xyz, dirs, app) -> None:
-    """Raise unless the inputs are what the forward kernels take: bf16
-    compute, contiguous f32 xyz/dirs and bf16 appearance rows, weights on
-    the points' device."""
+    """Raise unless the inputs are what the forward kernels take: bf16 or
+    f32 compute, contiguous f32 xyz/dirs and appearance rows in the compute
+    dtype, weights on the points' device."""
     cfg = packed.config
-    if cfg.dtype != torch.bfloat16:
+    if cfg.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            "the fused kernels compute in bfloat16; pass "
-            "--compute_dtype bfloat16 or --no_pallas"
+            f"the fused kernels compute in bfloat16 or float32, not "
+            f"{cfg.compute_dtype}; pass --no_pallas"
         )
     m = xyz.shape[0]
     _check("xyz", xyz, torch.float32, (m, cfg.xyz_dim))
     if packed.dp:
         _check("dirs", dirs, torch.float32, (m, 3))
     if packed.ap:
-        _check("app", app, torch.bfloat16, (m, cfg.appearance_dim))
+        _check("app", app, cfg.dtype, (m, cfg.appearance_dim))
     for t in packed.mats + packed.biases + [packed.sigma_w, packed.rgb_w]:
         if t.device != xyz.device:
             raise ValueError("packed weights live on another device than xyz")
@@ -493,11 +503,12 @@ def flops_per_point(cfg: NeRFConfig) -> int:
 
 def io_bytes_per_point(cfg: NeRFConfig) -> int:
     """Bytes one point moves at the kernel's boundary: xyz, dirs and
-    appearance read once, (rgb, sigma) written once."""
+    appearance (in the compute dtype) read once, (rgb, sigma) written
+    once."""
     b = 4 * cfg.xyz_dim + 16
     if cfg.pos_dir_dim > 0:
         b += 12
-    b += 2 * cfg.appearance_dim
+    b += cfg.dtype.itemsize * cfg.appearance_dim
     return b
 
 

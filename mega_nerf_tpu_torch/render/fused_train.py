@@ -3,7 +3,9 @@ kernel wrappers.
 
 Counterpart of the JAX package's `render/pallas_train.py`. The hand-written
 Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/train_bwd.cu`
-(backward-data) and `csrc/weight_grad.cu` (weight gradient); they replace
+(backward-data) and `csrc/weight_grad.cu` (weight gradient) for bf16
+compute, and in `csrc/train_f32.cu` (`fused_f32.py`: the same three steps
+in true f32) for f32 compute; they replace
 `mega_nerf_tpu/render/pallas_train.py::_train_fwd_kernel` and
 `::_train_bwd_kernel`.
 
@@ -12,7 +14,7 @@ Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/train_bwd.cu`
   and packs them into the compute dtype inside the call (as the JAX path
   packs with `cast=False`), and returns their gradients in their own
   shapes (padding columns dropped), plus d_app for the gathered appearance
-  rows (f32, bf16-exact values). Positions, directions and noise get no
+  rows (f32, exact in the compute dtype). Positions, directions and noise get no
   gradient. Past width 512 (`fused_mlp.is_wide`) it runs the wide training
   route of `fused_train_wide.py` in place of the three kernels here.
 - The forward saves every activation of a point in one row (the layout of
@@ -25,9 +27,11 @@ Hopper kernels are in `csrc/train_fwd.cu` (forward), `csrc/train_bwd.cu`
   the compute dtype, output derivatives in f32, compute-dtype matmul
   operands with f32 accumulation, ReLU masks from the rounded
   activations). A wrapper runs the plain version on a CPU tensor and
-  launches its kernel on a CUDA tensor, or raises.
-- Each kernel wrapper counts its launches in `.launches`; each plain version
-  its calls in `.calls`.
+  launches its kernel on a CUDA tensor (the bf16 kernel here, or in f32
+  compute the f32 kernel of `fused_f32.py`), or raises.
+- Each kernel wrapper counts its bf16 launches in `.launches` (the f32
+  kernels count theirs in `fused_f32.py`); each plain version its calls in
+  `.calls`.
 """
 
 from __future__ import annotations
@@ -439,21 +443,26 @@ def fused_nerf_train_fwd(packed: PackedMLP, xyz, dirs, app, noise):
     """Training forward -> ((M, 4) f32, saved rows (M, act width)).
 
     CPU tensors run `fused_nerf_train_fwd_plain`; CUDA tensors launch the
-    kernel of `csrc/train_fwd.cu`, which also writes the bf16 rows the
-    backward reads, or raise.
-    app: (M, appearance_dim) rows (any float dtype, bf16-exact values);
-    noise: (M,) f32 or None."""
+    kernel of `csrc/train_fwd.cu` (bf16 compute), which also writes the
+    bf16 rows the backward reads, or of `csrc/train_f32.cu` (f32 compute,
+    f32 rows), or raise.
+    app: (M, appearance_dim) rows (any float dtype, exact in the compute
+    dtype); noise: (M,) f32 or None."""
     if xyz.device.type == "cpu":
         return fused_nerf_train_fwd_plain(packed, xyz, dirs, app, noise)
     _cuda_only("fused_nerf_train_fwd", xyz)
     if app is not None:
-        app = app.to(torch.bfloat16).contiguous()
+        app = app.to(packed.config.dtype).contiguous()
     check_inputs(packed, xyz, dirs, app)
     m = xyz.shape[0]
     if noise is not None:
         if noise.dtype != torch.float32 or noise.shape != (m,) \
                 or not noise.is_contiguous():
             raise ValueError("noise: expected contiguous f32 (M,)")
+    if packed.config.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_f32 import fused_nerf_train_fwd_f32
+
+        return fused_nerf_train_fwd_f32(packed, xyz, dirs, app, noise)
     plan = train_fwd_plan(packed.config)
     if plan.mats != [tuple(w.shape) for w in packed.mats]:
         raise ValueError("train_fwd: packed matrices do not match the plan")
@@ -610,10 +619,11 @@ def _ints(values) -> ctypes.Array:
 
 def train_bwd_data(packed: PackedMLP, act: torch.Tensor, g: torch.Tensor,
                    noise: Optional[torch.Tensor]):
-    """The backward-data kernel -> (gradient rows (M, grad width) bf16,
-    d_app (M, appearance_dim) f32 or None). CPU tensors run
+    """The backward-data kernel -> (gradient rows (M, grad width) in the
+    compute dtype, d_app (M, appearance_dim) f32 or None). CPU tensors run
     `train_bwd_data_plain`; CUDA tensors launch the kernel of
-    `csrc/train_bwd.cu`, or raise."""
+    `csrc/train_bwd.cu` (bf16 compute) or of `csrc/train_f32.cu` (f32
+    compute), or raise."""
     if act.device.type == "cpu":
         return train_bwd_data_plain(packed, act, g, noise)
     _cuda_only("train_bwd_data", act)
@@ -625,9 +635,13 @@ def train_bwd_data(packed: PackedMLP, act: torch.Tensor, g: torch.Tensor,
                               or not noise.is_contiguous()):
         raise ValueError("noise: expected contiguous f32 (M,)")
     al = act_layout(packed)
-    if act.dtype != torch.bfloat16 or act.shape[1] != al["width"] \
+    if act.dtype != cfg.dtype or act.shape[1] != al["width"] \
             or not act.is_contiguous():
-        raise ValueError("act: expected the contiguous bf16 saved rows")
+        raise ValueError(f"act: expected the contiguous {cfg.compute_dtype} saved rows")
+    if cfg.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_f32 import train_bwd_data_f32
+
+        return train_bwd_data_f32(packed, act, g, noise)
     plan = train_bwd_plan(cfg)
     wts = transposed_weights(packed)
     if plan.mats != [tuple(w.shape) for w in wts]:
@@ -772,14 +786,22 @@ def weight_grad(packed: PackedMLP, act: torch.Tensor,
                 grad: torch.Tensor) -> torch.Tensor:
     """The weight-gradient kernel -> flat f32 gradients in `packed_shapes`
     order (split-K over points, splits summed in a fixed order). CPU
-    tensors run `weight_grad_plain`."""
+    tensors run `weight_grad_plain`; CUDA tensors launch the kernel of
+    `csrc/weight_grad.cu` (bf16 rows) or of `csrc/train_f32.cu` (f32
+    rows), or raise."""
     if act.device.type == "cpu":
         return weight_grad_plain(packed, act, grad)
     _cuda_only("weight_grad", act)
     m = act.shape[0]
+    dt = packed.config.dtype
     for name, t in (("act", act), ("grad", grad)):
-        if t.dtype != torch.bfloat16 or t.shape[0] != m or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous bf16 rows, one per point")
+        if t.dtype != dt or t.shape[0] != m or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {packed.config.compute_dtype} "
+                             "rows, one per point")
+    if dt == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_f32 import weight_grad_f32
+
+        return weight_grad_f32(packed, act, grad)
     total = _offsets(packed_shapes(packed))[-1]
     out = torch.empty(total, dtype=torch.float32, device=act.device)
     if m == 0:
@@ -872,8 +894,8 @@ def fused_nerf_train_apply(
 ) -> torch.Tensor:
     """Differentiable fused forward -> (M, 4) [sigmoid rgb, activated
     sigma]; gradients flow to the module's MLP parameters and to `app`.
-    CPU tensors run the plain versions; CUDA tensors the kernels (past
-    width 512 in bf16 compute only)."""
+    CPU tensors run the plain versions; CUDA tensors the kernels (bf16 or
+    f32 compute to width 512, past it bf16 compute only)."""
     cfg = module.config
     named = dict(module.named_parameters())
     params = [named[n] for n in mlp_param_names(cfg)]

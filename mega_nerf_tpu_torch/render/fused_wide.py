@@ -527,6 +527,8 @@ def fused_nerf_eval_wide(
     if not _device_rule("fused_nerf_eval_wide", xyz):
         return fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
     cfg = packed.config
+    if cfg.dtype != torch.bfloat16:
+        raise NotImplementedError("the wide eval kernels compute in bfloat16 only")
     check_inputs(packed, xyz, dirs, app)
     m, d = xyz.shape[0], cfg.layer_dim
     dev = xyz.device

@@ -22,9 +22,10 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   past it; train: the differentiable `fused_nerf_train_apply`, which runs
   `fused_train_wide.py` past width 512), else
   through the eager `NeRF` module (`mlp_route`). The gate looks at the
-  architecture, and on the card also at the compute dtype: f32 compute
-  on a CUDA tensor takes the eager module, since the kernels are bf16; on
-  a CPU tensor the wrappers run the kernels' plain versions;
+  architecture and the compute dtype: bf16 and f32 compute take the
+  kernels to width 512 (f32 through the true-f32 kernels of
+  `fused_f32.py`), past it only bf16 (the wide kernels), f32 the eager
+  module; on a CPU tensor the wrappers run the kernels' plain versions;
 - train mode (`train=True`) draws from a `torch.Generator` where the JAX
   package splits keys: stratified perturbation, sorted-uniform fine
   sampling (`det = perturb == 0`) and uniform sigma noise rounded to the
@@ -148,13 +149,16 @@ def _log_mlp_path(message: str) -> None:
 def mlp_route(cfg, device_type: str, train: bool = False) -> Tuple[bool, str]:
     """Does an MLP of `cfg` on points of `device_type` go through the fused
     kernel wrappers -> (fused, why not): the gate's answer
-    (`supports_fused_kernel`, eval or with `train` training), except that
-    f32 compute on the card takes the eager module, since every kernel
-    computes in bf16. On CPU tensors the wrappers run their plain
-    versions, which compute in either dtype."""
+    (`supports_fused_kernel`, eval or with `train` training). On the card
+    the kernels compute in bf16 (every width the gate admits) or f32 (to
+    width 512, `fused_f32.py`; the gate keeps f32 past 512 on the eager
+    module); another compute dtype takes the eager module there. On CPU
+    tensors the wrappers run their plain versions, which compute in any
+    dtype."""
     ok, why = supports_fused_kernel(cfg, train)
-    if ok and device_type == "cuda" and cfg.dtype != torch.bfloat16:
-        return False, f"{cfg.compute_dtype} compute on the card (the kernels are bf16)"
+    if ok and device_type == "cuda" and cfg.dtype not in (torch.bfloat16, torch.float32):
+        return False, (f"{cfg.compute_dtype} compute on the card (the kernels are "
+                       "bf16 and f32)")
     return ok, why
 
 
@@ -211,9 +215,9 @@ def query_points(
 
     The port's counterpart of the JAX package's `ModelBundle.apply(params,
     typ, xyz, dirs, image_indices, sigma_only=...)`, and the route every
-    MLP pass of the renderer takes: `fused_nerf_eval` (`eval_fwd.cu`) to
-    width 512, `fused_nerf_eval_wide` (`eval_wide.cu`) past it, the eager
-    module for an SH head, f32 on the card or `--no_pallas`
+    MLP pass of the renderer takes: `fused_nerf_eval` (`eval_fwd.cu`, in
+    f32 `eval_f32.cu`) to width 512, `fused_nerf_eval_wide` (`eval_wide.cu`)
+    past it, the eager module for an SH head, f32 past 512 or `--no_pallas`
     (`fused_gate`); in train mode the differentiable
     `fused_nerf_train_apply`. The kernels have no sigma-only variant, so
     `sigma_only` computes the full output, as the JAX Pallas kernel does;
@@ -268,7 +272,7 @@ def query_points(
                 # every point of its image one after another.
                 app = module.appearance(indices)
                 if train:
-                    app = app.float()  # bf16-exact f32 rows; grads sum in f32
+                    app = app.float()  # compute-dtype-exact f32 rows; grads sum in f32
                 if ray_rows is not None:
                     app = app[ray_rows]
                 else:

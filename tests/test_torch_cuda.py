@@ -94,7 +94,7 @@ def test_fused_eval_kernel_matches_plain(cuda_device, bg, kw, m):
     assert (err[:, 3] / (1 + want[:, 3].abs())).max().item() <= 1e-2
 
 
-def _train_case(cuda_device, bg, kw, m):
+def _train_case(cuda_device, bg, kw, m, dtype="bfloat16"):
     from mega_nerf_tpu_torch.render import fused_train
 
     hp = tiny_hparams(pos_xyz_dim=12, pos_dir_dim=kw.get("pos_dir_dim", 4),
@@ -103,7 +103,7 @@ def _train_case(cuda_device, bg, kw, m):
                       layer_dim=kw.get("layer_dim", 64),
                       bg_layer_dim=kw.get("layer_dim", 64),
                       appearance_dim=kw["appearance_dim"],
-                      compute_dtype="bfloat16")
+                      compute_dtype=dtype)
     bundle = (make_bg_nerf if bg else make_nerf)(hp, 7)
     gen = torch.Generator().manual_seed(3)
     init_weights(bundle.module, gen)
@@ -122,7 +122,7 @@ def _train_case(cuda_device, bg, kw, m):
     if cfg.appearance_dim:
         idx = torch.randint(0, 7, (m,), generator=gen).to(cuda_device)
         app = bundle.module.appearance(idx).float().contiguous()
-    noise = torch.rand((m,), generator=gen).to(torch.bfloat16).float().to(cuda_device)
+    noise = torch.rand((m,), generator=gen).to(cfg.dtype).float().to(cuda_device)
     g = torch.randn((m, 4), generator=gen).to(cuda_device)
     return fused_train, packed, xyz, dirs, app, noise, g
 
@@ -326,6 +326,120 @@ def test_eval_kernel_persistent_walk_repeats_bitwise(cuda_device, bg):
     assert torch.isfinite(outs[0]).all()
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+
+
+F32_VARIANTS = [  # widths 64 (default), 16, 48, 256 and 512 (64-point tiles), 288 (32)
+    {"appearance_dim": 48},
+    {"appearance_dim": 0},
+    {"appearance_dim": 0, "pos_dir_dim": 0},
+    {"appearance_dim": 48, "layer_dim": 16},
+    {"appearance_dim": 0, "layer_dim": 48, **NARROW},
+    {"appearance_dim": 48, "layer_dim": 256},
+    {"appearance_dim": 5, "layer_dim": 288},
+    {"appearance_dim": 48, "layer_dim": 512},
+]
+
+
+def _f32_counts():
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    return [f.launches for f in fused_f32.F32_KERNELS]
+
+
+@pytest.mark.parametrize("m", [1000, 37, 0])
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("kw", F32_VARIANTS)
+def test_f32_eval_kernel_matches_plain(cuda_device, bg, kw, m):
+    """f32 compute (`eval_f32.cu`) against the plain version, TF32 off:
+    rgb 1e-4, sigma 1e-4 (1 + |sigma|) (true f32 on both sides, the sums in
+    another order). One f32 launch (none at M = 0), no bf16 launch;
+    M = 1,000 and 37 (ragged and under one tile)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, packed, xyz, dirs, app, _, _ = _train_case(cuda_device, bg, kw, m, "float32")
+    before, bf16 = _f32_counts(), fused_mlp.fused_nerf_eval.launches
+    with torch.no_grad():
+        got = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+        want = fused_mlp.fused_nerf_eval_plain(packed, xyz, dirs, app)
+    torch.cuda.synchronize()
+    assert _f32_counts() == [before[0] + (m > 0), *before[1:]]
+    assert fused_mlp.fused_nerf_eval.launches == bf16
+    assert got.shape == (m, 4)
+    if m == 0:
+        return
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert err[:, :3].max().item() <= 1e-4
+    assert (err[:, 3] / (1 + want[:, 3].abs())).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("kw", F32_VARIANTS)
+def test_f32_train_kernels_match_plain(cuda_device, bg, kw):
+    """The f32 training kernels (`train_f32.cu`) against their plain
+    versions, TF32 off, on 20,011 points (not a multiple of either tile):
+    forward rgb 1e-4, sigma 1e-4 (1 + |sigma|), saved rows 1e-4 relative;
+    backward-data per layer's gradient rows, all rows and d_app 1e-4
+    relative; every weight-gradient tensor 1e-4 relative. Without noise the
+    eval kernel's output equals the training forward's bit for bit; two
+    weight-gradient launches give the same bits. One launch of each f32
+    kernel per call, no bf16 launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ft, packed, xyz, dirs, app, noise, g = _train_case(cuda_device, bg, kw, 20_011,
+                                                       "float32")
+    before = _f32_counts()
+    bf16 = (ft.fused_nerf_train_fwd.launches, ft.train_bwd_data.launches,
+            ft.weight_grad.launches, fused_mlp.fused_nerf_eval.launches)
+    out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+    want, p_act = ft.fused_nerf_train_fwd_plain(packed, xyz, dirs, app, noise)
+    grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+    p_grad, p_d_app = ft.train_bwd_data_plain(packed, act, g, noise)
+    flat = ft.weight_grad(packed, act, grad)
+    again = ft.weight_grad(packed, act, grad)
+    p_flat = ft.weight_grad_plain(packed, act, grad)
+    with torch.no_grad():
+        clean, _ = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, None)
+        ev = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+    torch.cuda.synchronize()
+    assert _f32_counts() == [before[0] + 1, before[1] + 2, before[2] + 1, before[3] + 2]
+    assert (ft.fused_nerf_train_fwd.launches, ft.train_bwd_data.launches,
+            ft.weight_grad.launches, fused_mlp.fused_nerf_eval.launches) == bf16
+    assert act.dtype == grad.dtype == torch.float32
+    err = (out - want).abs()
+    assert err[:, :3].max().item() <= 1e-4
+    assert (err[:, 3] / (1 + want[:, 3].abs())).max().item() <= 1e-4
+    assert act.shape == p_act.shape and _rel(act, p_act) <= 1e-4
+    d = packed.config.layer_dim
+    for i in range(packed.config.layers):
+        seg = slice(i * d, (i + 1) * d)
+        assert _rel(grad[:, seg], p_grad[:, seg]) <= 1e-4, i
+    assert _rel(grad, p_grad) <= 1e-4
+    if p_d_app is not None:
+        assert _rel(d_app, p_d_app) <= 1e-4
+    offs = ft._offsets(ft.packed_shapes(packed))
+    for i in range(len(offs) - 1):
+        assert _rel(flat[offs[i]:offs[i + 1]], p_flat[offs[i]:offs[i + 1]]) <= 1e-4, i
+    assert torch.equal(flat, again)
+    assert torch.isfinite(ev).all() and torch.equal(ev, clean)
+
+
+def test_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
+    """f32 packed weights with bf16 inputs (appearance rows, saved rows)
+    raise, and so does a compute dtype no kernel has; nothing launches."""
+    ft, packed, xyz, dirs, app, noise, g = _train_case(
+        cuda_device, False, {"appearance_dim": 48}, 1000, "float32")
+    before = _f32_counts()
+    with pytest.raises(ValueError):
+        fused_mlp.fused_nerf_eval(packed, xyz, dirs, app.to(torch.bfloat16))
+    act = torch.zeros((1000, ft.act_layout(packed)["width"]), dtype=torch.bfloat16,
+                      device=cuda_device)
+    with pytest.raises(ValueError):
+        ft.train_bwd_data(packed, act, g, noise)
+    with pytest.raises(ValueError):
+        ft.weight_grad(packed, act, act)
+    _, fp16, *_ = _train_case(cuda_device, False, {"appearance_dim": 0}, 1000, "float16")
+    with pytest.raises(NotImplementedError):
+        fused_mlp.fused_nerf_eval(fp16, xyz, dirs)
+    assert _f32_counts() == before
 
 
 def _wide_case(cuda_device, bg, kw, m, seed=5):
@@ -961,15 +1075,22 @@ def _render_counters():
 
 
 @pytest.mark.parametrize("train", [False, True])
-def test_f32_render_on_the_card_takes_the_eager_module(cuda_device, train):
+def test_f32_render_on_the_card_takes_the_f32_kernels(cuda_device, train, monkeypatch):
     """`--compute_dtype float32` at width 256 with the fused kernels on (the
-    default): on the card the MLP route sends it to the eager module, since
-    every kernel computes in bf16. `render_rays` runs in eval and train
-    mode, launches no kernel and runs no plain version, and matches the
-    eager module's render (`--no_pallas`) on the same rays and generator
-    seed (values and, in train mode, every parameter's gradient: 1e-6)."""
+    default): on the card the MLP route takes the f32 kernels. `render_rays`
+    in eval and train mode launches them (eval: one `eval_f32` launch a
+    pass, 4 passes; train: one of each training kernel a pass), runs no
+    plain version and no bf16 kernel, and matches the eager module's
+    render (`--no_pallas`) on the same rays and generator seed: values and,
+    in train mode, every parameter's gradient within 1e-4 relative (true f32
+    on both sides, TF32 off; the sums run in another order). In train mode
+    the weight gradient of each pass, launched again on the pass's rows,
+    gives the same bits."""
+    from mega_nerf_tpu_torch.render import fused_f32
+    from mega_nerf_tpu_torch.render import fused_train as ft
     from mega_nerf_tpu_torch.render.rendering import RenderSettings, mlp_route, render_rays
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     hp = tiny_hparams(layer_dim=256, bg_layer_dim=256, appearance_dim=8,
                       compute_dtype="float32")
     gen = torch.Generator().manual_seed(11)
@@ -980,8 +1101,7 @@ def test_f32_render_on_the_card_takes_the_eager_module(cuda_device, train):
         bundle.module.to(cuda_device)
         bundles.append(bundle)
     fg, bg = bundles
-    assert mlp_route(fg.config, "cuda", train) == (
-        False, "float32 compute on the card (the kernels are bf16)")
+    assert mlp_route(fg.config, "cuda", train) == (True, "")
     n = 64
     o = (torch.rand((n, 3), generator=gen) - 0.5) * 0.3
     d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
@@ -990,6 +1110,18 @@ def test_f32_render_on_the_card_takes_the_eager_module(cuda_device, train):
     idx = (torch.arange(n) % 5).to(cuda_device)
     center = torch.tensor([0.05, -0.1, 0.0], device=cuda_device)
     radius = torch.tensor([1.4, 1.1, 1.2], device=cuda_device)
+    repeats = []
+    weight_grad = ft.weight_grad
+
+    def recording_weight_grad(packed, act, grad):
+        out = weight_grad(packed, act, grad)
+        launches = fused_f32.weight_grad_f32.launches
+        repeats.append(torch.equal(out, weight_grad(packed, act, grad)))
+        fused_f32.weight_grad_f32.launches = launches  # not the render's launch
+        return out
+
+    monkeypatch.setattr(ft, "weight_grad", recording_weight_grad)
+    recording_weight_grad.launches = weight_grad.launches  # the bf16 count, unchanged
 
     def run(fused):
         settings = RenderSettings(coarse_samples=16, fine_samples=16,
@@ -1007,17 +1139,22 @@ def test_f32_render_on_the_card_takes_the_eager_module(cuda_device, train):
                      if p.grad is not None]
         return res["rgb_fine"].detach(), grads
 
-    before = _render_counters()
+    before, f32_before = _render_counters(), _f32_counts()
     got, got_grads = run(True)
     torch.cuda.synchronize()
     assert _render_counters() == before
+    assert weight_grad.launches == recording_weight_grad.launches
+    f32_new = [a - b for a, b in zip(_f32_counts(), f32_before)]
+    assert f32_new == ([0, 4, 4, 4] if train else [4, 0, 0, 0])
+    assert repeats == ([True] * 4 if train else [])
     want, want_grads = run(False)
     torch.cuda.synchronize()
+    assert _render_counters() == before
     assert torch.isfinite(got).all() and got.shape == (n, 3)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert _rel(got, want) <= 1e-4
     assert len(got_grads) == len(want_grads) and (not train or got_grads)
     for a, b in zip(got_grads, want_grads):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        assert _rel(a, b) <= 1e-4
 
 
 @pytest.mark.parametrize("margin", [1.0, 1.15])

@@ -1,0 +1,219 @@
+"""The f32-compute kernels' host side, on the CPU (`--compute_dtype float32`).
+
+The port's wrappers on CPU tensors (their plain versions, which the f32
+kernels of `csrc/eval_f32.cu` and `csrc/train_f32.cu` are held against on
+the card) against the JAX package's Pallas kernels in interpret mode, on the
+same Flax weights (carried across by `state_from_flax_params`) and the same
+numpy-seeded points, appearance rows and sigma noise:
+
+- eval: `fused_mlp.fused_nerf_eval` against `pallas_mlp.fused_nerf_eval`
+  (`_mlp_kernel`): 5e-5 absolute, the forward limit of PERF.md section 2;
+- training forward: `fused_train.fused_nerf_train_fwd` with noise against
+  the output of `pallas_train.fused_nerf_train_apply` (`_train_fwd_kernel`):
+  5e-5 absolute;
+- backward: `fused_train.fused_nerf_train_apply` through autograd
+  (`train_bwd_data`, `weight_grad`) against `jax.value_and_grad` through
+  the custom VJP (`_train_bwd_kernel`): every parameter's gradient and d_app
+  within 2e-4 of the JAX tensor's norm (PERF.md section 2's gradient limit).
+
+Cases: widths 48 (no dirs), 64 (the bg model, xyz_dim 4) and 128 (no
+appearance), a skip layer in each; 200 points, not a multiple of the JAX
+block of 256.
+Also the f32 tile plans: every width to 512 fits a CTA's 227 KB, 513 and 528
+are refused.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mega_nerf_tpu.models import make_bg_nerf as j_make_bg_nerf
+from mega_nerf_tpu.models import make_nerf as j_make_nerf
+from mega_nerf_tpu.render.pallas_mlp import fused_nerf_eval as j_eval
+from mega_nerf_tpu.render.pallas_mlp import pack_params as j_pack
+from mega_nerf_tpu.render.pallas_train import fused_nerf_train_apply as j_train_apply
+from mega_nerf_tpu_torch.models import (
+    NeRF,
+    NeRFConfig,
+    flax_params_from_state,
+    nerf_config_from_hparams,
+    state_from_flax_params,
+)
+from mega_nerf_tpu_torch.render import fused_f32, fused_mlp, fused_train
+from tests.test_models import tiny_hparams
+
+N, BLOCK, COUNT = 200, 256, 5
+FWD_ATOL = 5e-5
+GRAD_REL = 2e-4
+
+CASES = {  # name: (hparams, bg)
+    "w48_no_dirs": (dict(layer_dim=48, layers=4, skip_layers=[2], pos_xyz_dim=10,
+                         pos_dir_dim=0, appearance_dim=8), False),
+    "w64_bg": (dict(layer_dim=64, layers=4, skip_layers=[2], pos_xyz_dim=6,
+                    pos_dir_dim=4, appearance_dim=8), True),
+    "w128_no_app": (dict(layer_dim=128, layers=3, skip_layers=[1], pos_xyz_dim=4,
+                         pos_dir_dim=4, appearance_dim=0), False),
+}
+
+
+def _setup(name):
+    kw, bg = CASES[name]
+    hp = tiny_hparams(compute_dtype="float32", bg_layer_dim=kw["layer_dim"], **kw)
+    jb = (j_make_bg_nerf if bg else j_make_nerf)(hp, COUNT)
+    params = jax.device_get(jax.jit(jb.init)(jax.random.key(3)))
+    cfg = nerf_config_from_hparams(hp, COUNT, kw["layer_dim"], 4 if bg else 3)
+    assert cfg.dtype == torch.float32 and jb.config.dtype == jnp.float32
+    module = NeRF(cfg)
+    module.load_state_dict(state_from_flax_params(cfg, params))
+    rng = np.random.default_rng(4)
+    xyz = rng.normal(size=(N, cfg.xyz_dim)).astype(np.float32)
+    dirs = rng.normal(size=(N, 3))
+    dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
+    app = None
+    if cfg.appearance_dim:
+        app = np.asarray(params["appearance"]["embedding"])[rng.integers(0, COUNT, N)]
+    noise = rng.uniform(size=N).astype(np.float32)
+    probe = rng.normal(size=(N, 4)).astype(np.float32)
+    return jb, params, module, cfg, xyz, dirs if cfg.pos_dir_dim else None, app, noise, probe
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_f32_eval_wrapper_matches_pallas_interpret(name):
+    """The eval wrapper on CPU f32 tensors (its plain version, one call)
+    against `_mlp_kernel` in interpret mode: 5e-5 absolute."""
+    jb, params, module, cfg, xyz, dirs, app, _, _ = _setup(name)
+    m_pad = -(-N // BLOCK) * BLOCK
+    pad = lambda a: None if a is None else jnp.asarray(  # noqa: E731
+        np.concatenate([a, np.repeat(a[-1:], m_pad - N, 0)]))
+    jp = j_pack(jb.config, params)
+    want = jax.jit(lambda x, d, a: j_eval(jp, x, d, a, block=BLOCK, interpret=True))(
+        pad(xyz), pad(dirs), pad(app))[:N]
+    packed = fused_mlp.pack_params(module)
+    assert all(w.dtype == torch.float32 for w in packed.mats)
+    calls = fused_mlp.fused_nerf_eval_plain.calls
+    launches = [f.launches for f in fused_f32.F32_KERNELS]
+    got = fused_mlp.fused_nerf_eval(packed, _t(xyz), _t(dirs), _t(app))
+    assert fused_mlp.fused_nerf_eval_plain.calls == calls + 1
+    assert [f.launches for f in fused_f32.F32_KERNELS] == launches
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_f32_train_wrappers_match_pallas_interpret(name):
+    """The training forward with sigma noise against the custom VJP's
+    output (5e-5 absolute), then the backward through the port's autograd
+    Function (the backward-data and weight-gradient wrappers' plain
+    versions, one call each) against `jax.value_and_grad` through
+    `_train_bwd_kernel`: every parameter gradient and d_app within 2e-4 of
+    the JAX tensor's norm; the loss sum(out * probe) within the forward
+    limit carried through the probe (5e-5 sum |probe|)."""
+    jb, params, module, cfg, xyz, dirs, app, noise, probe = _setup(name)
+
+    def j_loss(p, a):
+        out = j_train_apply(jb.config, p, jnp.asarray(xyz), _j(dirs), a,
+                            jnp.asarray(noise)[:, None], block=BLOCK, interpret=True,
+                            dir_pack=False)
+        return jnp.sum(out * probe), out
+
+    (want_v, want_out), (want_g, want_dapp) = jax.jit(jax.value_and_grad(
+        j_loss, argnums=(0, 1), has_aux=True))(params, _j(app))
+
+    packed = fused_mlp.pack_params(module)
+    with torch.no_grad():
+        out, act = fused_train.fused_nerf_train_fwd(packed, _t(xyz), _t(dirs), _t(app),
+                                                    _t(noise))
+    assert act.dtype == torch.float32
+    assert act.shape == (N, fused_train.act_layout(packed)["width"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=0, atol=FWD_ATOL)
+
+    calls = (fused_train.train_bwd_data_plain.calls, fused_train.weight_grad_plain.calls)
+    app_t = None if app is None else _t(app).requires_grad_()
+    got = fused_train.fused_nerf_train_apply(module, _t(xyz), _t(dirs), app_t, _t(noise))
+    loss = (got * _t(probe)).sum()
+    loss.backward()
+    assert (fused_train.train_bwd_data_plain.calls,
+            fused_train.weight_grad_plain.calls) == (calls[0] + 1, calls[1] + 1)
+    assert abs(loss.item() - float(want_v)) <= FWD_ATOL * np.abs(probe).sum()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in module.named_parameters()}
+    got_g = dict(jax.tree_util.tree_leaves_with_path(flax_params_from_state(cfg, grads)))
+    flat_w = jax.tree_util.tree_leaves_with_path(want_g)
+    assert len(flat_w) == len(got_g)
+    for path, leaf in flat_w:
+        name_ = jax.tree_util.keystr(path)
+        a, b = np.asarray(got_g[path]), np.asarray(leaf)
+        assert np.linalg.norm(a - b) <= GRAD_REL * np.linalg.norm(b) + 1e-7, name_
+    if app is not None:
+        a, b = app_t.grad.numpy(), np.asarray(want_dapp)
+        assert np.linalg.norm(b) > 0
+        assert np.linalg.norm(a - b) <= GRAD_REL * np.linalg.norm(b), "d_app"
+
+
+def _cfg(width, bg, **kw):
+    return NeRFConfig(xyz_dim=4 if bg else 3, layer_dim=width, pos_xyz_dim=12,
+                      pos_dir_dim=4, layers=8, skip_layers=(4,), appearance_dim=48,
+                      compute_dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_f32_plans_fit_every_width_to_512(bg):
+    """The f32 forward and backward plans admit every width 16 .. 512 (in
+    steps of 16) within 227 KB of shared memory: 64-point tiles at the
+    paper width (256), 32-point tiles at 512, where two 64-point activation
+    tiles alone take 256 KB; offsets on 16 bytes, in the order the kernels
+    read them."""
+    for width in range(16, 513, 16):
+        cfg = _cfg(width, bg)
+        for plan in (fused_f32.f32_fwd_plan(cfg), fused_f32.f32_bwd_plan(cfg)):
+            assert plan.smem_bytes <= fused_f32.F32_SMEM_LIMIT == 232_448
+            assert plan.tm in fused_f32.F32_TILES
+            if width in (256, 512):
+                assert plan.tm == (64 if width == 256 else 32), (width, plan.tm)
+            offs = list(plan.offsets.values())
+            assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
+        fwd = fused_f32.f32_fwd_plan(cfg)
+        assert fwd.offsets["y"] - fwd.offsets["x"] == 4 * width * fwd.tm
+        assert fwd.offsets["w"] - fwd.offsets["y"] == 4 * width * fwd.tm
+
+
+@pytest.mark.parametrize("width", [513, 528, 1024])
+def test_f32_plans_refuse_past_512(width):
+    """Past width 512 the f32 kernels take nothing (513: not a multiple of
+    16; 528 and 1024: the wide route, bf16 only)."""
+    cfg = _cfg(width, False)
+    for plan in (lambda: fused_f32.f32_fwd_plan(cfg), lambda: fused_f32.f32_bwd_plan(cfg)):
+        with pytest.raises(NotImplementedError):
+            plan()
+
+
+@pytest.mark.parametrize("m", [1, 4_097, 524_288, 8_388_608])
+def test_f32_weight_grad_plan_covers_the_points_once(m):
+    """The f32 weight gradient's plan at the paper width: every output of
+    every job in exactly one tile, the point ranges partition [0, M) in
+    whole 32-point chunks (the last may end early), about F32_WG_CTAS CTAs
+    or fewer."""
+    cfg = _cfg(256, False)
+    packed = fused_mlp.pack_tensors(cfg, {k: v for k, v in NeRF(cfg).named_parameters()})
+    plan = fused_f32.f32_wg_plan(packed, m)
+    hits = {}
+    for j, n0, k0 in plan.tiles:
+        d_col, n, x_col, k, *_ = plan.jobs[j]
+        for i in range(n0, min(n, n0 + fused_f32.F32_WG_TILE)):
+            hits[(j, i, k0)] = hits.get((j, i, k0), 0) + 1
+    want = {(j, i, k0) for j, (_, n, _, k, *_) in enumerate(plan.jobs)
+            for i in range(n) for k0 in range(0, k, fused_f32.F32_WG_TILE)}
+    assert set(hits) == want and set(hits.values()) == {1}
+    assert plan.split_len % fused_f32.F32_WG_CHUNK == 0
+    assert (plan.splits - 1) * plan.split_len < m <= plan.splits * plan.split_len
+    assert len(plan.tiles) * plan.splits <= max(fused_f32.F32_WG_CTAS + len(plan.tiles),
+                                                len(plan.tiles))

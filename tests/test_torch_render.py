@@ -82,33 +82,47 @@ def test_render_rays_matches_jax(mlp, ref_bg_sampling, fine):
     assert set(got) == set(want)
 
 
-@pytest.mark.parametrize("device,dtype,width,train,fused", [
-    ("cuda", "float32", 256, False, False),  # the kernels are bf16: eager
-    ("cuda", "float32", 256, True, False),
-    ("cuda", "bfloat16", 256, False, True),
-    ("cuda", "bfloat16", 256, True, True),
-    ("cpu", "float32", 256, False, True),  # the kernels' plain versions
-    ("cpu", "float32", 256, True, True),
-    ("cuda", "float32", 640, False, False),  # the gate's own answer past 512
-    ("cpu", "float32", 640, False, False),
-    ("cuda", "bfloat16", 640, True, True),
+@pytest.mark.parametrize("device,dtype,width,train,fused,k", [
+    ("cuda", "float32", 256, False, True, 0),  # the f32 kernels
+    ("cuda", "float32", 256, True, True, 0),
+    ("cuda", "bfloat16", 256, False, True, 0),
+    ("cuda", "bfloat16", 256, True, True, 0),
+    ("cpu", "float32", 256, False, True, 0),  # the kernels' plain versions
+    ("cpu", "float32", 256, True, True, 0),
+    ("cuda", "float32", 640, False, False, 0),  # the gate's own answer past 512
+    ("cpu", "float32", 640, False, False, 0),
+    ("cuda", "bfloat16", 640, True, True, 0),
+    ("cuda", "float32", 256, False, True, 3),  # a K = 3 mixture, each submodule
+    ("cuda", "float32", 256, True, True, 3),
+    ("cuda", "float16", 256, False, False, 0),  # no kernel computes in fp16
 ])
-def test_mlp_route_sends_f32_on_the_card_to_the_eager_module(device, dtype, width,
-                                                             train, fused):
-    """The renderer's MLP route: f32 compute on a CUDA tensor takes the eager
-    module (with the reason), bf16 on the card and any dtype on the CPU take
-    the fused wrappers wherever the gate admits the architecture; the
-    `--no_pallas` switch still wins."""
+def test_mlp_route_takes_the_kernels_in_bf16_and_f32(device, dtype, width, train,
+                                                      fused, k):
+    """The renderer's MLP route: bf16 and f32 compute take the fused
+    wrappers on the card wherever the gate admits the architecture (f32 to
+    width 512, through the f32 kernels; a mixture's submodules alike), any
+    dtype on the CPU takes them (their plain versions); f32 past 512 and
+    another compute dtype on the card take the eager module, with the
+    reason; the `--no_pallas` switch still wins."""
     from mega_nerf_tpu_torch.models import NeRFConfig
     from mega_nerf_tpu_torch.render import rendering
 
     cfg = NeRFConfig(layer_dim=width, compute_dtype=dtype)
     ok, why = rendering.mlp_route(cfg, device, train)
     assert ok == fused
-    if device == "cuda" and dtype == "float32" and width <= 512:
-        assert why == "float32 compute on the card (the kernels are bf16)"
-    bundle = make_nerf(tiny_hparams(layer_dim=width, compute_dtype=dtype), 1)
+    if fused:
+        assert why == ""
+    elif dtype == "float16":
+        assert why == "float16 compute on the card (the kernels are bf16 and f32)"
+    else:
+        assert why == "float32 compute at layer_dim 640 (the wide route is bf16)"
+    hp = tiny_hparams(layer_dim=width, compute_dtype=dtype)
+    if k:
+        hp._mega_centroid_metadata = {"centroids": np.eye(k, 3, dtype=np.float32),
+                                      "cluster_2d": False}
+    bundle = make_nerf(hp, 1)
+    assert bundle.is_mega == bool(k)
     on = rendering.fused_gate(bundle, RenderSettings(), train, device)
     off = rendering.fused_gate(bundle, RenderSettings(use_fused_kernel=False), train,
                                device)
-    assert on[0] == fused and off == (False, "disabled (--no_pallas)")
+    assert on == (ok, why) and off == (False, "disabled (--no_pallas)")
