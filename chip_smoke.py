@@ -256,14 +256,38 @@ pieces; the training kernels at the four passes of a 1024-ray step, plain and
 bound at fg fine, the weight gradient beside torch.mm in f32 with TF32 off;
 bounds at 67 TFLOP/s of f32 FFMA).
 
+Then f32 compute at widths 513-1024 (`csrc/wide_f32.cu` and the f32 weight
+gradient of `csrc/train_f32.cu`), TF32 off:
+- compare_wide_f32: compare_train_wide's cases and compare_wide's eval
+  cases (the dense ones at 1024, the f32 gate's limit) through the f32 wide
+  kernels against their plain versions: rgb <= 1e-4, sigma and the
+  pre-activations <= 1e-4 (1 + |x|), every layer output <= 1e-4 (1 + |y|),
+  every backward tensor, d_app and dW <= 1e-4 relative; dX and dW repeat
+  bit for bit; the eval heads equal the training heads without noise bit
+  for bit; every launch an f32 wide kernel's.
+- train_wide_f32: `train.main --compute_dtype float32` at fg and bg 8x1024
+  on `train`'s scene, 10 steps, then `eval.main` on its `{iter}.pt`, every
+  counter set to 0 just before `train.main` and read just after
+  `eval.main`: each f32 wide kernel's launches a step as the wide plan says,
+  no other kernel's launch, no plain or eager-module call, a falling loss
+  (mean of the last 3 steps below the first 3), a finite PSNR; then ms a
+  step and peak memory over 3 chained steps, the f32 wide kernels' share of
+  a profiled step, s/view of `eval.main`'s val view, each kernel per launch
+  at the fg-fine pass (plain, bound, F.linear / torch.mm in f32), and, a
+  record and not a check, the f32 eager module (`--no_pallas`, and with
+  `--remat`) for a step after a warm-up one: ms and memory, or its
+  out-of-memory error.
+
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
 `{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}`,
-`{"resume_jax": ...}` and `{"training_f32": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
+`{"resume_jax": ...}`, `{"training_f32": ...}` and `{"training_wide_f32": ...}`
+lines, a `{"kernels": [...]}` line (with each kernel's
 launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
-both ranks of multiproc, and in resume_jax's resumed run and its eval), the
+both ranks of multiproc, in resume_jax's resumed run and its eval, and in
+train_wide_f32's `train.main` and `eval.main`), the
 nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
@@ -325,9 +349,22 @@ KERNELS = (
      "mega_nerf_tpu/render/pallas_train.py:171"),
     ("weight_grad_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
+    # f32 compute at widths 513-1024: the three TPU kernels' last range. The
+    # GEMM is every forward layer and every dX job; the weight gradient is
+    # weight_grad_f32's kernel pair, per-job operands.
+    ("wide_f32_encode", "mega_nerf_tpu_torch/render/csrc/wide_f32.cu",
+     "mega_nerf_tpu/render/pallas_mlp.py:401"),
+    ("wide_f32_gemm", "mega_nerf_tpu_torch/render/csrc/wide_f32.cu",
+     "mega_nerf_tpu/render/pallas_mlp.py:401"),
+    ("wide_f32_heads_fwd", "mega_nerf_tpu_torch/render/csrc/wide_f32.cu",
+     "mega_nerf_tpu/render/pallas_train.py:138"),
+    ("wide_f32_heads_bwd", "mega_nerf_tpu_torch/render/csrc/wide_f32.cu",
+     "mega_nerf_tpu/render/pallas_train.py:171"),
 )
 F32_KERNELS = ("fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
                "weight_grad_f32")
+WIDE_F32_KERNELS = ("wide_f32_encode", "wide_f32_gemm", "wide_f32_heads_fwd",
+                    "wide_f32_heads_bwd")
 WIDE_KERNELS = ("eval_wide_encode", "eval_wide_layer", "eval_wide_heads")
 TRAIN_WIDE_KERNELS = ("train_wide_heads_fwd", "train_wide_heads_bwd", "train_wide_dx",
                       "train_wide_dw")
@@ -3426,10 +3463,13 @@ def zero_train_wide_counters() -> None:
 def zero_all_counters() -> None:
     """Zero every kernel's launch count and every plain version's calls."""
     from mega_nerf_tpu_torch.render import fused_f32
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
 
     zero_train_wide_counters()
     for k in F32_KERNELS:
         getattr(fused_f32, k).launches = 0
+    for k in WIDE_F32_KERNELS:
+        getattr(fwf, k).launches = 0
 
 
 def kernel_launches():
@@ -3438,10 +3478,12 @@ def kernel_launches():
     from mega_nerf_tpu_torch.render import fused_train as ft
     from mega_nerf_tpu_torch.render import fused_train_wide as ftw
     from mega_nerf_tpu_torch.render import fused_wide as fw
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
 
     module = {"fused_nerf_eval": fused_mlp, **dict.fromkeys(TRAIN_KERNELS, ft),
               **dict.fromkeys(WIDE_KERNELS, fw), **dict.fromkeys(TRAIN_WIDE_KERNELS, ftw),
-              **dict.fromkeys(F32_KERNELS, fused_f32)}
+              **dict.fromkeys(F32_KERNELS, fused_f32),
+              **dict.fromkeys(WIDE_F32_KERNELS, fwf)}
     return {name: getattr(module[name], name).launches for name, _, _ in KERNELS}
 
 
@@ -5129,6 +5171,590 @@ def time_f32_kernels(device, report):
     log(f"  f32 training kernels per step (12 launches): {per_step:.3f} ms")
 
 
+# ------------------------------------------- f32 compute at widths 513-1024
+
+
+def wide_f32_counters():
+    """Launches of the four f32 wide kernels and of the f32 weight gradient,
+    of every other kernel together ("others"), and the calls of every plain
+    version."""
+    counts = kernel_launches()
+    out = {k: counts[k] for k in (*WIDE_F32_KERNELS, "weight_grad_f32")}
+    out["others"] = sum(v for k, v in counts.items() if k not in out)
+    out["plain"] = train_wide_counters()["plain"]
+    return out
+
+
+def wide_f32_step_launches(pass_cfgs):
+    """Launches of training passes through the f32 wide route, one pass per
+    config: an encode, a GEMM per matmul layer and per dX job, the heads
+    forward and backward, a weight-gradient launch per dW step."""
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    per = dict.fromkeys((*WIDE_F32_KERNELS, "weight_grad_f32"), 0)
+    for cfg in pass_cfgs:
+        steps = ftw.train_wide_plan(cfg).steps
+        n_dx = sum(kind == "dx" for kind, _ in steps)
+        per["wide_f32_encode"] += 1
+        per["wide_f32_gemm"] += cfg.layers + (2 if cfg.uses_dir_branch else 0) + n_dx
+        per["wide_f32_heads_fwd"] += 1
+        per["wide_f32_heads_bwd"] += 1
+        per["weight_grad_f32"] += len(steps) - n_dx
+    return per
+
+
+def phase_compare_wide_f32(device, report):
+    """The f32 wide route (`csrc/wide_f32.cu` and the f32 weight gradient)
+    against its plain versions, TF32 off: compare_train_wide's cases (each
+    backward kernel fed the plain backward's tensors, the composed route
+    against the composed plain versions) and compare_wide's eval cases, the
+    dense ones at 1024, the widest the f32 gate admits. rgb <= 1e-4, sigma
+    and the pre-activations <= 1e-4 (1 + |x|), every layer output <= 1e-4
+    (1 + |y|), every backward tensor, d_app and dW <= 1e-4 relative; dX and
+    dW launches repeat bit for bit; the eval heads equal the training heads
+    without noise bit for bit. Every launch is an f32 wide kernel's."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+    from mega_nerf_tpu_torch.render.fused_train import split_grads, transposed_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = report["kernels"]
+    errs = dict.fromkeys((*WIDE_F32_KERNELS, "weight_grad_f32"), 0.0)
+    before = wide_f32_counters()
+    all_ok = True
+
+    def hold(kernel, got, want):
+        errs[kernel] = max(errs[kernel], (got.float() - want.float()).abs().max().item())
+
+    def fwd_ratio(got, want):
+        err = (got - want).abs()
+        return max(err[:, :3].max().item(), (err[:, 3] / (1 + want[:, 3].abs())).max().item())
+
+    wide = paper_hparams([*WIDE_TRAIN, *F32])
+    train_cases = [  # (name, hparams, bg, points): compare_train_wide's, in f32
+        ("fg 1024-wide, dirs, appearance", wide, False, 100_003),
+        ("bg 1024-wide, dirs, appearance", wide, True, 100_003),
+        ("fg 640-wide, no dirs, no appearance (no branch)",
+         paper_hparams(["--layer_dim", "640", "--appearance_dim", "0",
+                        "--pos_dir_dim", "0", *F32]), False, 20_011),
+        ("bg 640-wide, appearance 5, no dirs",
+         paper_hparams(["--bg_layer_dim", "640", "--appearance_dim", "5",
+                        "--pos_dir_dim", "0", *F32]), True, 20_011),
+        ("fg 1024-wide, the fg fine pass", wide, False, 1024 * 512),
+        ("fg 1024-wide, the fg coarse pass", wide, False, 1024 * 256),
+        ("bg 1024-wide, the bg fine pass", wide, True, 1024 * 256),
+        ("bg 1024-wide, the bg coarse pass", wide, True, 1024 * 128),
+        ("fg 1024-wide, the cascade's fine pass", wide, False, 1024 * 768),
+    ]
+    for i, (name, hp, bg, m) in enumerate(train_cases):
+        bundle = seeded_bundle(hp, 16, bg, 700 + i, device)
+        cfg = bundle.config
+        packed = fused_mlp.pack_params(bundle.module)
+        xyz, dirs, idx = mlp_inputs(cfg, m, 701 + i, device)
+        m = xyz.shape[0]
+        app = bundle.module.appearance(idx).float() if cfg.appearance_dim else None
+        gen = torch.Generator(device=device).manual_seed(702 + i)
+        noise = torch.rand((m,), generator=gen, device=device)
+        g = torch.randn((m, 4), generator=gen, device=device)
+        worst = dict.fromkeys(("heads_fwd", "heads_bwd", "dx", "dw"), 0.0)
+        with torch.no_grad():
+            want, saved = ftw.fused_nerf_train_wide_fwd_plain(packed, xyz, dirs, app, noise)
+            h_last, branch = saved[f"h{cfg.layers - 1}"], saved.get("branch")
+            out, pre = ftw.train_wide_heads_fwd(packed, h_last, branch, noise)
+            hold("wide_f32_heads_fwd", out, want)
+            worst["heads_fwd"] = max(fwd_ratio(out, want), close_ratio(pre, saved["pre"]))
+            clean, _ = ftw.train_wide_heads_fwd(packed, h_last, branch, None)
+            heads_bits = torch.equal(fw.eval_wide_heads(packed, h_last, branch), clean)
+            del out, pre, clean
+            same = True
+            names = {"train_wide_heads_bwd": ("wide_f32_heads_bwd", "heads_bwd"),
+                     "train_wide_dx": ("wide_f32_gemm", "dx"),
+                     "train_wide_dw": ("weight_grad_f32", "dw")}
+            for kernel, got, ref in ftw.walk_backward(packed, saved, g):
+                if kernel == ftw.DW_REPEAT:
+                    same = same and torch.equal(got, ref)
+                    continue
+                name_, key = names[kernel]
+                hold(name_, got, ref)
+                worst[key] = max(worst[key], rel_err(got, ref))
+            del got, ref
+            # Every dX job twice on the same inputs: the same bits.
+            plan = ftw.check_plan(packed)
+            wts = transposed_weights(packed)
+            rows, first_g = ftw.train_wide_heads_bwd_plain(packed, g, saved["pre"], h_last,
+                                                           branch)
+            grads = {"g_heads": rows, plan.first: first_g}
+            del first_g
+            for (kind, job), frees in zip(plan.steps, plan.frees):
+                if kind == "dx":
+                    args = (grads[job.g], wts[job.mat], job.row0, job.k, job.mode,
+                            saved.get(job.mask), grads.get("g_heads"), packed.sigma_w)
+                    a = ftw.train_wide_dx(*args)
+                    same = same and torch.equal(a, ftw.train_wide_dx(*args))
+                    grads[job.out] = a
+                    del args, a
+                for nm in frees:
+                    grads.pop(nm, None)
+            del grads, rows
+            got, k_saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+            del k_saved
+            fwd = fwd_ratio(got, want)
+            flat, d_app = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+            p_flat, p_d_app = ftw.fused_nerf_train_wide_bwd_plain(packed, saved, g)
+            torch.cuda.synchronize()
+            bwd = max(rel_err(a, b) for a, b in zip(split_grads(packed, flat),
+                                                    split_grads(packed, p_flat)))
+            if d_app is not None:
+                bwd = max(bwd, rel_err(d_app, p_d_app))
+            finite = bool(torch.isfinite(got).all() and torch.isfinite(flat).all())
+        ok = (finite and same and heads_bits and max(worst.values()) <= F32_TOL
+              and fwd <= F32_TOL and bwd <= F32_TOL)
+        log(f"  f32 train wide {name}: M={m}; heads fwd worst {worst['heads_fwd']:.3e}, "
+            f"heads bwd rel {worst['heads_bwd']:.3e}, dX worst rel {worst['dx']:.3e}, "
+            f"dW worst rel {worst['dw']:.3e}; dX and dW repeat bitwise={same}; eval heads = "
+            f"training heads without noise bitwise={heads_bits}; composed forward "
+            f"{fwd:.3e}, backward worst rel {bwd:.3e}; finite={finite} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        all_ok &= ok
+        del saved, flat, p_flat, got, want, xyz, dirs, app, noise, g, d_app, p_d_app
+        torch.cuda.empty_cache()
+
+    eval_cases = [  # compare_wide's, in f32; the dense ones at the f32 gate's 1024
+        ("fg 1024-wide (dense, cut to the f32 limit), dirs, appearance",
+         paper_hparams([*WIDE_TRAIN, *F32]), False, 100_003, 1_000_003),
+        ("bg 1024-wide (dense, cut to the f32 limit), dirs, appearance",
+         paper_hparams([*WIDE_TRAIN, *F32]), True, 100_003, 1_000_003),
+        ("fg 640-wide, dirs, no appearance",
+         paper_hparams(["--layer_dim", "640", "--appearance_dim", "0", *F32]), False,
+         20_011, 20_011),
+        ("bg 1024-wide, appearance, no dirs",
+         paper_hparams(["--bg_layer_dim", "1024", "--pos_dir_dim", "0", *F32]), True,
+         20_011, 20_011),
+        ("fg 1024-wide, no dirs, no appearance (no branch)",
+         paper_hparams(["--layer_dim", "1024", "--appearance_dim", "0",
+                        "--pos_dir_dim", "0", "--layers", "6", "--skip_layers", "3", *F32]),
+         False, 4_097, 4_097),
+    ]
+    for i, (name, hp, bg, m, m_full) in enumerate(eval_cases):
+        bundle = seeded_bundle(hp, 16, bg, 720 + i, device)
+        cfg = bundle.config
+        packed = fused_mlp.pack_params(bundle.module)
+        xyz, dirs, idx = mlp_inputs(cfg, m, 721 + i, device)
+        app = bundle.module.appearance(idx).contiguous() if cfg.appearance_dim else None
+        layer_worst = 0.0
+        with torch.no_grad():
+            enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
+            p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+            hold("wide_f32_encode", enc, p_enc)
+            enc_worst = close_ratio(enc, p_enc)
+            if p_dir is not None:
+                hold("wide_f32_encode", dir_enc, p_dir)
+                enc_worst = max(enc_worst, close_ratio(dir_enc, p_dir))
+            h = p_enc
+            for li in range(cfg.layers):
+                xs = [p_enc, h] if li in cfg.skip_layers else [h]
+                got = fw.eval_wide_layer(xs, packed.mats[li], packed.biases[li], True)
+                h = fw.eval_wide_layer_plain(xs, packed.mats[li], packed.biases[li], True)
+                hold("wide_f32_gemm", got, h)
+                layer_worst = max(layer_worst, close_ratio(got, h))
+            branch = None
+            if packed.has_branch:
+                w, b = packed.mats[cfg.layers], packed.biases[cfg.layers]
+                got = fw.eval_wide_layer([h], w, b, False)
+                final = fw.eval_wide_layer_plain([h], w, b, False)
+                hold("wide_f32_gemm", got, final)
+                layer_worst = max(layer_worst, close_ratio(got, final))
+                xs = [final] + ([p_dir] if packed.dp else []) + ([app] if packed.ap else [])
+                w, b = packed.mats[cfg.layers + 1], packed.biases[cfg.layers + 1]
+                got = fw.eval_wide_layer(xs, w, b, True)
+                branch = fw.eval_wide_layer_plain(xs, w, b, True)
+                hold("wide_f32_gemm", got, branch)
+                layer_worst = max(layer_worst, close_ratio(got, branch))
+            heads = fw.eval_wide_heads(packed, h, branch)
+            p_heads = fw.eval_wide_heads_plain(packed, h, branch)
+            hold("wide_f32_heads_fwd", heads, p_heads)
+            heads_worst = fwd_ratio(heads, p_heads)
+            xyz, dirs, idx = mlp_inputs(cfg, m_full, 722 + i, device)
+            app = bundle.module.appearance(idx).contiguous() if cfg.appearance_dim else None
+            got = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+            torch.cuda.synchronize()
+            want = fw.fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
+            full = fwd_ratio(got, want)
+            finite = bool(torch.isfinite(got).all() and torch.isfinite(heads).all())
+        ok = (finite and enc_worst <= F32_TOL and layer_worst <= F32_TOL
+              and heads_worst <= F32_TOL and full <= F32_TOL)
+        log(f"  f32 wide {name}: M={m}; encode max|err|/(1+|x|)={enc_worst:.3e}, layers "
+            f"worst {layer_worst:.3e}, heads {heads_worst:.3e}; whole eval M={m_full} "
+            f"({-(-m_full // fw.wide_plan(cfg).sub_chunk)} sub-chunks) {full:.3e}; "
+            f"finite={finite} -> {'ok' if ok else 'FAIL'}")
+        all_ok &= ok
+        del got, want, xyz, dirs, app
+        torch.cuda.empty_cache()
+    after = wide_f32_counters()
+    new = {k: after[k] - before[k] for k in after}
+    for k, v in errs.items():
+        kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err") or 0.0, v)
+    log(f"  launches in this phase {new}")
+    return bool(all_ok and all(new[k] > 0 for k in errs) and new["others"] == 0)
+
+
+TRAIN_WIDE_F32_STEPS = 10
+EAGER_WIDE_F32_STEPS = 2
+
+
+def phase_train_wide_f32(device, report, tmp: Path):
+    """`train.main --compute_dtype float32` with fg and bg 8x1024
+    (WIDE_TRAIN) on train's scene for TRAIN_WIDE_F32_STEPS steps, then
+    `eval.main` on the written `{iter}.pt`, every counter zeroed just
+    before `train.main` and read just after `eval.main`: the f32 wide
+    kernels' launches a step as the wide plan says, no other kernel's
+    launch, no plain or eager-module call, a falling loss and a finite
+    PSNR; s/view of `eval.main`'s val view. Then ms a step and peak memory
+    over chained steps, the f32 wide kernels' share of a step from a
+    profile, each kernel per launch at the fg-fine shape; and, a record and not a check,
+    the f32 eager module (`--no_pallas`, and with `--remat`) for
+    EAGER_WIDE_F32_STEPS steps: ms and memory or its out-of-memory error."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch import eval as port_eval
+    from mega_nerf_tpu_torch import train as port_train
+    from mega_nerf_tpu_torch.models import nerf_config_from_hparams
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render import rendering
+    from mega_nerf_tpu_torch.runtime import runner as runner_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ds = tmp / "train_dataset"
+    flags = [*WIDE_TRAIN, *F32]
+    hp = train_hparams(ds, tmp / "train_wide_f32_exp",
+                       ["--train_iterations", str(TRAIN_WIDE_F32_STEPS), *flags])
+    fg_cfg = nerf_config_from_hparams(hp, 1, hp.layer_dim, 3)
+    bg_cfg = nerf_config_from_hparams(hp, 1, hp.bg_layer_dim, 4)
+    per_step = wide_f32_step_launches((fg_cfg, fg_cfg, bg_cfg, bg_cfg))
+    snaps, routes, train_views, eval_views = [], [], [], []
+    step_call, log_path = TrainStep.__call__, rendering._log_mlp_path
+
+    def recording_call(self, batch, generator=None):
+        metrics = step_call(self, batch, generator)
+        snaps.append((metrics["loss"], wide_f32_counters()))
+        return metrics
+
+    def recording_log(message):
+        routes.append(message)
+        log_path(message)
+
+    TrainStep.__call__, rendering._log_mlp_path = recording_call, recording_log
+    render_image = views_and_chunks(train_views)
+    ckpt = tmp / "train_wide_f32_exp" / "0" / "models" / f"{TRAIN_WIDE_F32_STEPS}.pt"
+    e_hp = paper_hparams(["--dataset_path", str(ds), "--exp_name",
+                          str(tmp / "train_wide_f32_eval"), "--ckpt_path", str(ckpt),
+                          "--ray_altitude_range", "-1.3", "0.6", "--near", "0.05",
+                          "--val_scale_factor", "1", "--device", "cuda", *flags])
+    zero_all_counters()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager_calls:
+            val = port_train.main(hp)
+            torch.cuda.synchronize()
+            after_train = wide_f32_counters()
+            runner_mod.Runner.render_image = render_image
+            views_and_chunks(eval_views)
+            counted, view_s = runner_mod.Runner.render_image, []
+
+            def timed(self, meta):  # the val view, warm from train.main's validation
+                torch.cuda.synchronize()
+                t_view = time.perf_counter()
+                rendered = counted(self, meta)
+                torch.cuda.synchronize()
+                view_s.append(time.perf_counter() - t_view)
+                return rendered
+
+            runner_mod.Runner.render_image = timed
+            torch.cuda.reset_peak_memory_stats()
+            e_metrics = port_eval.main(e_hp)
+            torch.cuda.synchronize()
+            view_peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        TrainStep.__call__, rendering._log_mlp_path = step_call, log_path
+        runner_mod.Runner.render_image = render_image
+    wall = time.perf_counter() - t0
+    counts = wide_f32_counters()
+    loss = torch.stack([s_[0] for s_ in snaps]).float().cpu().numpy()
+    first, last = float(loss[:3].mean()), float(loss[-3:].mean())
+    steps_done = len(snaps)
+    at_last = snaps[-1][1]  # after the last step, before the final validation
+    views = len(train_views) + len(eval_views)
+    eval_launches = {k: counts[k] - at_last[k] for k in WIDE_F32_KERNELS[:3]}
+    train_routes = sorted({r for r in routes if "/train]" in r})
+    eval_routes = sorted({r for r in routes if "/eval]" in r})
+    log(f"  train.main --compute_dtype float32 at {hp.layer_dim}/{hp.bg_layer_dim}: "
+        f"{steps_done} steps + final validation, eval.main on {ckpt.name}: {wall:.2f} s; "
+        f"loss first 3 {first:.5f} -> last 3 {last:.5f}; val {val}; eval {e_metrics}; "
+        f"launches after the steps {at_last} (a step as the plan says: {per_step}); after "
+        f"train.main {after_train}; after eval.main {counts}; views {views} "
+        f"(chunks {train_views} + {eval_views}), eval launches {eval_launches}; eager "
+        f"module calls {eager_calls.count}")
+    for r in train_routes + eval_routes:
+        log(f"    {r}")
+    ok = (steps_done == TRAIN_WIDE_F32_STEPS and np.isfinite(loss).all() and last < first
+          and all(at_last[k] == n * steps_done for k, n in per_step.items())
+          and all(eval_launches[k] > 0 for k in eval_launches)
+          and counts["wide_f32_heads_bwd"] == at_last["wide_f32_heads_bwd"]
+          and counts["weight_grad_f32"] == at_last["weight_grad_f32"]
+          and counts["others"] == 0 and counts["plain"] == 0 and eager_calls.count == 0
+          and len(train_routes) == 4
+          and all("fused train (wide kernel)" in r for r in train_routes)
+          and eval_routes and all("fused eval (wide kernel)" in r for r in eval_routes)
+          and all(np.isfinite(v) for v in val.values())
+          and ckpt.exists() and np.isfinite(e_metrics["val/psnr"]))
+    for k in WIDE_F32_KERNELS:
+        report["kernels"][k]["launches"] = counts[k]
+    for k, n in kernel_launches().items():
+        report["kernels"][k]["launches_train_wide_f32"] = n
+    out = report["training_wide_f32"] = {
+        "steps": steps_done, "loss_first3": first, "loss_last3": last,
+        "val_psnr": val.get("val/psnr"), "ckpt_eval_psnr": e_metrics["val/psnr"],
+        "launches_per_step": per_step, "launches": {k: counts[k] for k in per_step},
+        "eval_launches_per_view": {k: v / max(views, 1) for k, v in eval_launches.items()},
+        "s_per_view": view_s[-1], "view_peak_mem_gb": view_peak,
+        "phase_main_s": wall, "device_line": report["device_line"]}
+    log(f"  f32 view (eval.main, 128x128): {view_s[-1]:.4f} s, peak device memory "
+        f"allocated {view_peak:.2f} GB [{report['device_line']}]")
+
+    saved = {k: v for k, v in kernel_launches().items()}
+    wide_f32_steps(report, tmp, ckpt)
+    time_wide_f32_kernels(device, report)
+    eager_wide_f32_steps(report, tmp, ckpt)
+    from mega_nerf_tpu_torch.render import fused_f32
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    for k in WIDE_F32_KERNELS:  # timing launches are not main-path launches
+        getattr(fwf, k).launches = saved[k]
+    fused_f32.weight_grad_f32.launches = saved["weight_grad_f32"]
+    log(f"  {out}")
+    return bool(ok)
+
+
+def wide_f32_runner(tmp: Path, ckpt: Path):
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+
+    runner = Runner(train_hparams(tmp / "train_dataset", tmp / "unused_wide_f32",
+                                  [*WIDE_TRAIN, *F32]), set_experiment_path=False)
+    runner._load_weights(ckpt)
+    return runner
+
+
+def wide_f32_steps(report, tmp: Path, ckpt: Path) -> None:
+    """ms a step over 3 chained steps from the f32 checkpoint (the train
+    phase's batches, after a warm-up step), the step's peak device memory,
+    and the f32 wide kernels' share of a step's device time (torch.profiler
+    over one step)."""
+    import torch
+
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+
+    out = report["training_wide_f32"]
+    runner = wide_f32_runner(tmp, ckpt)
+    step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(runner.hparams),
+                     5e-4, 0.1, TRAIN_WIDE_F32_STEPS, runner.sphere_center,
+                     runner.sphere_radius)
+    batches = report["train_batches"]
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = 3
+    t0 = time.perf_counter()
+    for b in batches[1:1 + n]:
+        step(b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows, busy, wall_ms = kernel_times(lambda: step(batches[1 + n]), 1)
+    share = {}
+    if rows:
+        names = {"wide_f32_encode": "wide_f32_encode_kernel",
+                 "wide_f32_gemm": "wide_f32_gemm_kernel",
+                 "wide_f32_heads_fwd": "wide_f32_heads_fwd_kernel",
+                 "wide_f32_heads_bwd": "wide_f32_heads_bwd_kernel",
+                 "weight_grad_f32": "wg_"}
+        share = {k: sum(ms for ms, _, nm in rows if key in nm) for k, key in names.items()}
+        kern = sum(share.values())
+        log(f"  profiler over one f32 step: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+            f"wall ({100 * busy / wall_ms:.1f}%); the f32 wide training kernels "
+            f"{kern:.1f} ms ({100 * kern / busy:.1f}% of the busy time): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in share.items()))
+        for ms, count, name in rows[:8]:
+            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+        out.update(profiled_device_busy_share=busy / wall_ms,
+                   kernel_ms_per_step_profiled=kern, kernel_ms_by_name=share)
+    else:
+        log("  profiler: no device time recorded (the kernels' share not measured)")
+    del step, runner
+    torch.cuda.empty_cache()
+    log(f"  f32 wide training step (fg + bg 8x1024, batch 1024, 256 + 512 samples): "
+        f"{step_ms:.2f} ms/step over {n} chained steps = {1024 / step_ms * 1e3:.1f} rays/s; "
+        f"peak device memory allocated {peak:.2f} GB [{report['device_line']}]")
+    out.update(step_ms=step_ms, rays_per_s=1024 / step_ms * 1e3, peak_mem_gb=peak)
+
+
+def time_wide_f32_kernels(device, report):
+    """Each f32 wide kernel per launch at the main path's shapes: training
+    at the fg-fine pass (524,288 points, 8x1024): the encode, the GEMM as a
+    1024 x 1024 trunk layer and as that layer's masked dX job, the heads
+    forward and backward, the f32 weight gradient of that layer; with the
+    plain versions, the bounds (67 TFLOP/s of f32 FFMA, 3.35 TB/s) and the
+    library calls (F.linear and torch.mm in f32, TF32 off); and the eval
+    route's encode and GEMM on one f32 sub-chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels, out = report["kernels"], report["training_wide_f32"]
+    hp = paper_hparams([*WIDE_TRAIN, *F32])
+    bundle = seeded_bundle(hp, 16, False, 61, device)
+    cfg = bundle.config
+    packed = fused_mlp.pack_params(bundle.module)
+    m, d = WIDE_PASSES[0][1], cfg.layer_dim  # the fg fine pass
+    xyz, dirs, idx = mlp_inputs(cfg, m, 62, device)
+    m = xyz.shape[0]
+    app = bundle.module.appearance(idx).float()
+    gen = torch.Generator(device=device).manual_seed(63)
+    noise = torch.rand((m,), generator=gen, device=device)
+    g = torch.randn((m, 4), generator=gen, device=device)
+    plan = ftw.check_plan(packed)
+    with torch.no_grad():
+        _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        h, branch, h1 = saved[f"h{cfg.layers - 1}"], saved["branch"], saved["h1"]
+        t_enc = cuda_ms(lambda: fw.eval_wide_encode(packed, xyz, dirs), 10)
+        p_enc = cuda_ms(lambda: fw.eval_wide_encode_plain(packed, xyz, dirs), 3, 1)
+        w2, b2 = packed.mats[2], packed.biases[2]
+        layer_out = torch.empty((m, d), device=device)
+        t_layer = cuda_ms(lambda: fw.eval_wide_layer([h1], w2, b2, True, layer_out), 5)
+        p_layer = cuda_ms(lambda: fw.eval_wide_layer_plain([h1], w2, b2, True), 3, 1)
+        lib_layer = cuda_ms(lambda: F.linear(h1, w2, b2), 5)
+        del layer_out
+        hf = lambda: ftw.train_wide_heads_fwd(packed, h, branch, noise)  # noqa: E731
+        t_hf = cuda_ms(hf, 10)
+        p_hf = cuda_ms(lambda: ftw.train_wide_heads_fwd_plain(packed, h, branch, noise), 3, 1)
+        hb_args = (packed, g, saved["pre"], h, branch)
+        t_hb = cuda_ms(lambda: ftw.train_wide_heads_bwd(*hb_args), 10)
+        p_hb = cuda_ms(lambda: ftw.train_wide_heads_bwd_plain(*hb_args), 3, 1)
+        # dX and dW at trunk layer 2 (no skip): d_pre_2 -> d_pre_1 masked by h1.
+        gp = torch.randn((m, d), generator=gen, device=device) * 1e-2 * (saved["h2"] > 0)
+        wt = ft.transposed_weights(packed)[2]
+        dx_args = (gp, wt, 0, d, ftw.DX_MASK, h1)
+        t_dx = cuda_ms(lambda: ftw.train_wide_dx(*dx_args), 5)
+        p_dx = cuda_ms(lambda: ftw.train_wide_dx_plain(*dx_args), 3, 1)
+        lib_dx = cuda_ms(lambda: F.linear(gp, wt), 5)
+        job = next(job for kind, job in plan.steps if kind == "dw" and job[0].d == "g_pre2")
+        tensors, flat = {"g_pre2": gp, "h1": h1}, torch.empty(plan.total, device=device)
+        t_dw = cuda_ms(lambda: ftw.train_wide_dw(job, tensors, flat), 5)
+        p_dw = cuda_ms(lambda: ftw.train_wide_dw_plain(job, tensors, flat), 3, 1)
+        lib_dw = cuda_ms(lambda: torch.mm(gp.T, h1), 5)
+    del saved, gp, tensors, h, branch, h1
+    torch.cuda.empty_cache()
+    gemm = 2.0 * m * d * d
+    ep, dp = packed.ep, packed.dp
+    rows = {  # name: (ms, plain ms, library ms, FLOP, bytes)
+        "wide_f32_encode": (t_enc, p_enc, None,
+                            2.0 * m * (cfg.xyz_dim * 2 * cfg.pos_xyz_dim
+                                       + 3 * 2 * cfg.pos_dir_dim),
+                            4.0 * m * (cfg.xyz_dim + 3 + ep + dp)),
+        "wide_f32_gemm": (t_layer, p_layer, lib_layer, gemm,
+                          4.0 * (2 * m * d + d * d + d)),
+        "wide_f32_heads_fwd": (t_hf, p_hf, None, 2.0 * m * (d + 3 * (d // 2)),
+                               4.0 * m * (d + d // 2 + 1 + 8) + 4.0 * (d + 3 * d // 2)),
+        "wide_f32_heads_bwd": (t_hb, p_hb, None, 6.0 * m * (d // 2),
+                               4.0 * m * (4 + 4 + d // 2 + 16 + d // 2)),
+    }
+    for k, (ms, plain_ms, lib_ms, fl, nb) in rows.items():
+        bms, by = bound(fl, nb, PEAK_F32_FLOPS)
+        kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=lib_ms)
+        lib = ("" if lib_ms is None else
+               f"; library {lib_ms:.3f} ms (the kernel takes {ms / lib_ms:.2f}x its time)")
+        log(f"  {k} at fg fine ({m} points, width {d}): {ms:.3f} ms/launch = "
+            f"{fl / ms / 1e9:.2f} TFLOP/s, {nb / ms / 1e9:.3f} TB/s; plain {plain_ms:.3f} ms; "
+            f"bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, {nb:.4g} B){lib}")
+    dx_bound = bound(gemm, 4.0 * (3 * m * d + d * d), PEAK_F32_FLOPS)
+    dw_bound = bound(gemm + m * d, 4.0 * (2 * m * d + d * d + d), PEAK_F32_FLOPS)
+    log(f"  wide_f32_gemm as the masked dX job of that layer: {t_dx:.3f} ms = "
+        f"{gemm / t_dx / 1e9:.1f} TFLOP/s; plain {p_dx:.3f} ms; bound {dx_bound[0]:.3f} ms "
+        f"({dx_bound[1]}); library (F.linear, f32, no mask) {lib_dx:.3f} ms (the kernel "
+        f"takes {t_dx / lib_dx:.2f}x its time)")
+    log(f"  weight_grad_f32 on that layer's dW step (the wide route's jobs): {t_dw:.3f} ms = "
+        f"{gemm / t_dw / 1e9:.1f} TFLOP/s; plain {p_dw:.3f} ms; bound {dw_bound[0]:.3f} ms "
+        f"({dw_bound[1]}); library (torch.mm, f32, no bias sums) {lib_dw:.3f} ms (the "
+        f"kernel takes {t_dw / lib_dw:.2f}x its time)")
+    out.update(dx_ms=t_dx, dx_plain_ms=p_dx, dx_library_ms=lib_dx, dx_bound_ms=dx_bound[0],
+               dw_ms=t_dw, dw_plain_ms=p_dw, dw_library_ms=lib_dw, dw_bound_ms=dw_bound[0],
+               layer_ms=t_layer, layer_library_ms=lib_layer)
+
+
+def eager_wide_f32_steps(report, tmp: Path, ckpt: Path) -> None:
+    """A record, not a check: EAGER_WIDE_F32_STEPS training steps in f32 at
+    fg and bg 8x1024 through the eager module (`--no_pallas`), and with
+    `--remat`, from the f32 checkpoint: ms a step after a warm-up step and
+    peak device memory, or the out-of-memory error."""
+    import copy
+
+    import torch
+
+    from mega_nerf_tpu_torch.parallel.train_step import TrainStep
+    from mega_nerf_tpu_torch.render.rendering import RenderSettings
+
+    out = report["training_wide_f32"]
+    batches = report["train_batches"]
+    for label, remat in (("--no_pallas", False), ("--no_pallas --remat", True)):
+        runner = wide_f32_runner(tmp, ckpt)
+        hp = copy.copy(runner.hparams)
+        hp.use_fused_kernel, hp.remat = False, remat
+        step = TrainStep(runner.fg, runner.bg, RenderSettings.from_hparams(hp), 5e-4, 0.1,
+                         TRAIN_WIDE_F32_STEPS, runner.sphere_center, runner.sphere_radius)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        done, t0 = 0, time.perf_counter()
+        try:
+            with EagerCalls() as calls:
+                step(batches[0])  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches[1:EAGER_WIDE_F32_STEPS]:
+                    step(b)
+                    done += 1
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / max(done, 1) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            log(f"  f32 eager module ({label}) at {hp.layer_dim}/{hp.bg_layer_dim}: "
+                f"{step_ms:.2f} ms/step over "
+                f"{done} steps after a warm-up, peak device memory allocated {peak:.2f} GB, "
+                f"{calls.count} module calls")
+            out[f"eager{'_remat' if remat else ''}"] = {"step_ms": step_ms,
+                                                        "peak_mem_gb": peak}
+        except torch.cuda.OutOfMemoryError as e:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            first = str(e).splitlines()[0] if str(e) else repr(e)
+            log(f"  f32 eager module ({label}) at {hp.layer_dim}/{hp.bg_layer_dim}: out of "
+                f"device memory "
+                f"(peak allocated {peak:.2f} GB): {first}")
+            out[f"eager{'_remat' if remat else ''}"] = {"error": first, "peak_mem_gb": peak}
+        del step, runner
+        torch.cuda.empty_cache()
+
+
 def kernel_times(run, reps: int):
     """Device time by kernel over `run()`, which makes `reps` repetitions
     (torch.profiler) -> (rows [(ms per rep, launches per rep, name)],
@@ -5227,7 +5853,8 @@ def main() -> int:
     report = {"kernels": {name: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "library_ms": None, "launches_serve_routed": None, "launches_train_mega": None,
-        "launches_multiproc": None, "launches_resume_jax": None}
+        "launches_multiproc": None, "launches_resume_jax": None,
+        "launches_train_wide_f32": None}
         for name, source, replaces in KERNELS}, "device_line": smi_line}
     ok = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5259,6 +5886,8 @@ def main() -> int:
             ("remat", lambda: phase_remat(device, report, Path(tmp))),
             ("resume_jax", lambda: phase_resume_jax(device, report, Path(tmp))),
             ("train_f32", lambda: phase_train_f32(device, report, Path(tmp))),
+            ("compare_wide_f32", lambda: phase_compare_wide_f32(device, report)),
+            ("train_wide_f32", lambda: phase_train_wide_f32(device, report, Path(tmp))),
         )
         for phase, run in phases:
             log(f"[{phase}]")
@@ -5274,7 +5903,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_serve_routed", "launches_train_mega", "launches_multiproc",
-            "launches_resume_jax")
+            "launches_resume_jax", "launches_train_wide_f32")
     kernels = [{k: entry[k] for k in keys} for entry in report["kernels"].values()]
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
                                       "render_rgb_diff", "eval_chunk_ms",
@@ -5296,6 +5925,7 @@ def main() -> int:
     log(json.dumps({"multiproc": report["multiproc"]}))
     log(json.dumps({"resume_jax": report["resume_jax"]}))
     log(json.dumps({"training_f32": report["training_f32"]}))
+    log(json.dumps({"training_wide_f32": report["training_wide_f32"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

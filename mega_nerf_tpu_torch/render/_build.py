@@ -21,7 +21,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("eval_fwd", "eval_wide", "train_fwd", "train_bwd", "weight_grad",
-           "train_wide", "eval_f32", "train_f32")
+           "train_wide", "eval_f32", "train_f32", "wide_f32")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

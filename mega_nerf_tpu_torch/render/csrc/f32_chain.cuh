@@ -237,11 +237,25 @@ struct FwdParams {
   int act_width, act_final, act_dir, act_app, act_branch;
 };
 
-// Frequency encode of d <= 4 coordinates with nf frequencies into rows
-// [0, width) of a tile: column c < d (1 + 2 nf) holds x[c % d] for block j
-// = c / d = 0, else sin(x 2^k + phase) with k = (j - 1) / 2 and phase pi/2
-// on cos blocks (fused_mlp.py::encode); zero past the live width and for
-// points past M. With `rows`, also into the saved rows from column `col`.
+// Column c of the frequency encode of point m's d <= 4 coordinates (src
+// rows of d floats): column c < live = d (1 + 2 nf) holds x[c % d] for
+// block j = c / d = 0, else sin(x 2^k + phase) with k = (j - 1) / 2 and
+// phase pi/2 on cos blocks (fused_mlp.py::encode); zero past `live`.
+__device__ __forceinline__ float encode_value(const float* __restrict__ src, int d,
+                                              int live, long long m, int c) {
+  if (c >= live) return 0.f;
+  const int j = c / d;
+  const float x = __ldg(src + m * d + (c - j * d));
+  if (j == 0) return x;
+  const int k = (j - 1) >> 1;
+  float arg = x * __int_as_float((k + 127) << 23);  // exact 2^k
+  if ((j - 1) & 1) arg = arg + 1.57079632679489661923f;
+  return sinf(arg);
+}
+
+// The encode (`encode_value`) of nf frequencies into rows [0, width) of a
+// tile, zero for points past M. With `rows`, also into the saved rows from
+// column `col`.
 __device__ __forceinline__ void encode_tile(const float* __restrict__ src, int d, int nf,
                                             int width, int m0, int M, float* tile,
                                             int tm, float* rows, int ld, int col) {
@@ -250,19 +264,7 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ src, int d
     const int p = idx / width;
     const int c = idx - p * width;
     const int m = m0 + p;
-    float v = 0.f;
-    if (m < M && c < live) {
-      const int j = c / d;
-      const float x = __ldg(src + (size_t)m * d + (c - j * d));
-      if (j == 0) {
-        v = x;
-      } else {
-        const int k = (j - 1) >> 1;
-        float arg = x * __int_as_float((k + 127) << 23);  // exact 2^k
-        if ((j - 1) & 1) arg = arg + 1.57079632679489661923f;
-        v = sinf(arg);
-      }
-    }
+    const float v = m < M ? encode_value(src, d, live, m, c) : 0.f;
     tile[tix(tm, c, p)] = v;
     if (rows != nullptr && m < M) rows[(size_t)m * ld + col + c] = v;
   }

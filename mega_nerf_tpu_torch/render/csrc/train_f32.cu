@@ -20,12 +20,16 @@
 //   packed matrices along their rows; the ReLU masks come from the rows in
 //   the epilogue. Writes f32 gradient rows (fused_train.py::grad_layout)
 //   and d_app.
-// - weight_grad_f32 (the dW half): per job of fused_train.py::
-//   weight_grad_jobs, dW = D^T X and the bias sums of D, in output tiles
-//   of 128 x 128 over fixed point ranges (fused_f32.py::f32_wg_plan); each
-//   CTA sums its range in point order into registers and stores its
-//   partial; a second kernel adds the partials of a tile in range order.
-//   No float atomics: two launches give the same bits.
+// - weight_grad_f32 (the dW half): per job, dW = D^T X and the bias sums
+//   of D, in output tiles of 128 x 128 over fixed point ranges
+//   (fused_f32.py::f32_wg_plan, f32_wg_split); each CTA sums its range in
+//   point order into registers and stores its partial; a second kernel
+//   adds the partials of a tile in range order. No float atomics: two
+//   launches give the same bits. Each job carries its own operand
+//   pointers and row widths, so the one kernel pair serves the narrow
+//   route (fused_train.py::weight_grad_jobs on the saved and gradient
+//   rows) and, past width 512, the wide f32 route (wide_f32.cu; each dW
+//   step of fused_train_wide.py::train_wide_plan on the tensors it names).
 //
 // What bounds them on an H100: f32 FMAs, at 67 TFLOP/s of FFMA. At the
 // paper width a training pass of 524,288 points is ~0.63 TFLOP forward,
@@ -269,14 +273,20 @@ constexpr int WG_T = 128;  // output tile: 128 (n) x 128 (k)
 constexpr int WG_P = 32;   // points per chunk
 constexpr int WG_ELEMS = WG_T * WG_T + WG_T;  // partial tile + bias row
 
+// A job of the weight gradient (fused_f32.py::weight_grad_f32_jobs): dW[r][c] (at
+// out_off + r * stride + c of the flat buffer) = sum_p d[p][d_col + r]
+// x[p][x_col + c] for r < n, c < k, and db[r] (at bias_off, when >= 0) =
+// sum_p d[p][d_col + r]; d and x are row-major f32 with rows of d_ld and
+// x_ld floats. The narrow route's jobs all read its gradient and saved
+// rows, the wide route's the tensors it names.
+constexpr int WG_JOB = 11;  // d, x, d_ld, x_ld, d_col, n, x_col, k, out_off, stride, bias_off
+
 struct WgParams {
-  const float* act;   // (M, act_width)
-  const float* grad;  // (M, grad_width)
-  float* out;         // flat gradients (fused_train.py::packed_shapes order)
-  float* scratch;     // (splits, tiles, WG_ELEMS)
-  const int* jobs;    // (jobs, 7): d_col, n, x_col, k, out_off, stride, bias_off
-  const int* tiles;   // (tiles, 3): job, n0, k0
-  int M, act_width, grad_width, ntiles, split_len;
+  float* out;              // flat gradients (fused_train.py::packed_shapes order)
+  float* scratch;          // (splits, tiles, WG_ELEMS)
+  const long long* jobs;   // (jobs, WG_JOB)
+  const long long* tiles;  // (tiles, 3): job, n0, k0
+  int M, ntiles, split_len;
 };
 
 // CTA (tile, split): the tile's partial dW and bias over the split's
@@ -287,12 +297,15 @@ __global__ void __launch_bounds__(NT) wg_partial_kernel(const __grid_constant__ 
   __shared__ __align__(16) float ds[WG_P][WG_T];
   __shared__ __align__(16) float xs[WG_P][WG_T];
   const int tile = blockIdx.x, split = blockIdx.y;
-  const int* tl = p.tiles + 3 * tile;
-  const int* job = p.jobs + 7 * tl[0];
-  const int n0 = tl[1], k0 = tl[2];
-  const int d_col = job[0] + n0, n_live = min(WG_T, job[1] - n0);
-  const int x_col = job[2] + k0, k_live = min(WG_T, job[3] - k0);
-  const bool bias = job[6] >= 0 && k0 == 0;
+  const long long* tl = p.tiles + 3 * tile;
+  const long long* job = p.jobs + WG_JOB * tl[0];
+  const float* dsrc = reinterpret_cast<const float*>(job[0]);
+  const float* xsrc = reinterpret_cast<const float*>(job[1]);
+  const int d_ld = (int)job[2], x_ld = (int)job[3];
+  const int n0 = (int)tl[1], k0 = (int)tl[2];
+  const int d_col = (int)job[4] + n0, n_live = min(WG_T, (int)job[5] - n0);
+  const int x_col = (int)job[6] + k0, k_live = min(WG_T, (int)job[7] - k0);
+  const bool bias = job[10] >= 0 && k0 == 0;
   const int begin = split * p.split_len;
   const int end = min(p.M, begin + p.split_len);
   const int t = threadIdx.x;
@@ -311,8 +324,8 @@ __global__ void __launch_bounds__(NT) wg_partial_kernel(const __grid_constant__ 
       const int e = r * NT + t;
       const int pt = e >> 7, c = e & 127;
       const int m = pp0 + pt;
-      rd[r] = (m < end && c < n_live) ? __ldg(p.grad + (size_t)m * p.grad_width + d_col + c) : 0.f;
-      rx[r] = (m < end && c < k_live) ? __ldg(p.act + (size_t)m * p.act_width + x_col + c) : 0.f;
+      rd[r] = (m < end && c < n_live) ? __ldg(dsrc + (size_t)m * d_ld + d_col + c) : 0.f;
+      rx[r] = (m < end && c < k_live) ? __ldg(xsrc + (size_t)m * x_ld + x_col + c) : 0.f;
     }
   };
   load(begin);
@@ -360,17 +373,16 @@ __global__ void __launch_bounds__(NT) wg_reduce_kernel(const __grid_constant__ W
   const int e = blockIdx.x * NT + threadIdx.x;
   const int tile = blockIdx.y;
   if (e >= WG_ELEMS) return;
-  const int* tl = p.tiles + 3 * tile;
-  const int* job = p.jobs + 7 * tl[0];
-  const int n0 = tl[1], k0 = tl[2];
+  const long long* tl = p.tiles + 3 * tile;
+  const long long* job = p.jobs + WG_JOB * tl[0];
+  const long long n0 = tl[1], k0 = tl[2];
   float* dst = nullptr;
   if (e < WG_T * WG_T) {
     const int i = e >> 7, j = e & 127;
-    if (n0 + i < job[1] && k0 + j < job[3])
-      dst = p.out + job[4] + (size_t)(n0 + i) * job[5] + k0 + j;
+    if (n0 + i < job[5] && k0 + j < job[7]) dst = p.out + job[8] + (n0 + i) * job[9] + k0 + j;
   } else {
     const int i = e - WG_T * WG_T;
-    if (job[6] >= 0 && k0 == 0 && n0 + i < job[1]) dst = p.out + job[6] + n0 + i;
+    if (job[10] >= 0 && k0 == 0 && n0 + i < job[5]) dst = p.out + job[10] + n0 + i;
   }
   if (dst == nullptr) return;
   float s = 0.f;
@@ -510,24 +522,21 @@ int train_f32_bwd_launch(const long long* ptrs, const int* dims, const int* plan
                     : launch_fwd_like(train_f32_bwd_kernel<4>, p, smem, grid, s);
 }
 
-// ptrs: act, grad, out, scratch; dims: M, act_width, grad_width, tiles,
-//   splits, split_len; jobs (device, jobs x 7) and tiles (device, tiles x 3)
-//   as fused_f32.py::f32_wg_plan gives them.
+// ptrs: out, scratch, table (device: jobs x WG_JOB, then tiles x 3, int64,
+//   as fused_f32.py::weight_grad_f32_jobs lays them out); dims: M, jobs,
+//   tiles, splits, split_len.
 int weight_grad_f32_launch(const long long* ptrs, const int* dims, void* stream) {
   WgParams p = {};
-  p.act = reinterpret_cast<const float*>(ptrs[0]);
-  p.grad = reinterpret_cast<const float*>(ptrs[1]);
-  p.out = reinterpret_cast<float*>(ptrs[2]);
-  p.scratch = reinterpret_cast<float*>(ptrs[3]);
-  p.jobs = reinterpret_cast<const int*>(ptrs[4]);
-  p.tiles = reinterpret_cast<const int*>(ptrs[5]);
+  p.out = reinterpret_cast<float*>(ptrs[0]);
+  p.scratch = reinterpret_cast<float*>(ptrs[1]);
+  p.jobs = reinterpret_cast<const long long*>(ptrs[2]);
+  p.tiles = p.jobs + (size_t)WG_JOB * dims[1];
   p.M = dims[0];
-  p.act_width = dims[1];
-  p.grad_width = dims[2];
-  p.ntiles = dims[3];
-  const int splits = dims[4];
-  p.split_len = dims[5];
-  if (p.ntiles <= 0 || splits <= 0 || p.split_len % WG_P) return (int)cudaErrorInvalidValue;
+  p.ntiles = dims[2];
+  const int splits = dims[3];
+  p.split_len = dims[4];
+  if (dims[1] <= 0 || p.ntiles <= 0 || splits <= 0 || p.split_len % WG_P)
+    return (int)cudaErrorInvalidValue;
   if (p.M <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   wg_partial_kernel<<<dim3(p.ntiles, splits), NT, 0, s>>>(p);

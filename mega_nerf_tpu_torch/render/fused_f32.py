@@ -128,19 +128,31 @@ class F32WgPlan(NamedTuple):
     split_len: int
 
 
+def f32_wg_tiles(sizes) -> List[Tuple[int, int, int]]:
+    """(job, n0, k0) of every F32_WG_TILE x F32_WG_TILE output tile of jobs
+    of `sizes` (n, k)."""
+    return [(j, n0, k0) for j, (n, k) in enumerate(sizes)
+            for n0 in range(0, n, F32_WG_TILE) for k0 in range(0, k, F32_WG_TILE)]
+
+
+def f32_wg_split(ntiles: int, m: int) -> Tuple[int, int]:
+    """(splits, split_len) of m points over `ntiles` tiles: about
+    F32_WG_CTAS CTAs, at least F32_WG_MIN_SPLIT points a range, ranges of
+    whole F32_WG_CHUNK chunks (the last may end early). It depends on the
+    tiles and m only, so two launches sum alike."""
+    splits = max(1, min(-(-F32_WG_CTAS // ntiles), -(-m // F32_WG_MIN_SPLIT)))
+    split_len = _round_up(max(-(-m // splits), 1), F32_WG_CHUNK)
+    return max(1, -(-m // split_len)), split_len
+
+
 def f32_wg_plan(packed: PackedMLP, m: int) -> F32WgPlan:
-    """Tiles and point ranges of one launch over m points: about
-    F32_WG_CTAS CTAs, at least F32_WG_MIN_SPLIT points a range. The plan
-    depends on the model and m only, so two launches sum alike."""
+    """Tiles and point ranges of one launch of the narrow route over m
+    points (`f32_wg_tiles`, `f32_wg_split`)."""
     from mega_nerf_tpu_torch.render.fused_train import weight_grad_jobs
 
     jobs = weight_grad_jobs(packed)
-    tiles = [(j, n0, k0) for j, job in enumerate(jobs)
-             for n0 in range(0, job[1], F32_WG_TILE)
-             for k0 in range(0, job[3], F32_WG_TILE)]
-    splits = max(1, min(-(-F32_WG_CTAS // len(tiles)), -(-m // F32_WG_MIN_SPLIT)))
-    split_len = _round_up(max(-(-m // splits), 1), F32_WG_CHUNK)
-    return F32WgPlan(jobs, tiles, max(1, -(-m // split_len)), split_len)
+    tiles = f32_wg_tiles([(job[1], job[3]) for job in jobs])
+    return F32WgPlan(jobs, tiles, *f32_wg_split(len(tiles), m))
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -311,9 +323,73 @@ def train_bwd_data_f32(packed: PackedMLP, act, g, noise):
 train_bwd_data_f32.launches = 0
 
 
+class WgJob(NamedTuple):
+    """One product of the f32 weight gradient (train_f32.cu WG_JOB): dW[r][c]
+    (at out_off + r * stride + c of the flat buffer) = sum_p d[p][d_col + r]
+    x[p][x_col + c] for r < n, c < k, and db[r] (at bias_off, when >= 0) =
+    sum_p d[p][d_col + r]; d and x are (M, width) f32 row-major views."""
+    d: torch.Tensor
+    x: torch.Tensor
+    d_col: int
+    n: int
+    x_col: int
+    k: int
+    out_off: int
+    stride: int
+    bias_off: int
+
+
+def weight_grad_f32_jobs(jobs: List[WgJob], out: torch.Tensor) -> torch.Tensor:
+    """The f32 weight-gradient kernel pair (`csrc/train_f32.cu`) over
+    `jobs`, one launch, on CUDA tensors: writes each job's dW and db into
+    the flat f32 buffer `out`; counts in `weight_grad_f32.launches`. The
+    narrow route (`weight_grad_f32`) and the wide f32 route
+    (`fused_wide_f32.wide_f32_dw`) both launch it."""
+    m = jobs[0].d.shape[0]
+    for j in jobs:
+        for name, t, col, width in (("d", j.d, j.d_col, j.n), ("x", j.x, j.x_col, j.k)):
+            if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != m
+                    or t.stride(1) != 1 or t.device != out.device
+                    or col < 0 or col + width > t.shape[1]):
+                raise ValueError(f"weight_grad_f32: job operand {name} must be an "
+                                 f"(M, >= {col + width}) f32 row-major view on the "
+                                 f"buffer's device, got {t.dtype} {tuple(t.shape)} "
+                                 f"strides {t.stride()}")
+        end = max(j.out_off + (j.n - 1) * j.stride + j.k, j.bias_off + j.n)
+        if min(j.n, j.k) <= 0 or j.k > j.stride or end > out.numel():
+            raise ValueError(f"weight_grad_f32: a job writes outside the buffer ({j.n} x "
+                             f"{j.k} at {j.out_off}, stride {j.stride})")
+    if out.dtype != torch.float32 or out.dim() != 1 or not out.is_contiguous():
+        raise ValueError("weight_grad_f32: out must be a contiguous flat f32 buffer")
+    if m == 0:
+        for j in jobs:
+            out[j.out_off:j.out_off + j.n * j.stride].view(j.n, j.stride)[:, :j.k] = 0
+            if j.bias_off >= 0:
+                out[j.bias_off:j.bias_off + j.n] = 0
+        return out
+    lib = _train_lib()
+    tiles = f32_wg_tiles([(j.n, j.k) for j in jobs])
+    splits, split_len = f32_wg_split(len(tiles), m)
+    rows = [v for j in jobs for v in (j.d.data_ptr(), j.x.data_ptr(), j.d.stride(0),
+                                      j.x.stride(0), j.d_col, j.n, j.x_col, j.k,
+                                      j.out_off, j.stride, j.bias_off)]
+    table = torch.tensor(rows + [v for t in tiles for v in t],
+                         dtype=torch.int64).to(out.device)
+    scratch = torch.empty(splits * len(tiles) * F32_WG_ELEMS, dtype=torch.float32,
+                          device=out.device)
+    ptrs = [out.data_ptr(), scratch.data_ptr(), table.data_ptr()]
+    dims = [m, len(jobs), len(tiles), splits, split_len]
+    err = lib.weight_grad_f32_launch(_ptrs(ptrs), _ints(dims), _stream(out))
+    weight_grad_f32.launches += 1
+    _raise_if(lib, err, "weight_grad_f32")
+    return out
+
+
 def weight_grad_f32(packed: PackedMLP, act, grad) -> torch.Tensor:
     """The f32 weight-gradient kernel (`csrc/train_f32.cu`) on CUDA tensors
-    -> flat f32 gradients in `fused_train.packed_shapes` order."""
+    -> flat f32 gradients in `fused_train.packed_shapes` order: the jobs of
+    `fused_train.weight_grad_jobs`, each reading the gradient rows and the
+    saved rows."""
     from mega_nerf_tpu_torch.render.fused_train import (
         _offsets,
         act_layout,
@@ -322,30 +398,14 @@ def weight_grad_f32(packed: PackedMLP, act, grad) -> torch.Tensor:
     )
 
     _check_packed(packed)
-    m = act.shape[0]
     if act.shape[1] != act_layout(packed)["width"] or \
             grad.shape[1] != grad_layout(packed)["width"]:
         raise ValueError("weight_grad_f32: act and grad must be the saved and "
                          "gradient rows of this model (act_layout, grad_layout)")
     out = torch.empty(_offsets(packed_shapes(packed))[-1], dtype=torch.float32,
                       device=act.device)
-    if m == 0:
-        return out.zero_()
-    lib = _train_lib()
-    plan = f32_wg_plan(packed, m)
-    ntiles = len(plan.tiles)
-    tables = torch.tensor([v for j in plan.jobs for v in j]
-                          + [v for t in plan.tiles for v in t],
-                          dtype=torch.int32).to(act.device)
-    scratch = torch.empty(plan.splits * ntiles * F32_WG_ELEMS, dtype=torch.float32,
-                          device=act.device)
-    ptrs = [act.data_ptr(), grad.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            tables.data_ptr(), tables.data_ptr() + 4 * 7 * len(plan.jobs)]
-    dims = [m, act.shape[1], grad.shape[1], ntiles, plan.splits, plan.split_len]
-    err = lib.weight_grad_f32_launch(_ptrs(ptrs), _ints(dims), _stream(act))
-    weight_grad_f32.launches += 1
-    _raise_if(lib, err, "weight_grad_f32")
-    return out
+    jobs = [WgJob(grad, act, *job) for job in f32_wg_plan(packed, 1).jobs]
+    return weight_grad_f32_jobs(jobs, out)
 
 
 weight_grad_f32.launches = 0
@@ -356,6 +416,7 @@ F32_KERNELS = (fused_nerf_eval_f32, fused_nerf_train_fwd_f32, train_bwd_data_f32
 
 __all__ = [
     "F32Plan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
+    "f32_wg_tiles", "f32_wg_split", "WgJob", "weight_grad_f32_jobs",
     "fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
     "weight_grad_f32", "F32_KERNELS",
 ]

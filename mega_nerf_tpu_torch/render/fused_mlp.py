@@ -8,9 +8,11 @@ saved rows, one persistent CTA per SM walking the point tiles, its tile and
 shared memory from `fused_train.py::train_fwd_plan`. In f32 compute to
 width 512 the wrapper launches `csrc/eval_f32.cu` instead (`fused_f32.py`:
 true f32 FFMA products). Past width 512 eval runs the wide route,
-`fused_wide.py` (one layer GEMM at a time, `csrc/eval_wide.cu`, bf16
-compute), on the same packed weights; training past 512 runs
-`fused_train_wide.py` on that GEMM and the kernels of `csrc/train_wide.cu`.
+`fused_wide.py` (one layer GEMM at a time: `csrc/eval_wide.cu` in bf16
+compute, `csrc/wide_f32.cu` in f32 through `fused_wide_f32.py`), on the
+same packed weights; training past 512 runs `fused_train_wide.py` on that
+GEMM and the kernels of `csrc/train_wide.cu` (in f32 those of
+`csrc/wide_f32.cu` and the f32 weight gradient of `csrc/train_f32.cu`).
 
 - `supports_fused_kernel(cfg, train)` is the gate, as the JAX package's
   `supports_fused_kernels(cfg, train)`; `is_wide(cfg)` says whether an
@@ -50,7 +52,8 @@ MMA_K = 16  # input segments pad to the wgmma depth (16 bf16)
 # the fused chain of eval_fwd.cu and the three training kernels.
 MAX_LAYER_DIM = 512
 # The wide eval route (fused_wide.py): the JAX eval gate's bf16 limit; the
-# wide training route (fused_train_wide.py): the JAX training gate's.
+# wide training route (fused_train_wide.py) and every route in another
+# compute dtype than bf16: the JAX gate's limit for those.
 WIDE_MAX_LAYER_DIM = 2048
 WIDE_MAX_TRAIN_LAYER_DIM = 1024
 WIDE_LAYER_MULTIPLE = 64
@@ -86,27 +89,29 @@ def supports_fused_kernel(cfg: NeRFConfig, train: bool = False) -> Tuple[bool, s
       route (`fused_wide.py`) to 2048 in bf16 compute, with layer_dim a
       multiple of 64 (every hidden operand fills whole 64-column TMA boxes;
       every width in `configs/` does). The JAX gate asks a multiple of
-      128 only for the TPU's lanes; at every multiple of 128 the two agree
-      in bf16. Past 2048 the eager module runs, as JAX falls back to XLA.
+      128 only for the TPU's lanes; at every multiple of 128 the two agree.
+      Past 2048 the eager module runs, as JAX falls back to XLA.
     - Train: the three fused training kernels to width 512; past it the
-      wide training route (`fused_train_wide.py`) to 1024 in bf16 compute,
-      with layer_dim a multiple of 64, as the JAX gate trains through
-      Pallas to 1024. Past 1024 the eager module trains, as JAX falls back
-      to XLA.
+      wide training route (`fused_train_wide.py`) to 1024, with layer_dim
+      a multiple of 64, as the JAX gate trains through Pallas to 1024.
+      Past 1024 the eager module trains, as JAX falls back to XLA.
     - f32 compute: to width 512 the f32 kernels (`fused_f32.py`, true f32
-      FFMA products) take eval and training. Past 512 the JAX gate runs
-      Pallas eval and training to 1024 in f32, the port's wide kernels are
-      bf16 only, so the eager module runs."""
+      FFMA products) take eval and training; past it the wide route's f32
+      kernels (`fused_wide_f32.py`) to 1024, eval and training alike, as
+      the JAX gate keeps f32 (every compute dtype but bf16) at 1024 in
+      eval: its resident f32 weights of a 2048-wide model would not fit.
+      Past 1024 the eager module runs, as JAX falls back to XLA."""
     ok, why = _architecture_ok(cfg)
     if not ok or cfg.layer_dim <= MAX_LAYER_DIM:
         return ok, why
     d = cfg.layer_dim
-    limit = WIDE_MAX_TRAIN_LAYER_DIM if train else WIDE_MAX_LAYER_DIM
+    wide_eval = not train and cfg.dtype == torch.bfloat16
+    limit = WIDE_MAX_LAYER_DIM if wide_eval else WIDE_MAX_TRAIN_LAYER_DIM
     if d > limit or d % WIDE_LAYER_MULTIPLE:
-        return False, (f"layer_dim {d} (the wide {'training' if train else 'eval'} "
-                       f"route needs a multiple of {WIDE_LAYER_MULTIPLE} <= {limit})")
-    if cfg.dtype != torch.bfloat16:
-        return False, f"{cfg.compute_dtype} compute at layer_dim {d} (the wide route is bf16)"
+        route = ("eval" if not train else "training") + \
+            ("" if cfg.dtype == torch.bfloat16 else f" ({cfg.compute_dtype})")
+        return False, (f"layer_dim {d} (the wide {route} route needs a multiple of "
+                       f"{WIDE_LAYER_MULTIPLE} <= {limit})")
     return True, ""
 
 

@@ -895,7 +895,7 @@ def fused_nerf_train_apply(
     """Differentiable fused forward -> (M, 4) [sigmoid rgb, activated
     sigma]; gradients flow to the module's MLP parameters and to `app`.
     CPU tensors run the plain versions; CUDA tensors the kernels (bf16 or
-    f32 compute to width 512, past it bf16 compute only)."""
+    f32 compute; past width 512 the wide route's, to 1024)."""
     cfg = module.config
     named = dict(module.named_parameters())
     params = [named[n] for n in mlp_param_names(cfg)]

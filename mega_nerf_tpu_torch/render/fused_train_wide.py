@@ -1,4 +1,4 @@
-"""The wide training MLP (512 < layer_dim <= 1024, bf16): one layer at a time.
+"""The wide training MLP (512 < layer_dim <= 1024): one layer at a time.
 
 Counterpart of the JAX package's `render/pallas_train.py` (`_make_train_fn`,
 `fused_nerf_train_apply`) at the widths its training gate admits past the
@@ -42,6 +42,13 @@ launches in `.launches`, plain versions their calls in `.calls`.
 `fused_train.fused_nerf_train_apply` (the `torch.autograd.Function`) runs
 `fused_nerf_train_wide_fwd` and `fused_nerf_train_wide_bwd` past width 512;
 `walk_backward` holds each backward kernel against its plain version.
+
+In f32 compute (`--compute_dtype float32`) every wrapper here and of
+`fused_wide.py` hands CUDA tensors to its counterpart in
+`fused_wide_f32.py`: the true-f32 kernels of `csrc/wide_f32.cu` (encode,
+one GEMM for the layers and every dX job, the heads forward and backward)
+and the f32 weight-gradient kernel pair of `csrc/train_f32.cu`; the saved
+tensors and gradients are f32, the plan is the same.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from mega_nerf_tpu_torch.render.fused_wide import (
     _check_rows,
     _device_rule,
     _longs,
+    check_weights_dtype,
     eval_wide_encode,
     eval_wide_encode_plain,
     eval_wide_layer,
@@ -376,9 +384,14 @@ def _train_wide_library() -> ctypes.CDLL:
     return lib
 
 
-def _bf16_only(name: str, packed: PackedMLP) -> None:
-    if packed.config.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{name} computes in bf16 only")
+def _f32_compute(name: str, packed: PackedMLP) -> bool:
+    """True in f32 compute (the f32 wide kernels), False in bf16; raises on
+    a compute dtype no wide kernel takes."""
+    dt = packed.config.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{name}: no kernel computes in "
+                                  f"{packed.config.compute_dtype}")
+    return dt == torch.float32
 
 
 def _check_head_weights(name: str, packed: PackedMLP, device) -> None:
@@ -395,10 +408,14 @@ def train_wide_heads_fwd(packed: PackedMLP, h: torch.Tensor,
                          noise: Optional[torch.Tensor]):
     """-> ((M, 4) f32 [rgb, sigma], (M, 4) f32 [rgb_pre, sigma_pre + noise])
     from the last trunk output h (M, D) and the branch (M, D / 2) (None
-    without it); noise (M,) f32 or None."""
+    without it); noise (M,) f32 or None. In f32 compute:
+    `fused_wide_f32.wide_f32_heads_fwd`."""
     if not _device_rule("train_wide_heads_fwd", h):
         return train_wide_heads_fwd_plain(packed, h, branch, noise)
-    _bf16_only("train_wide_heads_fwd", packed)
+    if _f32_compute("train_wide_heads_fwd", packed):
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_heads_fwd
+
+        return wide_f32_heads_fwd(packed, h, branch, noise)
     m, d = h.shape[0], packed.config.layer_dim
     _check("h", h, torch.bfloat16, (m, d))
     if packed.has_branch:
@@ -428,10 +445,14 @@ def train_wide_heads_bwd(packed: PackedMLP, g: torch.Tensor, pre: torch.Tensor,
                          h: torch.Tensor, branch: Optional[torch.Tensor]):
     """-> (heads-gradient rows (M, HEADS_GRAD_WIDTH) bf16, d_pre bf16: of the
     branch (M, D / 2), or of the last trunk layer (M, D) without it) from
-    the cotangent g (M, 4) f32 and the forward's pre-activations."""
+    the cotangent g (M, 4) f32 and the forward's pre-activations. In f32
+    compute: `fused_wide_f32.wide_f32_heads_bwd` (f32 rows and d_pre)."""
     if not _device_rule("train_wide_heads_bwd", g):
         return train_wide_heads_bwd_plain(packed, g, pre, h, branch)
-    _bf16_only("train_wide_heads_bwd", packed)
+    if _f32_compute("train_wide_heads_bwd", packed):
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_heads_bwd
+
+        return wide_f32_heads_bwd(packed, g, pre, h, branch)
     m, d = g.shape[0], packed.config.layer_dim
     _check("g", g, torch.float32, (m, 4))
     _check("pre", pre, torch.float32, (m, 4))
@@ -469,9 +490,16 @@ def train_wide_dx(g: torch.Tensor, wt: torch.Tensor, row0: int, k: int, mode: in
     the mask modes; g_heads (M, HEADS_GRAD_WIDTH) and w_sigma (k,) bf16 for
     DX_MASK_SIGMA. On CUDA tensors the kernel is persistent
     (`fused_wide.wide_grid` CTAs, without clusters; `grid`, the tests'
-    only, sets another count)."""
+    only, sets another count). An f32 matrix (f32 compute) goes to
+    `fused_wide_f32.wide_f32_dx` (f32 operands and outputs, no `grid`)."""
     if not _device_rule("train_wide_dx", g):
         return train_wide_dx_plain(g, wt, row0, k, mode, mask, g_heads, w_sigma)
+    if wt.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_dx
+
+        if grid is not None:
+            raise ValueError("train_wide_dx: the f32 GEMM takes no grid")
+        return wide_f32_dx(g, wt, row0, k, mode, mask, g_heads, w_sigma)
     m, n = g.shape
     if mode not in (DX_F32, DX_NONE, DX_MASK, DX_MASK_SIGMA):
         raise ValueError(f"train_wide_dx: unknown mode {mode}")
@@ -646,9 +674,17 @@ def train_wide_dw(jobs: Sequence[DwJob], tensors: Dict[str, torch.Tensor],
     CTAs (one per SM) in clusters of DW_CLUSTER walk `dw_walk`'s balanced
     split of the (item, 64-point stage) space, and each tile's partials are
     summed in point order, so two launches at one grid give the same bits.
-    `grid`, the tests' only, sets another CTA count (whole clusters)."""
+    `grid`, the tests' only, sets another CTA count (whole clusters).
+    f32 tensors (f32 compute) go to `fused_wide_f32.wide_f32_dw` (the f32
+    weight-gradient kernel pair, no `grid`)."""
     if not _device_rule("train_wide_dw", out):
         return train_wide_dw_plain(jobs, tensors, out)
+    if tensors[jobs[0].d].dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_dw
+
+        if grid is not None:
+            raise ValueError("train_wide_dw: the f32 weight gradient takes no grid")
+        return wide_f32_dw(jobs, tensors, out)
     if not 1 <= len(jobs) <= DW_MAX_JOBS:
         raise ValueError(f"train_wide_dw: 1-{DW_MAX_JOBS} jobs, got {len(jobs)}")
     if out.dtype != torch.float32 or out.dim() != 1 or not out.is_contiguous():
@@ -791,10 +827,12 @@ def _backward(packed: PackedMLP, saved: Dict[str, torch.Tensor], g: torch.Tensor
 def fused_nerf_train_wide_fwd(packed: PackedMLP, xyz, dirs, app, noise):
     """The wide training forward -> ((M, 4) f32, saved tensors by name):
     `eval_wide_encode`, `eval_wide_layer` per matmul layer, then
-    `train_wide_heads_fwd` (their plain versions on CPU tensors)."""
+    `train_wide_heads_fwd` (their plain versions on CPU tensors; in f32
+    compute their f32 kernels)."""
     if xyz.device.type == "cuda":
         m, a = xyz.shape[0], packed.config.appearance_dim
-        _bf16_only("fused_nerf_train_wide_fwd", packed)
+        _f32_compute("fused_nerf_train_wide_fwd", packed)
+        check_weights_dtype("fused_nerf_train_wide_fwd", packed)
         if packed.ap and (app is None or tuple(app.shape) != (m, a)):
             raise ValueError(f"app: expected ({m}, {a}) appearance rows")
     return _forward(packed, xyz, dirs, app, noise, _kernel_ops())

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `render/pallas_mlp.py::_mlp_kernel` at the
 widths its eval gate admits past the port's fused chain (`fused_mlp.py`,
-<= 512). The hand-written Hopper kernels are in `csrc/eval_wide.cu`:
+<= 512): bf16 compute to 2048, f32 compute to 1024. The hand-written
+Hopper kernels of bf16 compute are in `csrc/eval_wide.cu`:
 
 - `eval_wide_encode` writes the f32 frequency encodes of xyz and dirs as
   bf16 operands, (M, EP) and (M, DP), in the fused chain's form (cos as
@@ -28,6 +29,12 @@ takes, so that its scratch (two activation buffers, the branch and the
 encodes) stays within `WIDE_SCRATCH_LIMIT`. The GEMM is persistent:
 `wide_grid` CTAs, as many as the card holds, walk the output tiles in the
 order `tile_walk` mirrors.
+
+In f32 compute (`--compute_dtype float32`, to width 1024) each wrapper
+hands CUDA tensors to its counterpart in `fused_wide_f32.py` (the true-f32
+kernels of `csrc/wide_f32.cu`, which count their own launches), as
+`fused_mlp.fused_nerf_eval` hands f32 to `fused_f32.py`; the composition
+and its buffers follow the compute dtype.
 
 Each kernel wrapper runs its plain version on CPU tensors and launches its
 kernel on CUDA tensors or raises; wrappers count launches in `.launches`,
@@ -109,23 +116,25 @@ class WidePlan:
 
 
 def scratch_bytes_per_point(cfg: NeRFConfig) -> int:
-    """bf16 scratch one point takes in a pass: two activation buffers
-    (trunk outputs alternate between them; trunk_final writes the one
-    that does not hold the last trunk output), the branch, the encodes and
-    a padded copy of the appearance rows."""
+    """Scratch one point takes in a pass, in the compute dtype (2 bytes an
+    element in bf16, 4 in f32): two activation buffers (trunk outputs
+    alternate between them; trunk_final writes the one that does not hold
+    the last trunk output), the branch, the encodes and a padded copy of
+    the appearance rows."""
     d = cfg.layer_dim
     ep = _round_up(cfg.enc_in, MMA_K)
     dp = _round_up(cfg.dir_in, MMA_K)
     ap = _round_up(cfg.appearance_dim, MMA_K)
     branch = d // 2 if cfg.uses_dir_branch else 0
-    return 2 * (2 * d + branch + ep + dp + ap)
+    return cfg.dtype.itemsize * (2 * d + branch + ep + dp + ap)
 
 
 @functools.lru_cache(maxsize=None)
 def wide_plan(cfg: NeRFConfig) -> WidePlan:
     """The wide kernels' tile and sub-chunk for `cfg`. The sub-chunk is the
     largest power of two of points, at least one tile, whose scratch fits
-    `WIDE_SCRATCH_LIMIT` (524,288 points, 5.6 GB at width 2048)."""
+    `WIDE_SCRATCH_LIMIT` (524,288 points, 5.6 GB at width 2048 in bf16 and
+    at 1024 in f32)."""
     per_point = scratch_bytes_per_point(cfg)
     sub = WIDE_TILE_M
     while sub * 2 <= WIDE_MAX_SUB_CHUNK and sub * 2 * per_point <= WIDE_SCRATCH_LIMIT:
@@ -357,6 +366,15 @@ def _device_rule(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+def check_weights_dtype(name: str, packed: PackedMLP) -> None:
+    """Raise unless every packed matrix and head weight is in the compute
+    dtype (the kernels of that dtype read them)."""
+    dt = packed.config.dtype
+    if any(t.dtype != dt for t in [*packed.mats, packed.sigma_w, packed.rgb_w]):
+        raise ValueError(f"{name}: packed weights are not in the compute dtype "
+                         f"{packed.config.compute_dtype}")
+
+
 def _longs(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*values)
 
@@ -380,12 +398,17 @@ def eval_wide_encode(packed: PackedMLP, xyz: torch.Tensor,
     """-> (enc (M, EP), dir enc (M, DP) or None), bf16. On CUDA tensors the
     kernel writes into `enc` / `dir_enc` when given (contiguous, 16-byte
     aligned: the kernel stores 16-byte chunks), else into new tensors;
-    xyz_dim 3 or 4."""
+    xyz_dim 3 or 4. In f32 compute: `fused_wide_f32.wide_f32_encode`."""
     if not _device_rule("eval_wide_encode", xyz):
         return eval_wide_encode_plain(packed, xyz, dirs)
     cfg = packed.config
+    if cfg.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_encode
+
+        return wide_f32_encode(packed, xyz, dirs, enc, dir_enc)
     if cfg.dtype != torch.bfloat16:
-        raise NotImplementedError("eval_wide_encode writes bf16 operands only")
+        raise NotImplementedError(f"eval_wide_encode: no kernel computes in "
+                                  f"{cfg.compute_dtype}")
     if cfg.xyz_dim not in (3, 4):
         raise ValueError(f"eval_wide_encode: xyz_dim {cfg.xyz_dim} (the kernel takes 3 or 4)")
     tile, smem = encode_plan(cfg.xyz_dim, packed.ep, packed.dp)
@@ -433,9 +456,16 @@ def eval_wide_layer(xs: Sequence[torch.Tensor], w: torch.Tensor, b: torch.Tensor
     it in place, zeros past its width), `out` (contiguous (M, N) bf16, N a
     multiple of 8: TMA stores its rows) is written when given. `grid` (the
     tests' only; even: clusters of WIDE_CLUSTER) launches that many CTAs in
-    place of `wide_grid`'s."""
+    place of `wide_grid`'s. f32 weights (f32 compute) go to
+    `fused_wide_f32.wide_f32_layer`, which takes no `grid`."""
     if not _device_rule("eval_wide_layer", w):
         return eval_wide_layer_plain(xs, w, b, relu)
+    if w.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_layer
+
+        if grid is not None:
+            raise ValueError("eval_wide_layer: the f32 layer GEMM takes no grid")
+        return wide_f32_layer(xs, w, b, relu, out)
     if not 1 <= len(xs) <= WIDE_MAX_SEGMENTS:
         raise ValueError(f"eval_wide_layer: 1-{WIDE_MAX_SEGMENTS} segments, got {len(xs)}")
     m = xs[0].shape[0]
@@ -478,10 +508,15 @@ def eval_wide_heads(packed: PackedMLP, h: torch.Tensor, branch: Optional[torch.T
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, 4) f32 [rgb, sigma] from the last trunk output h (M, D) and the
     branch (M, D / 2) (None without it); `out` (contiguous) is written when
-    given."""
+    given. In f32 compute: `fused_wide_f32.wide_f32_heads_fwd` without
+    noise."""
     if not _device_rule("eval_wide_heads", h):
         return eval_wide_heads_plain(packed, h, branch)
     cfg = packed.config
+    if cfg.dtype == torch.float32:
+        from mega_nerf_tpu_torch.render.fused_wide_f32 import wide_f32_heads_fwd
+
+        return wide_f32_heads_fwd(packed, h, branch, None, train=False, out=out)
     m, d = h.shape[0], cfg.layer_dim
     _check("h", h, torch.bfloat16, (m, d))
     if packed.has_branch:
@@ -522,27 +557,28 @@ def fused_nerf_eval_wide(
     ref_packed_dirs swap) when the model reads directions; app
     (M, appearance_dim) per-point appearance rows when it has appearance.
     CPU tensors run `fused_nerf_eval_wide_plain`; CUDA tensors launch the
-    kernels of `csrc/eval_wide.cu` (bf16 compute only), one sub-chunk of
+    kernels of `csrc/eval_wide.cu` in bf16 compute, of `csrc/wide_f32.cu`
+    in f32 (`fused_wide_f32.py`), one sub-chunk of
     `wide_plan(cfg).sub_chunk` points at a time, or raise."""
     if not _device_rule("fused_nerf_eval_wide", xyz):
         return fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
     cfg = packed.config
-    if cfg.dtype != torch.bfloat16:
-        raise NotImplementedError("the wide eval kernels compute in bfloat16 only")
     check_inputs(packed, xyz, dirs, app)
+    check_weights_dtype("fused_nerf_eval_wide", packed)
     m, d = xyz.shape[0], cfg.layer_dim
     dev = xyz.device
     out = torch.empty((m, 4), dtype=torch.float32, device=dev)
     if m == 0:
         return out
     sub = min(wide_plan(cfg).sub_chunk, m)
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    bufs = [torch.empty((sub, d), **bf), torch.empty((sub, d), **bf)]
-    branch_buf = torch.empty((sub, d // 2), **bf) if packed.has_branch else None
-    enc_buf = torch.empty((sub, packed.ep), **bf)
-    dir_buf = torch.empty((sub, packed.dp), **bf) if packed.dp else None
-    # TMA reads rows 16-byte aligned: other appearance widths get a padded copy.
-    app_pad = packed.ap and (cfg.appearance_dim * 2) % 16 != 0
+    like = dict(dtype=cfg.dtype, device=dev)
+    bufs = [torch.empty((sub, d), **like), torch.empty((sub, d), **like)]
+    branch_buf = torch.empty((sub, d // 2), **like) if packed.has_branch else None
+    enc_buf = torch.empty((sub, packed.ep), **like)
+    dir_buf = torch.empty((sub, packed.dp), **like) if packed.dp else None
+    # The kernels read rows 16-byte aligned: other appearance widths get a
+    # padded copy.
+    app_pad = packed.ap and (cfg.appearance_dim * cfg.dtype.itemsize) % 16 != 0
     for m0, m1 in sub_chunks(m, sub):
         k = m1 - m0
         enc, dir_enc = eval_wide_encode(
@@ -584,5 +620,5 @@ __all__ = [
     "scratch_bytes_per_point", "eval_wide_encode", "eval_wide_layer",
     "eval_wide_heads", "fused_nerf_eval_wide", "eval_wide_encode_plain",
     "eval_wide_layer_plain", "eval_wide_heads_plain", "fused_nerf_eval_wide_plain",
-    "wide_kernel_launches",
+    "wide_kernel_launches", "check_weights_dtype",
 ]

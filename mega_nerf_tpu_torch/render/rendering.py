@@ -24,8 +24,9 @@ Port of the JAX package's `render/rendering.py` (`render_rays`,
   through the eager `NeRF` module (`mlp_route`). The gate looks at the
   architecture and the compute dtype: bf16 and f32 compute take the
   kernels to width 512 (f32 through the true-f32 kernels of
-  `fused_f32.py`), past it only bf16 (the wide kernels), f32 the eager
-  module; on a CPU tensor the wrappers run the kernels' plain versions;
+  `fused_f32.py`), past it the wide kernels (f32 through those of
+  `fused_wide_f32.py`, to 1024, as the JAX gate); on a CPU tensor the
+  wrappers run the kernels' plain versions;
 - train mode (`train=True`) draws from a `torch.Generator` where the JAX
   package splits keys: stratified perturbation, sorted-uniform fine
   sampling (`det = perturb == 0`) and uniform sigma noise rounded to the
@@ -150,9 +151,9 @@ def mlp_route(cfg, device_type: str, train: bool = False) -> Tuple[bool, str]:
     """Does an MLP of `cfg` on points of `device_type` go through the fused
     kernel wrappers -> (fused, why not): the gate's answer
     (`supports_fused_kernel`, eval or with `train` training). On the card
-    the kernels compute in bf16 (every width the gate admits) or f32 (to
-    width 512, `fused_f32.py`; the gate keeps f32 past 512 on the eager
-    module); another compute dtype takes the eager module there. On CPU
+    the kernels compute in bf16 or f32 (every width the gate admits: f32
+    to 512 in `fused_f32.py`, past it to 1024 in `fused_wide_f32.py`);
+    another compute dtype takes the eager module there. On CPU
     tensors the wrappers run their plain versions, which compute in any
     dtype."""
     ok, why = supports_fused_kernel(cfg, train)
@@ -216,8 +217,9 @@ def query_points(
     The port's counterpart of the JAX package's `ModelBundle.apply(params,
     typ, xyz, dirs, image_indices, sigma_only=...)`, and the route every
     MLP pass of the renderer takes: `fused_nerf_eval` (`eval_fwd.cu`, in
-    f32 `eval_f32.cu`) to width 512, `fused_nerf_eval_wide` (`eval_wide.cu`)
-    past it, the eager module for an SH head, f32 past 512 or `--no_pallas`
+    f32 `eval_f32.cu`) to width 512, `fused_nerf_eval_wide` (`eval_wide.cu`,
+    in f32 `wide_f32.cu`) past it, the eager module for an SH head, past
+    the gate's widths (2048 in bf16, 1024 in f32) or with `--no_pallas`
     (`fused_gate`); in train mode the differentiable
     `fused_nerf_train_apply`. The kernels have no sigma-only variant, so
     `sigma_only` computes the full output, as the JAX Pallas kernel does;

@@ -152,8 +152,9 @@ def _render_pair(hp, fine, mlp, bg, n=48):
     jset = JSettings(coarse_samples=16, fine_samples=fine, use_cascade=True,
                      use_pallas=False, eval_compositor="merge", get_depth=True,
                      get_bg_fg_rgb=True)
-    want, _ = j_render_rays(jfg, jbg, pfg, pbg, jnp.asarray(rays), jnp.asarray(idx),
-                            jset, *geom, train=False)
+    want, _ = jax.jit(lambda fp, bp: j_render_rays(
+        jfg, jbg, fp, bp, jnp.asarray(rays), jnp.asarray(idx), jset, *geom,
+        train=False))(pfg, pbg)
     tset = RenderSettings(coarse_samples=16, fine_samples=fine, use_cascade=True,
                           use_fused_kernel=(mlp == "fused"), get_depth=True,
                           get_bg_fg_rgb=True)
@@ -228,7 +229,7 @@ def test_render_rays_cascade_train_loss_and_grads_match_jax(mlp):
         return (jnp.mean((res["rgb_fine"] - target) ** 2)
                 + jnp.mean((res["rgb_coarse"] - target) ** 2))
 
-    want_v, want_g = jax.value_and_grad(j_loss)(pfg)
+    want_v, want_g = jax.jit(jax.value_and_grad(j_loss))(pfg)
     tset = RenderSettings(coarse_samples=16, fine_samples=16, use_cascade=True,
                           use_fused_kernel=(mlp == "fused"), get_depth_variance=True)
     res, _ = render_rays(tfg, None, torch.from_numpy(rays), torch.from_numpy(idx).long(),

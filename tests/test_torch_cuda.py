@@ -444,14 +444,15 @@ def test_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
 
 def _wide_case(cuda_device, bg, kw, m, seed=5):
     """A seeded model of the wide route (8 layers, skip at 4, small random
-    biases) on the card, its packed weights and m seeded points."""
+    biases; bf16 compute unless kw names another) on the card, its packed
+    weights and m seeded points."""
     from mega_nerf_tpu_torch.render import fused_wide
 
     hp = tiny_hparams(pos_xyz_dim=12, pos_dir_dim=kw.get("pos_dir_dim", 4),
                       layers=8, skip_layers=[4], layer_dim=kw["layer_dim"],
                       bg_layer_dim=kw["layer_dim"],
                       appearance_dim=kw["appearance_dim"],
-                      compute_dtype="bfloat16")
+                      compute_dtype=kw.get("compute_dtype", "bfloat16"))
     bundle = (make_bg_nerf if bg else make_nerf)(hp, 7)
     gen = torch.Generator().manual_seed(seed)
     init_weights(bundle.module, gen)
@@ -680,7 +681,9 @@ def test_wide_eval_repeats_bitwise_across_sub_chunks(cuda_device, bg, monkeypatc
 def test_wide_wrappers_raise_and_never_fall_back(cuda_device):
     """On CUDA tensors of the wrong dtype or layout each wide wrapper
     raises, without a launch and without running a plain version; f32
-    compute raises too."""
+    compute runs the f32 wide kernels (`wide_f32.cu`), within 1e-4 of the
+    plain version (TF32 off), with no bf16 launch; an f32 compute dtype
+    over bf16 weights raises."""
     fw, packed, xyz, dirs, app = _wide_case(
         cuda_device, False, {"layer_dim": 640, "appearance_dim": 48}, 256)
     cfg = packed.config
@@ -709,12 +712,26 @@ def test_wide_wrappers_raise_and_never_fall_back(cuda_device):
     with pytest.raises(ValueError):
         fw.eval_wide_encode(packed, xyz[:, :2].contiguous(), dirs)
     f32 = _with_compute_dtype(packed, "float32")
-    with pytest.raises(NotImplementedError):
-        fw.fused_nerf_eval_wide(f32, xyz, dirs, app)
+    with pytest.raises(ValueError):
+        fw.fused_nerf_eval_wide(f32, xyz, dirs, app.float())  # bf16 weights
     assert cfg.dtype == torch.bfloat16
     assert fw.wide_kernel_launches() == launches
     assert calls == (fw.fused_nerf_eval_wide_plain.calls, fw.eval_wide_layer_plain.calls,
                      fw.eval_wide_encode_plain.calls, fw.eval_wide_heads_plain.calls)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, f32, xyz, dirs, app = _wide_case(
+        cuda_device, False, {"layer_dim": 640, "appearance_dim": 48,
+                             "compute_dtype": "float32"}, 256)
+    f32_launches = _wide_f32_counts()
+    with torch.no_grad():
+        got = fw.fused_nerf_eval_wide(f32, xyz, dirs, app)
+        want = fw.fused_nerf_eval_wide_plain(f32, xyz, dirs, app)
+    torch.cuda.synchronize()
+    assert fw.wide_kernel_launches() == launches
+    assert sum(_wide_f32_counts()) > sum(f32_launches)
+    err = (got - want).abs()
+    assert err[:, :3].max().item() <= 1e-4
+    assert (err[:, 3] / (1 + want[:, 3].abs())).max().item() <= 1e-4
 
 
 def _with_compute_dtype(packed, compute_dtype):
@@ -729,16 +746,17 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def _wide_train_case(cuda_device, bg, width, m, appearance_dim=48, pos_dir_dim=4):
+def _wide_train_case(cuda_device, bg, width, m, appearance_dim=48, pos_dir_dim=4,
+                     compute_dtype="bfloat16"):
     """A seeded wide model on the card with its training inputs: points,
-    bf16-rounded sigma noise and an output cotangent."""
+    sigma noise rounded to the compute dtype and an output cotangent."""
     from mega_nerf_tpu_torch.render import fused_train_wide
 
     _, packed, xyz, dirs, app = _wide_case(
         cuda_device, bg, {"layer_dim": width, "appearance_dim": appearance_dim,
-                          "pos_dir_dim": pos_dir_dim}, m)
+                          "pos_dir_dim": pos_dir_dim, "compute_dtype": compute_dtype}, m)
     gen = torch.Generator().manual_seed(9)
-    noise = torch.rand((m,), generator=gen).to(torch.bfloat16).float().to(cuda_device)
+    noise = torch.rand((m,), generator=gen).to(packed.config.dtype).float().to(cuda_device)
     g = torch.randn((m, 4), generator=gen).to(cuda_device)
     app = None if app is None else app.float()
     return fused_train_wide, packed, xyz, dirs, app, noise, g
@@ -830,7 +848,9 @@ def test_wide_train_dw_repeats_bitwise(cuda_device, bg):
 def test_wide_train_wrappers_raise_and_never_fall_back(cuda_device):
     """On CUDA tensors of the wrong dtype or layout each wide training
     wrapper raises, without a launch and without running a plain version;
-    f32 compute raises too."""
+    an f32 compute dtype over bf16 weights and rows raises too, and f32
+    compute runs the f32 wide kernels, within 1e-4 of the plain versions
+    (TF32 off), with no bf16 launch."""
     ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(cuda_device, False, 640, 256)
     from mega_nerf_tpu_torch.render import fused_train as ft
 
@@ -870,13 +890,27 @@ def test_wide_train_wrappers_raise_and_never_fall_back(cuda_device):
     with pytest.raises(ValueError):
         ftw.train_wide_dw(job, {"g_pre0": h, "enc": h}, out[:100])  # past the buffer
     f32 = _with_compute_dtype(packed, "float32")
-    with pytest.raises(NotImplementedError):
-        ftw.fused_nerf_train_wide_fwd(f32, xyz, dirs, app, noise)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        ftw.fused_nerf_train_wide_fwd(f32, xyz, dirs, app, noise)  # bf16 weights
+    with pytest.raises(ValueError):
         ftw.train_wide_heads_bwd(f32, g, pre, h, branch)
     assert rows.shape[1] == 16
     assert ftw.wide_train_kernel_launches() == launches
     assert [f.calls for f in plain] == calls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ftw, f32, xyz, dirs, app, noise, g = _wide_train_case(cuda_device, False, 640, 256,
+                                                          compute_dtype="float32")
+    f32_launches = _wide_f32_counts()
+    with torch.no_grad():
+        out, saved = ftw.fused_nerf_train_wide_fwd(f32, xyz, dirs, app, noise)
+        want, p_saved = ftw.fused_nerf_train_wide_fwd_plain(f32, xyz, dirs, app, noise)
+        flat, d_app = ftw.fused_nerf_train_wide_bwd(f32, p_saved, g)
+        p_flat, p_d_app = ftw.fused_nerf_train_wide_bwd_plain(f32, p_saved, g)
+    torch.cuda.synchronize()
+    assert ftw.wide_train_kernel_launches() == launches
+    assert sum(_wide_f32_counts()) > sum(f32_launches)
+    assert (out - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+    assert _rel(flat, p_flat) <= 1e-4 and _rel(d_app, p_d_app) <= 1e-4
 
 
 # The persistent GEMMs (eval_wide_layer, train_wide_dx) at many tiles per CTA:
@@ -1058,6 +1092,196 @@ def test_wide_dw_refuses_what_its_kernel_cannot_take(cuda_device):
     assert ftw.train_wide_dw.launches == launches + 1
     assert torch.equal(out[:32 * 64].view(32, 64), torch.full((32, 64), float(m),
                                                                device=cuda_device))
+
+
+def _wide_f32_counts():
+    """Launches of the four kernels of `wide_f32.cu` and of the f32 weight
+    gradient (`train_f32.cu`)."""
+    from mega_nerf_tpu_torch.render import fused_f32
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    return [getattr(fwf, k).launches for k in fwf.WIDE_F32_KERNELS] + [
+        fused_f32.weight_grad_f32.launches]
+
+
+def _bf16_wide_counts():
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+
+    return fw.wide_kernel_launches() + ftw.wide_train_kernel_launches()
+
+
+@pytest.mark.parametrize("m", [1000, 37])
+@pytest.mark.parametrize("kw", WIDE_VARIANTS)
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [640, 1024])
+def test_wide_f32_eval_kernels_match_plain(cuda_device, width, bg, kw, m):
+    """f32 compute at widths 640 and 1024 (`wide_f32.cu`), TF32 off: the
+    encode (1e-4 (1 + |x|): precise sinf against torch.sin), every layer of
+    the chain fed the plain chain's input (1e-4 (1 + |y|)), the heads and
+    the whole wide eval (rgb 1e-4, sigma 1e-4 (1 + |s|)); true f32 on both
+    sides, the sums in another order. Only the f32 kernels launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fw, packed, xyz, dirs, app = _wide_case(
+        cuda_device, bg, {"layer_dim": width, "compute_dtype": "float32", **kw}, m)
+    cfg = packed.config
+    before, bf16 = _wide_f32_counts(), _bf16_wide_counts()
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+        assert enc.dtype == torch.float32 and _close(enc, p_enc) <= 1e-4
+        if packed.dp:
+            assert _close(dir_enc, p_dir) <= 1e-4
+        h = p_enc
+        for i in range(cfg.layers):
+            xs = [p_enc, h] if i in cfg.skip_layers else [h]
+            got = fw.eval_wide_layer(xs, packed.mats[i], packed.biases[i], True)
+            h = fw.eval_wide_layer_plain(xs, packed.mats[i], packed.biases[i], True)
+            assert got.dtype == torch.float32 and _close(got, h) <= 1e-4, i
+        branch = None
+        if packed.has_branch:
+            w, b = packed.mats[cfg.layers], packed.biases[cfg.layers]
+            got = fw.eval_wide_layer([h], w, b, False)
+            final = fw.eval_wide_layer_plain([h], w, b, False)
+            assert _close(got, final) <= 1e-4
+            xs = [final] + ([p_dir] if packed.dp else []) + ([app] if packed.ap else [])
+            w, b = packed.mats[cfg.layers + 1], packed.biases[cfg.layers + 1]
+            got = fw.eval_wide_layer(xs, w, b, True)
+            branch = fw.eval_wide_layer_plain(xs, w, b, True)
+            assert _close(got, branch) <= 1e-4
+        heads = fw.eval_wide_heads(packed, h, branch)
+        p_heads = fw.eval_wide_heads_plain(packed, h, branch)
+        got = fw.fused_nerf_eval_wide(packed, xyz, dirs, app)
+        want = fw.fused_nerf_eval_wide_plain(packed, xyz, dirs, app)
+    torch.cuda.synchronize()
+    assert _bf16_wide_counts() == bf16
+    assert all(a > b for a, b in zip(_wide_f32_counts()[:3], before[:3]))
+    for out, ref in ((heads, p_heads), (got, want)):
+        assert out.shape == (m, 4) and torch.isfinite(out).all()
+        err = (out - ref).abs()
+        assert err[:, :3].max().item() <= 1e-4
+        assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("m", [1000, 37])
+@pytest.mark.parametrize("kw", WIDE_TRAIN_VARIANTS)
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [640, 1024])
+def test_wide_f32_train_kernels_match_plain(cuda_device, width, bg, kw, m):
+    """The wide training route in f32 (`wide_f32.cu` and the f32 weight
+    gradient), TF32 off, each kernel against its plain version on the same
+    inputs (`walk_backward`), then the composed forward and backward:
+    rgb 1e-4, sigma and the pre-activations 1e-4 (1 + |x|), every backward
+    tensor and d_app a relative norm 1e-4; dW launches repeat bit for bit;
+    the eval heads equal the training heads without noise bit for bit.
+    Only the f32 kernels launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(
+        cuda_device, bg, width, m, compute_dtype="float32", **kw)
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+    from mega_nerf_tpu_torch.render.fused_train import split_grads
+
+    cfg = packed.config
+    before, bf16 = _wide_f32_counts(), _bf16_wide_counts()
+    with torch.no_grad():
+        want, saved = ftw.fused_nerf_train_wide_fwd_plain(packed, xyz, dirs, app, noise)
+        h_last = saved[f"h{cfg.layers - 1}"]
+        out, pre = ftw.train_wide_heads_fwd(packed, h_last, saved.get("branch"), noise)
+        clean, _ = ftw.train_wide_heads_fwd(packed, h_last, saved.get("branch"), None)
+        ev = fw.eval_wide_heads(packed, h_last, saved.get("branch"))
+        worst, same = _wide_train_walk(ftw, packed, saved, g)
+        got, k_saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        flat, d_app = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+        p_flat, p_d_app = ftw.fused_nerf_train_wide_bwd_plain(packed, saved, g)
+    torch.cuda.synchronize()
+    assert _bf16_wide_counts() == bf16
+    assert all(a > b for a, b in zip(_wide_f32_counts(), before))
+    for o, ref in ((out, want), (got, want)):
+        assert o.shape == (m, 4) and torch.isfinite(o).all()
+        err = (o - ref).abs()
+        assert err[:, :3].max().item() <= 1e-4
+        assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-4
+    assert _close(pre, saved["pre"]) <= 1e-4
+    assert torch.equal(ev, clean)
+    assert set(k_saved) == set(saved)
+    assert all(t.dtype == torch.float32 for t in k_saved.values())
+    assert max(worst.values()) <= 1e-4, worst
+    assert same
+    for a, b in zip(split_grads(packed, flat), split_grads(packed, p_flat)):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4
+    if cfg.appearance_dim:
+        assert d_app.shape == (m, cfg.appearance_dim) and _rel(d_app, p_d_app) <= 1e-4
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_wide_f32_dx_and_dw_repeat_bitwise(cuda_device, bg):
+    """f32 at width 1024 on 20,011 points: every dX job and every dW launch
+    of the plan, run twice on the same inputs, give the same bits (one
+    thread sums each dX output in k order; the dW splits are added in a
+    fixed order), and so does the whole backward."""
+    ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(
+        cuda_device, bg, 1024, 20_011, compute_dtype="float32")
+    from mega_nerf_tpu_torch.render.fused_train import transposed_weights
+
+    with torch.no_grad():
+        _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
+        _, same = _wide_train_walk(ftw, packed, saved, g)
+        wts = transposed_weights(packed)
+        rows, first_g = ftw.train_wide_heads_bwd(packed, g, saved["pre"],
+                                                 saved[f"h{packed.config.layers - 1}"],
+                                                 saved.get("branch"))
+        plan = ftw.check_plan(packed)
+        grads = {"g_heads": rows, plan.first: first_g}
+        for kind, job in plan.steps:
+            if kind != "dx":
+                continue
+            args = (grads[job.g], wts[job.mat], job.row0, job.k, job.mode,
+                    saved.get(job.mask), rows, packed.sigma_w)
+            a, b = ftw.train_wide_dx(*args), ftw.train_wide_dx(*args)
+            assert a.dtype == torch.float32 and torch.equal(a, b), job
+            grads[job.out] = a
+        first, d_app = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+        again, d_app2 = ftw.fused_nerf_train_wide_bwd(packed, saved, g)
+    torch.cuda.synchronize()
+    assert same
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, again) and torch.equal(d_app, d_app2)
+
+
+def test_wide_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
+    """The f32 wide wrappers on the card raise, before any launch and
+    without a plain version: bf16 segments or weights, a segment whose rows
+    are off 16 bytes, segments that miss the packed columns, a bf16 mask,
+    heads rows of the wrong dtype, a dX job past the matrix; nothing falls
+    back."""
+    ftw, packed, xyz, dirs, app, noise, g = _wide_train_case(
+        cuda_device, False, 640, 256, compute_dtype="float32")
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    before = _wide_f32_counts()
+    calls = (ftw.train_wide_dx_plain.calls, ftw.train_wide_heads_fwd_plain.calls)
+    h = torch.zeros((256, 640), device=cuda_device)
+    w, b = packed.mats[1], packed.biases[1]
+    wt = ft.transposed_weights(packed)[2]
+    odd = torch.zeros((256, 641), device=cuda_device)
+    for bad in (lambda: fwf.wide_f32_layer([h.to(torch.bfloat16)], w, b, True),
+                lambda: fwf.wide_f32_layer([h], w.to(torch.bfloat16), b, True),
+                lambda: fwf.wide_f32_layer([odd[:, 1:]], w, b, True),
+                lambda: fwf.wide_f32_layer([h[:, :320]], w, b, True),
+                lambda: fwf.wide_f32_dx(h, wt, 0, 640, ftw.DX_MASK,
+                                        h.to(torch.bfloat16)),
+                lambda: fwf.wide_f32_dx(h, wt, 100, 640, ftw.DX_NONE),
+                lambda: fwf.wide_f32_dx(h, wt, 0, 640, ftw.DX_MASK_SIGMA, h, None,
+                                        packed.sigma_w),
+                lambda: fwf.wide_f32_heads_fwd(packed, h.to(torch.bfloat16),
+                                               h[:, :320].contiguous(), noise),
+                lambda: fwf.wide_f32_heads_bwd(packed, g, g.double(), h,
+                                               h[:, :320].contiguous())):
+        with pytest.raises(ValueError):
+            bad()
+    assert _wide_f32_counts() == before
+    assert (ftw.train_wide_dx_plain.calls, ftw.train_wide_heads_fwd_plain.calls) == calls
 
 
 def _render_counters():

@@ -54,23 +54,21 @@ def _configs(width, dtype):
 @pytest.mark.parametrize("width", [256, 512, 640, 1024, 2048, 4096])
 def test_gates_match_jax(width, train, dtype, monkeypatch):
     """The port's eval and train gates against the JAX gate as it decides
-    on a TPU (`jax.default_backend` patched for this test). They agree but
-    where the port documents a difference: 513-1024 wide in f32 compute
-    (the wide kernels are bf16 only), eval and training, take the eager
-    module in the port and Pallas in JAX. bf16 training at 513-1024 agrees:
-    the wide training route. A Mega-NeRF mixture (eval only in the port):
-    the JAX gate sends every mixture to XLA, the port runs each submodule
-    through the route a single model of its architecture takes, with the
-    same output to the kernels' tolerance."""
+    on a TPU (`jax.default_backend` patched for this test): they agree at
+    every width and compute dtype here, eval and training. Past 512 the
+    port's wide route takes bf16 to 2048 in eval and to 1024 in training,
+    and f32 to 1024 in both (the f32 wide kernels), as the JAX gate runs
+    Pallas; past those widths both take the eager module / XLA, with the
+    reason. A Mega-NeRF mixture (eval only in the port): the JAX gate
+    sends every mixture to XLA, the port runs each submodule through the
+    route a single model of its architecture takes, with the same output
+    to the kernels' tolerance."""
     monkeypatch.setattr(j_pallas.jax, "default_backend", lambda: "tpu")
     cfg, jcfg = _configs(width, dtype)
     port, why = fused_mlp.supports_fused_kernel(cfg, train)
     ref = j_pallas.supports_fused_kernels(jcfg, train)
-    if 512 < width <= 1024 and dtype == "float32":
-        assert ref and not port
-        assert why
-    else:
-        assert port == ref
+    assert port == ref
+    assert bool(why) == (not port)
     if port:
         assert fused_mlp.is_wide(cfg) == (width > 512)
     mixture = SimpleNamespace(config=cfg, is_mega=True, cascade=False)
@@ -85,12 +83,15 @@ def test_gates_match_jax(width, train, dtype, monkeypatch):
     (1984, "bfloat16", True),
     (528, "bfloat16", False),  # a multiple of 16 only
     (2112, "bfloat16", False),
-    (576, "float32", False),
+    (576, "float32", True),  # the f32 wide kernels, eval and training
+    (1088, "float32", False),  # f32 stops at 1024, as the JAX f32 gate
+    (1984, "float32", False),
     (496, "float32", True),  # the narrow chain's gate admits f32 (ROADMAP)
 ])
 def test_eval_gate_port_rule(width, dtype, admitted):
-    """Past 512 the eval gate admits bf16 multiples of 64 up to 2048; the
-    training gate the same up to 1024 (the wide training route)."""
+    """Past 512 the eval gate admits bf16 multiples of 64 up to 2048 and f32
+    multiples of 64 up to 1024; the training gate the same up to 1024 in
+    both (the wide training route)."""
     cfg, _ = _configs(width, dtype)
     assert fused_mlp.supports_fused_kernel(cfg)[0] == admitted
     assert fused_mlp.supports_fused_kernel(cfg, train=True)[0] == (
@@ -457,9 +458,9 @@ def test_render_rays_through_the_wide_route_matches_jax(capsys, monkeypatch):
     idx = np.arange(48, dtype=np.int32) % count
     jset = JSettings(coarse_samples=16, fine_samples=24, use_pallas=False,
                      eval_compositor="merge", get_depth=True, get_bg_fg_rgb=True)
-    want, _ = j_render_rays(jfg, jbg, pfg, pbg, jnp.asarray(rays), jnp.asarray(idx),
-                            jset, jnp.asarray(CENTER), jnp.asarray(RADIUS),
-                            train=False)
+    want, _ = jax.jit(lambda fp, bp: j_render_rays(
+        jfg, jbg, fp, bp, jnp.asarray(rays), jnp.asarray(idx), jset, jnp.asarray(CENTER),
+        jnp.asarray(RADIUS), train=False))(pfg, pbg)
     tset = RenderSettings(coarse_samples=16, fine_samples=24, get_depth=True,
                           get_bg_fg_rgb=True)
     calls = fused_wide.fused_nerf_eval_wide_plain.calls

@@ -89,8 +89,8 @@ def test_render_rays_matches_jax(mlp, ref_bg_sampling, fine):
     ("cuda", "bfloat16", 256, True, True, 0),
     ("cpu", "float32", 256, False, True, 0),  # the kernels' plain versions
     ("cpu", "float32", 256, True, True, 0),
-    ("cuda", "float32", 640, False, False, 0),  # the gate's own answer past 512
-    ("cpu", "float32", 640, False, False, 0),
+    ("cuda", "float32", 640, False, True, 0),  # the f32 wide kernels past 512
+    ("cpu", "float32", 640, False, True, 0),
     ("cuda", "bfloat16", 640, True, True, 0),
     ("cuda", "float32", 256, False, True, 3),  # a K = 3 mixture, each submodule
     ("cuda", "float32", 256, True, True, 3),
@@ -100,10 +100,10 @@ def test_mlp_route_takes_the_kernels_in_bf16_and_f32(device, dtype, width, train
                                                       fused, k):
     """The renderer's MLP route: bf16 and f32 compute take the fused
     wrappers on the card wherever the gate admits the architecture (f32 to
-    width 512, through the f32 kernels; a mixture's submodules alike), any
-    dtype on the CPU takes them (their plain versions); f32 past 512 and
-    another compute dtype on the card take the eager module, with the
-    reason; the `--no_pallas` switch still wins."""
+    width 512 through the f32 kernels, past it through the f32 wide
+    kernels; a mixture's submodules alike), any dtype on the CPU takes them
+    (their plain versions); another compute dtype on the card takes the
+    eager module, with the reason; the `--no_pallas` switch still wins."""
     from mega_nerf_tpu_torch.models import NeRFConfig
     from mega_nerf_tpu_torch.render import rendering
 
@@ -112,10 +112,8 @@ def test_mlp_route_takes_the_kernels_in_bf16_and_f32(device, dtype, width, train
     assert ok == fused
     if fused:
         assert why == ""
-    elif dtype == "float16":
-        assert why == "float16 compute on the card (the kernels are bf16 and f32)"
     else:
-        assert why == "float32 compute at layer_dim 640 (the wide route is bf16)"
+        assert why == "float16 compute on the card (the kernels are bf16 and f32)"
     hp = tiny_hparams(layer_dim=width, compute_dtype=dtype)
     if k:
         hp._mega_centroid_metadata = {"centroids": np.eye(k, 3, dtype=np.float32),

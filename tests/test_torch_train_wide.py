@@ -472,12 +472,11 @@ def _load_jax_state(bundle, params, adam, opt):
             opt.state[p][key].copy_(state[name])
 
 
-def test_two_train_steps_through_the_wide_route_match_jax(monkeypatch):
+def test_two_train_steps_through_the_wide_route_match_jax():
     """Two `TrainStep`s at width 576 (f32 compute, no jitter or noise, lr
     1e-3) against the JAX `make_train_step` (XLA) from the same parameters
-    and batches. The port's gate sends f32 past 512 to the eager module (the
-    wide kernels are bf16 only), so the test opens it to run the wide
-    route's plain versions in f32.
+    and batches. The port's gate takes f32 at 576 through the wide route
+    (the f32 wide kernels on the card), here its plain versions in f32.
 
     Adam divides each gradient element g by |g| + eps (1e-8), so where |g|
     is within a few hundred eps the float noise of two summation orders
@@ -489,7 +488,8 @@ def test_two_train_steps_through_the_wide_route_match_jax(monkeypatch):
     moments loaded into the port (its own step count and decayed lr). Loss
     atol 1e-5; first moments atol 1e-7 (measured 8e-9); second moments rtol
     2e-2 (measured 7e-3, at gradients near eps)."""
-    monkeypatch.setattr(rendering, "supports_fused_kernel", lambda cfg, train=False: (True, ""))
+    assert rendering.mlp_route(nerf_config_from_hparams(
+        tiny_hparams(layer_dim=576, compute_dtype="float32"), 5, 576, 3), "cuda", True)[0]
     hp = tiny_hparams(layer_dim=576, bg_layer_dim=576, skip_layers=[2],
                       appearance_dim=4, compute_dtype="float32")
     (jfg, _, tfg), (jbg, _, tbg) = _bundles(hp, 5)

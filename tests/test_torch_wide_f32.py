@@ -1,0 +1,325 @@
+"""f32 compute at layer widths 513-1024 (`--compute_dtype float32` through the
+wide route: `fused_wide_f32.py` around `csrc/wide_f32.cu` and the f32 weight
+gradient of `csrc/train_f32.cu`), checked without a GPU.
+
+The port's wide wrappers on CPU tensors (their plain versions, which the f32
+wide kernels are held against on the card) against the JAX package's Pallas
+kernels in interpret mode, jitted, on the same Flax weights (carried across
+by `state_from_flax_params`) and numpy-seeded points, appearance rows and
+sigma noise; widths 576 and 640, 3 layers with the skip at 2, 192 points:
+
+- eval: `fused_wide.fused_nerf_eval_wide` against `pallas_mlp.
+  fused_nerf_eval` (`_mlp_kernel`): 5e-5 absolute (PERF.md section 2's
+  forward limit);
+- training: the forward of `fused_train.fused_nerf_train_apply` with sigma
+  noise against `pallas_train.fused_nerf_train_apply` (`_train_fwd_kernel`),
+  5e-5 absolute; its backward through autograd (the wide route's heads
+  backward, dX and dW steps) against `jax.value_and_grad` through the
+  custom VJP (`_train_bwd_kernel`): every parameter's gradient and d_app
+  within 2e-4 of the JAX tensor's norm (section 2's gradient limit).
+
+Cases: fg and bg, with and without dirs and appearance, and without the
+branch (neither). Also the f32 sub-chunk (4-byte scratch), the weight
+gradient's plans (the wide route's dW steps write every packed element
+once; the narrow plan's tiles and splits as before), the gate, and one
+`render_rays(train=True)` at 640 in f32 through the wide route against the
+JAX renderer's fused Pallas path.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mega_nerf_tpu.models import make_bg_nerf as j_make_bg_nerf
+from mega_nerf_tpu.models import make_nerf as j_make_nerf
+from mega_nerf_tpu.render import RenderSettings as JSettings
+from mega_nerf_tpu.render import render_rays as j_render_rays
+from mega_nerf_tpu.render.pallas_mlp import fused_nerf_eval as j_eval
+from mega_nerf_tpu.render.pallas_mlp import pack_params as j_pack
+from mega_nerf_tpu.render.pallas_train import fused_nerf_train_apply as j_train_apply
+from mega_nerf_tpu_torch.models import (
+    NeRF,
+    NeRFConfig,
+    flax_params_from_state,
+    nerf_config_from_hparams,
+    state_from_flax_params,
+)
+from mega_nerf_tpu_torch.render import (
+    fused_f32,
+    fused_mlp,
+    fused_train,
+    fused_wide,
+    fused_wide_f32,
+    rendering,
+)
+from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+from mega_nerf_tpu_torch.render.rendering import RenderSettings, render_rays
+from tests.test_models import tiny_hparams
+from tests.test_torch_train_loop import CENTER, RADIUS, _bundles, _grads, _rays
+
+N, BLOCK, COUNT = 192, 64, 5
+FWD_ATOL = 5e-5
+GRAD_REL = 2e-4
+
+CASES = {  # name: (width, pos_dir_dim, appearance_dim, bg)
+    "fg576_dirs_app": (576, 4, 8, False),
+    "bg640_dirs": (640, 4, 0, True),
+    "fg640_app5": (640, 0, 5, False),  # appearance rows the kernels pad to 16
+    "bg576_no_branch": (576, 0, 0, True),
+}
+
+
+def _setup(name):
+    width, pos_dir_dim, appearance_dim, bg = CASES[name]
+    hp = tiny_hparams(layer_dim=width, bg_layer_dim=width, skip_layers=[2],
+                      pos_xyz_dim=6, pos_dir_dim=pos_dir_dim,
+                      appearance_dim=appearance_dim, compute_dtype="float32")
+    jb = (j_make_bg_nerf if bg else j_make_nerf)(hp, COUNT)
+    params = jax.device_get(jax.jit(jb.init)(jax.random.key(7)))
+    cfg = nerf_config_from_hparams(hp, COUNT, width, 4 if bg else 3)
+    assert cfg.dtype == torch.float32 and jb.config.dtype == jnp.float32
+    assert fused_mlp.supports_fused_kernel(cfg)[0] and fused_mlp.is_wide(cfg)
+    assert fused_mlp.supports_fused_kernel(cfg, train=True)[0]
+    module = NeRF(cfg)
+    module.load_state_dict(state_from_flax_params(cfg, params))
+    rng = np.random.default_rng(8)
+    xyz = rng.normal(size=(N, cfg.xyz_dim)).astype(np.float32)
+    dirs = rng.normal(size=(N, 3))
+    dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
+    app = None
+    if cfg.appearance_dim:
+        app = np.asarray(params["appearance"]["embedding"])[rng.integers(0, COUNT, N)]
+    noise = rng.uniform(size=N).astype(np.float32)
+    probe = rng.normal(size=(N, 4)).astype(np.float32)
+    return jb, params, module, cfg, xyz, dirs if cfg.pos_dir_dim else None, app, noise, probe
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _f32_launches():
+    return (fused_wide_f32.wide_f32_kernel_launches(), fused_f32.weight_grad_f32.launches,
+            fused_wide.wide_kernel_launches(), ftw.wide_train_kernel_launches())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wide_f32_eval_and_train_match_pallas_interpret(name):
+    """One case through both packages, f32 compute: the eval wrapper (one
+    plain call, 5e-5 absolute against `_mlp_kernel`), the training forward
+    with sigma noise (5e-5 against `_train_fwd_kernel`), and its backward
+    (the plan's plain steps, once each) against the custom VJP: every
+    parameter gradient and d_app within 2e-4 of the JAX tensor's norm, the
+    loss sum(out * probe) within the forward limit carried through the
+    probe (5e-5 sum |probe|). No kernel launches on CPU tensors."""
+    jb, params, module, cfg, xyz, dirs, app, noise, probe = _setup(name)
+    jp = j_pack(jb.config, params)
+
+    def j_all(p, a):
+        ev = j_eval(jp, jnp.asarray(xyz), _j(dirs), a, block=BLOCK, interpret=True)
+
+        def j_loss(p_, a_):
+            out = j_train_apply(jb.config, p_, jnp.asarray(xyz), _j(dirs), a_,
+                                jnp.asarray(noise)[:, None], block=BLOCK, interpret=True,
+                                dir_pack=False)
+            return jnp.sum(out * probe), out
+
+        return ev, jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(p, a)
+
+    want_eval, ((want_v, want_out), (want_g, want_dapp)) = jax.jit(j_all)(params, _j(app))
+
+    packed = fused_mlp.pack_params(module)
+    assert all(w.dtype == torch.float32 for w in packed.mats)
+    launches = _f32_launches()
+    calls = fused_wide.fused_nerf_eval_wide_plain.calls
+    with torch.no_grad():
+        got_eval = fused_wide.fused_nerf_eval_wide(packed, _t(xyz), _t(dirs), _t(app))
+    assert fused_wide.fused_nerf_eval_wide_plain.calls == calls + 1
+    np.testing.assert_allclose(got_eval.numpy(), np.asarray(want_eval), rtol=0,
+                               atol=FWD_ATOL)
+
+    plan = ftw.train_wide_plan(cfg)
+    n_dx = sum(kind == "dx" for kind, _ in plan.steps)
+    plains = (ftw.train_wide_heads_bwd_plain, ftw.train_wide_dx_plain,
+              ftw.train_wide_dw_plain)
+    before = [f.calls for f in plains]
+    app_t = None if app is None else _t(app).requires_grad_()
+    out = fused_train.fused_nerf_train_apply(module, _t(xyz), _t(dirs), app_t, _t(noise))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=0,
+                               atol=FWD_ATOL)
+    loss = (out * _t(probe)).sum()
+    loss.backward()
+    assert [f.calls - c for f, c in zip(plains, before)] == [1, n_dx,
+                                                            len(plan.steps) - n_dx]
+    assert _f32_launches() == launches
+    assert abs(loss.item() - float(want_v)) <= FWD_ATOL * np.abs(probe).sum()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in module.named_parameters()}
+    got_g = dict(jax.tree_util.tree_leaves_with_path(flax_params_from_state(cfg, grads)))
+    flat_w = jax.tree_util.tree_leaves_with_path(want_g)
+    assert len(flat_w) == len(got_g)
+    for path, leaf in flat_w:
+        a, b = np.asarray(got_g[path]), np.asarray(leaf)
+        assert np.linalg.norm(a - b) <= GRAD_REL * np.linalg.norm(b) + 1e-7, \
+            jax.tree_util.keystr(path)
+    if app is not None:
+        a, b = app_t.grad.numpy(), np.asarray(want_dapp)
+        assert np.linalg.norm(b) > 0
+        assert np.linalg.norm(a - b) <= GRAD_REL * np.linalg.norm(b), "d_app"
+
+
+def _config(width, bg, pos_dir_dim=4, appearance_dim=48, dtype="float32"):
+    return NeRFConfig(xyz_dim=4 if bg else 3, layer_dim=width, pos_xyz_dim=12,
+                      pos_dir_dim=pos_dir_dim, layers=8, skip_layers=(4,),
+                      appearance_dim=appearance_dim, compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [576, 640, 768, 896, 1024])
+def test_wide_f32_sub_chunk_counts_four_byte_scratch(width, bg):
+    """In f32 the wide eval's sub-chunk comes from 4-byte scratch (two
+    activation buffers, the branch, the encodes, an appearance copy): a
+    power of two of whole 128-point tiles within WIDE_SCRATCH_LIMIT that
+    doubling would break, half or less the bf16 sub-chunk of the same
+    widths; 524,288 points (5.7 GB) at 1024."""
+    cfg, bf = _config(width, bg), _config(width, bg, dtype="bfloat16")
+    plan = fused_wide.wide_plan(cfg)
+    per_point = fused_wide.scratch_bytes_per_point(cfg)
+    assert per_point == 2 * fused_wide.scratch_bytes_per_point(bf)
+    d, ep, dp, ap = width, 112 if bg else 80, 32, 48
+    assert per_point == 4 * (2 * d + d // 2 + ep + dp + ap)
+    sub = plan.sub_chunk
+    assert sub % plan.tile_m == 0 and sub & (sub - 1) == 0
+    assert plan.scratch_bytes == sub * per_point <= fused_wide.WIDE_SCRATCH_LIMIT
+    assert 2 * sub * per_point > fused_wide.WIDE_SCRATCH_LIMIT
+    assert sub <= fused_wide.wide_plan(bf).sub_chunk // 2 or \
+        2 * fused_wide.wide_plan(bf).sub_chunk > fused_wide.WIDE_MAX_SUB_CHUNK
+    if width == 1024:
+        assert sub == 524_288
+
+
+@pytest.mark.parametrize("pos_dir_dim,appearance_dim", [(4, 48), (0, 0), (0, 5), (4, 0)])
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [576, 640, 1024])
+def test_wide_f32_weight_grad_writes_every_element_once(width, bg, pos_dir_dim,
+                                                        appearance_dim):
+    """The f32 weight gradient's tiles over the wide route's dW steps (the
+    jobs `fused_wide_f32.wide_f32_dw` hands the kernel pair, `f32_wg_tiles`)
+    write every element of the flat packed gradient buffer exactly once:
+    each tile's rows and columns inside its job, each bias once (from the
+    job's first k tile); every job's operands are the saved or gradient
+    tensors the plan names, at column 0 of x."""
+    cfg = _config(width, bg, pos_dir_dim, appearance_dim)
+    packed = fused_mlp.pack_params(NeRF(cfg))
+    plan = ftw.check_plan(packed)
+    widths = dict(plan.saved)
+    count = np.zeros(plan.total, np.int64)
+    for kind, jobs in plan.steps:
+        if kind != "dw":
+            continue
+        tiles = fused_f32.f32_wg_tiles([(j.n, j.k) for j in jobs])
+        t_ = fused_f32.F32_WG_TILE
+        for ji, n0, k0 in tiles:
+            j = jobs[ji]
+            assert n0 < j.n and k0 < j.k and j.k <= j.out_stride
+            if j.x in widths:
+                assert j.k <= widths[j.x]
+            rows = j.out_off + np.arange(n0, min(j.n, n0 + t_))[:, None] * j.out_stride
+            count[(rows + np.arange(k0, min(j.k, k0 + t_))[None]).ravel()] += 1
+            if j.bias_off >= 0 and k0 == 0:
+                count[j.bias_off + n0:j.bias_off + min(j.n, n0 + t_)] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("m", [1, 4_097, 524_288])
+@pytest.mark.parametrize("width", [64, 256, 512])
+def test_narrow_f32_weight_grad_plan_is_unchanged(width, m):
+    """The narrow f32 route's weight-gradient plan, now built from the
+    shared `f32_wg_tiles` and `f32_wg_split`, is the one it was: the tiles
+    of `fused_train.weight_grad_jobs` in (job, n0, k0) order and about
+    F32_WG_CTAS CTAs of at least F32_WG_MIN_SPLIT points, in whole
+    F32_WG_CHUNK chunks; so its sums run in the same order."""
+    cfg = _config(width, False)
+    packed = fused_mlp.pack_params(NeRF(cfg))
+    plan = fused_f32.f32_wg_plan(packed, m)
+    jobs = fused_train.weight_grad_jobs(packed)
+    t_ = fused_f32.F32_WG_TILE
+    tiles = [(j, n0, k0) for j, job in enumerate(jobs)
+             for n0 in range(0, job[1], t_) for k0 in range(0, job[3], t_)]
+    splits = max(1, min(-(-fused_f32.F32_WG_CTAS // len(tiles)),
+                        -(-m // fused_f32.F32_WG_MIN_SPLIT)))
+    split_len = -(-max(-(-m // splits), 1) // fused_f32.F32_WG_CHUNK) * fused_f32.F32_WG_CHUNK
+    assert plan.jobs == jobs and plan.tiles == tiles
+    assert (plan.splits, plan.split_len) == (max(1, -(-m // split_len)), split_len)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("width,admitted", [(576, True), (1024, True), (1088, False),
+                                            (2048, False)])
+def test_wide_f32_gate_and_route(width, admitted, train):
+    """f32 past 512: the gate admits multiples of 64 to 1024 in eval and
+    training (the JAX f32 gate's limit) and names the limit past it; on the
+    card the renderer's route takes the wide kernels there."""
+    cfg = _config(width, False)
+    ok, why = fused_mlp.supports_fused_kernel(cfg, train)
+    assert ok == admitted
+    assert (why == "") == admitted
+    if not admitted:
+        assert "float32" in why and "<= 1024" in why
+    assert rendering.mlp_route(cfg, "cuda", train) == (ok, why)
+
+
+def test_render_rays_train_f32_through_the_wide_route_matches_jax(capsys, monkeypatch):
+    """`render_rays(train=True)` with 640-wide fg and bg models in f32 (the
+    f32 wide route through the real gate) against the JAX renderer's
+    fused-Pallas training path (interpret mode) on the same Flax weights and
+    rays, no jitter or noise. The route line names the wide kernel's plain
+    version for every pass. Both compute in true f32, the sums in another
+    order: loss rtol 1e-5, every gradient within 2e-4 of its norm."""
+    monkeypatch.setattr(rendering, "_LOGGED_MLP_PATHS", set())
+    hp = tiny_hparams(layer_dim=640, bg_layer_dim=640, skip_layers=[2],
+                      appearance_dim=4, compute_dtype="float32")
+    (jfg, pfg, tfg), (jbg, pbg, tbg) = _bundles(hp, 5)
+    rays = _rays(16, seed=5)
+    idx = np.arange(16, dtype=np.int32) % 5
+    target = np.random.default_rng(6).uniform(size=(16, 3)).astype(np.float32)
+    jset = JSettings(coarse_samples=8, fine_samples=8, use_pallas=True,
+                     perturb=0.0, sigma_noise=False)
+
+    def j_loss(fp, bp):
+        res, _ = j_render_rays(jfg, jbg, fp, bp, jnp.asarray(rays), jnp.asarray(idx),
+                               jset, jnp.asarray(CENTER), jnp.asarray(RADIUS),
+                               train=True, key=None)
+        return jnp.mean((res["rgb_fine"] - target) ** 2)
+
+    want_v, (gf, gb) = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1)))(pfg, pbg)
+    capsys.readouterr()
+    tset = RenderSettings(coarse_samples=8, fine_samples=8, perturb=0.0,
+                          sigma_noise=False)
+    launches = _f32_launches()
+    calls = ftw.train_wide_dw_plain.calls
+    res, _ = render_rays(tfg, tbg, torch.from_numpy(rays), torch.from_numpy(idx).long(),
+                         tset, torch.from_numpy(CENTER), torch.from_numpy(RADIUS),
+                         train=True)
+    loss = torch.mean((res["rgb_fine"] - torch.from_numpy(target)) ** 2)
+    loss.backward()
+    logged = capsys.readouterr().out
+    assert logged.count("fused train (wide kernel's plain version)") == 4
+    assert "eager" not in logged
+    assert ftw.train_wide_dw_plain.calls > calls
+    assert _f32_launches() == launches
+    np.testing.assert_allclose(loss.item(), float(want_v), rtol=1e-5)
+    for side, bundle, want in (("fg", tfg, gf), ("bg", tbg, gb)):
+        got = dict(jax.tree_util.tree_leaves_with_path(_grads(bundle.module,
+                                                              bundle.config)))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+            w = np.asarray(leaf, np.float64)
+            diff = np.linalg.norm(np.asarray(got[path], np.float64) - w)
+            assert diff <= GRAD_REL * max(np.linalg.norm(w), 1e-12), \
+                f"{side} {jax.tree_util.keystr(path)}"
