@@ -311,6 +311,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-2
 F32_TOL = 1e-4  # the f32 kernels against their plain versions (TF32 off)
+DW_F64_TOL = 1e-5  # the f32 weight gradient against f64 sums of its f32 rows
 F32 = ["--compute_dtype", "float32"]
 # (name, source, the TPU kernel it replaces)
 KERNELS = (
@@ -340,7 +341,8 @@ KERNELS = (
     ("train_wide_dw", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
     # f32 compute (--compute_dtype float32) to width 512: the three TPU
-    # kernels' f32 range, in true f32 (FFMA products, f32 sums).
+    # kernels' f32 range, in f32 (f32 sums; FFMA products, and in the weight
+    # gradient 3xTF32 split products on the tensor cores).
     ("fused_nerf_eval_f32", "mega_nerf_tpu_torch/render/csrc/eval_f32.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("fused_nerf_train_fwd_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
@@ -621,11 +623,120 @@ def phase_compare_f32(device, report):
         for k, v in errs.items():
             kernels[k]["max_abs_err"] = max(kernels[k].get("max_abs_err", 0.0), v)
         all_ok &= ok
+    errs = narrow_dw_against_f64(device)
+    report["dw_f64"] = {"narrow": errs}
+    dw_ok = errs["kernel"] <= DW_F64_TOL
+    log(f"  weight_grad_f32 against f64 sums of its f32 rows at the fg-fine pass (524,288 "
+        f"points, paper width; relative over dW and db): kernel (3xTF32) "
+        f"{errs['kernel']:.3e}, plain f32 (TF32 off) {errs['plain']:.3e}, one-pass TF32 "
+        f"{errs['tf32']:.3e} -> {'ok' if dw_ok else 'FAIL'} (kernel <= {DW_F64_TOL})")
+    all_ok &= dw_ok
     after = f32_launches()
     f32_new = {k: after[k] - before[k] for k in F32_KERNELS}
     bf16_new = sum(kernel_launches().values()) - bf16_before - sum(f32_new.values())
     log(f"  f32 kernel launches in this phase {f32_new}; other kernels' {bf16_new}")
     return bool(all_ok and all(v > 0 for v in f32_new.values()) and bf16_new == 0)
+
+
+def dw_f64_errors(jobs, n_out, kernel, plain):
+    """Relative errors, over every dW and db element `jobs` (fused_f32.WgJob)
+    write, against the f64 sums of the same f32 rows: of `kernel()`'s flat
+    output (the f32 weight gradient, 3xTF32), of `plain()`'s (the plain
+    version) with TF32 off, and of `plain()`'s with TF32 on (one-pass TF32
+    products) -> {"kernel": e, "plain": e, "tf32": e}."""
+    import torch
+
+    device = jobs[0].d.device
+    ref = torch.zeros(n_out, dtype=torch.float64, device=device)
+    live = torch.zeros(n_out, dtype=torch.bool, device=device)
+    for j in jobs:
+        dd = j.d[:, j.d_col:j.d_col + j.n].double()
+        rows = slice(j.out_off, j.out_off + j.n * j.stride)
+        ref[rows].view(j.n, j.stride)[:, :j.k] = dd.T @ j.x[:, j.x_col:j.x_col + j.k].double()
+        live[rows].view(j.n, j.stride)[:, :j.k] = True
+        if j.bias_off >= 0:
+            ref[j.bias_off:j.bias_off + j.n] = dd.sum(0)
+            live[j.bias_off:j.bias_off + j.n] = True
+        del dd
+    ref = ref[live]
+    norm = ref.norm().item()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    errs = {}
+    try:
+        for name, fn, tf32 in (("kernel", kernel, False), ("plain", plain, False),
+                               ("tf32", plain, True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            errs[name] = (fn().double()[live] - ref).norm().item() / norm
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    return errs
+
+
+def narrow_dw_against_f64(device):
+    """`dw_f64_errors` of the f32 weight gradient at the paper model's
+    fg-fine pass (524,288 points), on the saved and gradient rows of the
+    f32 training kernels from seeded inputs."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    bundle = seeded_bundle(paper_hparams(F32), 16, False, 31, device)
+    packed = fused_mlp.pack_params(bundle.module)
+    m = 1024 * 512
+    xyz, dirs, idx = mlp_inputs(bundle.config, m, 32, device)
+    gen = torch.Generator(device=device).manual_seed(33)
+    noise = torch.rand((m,), generator=gen, device=device)
+    g = torch.randn((m, 4), generator=gen, device=device)
+    with torch.no_grad():
+        app = bundle.module.appearance(idx).float()
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        grad, _ = ft.train_bwd_data(packed, act, g, noise)
+        del xyz, dirs, app
+        jobs = [fused_f32.WgJob(grad, act, *job) for job in ft.weight_grad_jobs(packed)]
+        errs = dw_f64_errors(jobs, ft._offsets(ft.packed_shapes(packed))[-1],
+                             lambda: ft.weight_grad(packed, act, grad),
+                             lambda: ft.weight_grad_plain(packed, act, grad))
+    del act, grad, jobs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def wide_dw_against_f64(device):
+    """`dw_f64_errors` of the f32 weight gradient on one 1024 x 1024 layer's
+    dW step of the wide route (trunk layer 2, its bias too) at the fg-fine
+    pass (524,288 points): h1 from the f32 wide forward, d_pre2 seeded
+    normal rows (scale 1e-2) under h2's ReLU mask."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+
+    bundle = seeded_bundle(paper_hparams([*WIDE_TRAIN, *F32]), 16, False, 65, device)
+    packed = fused_mlp.pack_params(bundle.module)
+    plan = ftw.check_plan(packed)
+    xyz, dirs, idx = mlp_inputs(bundle.config, 1024 * 512, 66, device)
+    gen = torch.Generator(device=device).manual_seed(67)
+    with torch.no_grad():
+        app = bundle.module.appearance(idx).float()
+        _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, None)
+        del xyz, dirs, app
+        h1, h2 = saved["h1"], saved["h2"]
+        del saved
+        gp = torch.randn(h2.shape, generator=gen, device=device) * 1e-2 * (h2 > 0)
+        del h2
+        job = next(job for kind, job in plan.steps if kind == "dw" and job[0].d == "g_pre2")
+        tensors = {"g_pre2": gp, "h1": h1}
+        wjobs = [fused_f32.WgJob(gp, h1, j.d_col, j.n, 0, j.k, j.out_off, j.out_stride,
+                                 j.bias_off) for j in job]
+        errs = dw_f64_errors(
+            wjobs, plan.total,
+            lambda: ftw.train_wide_dw(job, tensors, torch.zeros(plan.total, device=device)),
+            lambda: ftw.train_wide_dw_plain(job, tensors,
+                                            torch.zeros(plan.total, device=device)))
+    del gp, h1, tensors, wjobs
+    torch.cuda.empty_cache()
+    return errs
 
 
 def write_dataset(root: Path, hw: int, n_train: int, seed: int,
@@ -3244,6 +3355,7 @@ def phase_time(device, report):
 
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 
 
 def phase_time_dense(device, report):
@@ -5151,11 +5263,20 @@ def time_f32_kernels(device, report):
         kernels["weight_grad_f32"]["library_ms"] = lib_ms
         log(f"  weight_grad_f32 library (torch.mm per job, f32, TF32 off, no bias sums) "
             f"at fg fine: {lib_ms:.3f} ms")
-        rows = {"fused_nerf_train_fwd_f32": (t_fwd, p_fwd, flops, fwd_b),
-                "train_bwd_data_f32": (t_bwd, p_bwd, dx_flops, bwd_b),
-                "weight_grad_f32": (t_wg, p_wg, flops, bwd_b)}
-        for k, (ms, plain_ms, fl, nb) in rows.items():
-            bms, by = bound(fl, nb, PEAK_F32_FLOPS)
+        # The weight gradient reads the saved and gradient rows once and
+        # writes the flat gradients: FFMA bound and, the row's, 3xTF32 bound
+        # (three tensor-core products a multiply-add).
+        wg_b = 4.0 * (act.numel() + grad.numel() + n_params)
+        rows = {"fused_nerf_train_fwd_f32": (t_fwd, p_fwd, flops, fwd_b, PEAK_F32_FLOPS),
+                "train_bwd_data_f32": (t_bwd, p_bwd, dx_flops, bwd_b, PEAK_F32_FLOPS),
+                "weight_grad_f32": (t_wg, p_wg, flops, wg_b, PEAK_F32_FLOPS)}
+        ffma = bound(flops, wg_b, PEAK_F32_FLOPS)
+        tf32 = bound(3 * flops, wg_b, PEAK_TF32_FLOPS)
+        log(f"  weight_grad_f32 bounds at fg fine: FFMA {ffma[0]:.3f} ms ({ffma[1]}), 3xTF32 "
+            f"{tf32[0]:.3f} ms ({tf32[1]}: {3 * flops:.4g} FLOP at "
+            f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {wg_b:.4g} B); the row takes 3xTF32's")
+        for k, (ms, plain_ms, fl, nb, peak) in rows.items():
+            bms, by = tf32 if k == "weight_grad_f32" else bound(fl, nb, peak)
             kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
             log(f"  {k} at fg fine: {ms:.3f} ms/launch = {fl / ms / 1e9:.1f} TFLOP/s; "
                 f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, "
@@ -5394,6 +5515,14 @@ def phase_compare_wide_f32(device, report):
         all_ok &= ok
         del got, want, xyz, dirs, app
         torch.cuda.empty_cache()
+    f64 = wide_dw_against_f64(device)
+    report.setdefault("dw_f64", {})["wide"] = f64
+    dw_ok = f64["kernel"] <= DW_F64_TOL
+    log(f"  weight_grad_f32 against f64 sums of its f32 rows on a 1024 x 1024 layer's dW "
+        f"step (524,288 points; relative over dW and db): kernel (3xTF32) "
+        f"{f64['kernel']:.3e}, plain f32 (TF32 off) {f64['plain']:.3e}, one-pass TF32 "
+        f"{f64['tf32']:.3e} -> {'ok' if dw_ok else 'FAIL'} (kernel <= {DW_F64_TOL})")
+    all_ok &= dw_ok
     after = wide_f32_counters()
     new = {k: after[k] - before[k] for k in after}
     for k, v in errs.items():
@@ -5690,17 +5819,20 @@ def time_wide_f32_kernels(device, report):
             f"{fl / ms / 1e9:.2f} TFLOP/s, {nb / ms / 1e9:.3f} TB/s; plain {plain_ms:.3f} ms; "
             f"bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, {nb:.4g} B){lib}")
     dx_bound = bound(gemm, 4.0 * (3 * m * d + d * d), PEAK_F32_FLOPS)
-    dw_bound = bound(gemm + m * d, 4.0 * (2 * m * d + d * d + d), PEAK_F32_FLOPS)
+    dw_ffma = bound(gemm + m * d, 4.0 * (2 * m * d + d * d + d), PEAK_F32_FLOPS)
+    dw_bound = bound(3 * gemm, 4.0 * (2 * m * d + d * d + d), PEAK_TF32_FLOPS)
     log(f"  wide_f32_gemm as the masked dX job of that layer: {t_dx:.3f} ms = "
         f"{gemm / t_dx / 1e9:.1f} TFLOP/s; plain {p_dx:.3f} ms; bound {dx_bound[0]:.3f} ms "
         f"({dx_bound[1]}); library (F.linear, f32, no mask) {lib_dx:.3f} ms (the kernel "
         f"takes {t_dx / lib_dx:.2f}x its time)")
     log(f"  weight_grad_f32 on that layer's dW step (the wide route's jobs): {t_dw:.3f} ms = "
         f"{gemm / t_dw / 1e9:.1f} TFLOP/s; plain {p_dw:.3f} ms; bound {dw_bound[0]:.3f} ms "
-        f"({dw_bound[1]}); library (torch.mm, f32, no bias sums) {lib_dw:.3f} ms (the "
+        f"({dw_bound[1]}, 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; FFMA "
+        f"{dw_ffma[0]:.3f} ms); library (torch.mm, f32, no bias sums) {lib_dw:.3f} ms (the "
         f"kernel takes {t_dw / lib_dw:.2f}x its time)")
     out.update(dx_ms=t_dx, dx_plain_ms=p_dx, dx_library_ms=lib_dx, dx_bound_ms=dx_bound[0],
                dw_ms=t_dw, dw_plain_ms=p_dw, dw_library_ms=lib_dw, dw_bound_ms=dw_bound[0],
+               dw_ffma_bound_ms=dw_ffma[0],
                layer_ms=t_layer, layer_library_ms=lib_layer)
 
 
@@ -5926,6 +6058,7 @@ def main() -> int:
     log(json.dumps({"resume_jax": report["resume_jax"]}))
     log(json.dumps({"training_f32": report["training_f32"]}))
     log(json.dumps({"training_wide_f32": report["training_wide_f32"]}))
+    log(json.dumps({"dw_f64": report["dw_f64"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

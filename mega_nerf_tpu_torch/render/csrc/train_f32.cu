@@ -4,9 +4,12 @@
 // Replace the TPU kernels `mega_nerf_tpu/render/pallas_train.py::
 // _train_fwd_kernel` and `::_train_bwd_kernel` (reached through
 // `fused_nerf_train_apply`) in f32 compute (`--compute_dtype float32`) at
-// layer widths up to 512. True f32 throughout: f32 weights, activations
-// and gradients, FFMA products, f32 sums (no TF32, no bf16 tensor-core
-// product), as the JAX package computes it in f32.
+// layer widths up to 512, and the dW half of the latter past 512. f32
+// throughout: f32 weights, activations and gradients, f32 sums, as the JAX
+// package computes it in f32. The forward and backward-data products are
+// FFMA; the weight gradient's run on the tensor cores as 3xTF32 split
+// products, which keep f32-class accuracy (a single TF32 product keeps ~3
+// decimal digits and is not used).
 //
 // - train_f32_fwd: the eval chain of eval_f32.cu (the same f32_chain.cuh
 //   code, so without noise its output equals the eval kernel's bit for
@@ -22,21 +25,36 @@
 //   and d_app.
 // - weight_grad_f32 (the dW half): per job, dW = D^T X and the bias sums
 //   of D, in output tiles of 128 x 128 over fixed point ranges
-//   (fused_f32.py::f32_wg_plan, f32_wg_split); each CTA sums its range in
-//   point order into registers and stores its partial; a second kernel
-//   adds the partials of a tile in range order. No float atomics: two
-//   launches give the same bits. Each job carries its own operand
-//   pointers and row widths, so the one kernel pair serves the narrow
-//   route (fused_train.py::weight_grad_jobs on the saved and gradient
-//   rows) and, past width 512, the wide f32 route (wide_f32.cu; each dW
-//   step of fused_train_wide.py::train_wide_plan on the tensors it names).
+//   (fused_f32.py::f32_wg_plan, f32_wg_split). A CTA (one an SM) streams
+//   its range through a 3-stage ring of 64-point stages filled by cp.async
+//   (16 bytes a copy where the operand's rows allow, else 4), and its 8
+//   warps take the products on mma.sync m16n8k8 in TF32: each operand
+//   element splits in registers into hi, its TF32 rounding, and lo = x -
+//   hi, which the tensor cores read as TF32; lo*hi, hi*lo and hi*hi of a
+//   stage chain from zero, and each chain is added into f32 totals. The
+//   reduction runs over points, so both operands are staged
+//   [point][column] (MN-major), which wgmma takes in TF32 only K-major;
+//   mma.sync takes its fragments from registers, read as float4s at
+//   transposed addresses from rows padded to 136 floats (no bank
+//   conflict). Each CTA stores its partial; a second kernel adds the
+//   partials of a tile in range order. No float atomics: two launches give
+//   the same bits. Each job carries its own operand pointers, row widths
+//   and copy widths, so the one kernel pair serves the narrow route
+//   (fused_train.py::weight_grad_jobs on the saved and gradient rows) and,
+//   past width 512, the wide f32 route (wide_f32.cu; each dW step of
+//   fused_train_wide.py::train_wide_plan on the tensors it names).
 //
-// What bounds them on an H100: f32 FMAs, at 67 TFLOP/s of FFMA. At the
-// paper width a training pass of 524,288 points is ~0.63 TFLOP forward,
-// ~0.59 dX and ~0.63 dW (~9.5, 8.8 and 9.5 ms); the saved rows (~10 KB of
-// f32 a point) and the gradient rows (~9.8 KB) are this design's own
-// traffic, ~1.6 ms each at 3.35 TB/s. Left for later work: 3xTF32 or
-// wgmma products, TMA, persistent CTAs.
+// What bounds them on an H100: the forward and backward-data, f32 FMAs at
+// 67 TFLOP/s of FFMA. At the paper width a training pass of 524,288 points
+// is ~0.63 TFLOP forward, ~0.59 dX and ~0.63 dW (~9.5 and 8.8 ms of FFMA);
+// the saved rows (~10 KB of f32 a point) and the gradient rows (~9.8 KB)
+// are this design's own traffic, ~1.6 ms each at 3.35 TB/s. The weight
+// gradient's three TF32 products a multiply-add at 495 TFLOP/s take ~3.85
+// ms at that pass (~6.7 ms for a 1024 x 1024 wide layer), against ~3.1 ms
+// of reading both row sets; mma.sync's own TF32 rate on the card is about
+// half of that peak (scripts/f32_wide_probe.py measures it), and that sets
+// the pace. Left for later work: wgmma products (a split pass writing
+// K-major hi / lo tiles), TMA, persistent CTAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -270,16 +288,25 @@ __global__ void __launch_bounds__(NT, 1) train_f32_bwd_kernel(const __grid_const
 // ------------------------------------------------------- weight gradient
 
 constexpr int WG_T = 128;  // output tile: 128 (n) x 128 (k)
-constexpr int WG_P = 32;   // points per chunk
-constexpr int WG_ELEMS = WG_T * WG_T + WG_T;  // partial tile + bias row
+constexpr int WG_P = 64;   // points a ring stage holds: 8 k-steps of the mma
+constexpr int WG_S = 3;    // ring stages
+// Floats a staged row takes: 8 mod 32 words, so the float4 fragment loads
+// of a quarter-warp (stage_products) fall in eight different bank quads.
+constexpr int WG_LD = WG_T + 8;
+constexpr int WG_OPND = WG_P * WG_LD;              // floats of one operand's stage
+constexpr int WG_SMEM = WG_S * 2 * WG_OPND * 4;    // 208,896 B
+constexpr int WG_ELEMS = WG_T * WG_T + WG_T;       // partial tile + bias row
 
 // A job of the weight gradient (fused_f32.py::weight_grad_f32_jobs): dW[r][c] (at
 // out_off + r * stride + c of the flat buffer) = sum_p d[p][d_col + r]
 // x[p][x_col + c] for r < n, c < k, and db[r] (at bias_off, when >= 0) =
 // sum_p d[p][d_col + r]; d and x are row-major f32 with rows of d_ld and
-// x_ld floats. The narrow route's jobs all read its gradient and saved
+// x_ld floats; copy says which operands the ring fills by 16-byte copies
+// (WG_COPY_D16, WG_COPY_X16: every row's first column on 16 B), the others
+// by 4-byte ones. The narrow route's jobs all read its gradient and saved
 // rows, the wide route's the tensors it names.
-constexpr int WG_JOB = 11;  // d, x, d_ld, x_ld, d_col, n, x_col, k, out_off, stride, bias_off
+constexpr int WG_JOB = 12;  // d, x, d_ld, x_ld, d_col, n, x_col, k, out_off, stride, bias_off, copy
+constexpr int WG_COPY_D16 = 1, WG_COPY_X16 = 2;
 
 struct WgParams {
   float* out;              // flat gradients (fused_train.py::packed_shapes order)
@@ -289,13 +316,176 @@ struct WgParams {
   int M, ntiles, split_len;
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Points p0 .. p0 + WG_P - 1 (zero from `end` on) of columns [col, col +
+// live) (zero past live) of a row-major f32 operand into a stage of WG_P
+// rows of WG_LD floats, by cp.async: a warp copies one point's 128 columns
+// at a time, 16 bytes a lane where `vec`, else 4.
+__device__ __forceinline__ void stage_rows(float* st, const float* src, int ld, int col,
+                                           int live, int p0, int end, bool vec) {
+  const uint32_t base = smem_addr(st);
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < WG_P * WG_T / 4 / NT; ++r) {
+      const int e = r * NT + threadIdx.x;
+      const int pt = e >> 5, c = 4 * (e & 31);
+      const int m = p0 + pt;
+      const int bytes = m < end ? 4 * max(0, min(4, live - c)) : 0;
+      cp_async16(base + 4 * (pt * WG_LD + c), bytes ? src + (size_t)m * ld + col + c : src,
+                 bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int r = 0; r < WG_P * WG_T / NT; ++r) {
+      const int e = r * NT + threadIdx.x;
+      const int pt = e >> 7, c = e & 127;
+      const int m = p0 + pt;
+      const int bytes = m < end && c < live ? 4 : 0;
+      cp_async4(base + 4 * (pt * WG_LD + c), bytes ? src + (size_t)m * ld + col + c : src,
+                bytes);
+    }
+  }
+}
+
+// x = hi + lo for the tensor cores, which read a TF32 operand's top 19 bits
+// (sign, exponent, 10 mantissa bits): hi is x rounded to TF32, to nearest
+// with ties away from zero (cvt.rna.tf32.f32's result for finite x, by an
+// integer add and mask), and lo the exact rest x - hi, which the tensor
+// cores truncate to TF32 (~2^-21 of x); a NaN survives in lo.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += A B over one k-step of 8 points: A (16 x 8) rows of d values, B
+// (8 x 8) columns of x values, in the m16n8k8 fragment layouts.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tensor cores add into their f32 sums without rounding to nearest
+// (bits below the running sum's last place are dropped), so the error of
+// one accumulator grows with the chain of products added into it: a whole
+// split's chain (2,624 k-steps at the paper fg-fine pass) lost 1.5e-4 of
+// the f64 sums on an H100. So a chain runs WG_CHAIN k-steps from zero and
+// is then added into the f32 totals (round to nearest), a whole number of
+// stages: a stage's 8 k-steps kept 5.8e-7 there (16 k-steps 9.2e-7) and
+// ran fastest (scripts/f32_wide_probe.py), for 64 more registers a thread
+// (one CTA an SM).
+constexpr int WG_CHAIN = 8;
+static_assert(WG_CHAIN % (WG_P / 8) == 0, "a chain spans whole stages");
+
+// A warp's 64 x 32 block of the tile (rows from wm, columns from wn) as
+// 4 x 4 m16n8k8 tiles. Which output row or column a fragment slot holds is
+// free, as long as A and C agree on rows and B and C on columns; it is
+// chosen so that each lane reads its fragments as float4s: lane 4 g + q
+// takes, of m-tile i = 2 c + b, rows wm + 32 c + 4 g + 2 b + {0, 1} (the
+// fragment's rows g, g + 8), and of n-tile j the columns wn + 4 n + j of
+// fragment column n (lane group g = n in B). So a k-step's A is two
+// float4s (c = 0, 1) at each of points q and q + 4, and its B one float4
+// at each; with rows WG_LD = 8 mod 32 words apart, each quarter-warp's
+// eight float4s fall in eight different bank quads.
+//
+// One stage's products into the running chains: 3xTF32, lo*hi, hi*lo, then
+// hi*hi (lo*lo, ~2^-22 of a product, is left out), each term over the 4
+// n-tiles in turn, so that neighbouring mma.sync do not wait on each other.
+// ds / xs point at the stage's rows of d and x at the lane's point q and
+// first row / column. RAGGED: only the rows of c below cl (the warp's live
+// 32-row halves).
+template <bool RAGGED>
+__device__ __forceinline__ void stage_products(float (&ch)[4][4][4], const float* ds,
+                                               const float* xs, int cl) {
+#pragma unroll
+  for (int ks = 0; ks < WG_P / 8; ++ks) {
+    const float* d = ds + 8 * ks * WG_LD;
+    const float* x = xs + 8 * ks * WG_LD;
+    const float4 x0 = *reinterpret_cast<const float4*>(x);
+    const float4 x1 = *reinterpret_cast<const float4*>(x + 4 * WG_LD);
+    const float xv[2][4] = {{x0.x, x0.y, x0.z, x0.w}, {x1.x, x1.y, x1.z, x1.w}};
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      split_tf32(xv[0][j], bh[j][0], bl[j][0]);
+      split_tf32(xv[1][j], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (RAGGED && c >= cl) continue;
+      const float4 d0 = *reinterpret_cast<const float4*>(d + 32 * c);
+      const float4 d1 = *reinterpret_cast<const float4*>(d + 4 * WG_LD + 32 * c);
+      const float dv[2][4] = {{d0.x, d0.y, d0.z, d0.w}, {d1.x, d1.y, d1.z, d1.w}};
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int i = 2 * c + b;
+        uint32_t ah[4], al[4];
+        split_tf32(dv[0][2 * b], ah[0], al[0]);      // row g, point q
+        split_tf32(dv[0][2 * b + 1], ah[1], al[1]);  // row g + 8, point q
+        split_tf32(dv[1][2 * b], ah[2], al[2]);      // row g, point q + 4
+        split_tf32(dv[1][2 * b + 1], ah[3], al[3]);  // row g + 8, point q + 4
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(ch[i][j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(ch[i][j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(ch[i][j], ah, bh[j][0], bh[j][1]);
+      }
+    }
+  }
+}
+
+// The chains into the f32 totals, and the chains restarted from zero.
+__device__ __forceinline__ void flush_chains(float (&acc)[4][4][4], float (&ch)[4][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[i][j][r] = acc[i][j][r] + ch[i][j][r];
+        ch[i][j][r] = 0.f;
+      }
+}
+
 // CTA (tile, split): the tile's partial dW and bias over the split's
-// points, summed in point order. Thread t owns rows 4 (t / 16) + {0..3}
-// and 64 + 4 (t / 16) + {0..3}, columns 4 (t % 16) + {0..3} and 64 + ...;
-// threads 0..127 also sum bias column t.
-__global__ void __launch_bounds__(NT) wg_partial_kernel(const __grid_constant__ WgParams p) {
-  __shared__ __align__(16) float ds[WG_P][WG_T];
-  __shared__ __align__(16) float xs[WG_P][WG_T];
+// points. A WG_S-stage ring of WG_P-point stages, filled by cp.async
+// WG_S - 1 stages ahead of the products, one barrier a stage. Warp w owns
+// rows wm = 64 (w % 2) .. + 63 and columns wn = 32 (w / 2) .. + 31 of the
+// tile (stage_products says which lane holds which); a warp with no live
+// row or column skips its products, and one whose second 32-row half is
+// past the job's rows skips that half. Every sum runs in point order, so
+// a launch repeats bit for bit. Where the tile has a bias, thread t sums
+// column t % 128 over the first (t < 128) or second half of every stage's
+// points in point order, and the two halves are added at the end.
+__global__ void __launch_bounds__(NT, 1) wg_tf32x3_kernel(const __grid_constant__ WgParams p) {
+  extern __shared__ __align__(16) float ring[];  // WG_S x [d rows | x rows]
   const int tile = blockIdx.x, split = blockIdx.y;
   const long long* tl = p.tiles + 3 * tile;
   const long long* job = p.jobs + WG_JOB * tl[0];
@@ -306,65 +496,76 @@ __global__ void __launch_bounds__(NT) wg_partial_kernel(const __grid_constant__ 
   const int d_col = (int)job[4] + n0, n_live = min(WG_T, (int)job[5] - n0);
   const int x_col = (int)job[6] + k0, k_live = min(WG_T, (int)job[7] - k0);
   const bool bias = job[10] >= 0 && k0 == 0;
+  const bool d_vec = job[11] & WG_COPY_D16, x_vec = job[11] & WG_COPY_X16;
   const int begin = split * p.split_len;
   const int end = min(p.M, begin + p.split_len);
-  const int t = threadIdx.x;
-  const int tn = t >> 4, tk = t & 15;
+  const int stages = (end - begin + WG_P - 1) / WG_P;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = 64 * (warp & 1), wn = 32 * (warp >> 1);
+  // The warp's live 32-row halves (0 also where none of its columns is live).
+  const int cl = wn < k_live ? max(0, min(2, (n_live - wm + 31) / 32)) : 0;
+  const int bcol = t & (WG_T - 1), bpt = WG_P / 2 * (t >> 7);
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float bsum = 0.f;
-  float rd[16], rx[16];
-  const auto load = [&](int pp0) {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int e = r * NT + t;
-      const int pt = e >> 7, c = e & 127;
-      const int m = pp0 + pt;
-      rd[r] = (m < end && c < n_live) ? __ldg(dsrc + (size_t)m * d_ld + d_col + c) : 0.f;
-      rx[r] = (m < end && c < k_live) ? __ldg(xsrc + (size_t)m * x_ld + x_col + c) : 0.f;
-    }
+  const auto load = [&](int s) {
+    float* st = ring + (s % WG_S) * 2 * WG_OPND;
+    const int p0 = begin + s * WG_P;
+    stage_rows(st, dsrc, d_ld, d_col, n_live, p0, end, d_vec);
+    stage_rows(st + WG_OPND, xsrc, x_ld, x_col, k_live, p0, end, x_vec);
   };
-  load(begin);
-  for (int pp0 = begin; pp0 < end; pp0 += WG_P) {
+
+  float acc[4][4][4], ch[4][4][4];  // the f32 totals, the running chains
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int e = r * NT + t;
-      ds[e >> 7][e & 127] = rd[r];
-      xs[e >> 7][e & 127] = rx[r];
-    }
-    __syncthreads();
-    if (pp0 + WG_P < end) load(pp0 + WG_P);
-#pragma unroll 4
-    for (int pt = 0; pt < WG_P; ++pt) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&ds[pt][4 * tn]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&ds[pt][64 + 4 * tn]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&xs[pt][4 * tk]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&xs[pt][64 + 4 * tk]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (bias && t < WG_T)
-      for (int pt = 0; pt < WG_P; ++pt) bsum = bsum + ds[pt][t];
-    __syncthreads();
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = ch[i][j][r] = 0.f;
+  float bsum = 0.f;
+#pragma unroll
+  for (int s = 0; s < WG_S - 1; ++s) {
+    if (s < stages) load(s);
+    cp_async_commit();
   }
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<WG_S - 2>();  // stage s has landed (this thread's copies)
+    __syncthreads();            // everyone's copies; everyone done with stage s - 1
+    if (s + WG_S - 1 < stages) load(s + WG_S - 1);
+    cp_async_commit();
+    const float* ds = ring + (s % WG_S) * 2 * WG_OPND;
+    const float* xs = ds + WG_OPND;
+    const float* da = ds + q * WG_LD + wm + 4 * g;
+    const float* xa = xs + q * WG_LD + wn + 4 * g;
+    if (cl == 2)
+      stage_products<false>(ch, da, xa, 2);
+    else if (cl == 1)
+      stage_products<true>(ch, da, xa, 1);
+    if ((s + 1) % (WG_CHAIN / (WG_P / 8)) == 0 || s + 1 == stages) flush_chains(acc, ch);
+    if (bias) {
+#pragma unroll
+      for (int pt = 0; pt < WG_P / 2; ++pt) bsum = bsum + ds[(bpt + pt) * WG_LD + bcol];
+    }
+  }
+
+  // acc[i][j][r]: row wm + 32 c + 4 g + 2 b + (r >> 1) (i = 2 c + b),
+  // column wn + 4 (2 q + (r & 1)) + j: each (i, r) is 4 neighbouring columns.
   float* part = p.scratch + ((size_t)split * p.ntiles + tile) * WG_ELEMS;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = (i < 4 ? 0 : 64 - 4) + 4 * tn + i;
-    *reinterpret_cast<float4*>(part + row * WG_T + 4 * tk) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(part + row * WG_T + 64 + 4 * tk) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = wm + 32 * (i >> 1) + 4 * g + 2 * (i & 1) + (r >> 1);
+      const int col = wn + 8 * q + 4 * (r & 1);
+      *reinterpret_cast<float4*>(part + row * WG_T + col) =
+          make_float4(acc[i][0][r], acc[i][1][r], acc[i][2][r], acc[i][3][r]);
+    }
+  if (bias) {
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free
+    if (t >= WG_T) ring[bcol] = bsum;
+    __syncthreads();
+    if (t < WG_T) part[WG_T * WG_T + t] = bsum + ring[t];
   }
-  if (t < WG_T) part[WG_T * WG_T + t] = bsum;
 }
 
 // Each live output element: its tile's partials added in split order.
@@ -390,6 +591,7 @@ __global__ void __launch_bounds__(NT) wg_reduce_kernel(const __grid_constant__ W
   for (int sp = 0; sp < splits; ++sp) s = s + src[(size_t)sp * p.ntiles * WG_ELEMS];
   *dst = s;
 }
+
 
 template <typename K, typename P>
 int launch_fwd_like(K kernel, const P& p, int smem, int grid, cudaStream_t stream) {
@@ -538,9 +740,12 @@ int weight_grad_f32_launch(const long long* ptrs, const int* dims, void* stream)
   if (dims[1] <= 0 || p.ntiles <= 0 || splits <= 0 || p.split_len % WG_P)
     return (int)cudaErrorInvalidValue;
   if (p.M <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      wg_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  wg_partial_kernel<<<dim3(p.ntiles, splits), NT, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  wg_tf32x3_kernel<<<dim3(p.ntiles, splits), NT, WG_SMEM, s>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   wg_reduce_kernel<<<dim3((WG_ELEMS + NT - 1) / NT, p.ntiles), NT, 0, s>>>(p, splits);
   return (int)cudaGetLastError();

@@ -4,10 +4,13 @@ layer width 512: plans and wrappers.
 Counterparts of the JAX package's Pallas kernels in f32 compute
 (`render/pallas_mlp.py::_mlp_kernel`, `render/pallas_train.py::
 _train_fwd_kernel` and `::_train_bwd_kernel`, which run f32 to width 1024).
-The hand-written Hopper kernels compute in true f32: f32 operands, FFMA
-products, f32 sums; no TF32 and no bf16 tensor-core product, so an f32
-run gets the numbers of the port's f32 eager module and of the JAX
-package's f32 kernels, to summation order.
+The hand-written Hopper kernels compute in f32: f32 operands and f32 sums;
+FFMA products in the eval, forward and backward-data kernels; in the
+weight gradient, 3xTF32 split products on the tensor cores (each operand
+x = hi + lo, hi rounded to TF32 and lo read as TF32; hi*hi + hi*lo +
+lo*hi summed in f32), within ~2^-21 of each f32 product. No single-pass
+TF32 and no bf16 product, so an f32 run gets the numbers of the port's f32
+eager module and of the JAX package's f32 kernels, to summation order.
 
 - `csrc/eval_f32.cu` (`fused_nerf_eval_f32`): the eval chain.
 - `csrc/train_f32.cu`: the training forward (`fused_nerf_train_fwd_f32`,
@@ -15,8 +18,8 @@ package's f32 kernels, to summation order.
   `fused_train.act_layout`), backward-data (`train_bwd_data_f32`: f32
   gradient rows of `fused_train.grad_layout` and d_app) and the weight
   gradient (`weight_grad_f32`: dW and bias sums per job of
-  `fused_train.weight_grad_jobs`, fixed-order split sums, no float
-  atomics).
+  `fused_train.weight_grad_jobs` on `mma.sync` through a `cp.async` ring,
+  fixed-order split sums, no float atomics).
 - Both sources walk the layer chain with `csrc/f32_chain.cuh`, so the eval
   kernel equals the training forward without noise bit for bit.
 
@@ -28,7 +31,8 @@ launch raises, nothing falls back.
 
 `f32_fwd_plan(cfg)` and `f32_bwd_plan(cfg)` give a CTA's tile and shared
 memory (the kernels take them as launch arguments); `f32_wg_plan(packed,
-m)` the weight gradient's output tiles and point ranges.
+m)` the weight gradient's output tiles and point ranges, `f32_wg_job_rows`
+its job table with each operand's copy width (`f32_wg_copy`).
 """
 
 from __future__ import annotations
@@ -56,10 +60,11 @@ F32_KS = 16  # k rows of a weight chunk (KS)
 F32_TILES = (64, 32)  # points of a CTA, the first that fits
 F32_SMEM_LIMIT = 232_448  # shared memory one CTA may use on an H100
 F32_WG_TILE = 128  # weight-gradient output tile: 128 (n) x 128 (k) (WG_T)
-F32_WG_CHUNK = 32  # points a weight-gradient CTA stages at once (WG_P)
+F32_WG_CHUNK = 64  # points of one stage of the weight gradient's ring (WG_P)
 F32_WG_ELEMS = F32_WG_TILE * F32_WG_TILE + F32_WG_TILE
 F32_WG_CTAS = 1024  # split the points until about this many CTAs
 F32_WG_MIN_SPLIT = 2048  # points a split at least
+WG_COPY_D16, WG_COPY_X16 = 1, 2  # the job's d / x rows by 16-byte copies (train_f32.cu)
 _WIDE_WHY = "layer_dim past 512 (the f32 kernels take widths to 512)"
 
 
@@ -143,6 +148,18 @@ def f32_wg_split(ntiles: int, m: int) -> Tuple[int, int]:
     splits = max(1, min(-(-F32_WG_CTAS // ntiles), -(-m // F32_WG_MIN_SPLIT)))
     split_len = _round_up(max(-(-m // splits), 1), F32_WG_CHUNK)
     return max(1, -(-m // split_len)), split_len
+
+
+def f32_wg_copy(ptr: int, ld: int, col: int) -> int:
+    """Bytes of each cp.async with which the weight gradient's ring reads an
+    f32 operand whose rows start at byte address `ptr` and lie `ld` floats
+    apart, from column `col` on: 16 where every row's first column sits on
+    16 B, else 4. Raises ValueError where not even 4 B hold. (Tiles start
+    at multiples of F32_WG_TILE columns, so the job's column decides.)"""
+    if ptr % 4:
+        raise ValueError(f"weight_grad_f32: an f32 operand at byte address {ptr} is "
+                         "not on 4 B")
+    return 16 if ptr % 16 == 0 and ld % 4 == 0 and col % 4 == 0 else 4
 
 
 def f32_wg_plan(packed: PackedMLP, m: int) -> F32WgPlan:
@@ -339,12 +356,27 @@ class WgJob(NamedTuple):
     bias_off: int
 
 
+def f32_wg_job_rows(jobs: List[WgJob]) -> List[Tuple[int, ...]]:
+    """The kernel's job table (train_f32.cu WG_JOB a row): d, x, d_ld, x_ld,
+    d_col, n, x_col, k, out_off, stride, bias_off and the copy flags
+    (WG_COPY_D16 | WG_COPY_X16 where `f32_wg_copy` gives 16 B)."""
+    rows = []
+    for j in jobs:
+        d16 = f32_wg_copy(j.d.data_ptr(), j.d.stride(0), j.d_col) == 16
+        x16 = f32_wg_copy(j.x.data_ptr(), j.x.stride(0), j.x_col) == 16
+        rows.append((j.d.data_ptr(), j.x.data_ptr(), j.d.stride(0), j.x.stride(0), j.d_col,
+                     j.n, j.x_col, j.k, j.out_off, j.stride, j.bias_off,
+                     WG_COPY_D16 * d16 + WG_COPY_X16 * x16))
+    return rows
+
+
 def weight_grad_f32_jobs(jobs: List[WgJob], out: torch.Tensor) -> torch.Tensor:
-    """The f32 weight-gradient kernel pair (`csrc/train_f32.cu`) over
-    `jobs`, one launch, on CUDA tensors: writes each job's dW and db into
-    the flat f32 buffer `out`; counts in `weight_grad_f32.launches`. The
-    narrow route (`weight_grad_f32`) and the wide f32 route
-    (`fused_wide_f32.wide_f32_dw`) both launch it."""
+    """The f32 weight-gradient kernel pair (`csrc/train_f32.cu`: 3xTF32 on
+    `mma.sync`, then the fixed-order reduce) over `jobs`, one launch, on
+    CUDA tensors: writes each job's dW and db into the flat f32 buffer
+    `out`; counts in `weight_grad_f32.launches`. The narrow route
+    (`weight_grad_f32`) and the wide f32 route (`fused_wide_f32.wide_f32_dw`)
+    both launch it."""
     m = jobs[0].d.shape[0]
     for j in jobs:
         for name, t, col, width in (("d", j.d, j.d_col, j.n), ("x", j.x, j.x_col, j.k)):
@@ -370,9 +402,7 @@ def weight_grad_f32_jobs(jobs: List[WgJob], out: torch.Tensor) -> torch.Tensor:
     lib = _train_lib()
     tiles = f32_wg_tiles([(j.n, j.k) for j in jobs])
     splits, split_len = f32_wg_split(len(tiles), m)
-    rows = [v for j in jobs for v in (j.d.data_ptr(), j.x.data_ptr(), j.d.stride(0),
-                                      j.x.stride(0), j.d_col, j.n, j.x_col, j.k,
-                                      j.out_off, j.stride, j.bias_off)]
+    rows = [v for row in f32_wg_job_rows(jobs) for v in row]
     table = torch.tensor(rows + [v for t in tiles for v in t],
                          dtype=torch.int64).to(out.device)
     scratch = torch.empty(splits * len(tiles) * F32_WG_ELEMS, dtype=torch.float32,
@@ -416,7 +446,8 @@ F32_KERNELS = (fused_nerf_eval_f32, fused_nerf_train_fwd_f32, train_bwd_data_f32
 
 __all__ = [
     "F32Plan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
-    "f32_wg_tiles", "f32_wg_split", "WgJob", "weight_grad_f32_jobs",
+    "f32_wg_tiles", "f32_wg_split", "f32_wg_copy", "f32_wg_job_rows", "WgJob",
+    "weight_grad_f32_jobs",
     "fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
     "weight_grad_f32", "F32_KERNELS",
 ]

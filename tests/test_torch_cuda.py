@@ -442,6 +442,49 @@ def test_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
     assert _f32_counts() == before
 
 
+@pytest.mark.parametrize("m", [20_011, 33, 1])
+def test_f32_weight_grad_takes_ragged_and_unaligned_jobs(cuda_device, m):
+    """The f32 weight gradient (3xTF32 on `mma.sync`) on jobs the plans do
+    not make, in one launch: 130 x 131 (a row and a column past one tile,
+    with bias), 3 x 7 from columns 1 and 5 (4-byte copies of both
+    operands), 5 x 13 from views whose rows start 4 B past 16 B (4-byte
+    copies), 1 x 24 (16-byte copies, with bias). Each job's dW and db
+    within 1e-5 of its f64 sums' norm (3xTF32 keeps ~2^-21 of each
+    product); two launches give the same bits; one launch."""
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    gen = torch.Generator().manual_seed(3)
+    d = torch.randn((m, 160), generator=gen).to(cuda_device)
+    x = torch.relu(torch.randn((m, 152), generator=gen)).to(cuda_device)
+    dv, xv = d[:, 1:], x[:, 1:]
+    specs = [(d, x, 0, 130, 0, 131, True), (d, x, 1, 3, 5, 7, False),
+             (dv, xv, 0, 5, 0, 13, False), (d, x, 4, 1, 8, 24, True)]
+    jobs, off = [], 0
+    for a, b, d_col, n, x_col, k, bias in specs:
+        jobs.append(fused_f32.WgJob(a, b, d_col, n, x_col, k, off, k,
+                                    off + n * k if bias else -1))
+        off += n * k + (n if bias else 0)
+    assert [row[-1] for row in fused_f32.f32_wg_job_rows(jobs)] == [
+        fused_f32.WG_COPY_D16 | fused_f32.WG_COPY_X16, 0, 0,
+        fused_f32.WG_COPY_D16 | fused_f32.WG_COPY_X16]
+    before = fused_f32.weight_grad_f32.launches
+    out = fused_f32.weight_grad_f32_jobs(jobs, torch.full((off,), float("nan"),
+                                                          device=cuda_device))
+    again = fused_f32.weight_grad_f32_jobs(jobs, torch.zeros(off, device=cuda_device))
+    torch.cuda.synchronize()
+    assert fused_f32.weight_grad_f32.launches == before + 2
+    assert torch.equal(out, again)
+    for j in jobs:
+        dd = j.d[:, j.d_col:j.d_col + j.n].double()
+        want = [(dd.T @ j.x[:, j.x_col:j.x_col + j.k].double()).reshape(-1)]
+        got = [out[j.out_off:j.out_off + j.n * j.k].double()]
+        if j.bias_off >= 0:
+            want.append(dd.sum(0))
+            got.append(out[j.bias_off:j.bias_off + j.n].double())
+        want, got = torch.cat(want), torch.cat(got)
+        assert (got - want).norm().item() <= 1e-5 * want.norm().item(), j[2:]
+
+
 def _wide_case(cuda_device, bg, kw, m, seed=5):
     """A seeded model of the wide route (8 layers, skip at 4, small random
     biases; bf16 compute unless kw names another) on the card, its packed

@@ -200,8 +200,8 @@ def test_f32_plans_refuse_past_512(width):
 def test_f32_weight_grad_plan_covers_the_points_once(m):
     """The f32 weight gradient's plan at the paper width: every output of
     every job in exactly one tile, the point ranges partition [0, M) in
-    whole 32-point chunks (the last may end early), about F32_WG_CTAS CTAs
-    or fewer."""
+    whole ring stages of F32_WG_CHUNK = 64 points (the last may end early),
+    about F32_WG_CTAS CTAs or fewer."""
     cfg = _cfg(256, False)
     packed = fused_mlp.pack_tensors(cfg, {k: v for k, v in NeRF(cfg).named_parameters()})
     plan = fused_f32.f32_wg_plan(packed, m)
@@ -213,7 +213,130 @@ def test_f32_weight_grad_plan_covers_the_points_once(m):
     want = {(j, i, k0) for j, (_, n, _, k, *_) in enumerate(plan.jobs)
             for i in range(n) for k0 in range(0, k, fused_f32.F32_WG_TILE)}
     assert set(hits) == want and set(hits.values()) == {1}
+    assert fused_f32.F32_WG_CHUNK == 64
     assert plan.split_len % fused_f32.F32_WG_CHUNK == 0
     assert (plan.splits - 1) * plan.split_len < m <= plan.splits * plan.split_len
     assert len(plan.tiles) * plan.splits <= max(fused_f32.F32_WG_CTAS + len(plan.tiles),
                                                 len(plan.tiles))
+
+
+def _tf32_rna(x):
+    """The weight-gradient kernel's hi (train_f32.cu split_tf32): f32 -> the
+    nearest TF32 value (10 mantissa bits), ties away from zero, by an
+    integer add and mask on the bits."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits (the
+    kernel's lo is passed unrounded)."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """hi = the kernel's integer rounding equals cvt.rna.tf32.f32's rule,
+    written here independently in f64 (the 11 leading bits of |x|, rounded
+    half up in magnitude), on seeded normals over 60 binades and on the ties
+    1 + 2^-11, 1 + 3 2^-11, (1 + 2^-11) 2^-12 and their negatives (each
+    rounded up in magnitude); hi + (x - hi) is x exactly
+    and |x - hi| <= 2^-11 |x|; reading x - hi as TF32 loses < 2^-10 of it."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=20_000) * 2.0 ** rng.integers(-30, 30, 20_000)).astype(np.float32)
+    ties = np.array([1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, (1 + 2.0 ** -11) * 2.0 ** -12],
+                    np.float32)
+    x = np.concatenate([x, ties, -ties])
+    mant, exp = np.frexp(np.abs(x.astype(np.float64)))  # |x| = mant 2^exp, mant in [0.5, 1)
+    want = np.sign(x) * np.floor(mant * 2.0 ** 11 + 0.5) * 2.0 ** (exp - 11)
+    hi = _tf32_rna(x)
+    np.testing.assert_array_equal(hi.astype(np.float64), want)
+    np.testing.assert_array_equal(hi[-6:], np.array(
+        [1 + 2.0 ** -10, 1 + 2.0 ** -9, (1 + 2.0 ** -10) * 2.0 ** -12,
+         -(1 + 2.0 ** -10), -(1 + 2.0 ** -9), -(1 + 2.0 ** -10) * 2.0 ** -12], np.float32))
+    lo = x - hi
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo, x.astype(np.float64))
+    assert (np.abs(lo) <= 2.0 ** -11 * np.abs(x)).all()
+    # The tensor cores' truncation of lo loses less than 2^-10 of lo, 2^-21 of x.
+    assert (np.abs(lo - _tf32_trunc(lo)) <= 2.0 ** -10 * np.abs(lo)).all()
+
+
+def _wg_sums_3xtf32(d, x, split_len, stage):
+    """The f32 weight gradient's arithmetic on the CPU: per point range of
+    `split_len`, per stage of `stage` points a chain from zero taking each
+    8-point k-step's lo*hi, hi*lo and hi*hi products (each k-step's 8
+    products summed in f64 and rounded to f32 once, the tensor cores' sums
+    being wider than f32; the chain's adds in f32), each chain added into
+    the f32 totals; the ranges' totals added in range order."""
+    dh, xh = _tf32_rna(d), _tf32_rna(x)
+    dl, xl = _tf32_trunc(d - dh), _tf32_trunc(x - xh)
+    out = None
+    for r0 in range(0, d.shape[0], split_len):
+        acc = np.zeros((d.shape[1], x.shape[1]), np.float32)
+        for s0 in range(r0, min(r0 + split_len, d.shape[0]), stage):
+            ch = np.zeros_like(acc)
+            for k0 in range(s0, min(s0 + stage, d.shape[0]), 8):
+                ks = slice(k0, k0 + 8)
+                for a, b in ((dl, xh), (dh, xl), (dh, xh)):
+                    ch = ch + (a[ks].T.astype(np.float64) @ b[ks]).astype(np.float32)
+            acc = acc + ch
+        out = acc if out is None else out + acc
+    return out
+
+
+def test_3xtf32_weight_grad_holds_f32_accuracy_and_one_pass_tf32_does_not():
+    """The kernel's 3xTF32 products in its order (`_wg_sums_3xtf32`: two
+    point ranges, 64-point stages, 8-point k-steps) on ReLU-masked gradient
+    rows d and ReLU activation rows x, seeded: dW = d^T x within 1e-5 of
+    the f64 sums (relative, Frobenius), as the card's 1e-5 limit against
+    f64 asks; one-pass TF32 products (hi*hi only, summed in f64) miss that
+    bound."""
+    rng = np.random.default_rng(12)
+    m, n, k = 8_192, 16, 24
+    d = (rng.normal(size=(m, n)) * (rng.normal(size=(m, n)) > 0)).astype(np.float32)
+    x = np.maximum(rng.normal(size=(m, k)), 0).astype(np.float32)
+    want = d.T.astype(np.float64) @ x.astype(np.float64)
+    got = _wg_sums_3xtf32(d, x, 4_096, fused_f32.F32_WG_CHUNK)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-5, rel
+    one_pass = _tf32_rna(d).T.astype(np.float64) @ _tf32_rna(x).astype(np.float64)
+    rel_one = np.linalg.norm(one_pass - want) / np.linalg.norm(want)
+    assert rel_one > 1e-5 > rel, (rel_one, rel)
+
+
+@pytest.mark.parametrize("ptr,ld,col,want", [
+    (0, 2592, 0, 16), (4096, 2440, 2432, 16), (0, 2440, 2433, 4), (0, 150, 0, 4),
+    (4, 2592, 0, 4), (8, 16, 8, 4), (0, 16, 8, 16), (2, 16, 0, None)])
+def test_f32_weight_grad_copy_width_rule(ptr, ld, col, want):
+    """The ring's copy width for an operand (`f32_wg_copy`): 16 B where the
+    rows start on 16 B (address, row width in floats a multiple of 4, the
+    job's first column a multiple of 4), else 4 B; an address off 4 B (no
+    f32 row) raises at plan time."""
+    if want is None:
+        with pytest.raises(ValueError):
+            fused_f32.f32_wg_copy(ptr, ld, col)
+    else:
+        assert fused_f32.f32_wg_copy(ptr, ld, col) == want
+
+
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("width", [64, 256, 512])
+def test_f32_weight_grad_plan_copy_widths(width, bg):
+    """The job table the wrapper builds for the narrow plan on its gradient
+    and saved rows (`f32_wg_job_rows`): every job reads both by 16-byte
+    copies but the rgb head's, whose gradient column (heads + 1) is off
+    16 B and takes 4-byte copies; a view whose rows start 4 B into a row
+    takes 4-byte copies."""
+    cfg = _cfg(width, bg)
+    packed = fused_mlp.pack_tensors(cfg, {k: v for k, v in NeRF(cfg).named_parameters()})
+    plan = fused_f32.f32_wg_plan(packed, 1_000)
+    heads = fused_train.grad_layout(packed)["heads"]
+    m = 40
+    act = torch.zeros((m, fused_train.act_layout(packed)["width"]))
+    grad = torch.zeros((m, fused_train.grad_layout(packed)["width"]))
+    rows = fused_f32.f32_wg_job_rows([fused_f32.WgJob(grad, act, *job) for job in plan.jobs])
+    both = fused_f32.WG_COPY_D16 | fused_f32.WG_COPY_X16
+    assert [r[-1] for r in rows] == [fused_f32.WG_COPY_X16 if job[0] == heads + 1 else both
+                                     for job in plan.jobs]
+    assert sum(job[0] == heads + 1 for job in plan.jobs) == 1
+    view = fused_f32.WgJob(grad[:, 1:], act, 0, 3, 0, 8, 0, 8, -1)
+    assert fused_f32.f32_wg_job_rows([view])[0][-1] == fused_f32.WG_COPY_X16

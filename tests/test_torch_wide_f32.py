@@ -214,11 +214,14 @@ def test_wide_f32_weight_grad_writes_every_element_once(width, bg, pos_dir_dim,
     write every element of the flat packed gradient buffer exactly once:
     each tile's rows and columns inside its job, each bias once (from the
     job's first k tile); every job's operands are the saved or gradient
-    tensors the plan names, at column 0 of x."""
+    tensors the plan names, at column 0 of x, and the ring reads both by
+    16-byte copies (`f32_wg_copy`: rows of a multiple of 4 floats, columns
+    0 or 8)."""
     cfg = _config(width, bg, pos_dir_dim, appearance_dim)
     packed = fused_mlp.pack_params(NeRF(cfg))
     plan = ftw.check_plan(packed)
     widths = dict(plan.saved)
+    grads = {"g_heads": ftw.HEADS_GRAD_WIDTH, "g_a": width // 2}
     count = np.zeros(plan.total, np.int64)
     for kind, jobs in plan.steps:
         if kind != "dw":
@@ -230,6 +233,10 @@ def test_wide_f32_weight_grad_writes_every_element_once(width, bg, pos_dir_dim,
             assert n0 < j.n and k0 < j.k and j.k <= j.out_stride
             if j.x in widths:
                 assert j.k <= widths[j.x]
+            d_width = grads.get(j.d, width)
+            assert j.d_col + j.n <= d_width
+            assert fused_f32.f32_wg_copy(0, d_width, j.d_col) == 16
+            assert fused_f32.f32_wg_copy(0, widths[j.x], 0) == 16
             rows = j.out_off + np.arange(n0, min(j.n, n0 + t_))[:, None] * j.out_stride
             count[(rows + np.arange(k0, min(j.k, k0 + t_))[None]).ravel()] += 1
             if j.bias_off >= 0 and k0 == 0:
@@ -240,11 +247,11 @@ def test_wide_f32_weight_grad_writes_every_element_once(width, bg, pos_dir_dim,
 @pytest.mark.parametrize("m", [1, 4_097, 524_288])
 @pytest.mark.parametrize("width", [64, 256, 512])
 def test_narrow_f32_weight_grad_plan_is_unchanged(width, m):
-    """The narrow f32 route's weight-gradient plan, now built from the
-    shared `f32_wg_tiles` and `f32_wg_split`, is the one it was: the tiles
-    of `fused_train.weight_grad_jobs` in (job, n0, k0) order and about
-    F32_WG_CTAS CTAs of at least F32_WG_MIN_SPLIT points, in whole
-    F32_WG_CHUNK chunks; so its sums run in the same order."""
+    """The narrow f32 route's weight-gradient plan, built from the shared
+    `f32_wg_tiles` and `f32_wg_split`, keeps its rule: the tiles of
+    `fused_train.weight_grad_jobs` in (job, n0, k0) order and about
+    F32_WG_CTAS CTAs of at least F32_WG_MIN_SPLIT points, in whole ring
+    stages of F32_WG_CHUNK = 64 points."""
     cfg = _config(width, False)
     packed = fused_mlp.pack_params(NeRF(cfg))
     plan = fused_f32.f32_wg_plan(packed, m)
@@ -257,6 +264,7 @@ def test_narrow_f32_weight_grad_plan_is_unchanged(width, m):
     split_len = -(-max(-(-m // splits), 1) // fused_f32.F32_WG_CHUNK) * fused_f32.F32_WG_CHUNK
     assert plan.jobs == jobs and plan.tiles == tiles
     assert (plan.splits, plan.split_len) == (max(1, -(-m // split_len)), split_len)
+    assert fused_f32.F32_WG_CHUNK == 64 and split_len % 64 == 0
 
 
 @pytest.mark.parametrize("train", [False, True])
