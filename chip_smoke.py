@@ -264,7 +264,11 @@ gradient of `csrc/train_f32.cu`), TF32 off:
   pre-activations <= 1e-4 (1 + |x|), every layer output <= 1e-4 (1 + |y|),
   every backward tensor, d_app and dW <= 1e-4 relative; dX and dW repeat
   bit for bit; the eval heads equal the training heads without noise bit
-  for bit; every launch an f32 wide kernel's.
+  for bit; every launch an f32 wide kernel's. Then the weight gradient and
+  the GEMM (3xTF32 on the tensor cores) against f64 sums of their f32 rows
+  at the fg-fine pass, <= 1e-5 relative: a 1024 x 1024 layer's dW step,
+  the layer (bias, ReLU) and its masked dX job, each beside the plain
+  version's error and one-pass TF32's.
 - train_wide_f32: `train.main --compute_dtype float32` at fg and bg 8x1024
   on `train`'s scene, 10 steps, then `eval.main` on its `{iter}.pt`, every
   counter set to 0 just before `train.main` and read just after
@@ -273,7 +277,8 @@ gradient of `csrc/train_f32.cu`), TF32 off:
   (mean of the last 3 steps below the first 3), a finite PSNR; then ms a
   step and peak memory over 3 chained steps, the f32 wide kernels' share of
   a profiled step, s/view of `eval.main`'s val view, each kernel per launch
-  at the fg-fine pass (plain, bound, F.linear / torch.mm in f32), and, a
+  at the fg-fine pass (plain, bound, F.linear / torch.mm in f32; the GEMM's
+  and the dW's bound at 3xTF32 with FFMA's beside), and, a
   record and not a check, the f32 eager module (`--no_pallas`, and with
   `--remat`) for a step after a warm-up one: ms and memory, or its
   out-of-memory error.
@@ -283,8 +288,8 @@ Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
 `{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}`,
-`{"resume_jax": ...}`, `{"training_f32": ...}` and `{"training_wide_f32": ...}`
-lines, a `{"kernels": [...]}` line (with each kernel's
+`{"resume_jax": ...}`, `{"training_f32": ...}`, `{"training_wide_f32": ...}`,
+`{"dw_f64": ...}` and `{"gemm_f64": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
 launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
 both ranks of multiproc, in resume_jax's resumed run and its eval, and in
 train_wide_f32's `train.main` and `eval.main`), the
@@ -312,6 +317,7 @@ PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-2
 F32_TOL = 1e-4  # the f32 kernels against their plain versions (TF32 off)
 DW_F64_TOL = 1e-5  # the f32 weight gradient against f64 sums of its f32 rows
+GEMM_F64_TOL = 1e-5  # the f32 wide GEMM against f64 sums of its f32 rows
 F32 = ["--compute_dtype", "float32"]
 # (name, source, the TPU kernel it replaces)
 KERNELS = (
@@ -352,8 +358,8 @@ KERNELS = (
     ("weight_grad_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
     # f32 compute at widths 513-1024: the three TPU kernels' last range. The
-    # GEMM is every forward layer and every dX job; the weight gradient is
-    # weight_grad_f32's kernel pair, per-job operands.
+    # GEMM (3xTF32 on wgmma) is every forward layer and every dX job; the
+    # weight gradient is weight_grad_f32's kernel pair, per-job operands.
     ("wide_f32_encode", "mega_nerf_tpu_torch/render/csrc/wide_f32.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("wide_f32_gemm", "mega_nerf_tpu_torch/render/csrc/wide_f32.cu",
@@ -658,18 +664,7 @@ def dw_f64_errors(jobs, n_out, kernel, plain):
             ref[j.bias_off:j.bias_off + j.n] = dd.sum(0)
             live[j.bias_off:j.bias_off + j.n] = True
         del dd
-    ref = ref[live]
-    norm = ref.norm().item()
-    allow = torch.backends.cuda.matmul.allow_tf32
-    errs = {}
-    try:
-        for name, fn, tf32 in (("kernel", kernel, False), ("plain", plain, False),
-                               ("tf32", plain, True)):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            errs[name] = (fn().double()[live] - ref).norm().item() / norm
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow
-    return errs
+    return f64_errors(ref[live], lambda: kernel()[live], lambda: plain()[live])
 
 
 def narrow_dw_against_f64(device):
@@ -737,6 +732,69 @@ def wide_dw_against_f64(device):
     del gp, h1, tensors, wjobs
     torch.cuda.empty_cache()
     return errs
+
+
+def f64_errors(ref, kernel, plain):
+    """Relative errors (Frobenius, over every element) against `ref` (f64
+    sums of the same f32 rows) of `kernel()`'s output (an f32 kernel with
+    3xTF32 products), of `plain()`'s with TF32 off and of `plain()`'s with
+    TF32 on (one-pass TF32 products) -> {"kernel": e, "plain": e, "tf32":
+    e}."""
+    import torch
+
+    norm = ref.norm().item()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    errs = {}
+    try:
+        for name, fn, tf32 in (("kernel", kernel, False), ("plain", plain, False),
+                               ("tf32", plain, True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            errs[name] = (fn().double() - ref).norm().item() / norm
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    return errs
+
+
+def wide_gemm_against_f64(device):
+    """`f64_errors` of the f32 wide GEMM at the fg-fine pass (524,288
+    points, 8x1024): as trunk layer 2 (h1 -> h2, bias and ReLU; h1 from the
+    f32 wide forward) and as that layer's masked dX job (d_pre2, seeded
+    normal rows (scale 1e-2) under h2's ReLU mask, against the transposed
+    weights, masked by h1) -> {"layer": errs, "dx": errs}."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train_wide as ftw
+    from mega_nerf_tpu_torch.render import fused_wide as fw
+    from mega_nerf_tpu_torch.render.fused_train import transposed_weights
+
+    bundle = seeded_bundle(paper_hparams([*WIDE_TRAIN, *F32]), 16, False, 68, device)
+    packed = fused_mlp.pack_params(bundle.module)
+    xyz, dirs, idx = mlp_inputs(bundle.config, 1024 * 512, 69, device)
+    gen = torch.Generator(device=device).manual_seed(70)
+    out = {}
+    with torch.no_grad():
+        app = bundle.module.appearance(idx).float()
+        _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, None)
+        del xyz, dirs, app
+        h1, h2 = saved["h1"], saved["h2"]
+        del saved
+        w2, b2 = packed.mats[2], packed.biases[2]
+        ref = (h1.double() @ w2.double().T + b2.double()).clamp_min(0)
+        out["layer"] = f64_errors(
+            ref, lambda: fw.eval_wide_layer([h1], w2, b2, True),
+            lambda: fw.eval_wide_layer_plain([h1], w2, b2, True))
+        del ref
+        gp = torch.randn(h2.shape, generator=gen, device=device) * 1e-2 * (h2 > 0)
+        del h2
+        wt = transposed_weights(packed)[2]
+        ref = (gp.double() @ wt.double().T) * (h1 > 0)
+        args = (gp, wt, 0, wt.shape[0], ftw.DX_MASK, h1)
+        out["dx"] = f64_errors(ref, lambda: ftw.train_wide_dx(*args),
+                                    lambda: ftw.train_wide_dx_plain(*args))
+    del gp, h1, ref, args
+    torch.cuda.empty_cache()
+    return out
 
 
 def write_dataset(root: Path, hw: int, n_train: int, seed: int,
@@ -5523,6 +5581,17 @@ def phase_compare_wide_f32(device, report):
         f"{f64['kernel']:.3e}, plain f32 (TF32 off) {f64['plain']:.3e}, one-pass TF32 "
         f"{f64['tf32']:.3e} -> {'ok' if dw_ok else 'FAIL'} (kernel <= {DW_F64_TOL})")
     all_ok &= dw_ok
+    g64 = wide_gemm_against_f64(device)
+    report["gemm_f64"] = g64
+    for form, what in (("layer", "a 1024 x 1024 trunk layer (bias, ReLU)"),
+                       ("dx", "that layer's masked dX job")):
+        e = g64[form]
+        ok = e["kernel"] <= GEMM_F64_TOL
+        log(f"  wide_f32_gemm against f64 sums of its f32 rows at the fg-fine pass "
+            f"(524,288 points), {what}, relative over every output: kernel (3xTF32) "
+            f"{e['kernel']:.3e}, plain f32 (TF32 off) {e['plain']:.3e}, one-pass TF32 "
+            f"{e['tf32']:.3e} -> {'ok' if ok else 'FAIL'} (kernel <= {GEMM_F64_TOL})")
+        all_ok &= ok
     after = wide_f32_counters()
     new = {k: after[k] - before[k] for k in after}
     for k, v in errs.items():
@@ -5660,6 +5729,11 @@ def phase_train_wide_f32(device, report, tmp: Path):
     wide_f32_steps(report, tmp, ckpt)
     time_wide_f32_kernels(device, report)
     eager_wide_f32_steps(report, tmp, ckpt)
+    eager = out.get("eager", {})
+    if "step_ms" in eager and "step_ms" in out:
+        log(f"  f32 wide step through the kernels {out['step_ms']:.2f} ms against the eager "
+            f"module's {eager['step_ms']:.2f} ms in this call: "
+            f"{eager['step_ms'] / out['step_ms']:.3f}x [{report['device_line']}]")
     from mega_nerf_tpu_torch.render import fused_f32
     from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
 
@@ -5710,7 +5784,7 @@ def wide_f32_steps(report, tmp: Path, ckpt: Path) -> None:
     share = {}
     if rows:
         names = {"wide_f32_encode": "wide_f32_encode_kernel",
-                 "wide_f32_gemm": "wide_f32_gemm_kernel",
+                 "wide_f32_gemm": "wide_f32_gemm_",  # the GEMM and its W rests
                  "wide_f32_heads_fwd": "wide_f32_heads_fwd_kernel",
                  "wide_f32_heads_bwd": "wide_f32_heads_bwd_kernel",
                  "weight_grad_f32": "wg_"}
@@ -5809,8 +5883,12 @@ def time_wide_f32_kernels(device, report):
         "wide_f32_heads_bwd": (t_hb, p_hb, None, 6.0 * m * (d // 2),
                                4.0 * m * (4 + 4 + d // 2 + 16 + d // 2)),
     }
+    # The GEMM's products run as 3xTF32 on the tensor cores: its bound is
+    # three TF32 products a multiply-add at 495 TFLOP/s (FFMA's beside).
+    gemm_ffma = bound(gemm, rows["wide_f32_gemm"][4], PEAK_F32_FLOPS)
+    gemm_tf32 = bound(3 * gemm, rows["wide_f32_gemm"][4], PEAK_TF32_FLOPS)
     for k, (ms, plain_ms, lib_ms, fl, nb) in rows.items():
-        bms, by = bound(fl, nb, PEAK_F32_FLOPS)
+        bms, by = gemm_tf32 if k == "wide_f32_gemm" else bound(fl, nb, PEAK_F32_FLOPS)
         kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                           library_ms=lib_ms)
         lib = ("" if lib_ms is None else
@@ -5818,18 +5896,28 @@ def time_wide_f32_kernels(device, report):
         log(f"  {k} at fg fine ({m} points, width {d}): {ms:.3f} ms/launch = "
             f"{fl / ms / 1e9:.2f} TFLOP/s, {nb / ms / 1e9:.3f} TB/s; plain {plain_ms:.3f} ms; "
             f"bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, {nb:.4g} B){lib}")
-    dx_bound = bound(gemm, 4.0 * (3 * m * d + d * d), PEAK_F32_FLOPS)
+    dx_bytes = 4.0 * (3 * m * d + d * d)
+    dx_ffma = bound(gemm, dx_bytes, PEAK_F32_FLOPS)
+    dx_bound = bound(3 * gemm, dx_bytes, PEAK_TF32_FLOPS)
     dw_ffma = bound(gemm + m * d, 4.0 * (2 * m * d + d * d + d), PEAK_F32_FLOPS)
     dw_bound = bound(3 * gemm, 4.0 * (2 * m * d + d * d + d), PEAK_TF32_FLOPS)
+    log(f"  wide_f32_gemm bounds at fg fine: 3xTF32 {gemm_tf32[0]:.3f} ms ({gemm_tf32[1]}: "
+        f"{3 * gemm:.4g} FLOP of TF32 products at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), FFMA "
+        f"{gemm_ffma[0]:.3f} ms; the row takes 3xTF32's. As a layer the kernel runs its "
+        f"products at {3 * gemm / t_layer / 1e9:.1f} TFLOP/s of TF32 and takes "
+        f"{t_layer / lib_layer:.3f}x F.linear's time")
     log(f"  wide_f32_gemm as the masked dX job of that layer: {t_dx:.3f} ms = "
-        f"{gemm / t_dx / 1e9:.1f} TFLOP/s; plain {p_dx:.3f} ms; bound {dx_bound[0]:.3f} ms "
-        f"({dx_bound[1]}); library (F.linear, f32, no mask) {lib_dx:.3f} ms (the kernel "
-        f"takes {t_dx / lib_dx:.2f}x its time)")
+        f"{gemm / t_dx / 1e9:.1f} TFLOP/s ({3 * gemm / t_dx / 1e9:.1f} of TF32 products); "
+        f"plain {p_dx:.3f} ms; bound {dx_bound[0]:.3f} ms ({dx_bound[1]}, 3xTF32; FFMA "
+        f"{dx_ffma[0]:.3f} ms); library (F.linear, f32, no mask) {lib_dx:.3f} ms (the kernel "
+        f"takes {t_dx / lib_dx:.3f}x its time)")
     log(f"  weight_grad_f32 on that layer's dW step (the wide route's jobs): {t_dw:.3f} ms = "
         f"{gemm / t_dw / 1e9:.1f} TFLOP/s; plain {p_dw:.3f} ms; bound {dw_bound[0]:.3f} ms "
         f"({dw_bound[1]}, 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; FFMA "
         f"{dw_ffma[0]:.3f} ms); library (torch.mm, f32, no bias sums) {lib_dw:.3f} ms (the "
         f"kernel takes {t_dw / lib_dw:.2f}x its time)")
+    out.update(gemm_bound_ms=gemm_tf32[0], gemm_ffma_bound_ms=gemm_ffma[0],
+               dx_ffma_bound_ms=dx_ffma[0])
     out.update(dx_ms=t_dx, dx_plain_ms=p_dx, dx_library_ms=lib_dx, dx_bound_ms=dx_bound[0],
                dw_ms=t_dw, dw_plain_ms=p_dw, dw_library_ms=lib_dw, dw_bound_ms=dw_bound[0],
                dw_ffma_bound_ms=dw_ffma[0],
@@ -6059,6 +6147,7 @@ def main() -> int:
     log(json.dumps({"training_f32": report["training_f32"]}))
     log(json.dumps({"training_wide_f32": report["training_wide_f32"]}))
     log(json.dumps({"dw_f64": report["dw_f64"]}))
+    log(json.dumps({"gemm_f64": report["gemm_f64"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ Counterparts of the JAX package's Pallas kernels in f32 compute at the
 widths their gates admit past the port's f32 chain (`fused_f32.py`, <= 512):
 `render/pallas_mlp.py::_mlp_kernel` (eval) and `render/pallas_train.py::
 _train_fwd_kernel` / `::_train_bwd_kernel` (training), which JAX runs in f32
-to width 1024. True f32: f32 operands, FFMA products, f32 sums; no TF32
-and no bf16 tensor-core product, so an f32 run gets the numbers of the
-port's f32 eager module and of the JAX package's f32 kernels, to summation
-order.
+to width 1024. f32 accuracy: f32 operands and sums; the GEMM's products are
+3xTF32 split products on the tensor cores (within 1e-5 of f64 products,
+where one-pass TF32 is not), so an f32 run gets the numbers of the port's
+f32 eager module and of the JAX package's f32 kernels, to summation order
+and that split's last bits.
 
 - `wide_f32_encode`: the f32 encodes (M, EP) and (M, DP);
 - `wide_f32_gemm`: Y = epilogue(sum_s X_s W[:, seg_s]^T) in two forms:
@@ -38,7 +39,7 @@ the narrow f32 kernels (the weight gradient in `fused_f32.weight_grad_f32`).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +49,7 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     PackedMLP,
     _check,
     _raise_if,
+    _resident_ctas,
     _round_up,
 )
 from mega_nerf_tpu_torch.render.fused_train import _ints, _stream
@@ -61,7 +63,18 @@ from mega_nerf_tpu_torch.render.fused_wide import (
 )
 
 F32 = torch.float32
-GEMM_K = 16  # k columns of a GEMM ring stage (wide_f32.cu BK)
+# The GEMM's plan (wide_f32.cu BM, BN, BK, STAGES, GEMM_SMEM; its launcher
+# checks this copy): 128 x 128 output tiles, 32-column k-stages (one
+# 128-byte swizzle row of f32), a 4-stage ring of three 16 KB boxes a stage
+# (A, W, W's TF32 rests), barriers and 1 KB of alignment.
+GEMM_TILE_M = 128
+GEMM_TILE_N = 128
+GEMM_K = 32
+GEMM_STAGES = 4
+GEMM_SMEM = GEMM_STAGES * 3 * GEMM_TILE_M * GEMM_K * 4 + 2 * GEMM_STAGES * 8 + 1024
+# k-stages of a chain of tensor-core products, run from zero and then added
+# into the f32 totals (wide_f32.cu CHAIN_STAGES): 8 k-steps of 8.
+GEMM_CHAIN = 2
 # The GEMM's epilogues (wide_f32.cu EPI_*): the backward-data forms are
 # fused_train_wide.DX_* (0-3), then the forward layer's.
 EPI_LAYER = 4
@@ -74,10 +87,14 @@ def _library() -> ctypes.CDLL:
     lib = load_library("wide_f32")
     if not getattr(lib, "_wide_f32_bound", False):
         vp = ctypes.c_void_p
-        for fn in ("wide_f32_encode_launch", "wide_f32_gemm_launch",
-                   "wide_f32_heads_fwd_launch", "wide_f32_heads_bwd_launch"):
+        for fn in ("wide_f32_encode_launch", "wide_f32_heads_fwd_launch",
+                   "wide_f32_heads_bwd_launch"):
             getattr(lib, fn).argtypes = [vp, vp, vp]
             getattr(lib, fn).restype = ctypes.c_int
+        lib.wide_f32_gemm_launch.argtypes = [vp, vp, vp, ctypes.c_int, vp]
+        lib.wide_f32_gemm_launch.restype = ctypes.c_int
+        lib.wide_f32_resident_ctas.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.wide_f32_resident_ctas.restype = ctypes.c_int
         lib.error_string = lib.wide_f32_error_string
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
@@ -151,20 +168,49 @@ def wide_f32_encode(packed: PackedMLP, xyz: torch.Tensor, dirs: Optional[torch.T
 # -------------------------------------------------------------------- GEMM
 
 
-def wide_f32_gemm(xs: Sequence[torch.Tensor], w: torch.Tensor, n: int, mode: int,
-                  out: torch.Tensor, cols: Sequence[int],
-                  bias: Optional[torch.Tensor] = None,
-                  mask: Optional[torch.Tensor] = None,
-                  g_heads: Optional[torch.Tensor] = None,
-                  w_sigma: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out (M, n) f32 = epilogue(sum_s X_s W[:n, cols_s : cols_s + K_s]^T) on
-    CUDA tensors: xs 1-3 f32 segments (M, K_s), w a row-major f32 (>= n,
-    ld) matrix (row c gives output column c), `cols` each segment's first
-    column of W (`fused_wide.segment_columns`). Epilogues: EPI_LAYER /
-    EPI_LAYER_RELU add `bias` (and the ReLU); fused_train_wide.DX_F32 and
-    DX_NONE none; DX_MASK zeroes where `mask` (M, n) <= 0, DX_MASK_SIGMA
-    adds g_heads[:, 0] w_sigma first. The kernel itself: one CTA per
-    128 x 128 output tile, no split over K, so launches repeat bit for bit."""
+def gemm_tiles(m: int, n: int) -> int:
+    """Output tiles of the GEMM over (m, n)."""
+    return -(-m // GEMM_TILE_M) * -(-n // GEMM_TILE_N)
+
+
+def gemm_grid(m: int, n: int, resident: int) -> int:
+    """CTAs of a persistent GEMM launch: one per output tile, at most as
+    many as the card holds at once."""
+    return max(1, min(gemm_tiles(m, n), resident))
+
+
+def gemm_walk(m: int, n: int, grid: int) -> List[List[Tuple[int, int]]]:
+    """(first point, first column) of the tiles each of `grid` CTAs computes,
+    in order, mirroring the kernel: CTA b takes tiles t = b, b + grid, ...,
+    tile t at point tile t // ntn and column tile t % ntn."""
+    ntn = -(-n // GEMM_TILE_N)
+    return [[(t // ntn * GEMM_TILE_M, t % ntn * GEMM_TILE_N)
+             for t in range(b, gemm_tiles(m, n), grid)] for b in range(grid)]
+
+
+def gemm_wlo_shape(n: int, w_cols: int) -> Tuple[int, int]:
+    """(rows, row pitch) of the scratch for W's TF32 rests: W's first n
+    rows, each padded to 16 bytes (TMA reads it)."""
+    return n, _round_up(w_cols, 4)
+
+
+def gemm_plan_ints() -> List[int]:
+    """The plan the kernel checks: tile_m, tile_n, tile_k, stages, chain,
+    smem."""
+    return [GEMM_TILE_M, GEMM_TILE_N, GEMM_K, GEMM_STAGES, GEMM_CHAIN, GEMM_SMEM]
+
+
+def check_gemm_operands(xs: Sequence[torch.Tensor], w: torch.Tensor, n: int, mode: int,
+                        out: torch.Tensor, cols: Sequence[int],
+                        bias: Optional[torch.Tensor] = None,
+                        mask: Optional[torch.Tensor] = None,
+                        g_heads: Optional[torch.Tensor] = None,
+                        w_sigma: Optional[torch.Tensor] = None) -> None:
+    """Raise ValueError unless the GEMM kernel takes these operands: 1-3 f32
+    segments (M, K_s) and W (>= n rows), each row-major with a 16-byte
+    aligned base and row pitch (TMA reads them in boxes), each segment
+    inside W's columns at a column that is a multiple of 4; a contiguous f32
+    `out` (M, n); the epilogue's operands of `mode`; one device."""
     from mega_nerf_tpu_torch.render.fused_train_wide import (
         DX_F32,
         DX_MASK,
@@ -172,8 +218,9 @@ def wide_f32_gemm(xs: Sequence[torch.Tensor], w: torch.Tensor, n: int, mode: int
         HEADS_GRAD_WIDTH,
     )
 
-    if not 1 <= len(xs) <= WIDE_MAX_SEGMENTS:
-        raise ValueError(f"wide_f32_gemm: 1-{WIDE_MAX_SEGMENTS} segments, got {len(xs)}")
+    if not 1 <= len(xs) <= WIDE_MAX_SEGMENTS or len(cols) != len(xs):
+        raise ValueError(f"wide_f32_gemm: 1-{WIDE_MAX_SEGMENTS} segments, each with its "
+                         f"column, got {len(xs)} and {len(cols)}")
     if not DX_F32 <= mode <= EPI_LAYER_RELU:
         raise ValueError(f"wide_f32_gemm: unknown epilogue {mode}")
     m = xs[0].shape[0]
@@ -183,40 +230,71 @@ def wide_f32_gemm(xs: Sequence[torch.Tensor], w: torch.Tensor, n: int, mode: int
         raise ValueError(f"wide_f32_gemm: w must be a row-major f32 matrix of at least "
                          f"{n} rows, 16-byte aligned, got {w.dtype} {tuple(w.shape)} "
                          f"strides {w.stride()}")
-    ld = w.stride(0)
     for i, (x, c) in enumerate(zip(xs, cols)):
         if x.device != w.device:
             raise ValueError("wide_f32_gemm: segments and weights on different devices")
         _check_f32_rows(f"segment {i}", x, m, widths[i])
-        if c % 4 or c + _round_up(widths[i], GEMM_K) > w.shape[1]:
+        if c % 4 or c < 0 or c + _round_up(widths[i], MMA_K) > w.shape[1]:
             raise ValueError(f"wide_f32_gemm: segment {i} ({widths[i]} wide at column "
                              f"{c}) is not inside the {w.shape[1]} columns of W")
     _check("out", out, F32, (m, n))
     if out.device != w.device:
         raise ValueError("wide_f32_gemm: out on another device than the weights")
-    extra = [0, 0, 0, 0]  # bias, mask, g_heads, w_sigma
     if mode >= EPI_LAYER:
         _check("bias", bias, F32, (n,))
-        extra[0] = bias.data_ptr()
     if mode in (DX_MASK, DX_MASK_SIGMA):
         _check("mask", mask, F32, (m, n))
-        extra[1] = mask.data_ptr()
     if mode == DX_MASK_SIGMA:
         _check("g_heads", g_heads, F32, (m, HEADS_GRAD_WIDTH))
         _check("w_sigma", w_sigma, F32, (n,))
-        extra[2:] = [g_heads.data_ptr(), w_sigma.data_ptr()]
     for t in (bias, mask, g_heads, w_sigma):
         if t is not None and t.device != w.device:
             raise ValueError("wide_f32_gemm: tensors on different devices")
+
+
+def wide_f32_gemm(xs: Sequence[torch.Tensor], w: torch.Tensor, n: int, mode: int,
+                  out: torch.Tensor, cols: Sequence[int],
+                  bias: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  g_heads: Optional[torch.Tensor] = None,
+                  w_sigma: Optional[torch.Tensor] = None,
+                  grid: Optional[int] = None) -> torch.Tensor:
+    """out (M, n) f32 = epilogue(sum_s X_s W[:n, cols_s : cols_s + K_s]^T) on
+    CUDA tensors: xs 1-3 f32 segments (M, K_s), w a row-major f32 (>= n,
+    ld) matrix (row c gives output column c), `cols` each segment's first
+    column of W (`fused_wide.segment_columns`). Epilogues: EPI_LAYER /
+    EPI_LAYER_RELU add `bias` (and the ReLU); fused_train_wide.DX_F32 and
+    DX_NONE none; DX_MASK zeroes where `mask` (M, n) <= 0, DX_MASK_SIGMA
+    adds g_heads[:, 0] w_sigma first. The kernel: W's TF32 rests into
+    scratch (`gemm_wlo_shape`), then persistent CTAs (`gemm_grid`; `grid`,
+    the tests' only, sets another count) over 128 x 128 output tiles,
+    3xTF32 products on `wgmma` in a fixed order with no split over K, so
+    launches repeat bit for bit."""
+    from mega_nerf_tpu_torch.render.fused_train_wide import HEADS_GRAD_WIDTH
+
+    check_gemm_operands(xs, w, n, mode, out, cols, bias, mask, g_heads, w_sigma)
+    if w.device.type != "cuda":
+        raise ValueError(f"wide_f32_gemm: a kernel of the card, got tensors on {w.device}")
+    m = xs[0].shape[0]
     if m == 0 or n == 0:
         return out
     lib = _library()
+    if grid is None:
+        grid = gemm_grid(m, n, _resident_ctas(lib, w.device, GEMM_SMEM,
+                                              "wide_f32_resident_ctas"))
+    elif grid < 1:
+        raise ValueError(f"wide_f32_gemm: grid {grid}")
+    wlo = torch.empty(gemm_wlo_shape(n, w.shape[1]), dtype=F32, device=w.device)
     ptrs = [x.data_ptr() for x in xs] + [0] * (WIDE_MAX_SEGMENTS - len(xs))
-    ptrs += [w.data_ptr(), *extra, out.data_ptr()]
-    dims = [m, n, len(xs), ld, n, mode, n, HEADS_GRAD_WIDTH]
+    ptrs += [w.data_ptr(), *(0 if t is None else t.data_ptr()
+                             for t in (bias, mask, g_heads, w_sigma)),
+             out.data_ptr(), wlo.data_ptr()]
+    dims = [m, n, len(xs), w.stride(0), n, mode, n, HEADS_GRAD_WIDTH]
     for i in range(WIDE_MAX_SEGMENTS):
-        dims += [widths[i], xs[i].stride(0), cols[i]] if i < len(xs) else [0, 0, 0]
-    err = lib.wide_f32_gemm_launch(_longs(ptrs), _ints(dims), _stream(w))
+        dims += [xs[i].shape[1], xs[i].stride(0), cols[i]] if i < len(xs) else [0, 0, 0]
+    dims += [w.shape[1], wlo.shape[1]]
+    err = lib.wide_f32_gemm_launch(_longs(ptrs), _ints(dims), _ints(gemm_plan_ints()), grid,
+                                   _stream(w))
     wide_f32_gemm.launches += 1
     _raise_if(lib, err, "wide_f32_gemm")
     return out
@@ -382,5 +460,8 @@ def wide_f32_kernel_launches() -> int:
 __all__ = [
     "wide_f32_encode", "wide_f32_gemm", "wide_f32_layer", "wide_f32_dx",
     "wide_f32_heads_fwd", "wide_f32_heads_bwd", "wide_f32_dw", "EPI_LAYER",
-    "EPI_LAYER_RELU", "GEMM_K", "WIDE_F32_KERNELS", "wide_f32_kernel_launches",
+    "EPI_LAYER_RELU", "GEMM_TILE_M", "GEMM_TILE_N", "GEMM_K", "GEMM_STAGES",
+    "GEMM_SMEM", "GEMM_CHAIN", "gemm_tiles", "gemm_grid", "gemm_walk", "gemm_wlo_shape",
+    "gemm_plan_ints", "check_gemm_operands", "WIDE_F32_KERNELS",
+    "wide_f32_kernel_launches",
 ]

@@ -1291,6 +1291,117 @@ def test_wide_f32_dx_and_dw_repeat_bitwise(cuda_device, bg):
     assert torch.equal(first, again) and torch.equal(d_app, d_app2)
 
 
+GEMM_MODES = ["layer", "layer relu", "dx f32", "dx none", "dx mask", "dx mask sigma"]
+
+
+def _gemm_case(device, width, nseg, m, n, mode, seed):
+    """Seeded operands of one f32 wide GEMM call: `nseg` segments in a
+    packed layout of `width` (one segment; a skip layer's [enc | h]; the
+    dir_a layer's [final | dir | app], dir 27 wide read from rows of 28),
+    ReLU activations (layer forms) or signed, half-zero gradient rows (dX
+    forms), weights N(0, 1 / K)."""
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+    from mega_nerf_tpu_torch.render.fused_train_wide import (
+        DX_F32,
+        DX_MASK,
+        DX_MASK_SIGMA,
+        DX_NONE,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    widths = [width] if nseg == 1 else ([80, width] if nseg == 2 else [width, 27, 48])
+    cols, c = [], 0
+    for k in widths:
+        cols.append(c)
+        c += -(-k // 16) * 16
+    xs = []
+    for k in widths:
+        x = torch.randn((m, -(-k // 4) * 4), generator=gen, device=device)
+        x = x.relu() if mode.startswith("layer") else x * (torch.rand(
+            x.shape, generator=gen, device=device) > 0.5)
+        xs.append(x[:, :k])
+    w = torch.randn((n, c), generator=gen, device=device) / c ** 0.5
+    code = {"layer": fwf.EPI_LAYER, "layer relu": fwf.EPI_LAYER_RELU, "dx f32": DX_F32,
+            "dx none": DX_NONE, "dx mask": DX_MASK, "dx mask sigma": DX_MASK_SIGMA}[mode]
+    kw = {}
+    if code >= fwf.EPI_LAYER:
+        kw["bias"] = torch.randn(n, generator=gen, device=device)
+    if code in (DX_MASK, DX_MASK_SIGMA):
+        kw["mask"] = torch.randn((m, n), generator=gen, device=device)
+    if code == DX_MASK_SIGMA:
+        kw["g_heads"] = torch.randn((m, 16), generator=gen, device=device)
+        kw["w_sigma"] = torch.randn(n, generator=gen, device=device)
+    return xs, w, cols, code, kw
+
+
+def _gemm_reference(xs, w, cols, code, kw, dtype):
+    """The GEMM's function in `dtype` (f32: its plain version, TF32 off;
+    f64: the yardstick), the epilogue in the plain version's order."""
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+    from mega_nerf_tpu_torch.render.fused_train_wide import DX_MASK, DX_MASK_SIGMA
+
+    y = sum(x.to(dtype) @ w[:, c:c + x.shape[1]].to(dtype).T for x, c in zip(xs, cols))
+    if code >= fwf.EPI_LAYER:
+        y = y + kw["bias"].to(dtype)
+        if code == fwf.EPI_LAYER_RELU:
+            y = y.clamp_min(0)
+    if code == DX_MASK_SIGMA:
+        y = y + kw["g_heads"][:, :1].to(dtype) * kw["w_sigma"].to(dtype)
+    if code in (DX_MASK, DX_MASK_SIGMA):
+        y = torch.where(kw["mask"] > 0, y, torch.zeros_like(y))
+    return y
+
+
+@pytest.mark.parametrize("m", [1000, 37])
+@pytest.mark.parametrize("nseg", [1, 2, 3])
+@pytest.mark.parametrize("mode", GEMM_MODES)
+@pytest.mark.parametrize("width", [576, 640, 1024])
+def test_wide_f32_gemm_matches_plain_and_f64(cuda_device, width, mode, nseg, m):
+    """The f32 wide GEMM (`wide_f32_gemm_kernel`, 3xTF32 on wgmma) at widths
+    576, 640 and 1024 with 1-3 segments, every epilogue, ragged M (1,000
+    and 37 points: a part tile) and N (576 = 4.5 column tiles): within
+    1e-4 (1 + |y|) of its plain version in f32 (TF32 off; the sums in
+    another order), within 1e-5 of f64 products of the same f32 rows
+    (relative, Frobenius: f32 accuracy), two launches bit for bit equal.
+    The dX forms' f32 epilogue also writes an odd width (5 columns, the
+    appearance gradient of a 5-wide embedding)."""
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 5 if mode == "dx f32" and width == 576 else width
+    xs, w, cols, code, kw = _gemm_case(cuda_device, width, nseg, m, n, mode,
+                                       width + 7 * nseg + m + len(mode))
+    launches = fwf.wide_f32_gemm.launches
+    a = fwf.wide_f32_gemm(xs, w, n, code, torch.empty((m, n), device=cuda_device), cols, **kw)
+    b = fwf.wide_f32_gemm(xs, w, n, code, torch.empty((m, n), device=cuda_device), cols, **kw)
+    torch.cuda.synchronize()
+    assert fwf.wide_f32_gemm.launches == launches + 2
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert _close(a, _gemm_reference(xs, w, cols, code, kw, torch.float32)) <= 1e-4
+    ref = _gemm_reference(xs, w, cols, code, kw, torch.float64)
+    assert ((a.double() - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["layer relu", "dx mask sigma"])
+def test_wide_f32_gemm_persistent_walk_repeats_bitwise(cuda_device, mode):
+    """100,003 points x 1024 columns, three segments: the persistent walk at
+    the default grid, at 133, 7 and 1 CTAs (the tests-only `grid`) gives the
+    same bits: each output is summed in one fixed order whichever CTA takes
+    its tile."""
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    m, n = 100_003, 1024
+    xs, w, cols, code, kw = _gemm_case(cuda_device, 1024, 3, m, n, mode, 25)
+    outs = []
+    for grid in (None, 133, 7, 1):
+        out = torch.empty((m, n), device=cuda_device)
+        outs.append(fwf.wide_f32_gemm(xs, w, n, code, out, cols, grid=grid, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = _gemm_reference(xs, w, cols, code, kw, torch.float64)
+    assert ((outs[0].double() - ref).norm() / ref.norm()).item() <= 1e-5
+
+
 def test_wide_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
     """The f32 wide wrappers on the card raise, before any launch and
     without a plain version: bf16 segments or weights, a segment whose rows

@@ -331,3 +331,193 @@ def test_render_rays_train_f32_through_the_wide_route_matches_jax(capsys, monkey
             diff = np.linalg.norm(np.asarray(got[path], np.float64) - w)
             assert diff <= GRAD_REL * max(np.linalg.norm(w), 1e-12), \
                 f"{side} {jax.tree_util.keystr(path)}"
+
+
+# ------------------------------------------------ the GEMM's 3xTF32 arithmetic
+
+
+def _tf32_read(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits (sign,
+    exponent, 10 mantissa bits), the rest truncated."""
+    return (np.asarray(x, np.float32).view(np.uint32)
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _to_f32_toward_zero(x):
+    """f64 -> f32 dropping the bits below the f32 result's last place (the
+    tensor cores' f32 adds)."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(y, np.float32(0)), y)
+
+
+def _gemm_3xtf32(xs, ws, chain_steps):
+    """The f32 wide GEMM's sums on the CPU, in its order: the segments
+    (M, K_s) and their weight columns (N, K_s) each zero-padded to whole
+    k-stages of fused_wide_f32.GEMM_K columns (TMA's zero fill) and
+    concatenated; hi is an operand as the tensor cores read it (truncated to
+    TF32), lo the rest x - hi read the same way; per 8-column k-step the
+    products lo*hi, hi*lo and hi*hi, each summed exactly and added into the
+    running chain with the bits below the chain's last place dropped; a
+    chain of `chain_steps` k-steps runs from zero, then is added into the f32
+    totals (round to nearest)."""
+    def padded(parts):
+        k = fused_wide_f32.GEMM_K
+        return np.concatenate([np.pad(p, ((0, 0), (0, -p.shape[1] % k))) for p in parts], 1)
+
+    x, w = padded(xs), padded(ws)
+    xh, wh = _tf32_read(x), _tf32_read(w)
+    xl, wl = _tf32_read(x - xh), _tf32_read(w - wh)
+    acc = np.zeros((x.shape[0], w.shape[0]), np.float32)
+    for c0 in range(0, x.shape[1], 8 * chain_steps):
+        ch = np.zeros_like(acc)
+        for k0 in range(c0, min(c0 + 8 * chain_steps, x.shape[1]), 8):
+            ks = slice(k0, k0 + 8)
+            for a, b in ((xl, wh), (xh, wl), (xh, wh)):
+                ch = _to_f32_toward_zero(ch.astype(np.float64)
+                                         + a[:, ks].astype(np.float64) @ b[:, ks].T)
+        acc = acc + ch
+    return acc
+
+
+@pytest.mark.parametrize("form", ["layer", "masked dx"])
+@pytest.mark.parametrize("widths", [(1024,), (80, 1024), (1024, 27, 48)],
+                         ids=["k1024", "skip", "three segments"])
+def test_gemm_3xtf32_holds_f32_accuracy_and_one_pass_tf32_does_not(widths, form):
+    """The GEMM's arithmetic (`_gemm_3xtf32`: the kernel's split, 8-column
+    k-steps, chains of GEMM_CHAIN k-stages, f32 totals) on seeded rows at
+    K = 1024, a skip layer's [enc | h] and the dir_a layer's three segments
+    [final | dir | app] (zero columns past each segment's width): within
+    1e-5 of the f64 products (relative, Frobenius), the card's limit
+    against f64 (chip_smoke.py GEMM_F64_TOL); one-pass TF32 products (each
+    operand read once, summed exactly) miss it. The layer form reads ReLU
+    activations; the dX form signed, ReLU-masked gradient rows."""
+    rng = np.random.default_rng(sum(widths) + len(form))
+    m, n = 48, 24
+    if form == "layer":
+        xs = [np.maximum(rng.normal(size=(m, k)), 0).astype(np.float32) for k in widths]
+    else:
+        xs = [(rng.normal(size=(m, k)) * (rng.random((m, k)) > 0.5)).astype(np.float32)
+              for k in widths]
+    ws = [(rng.normal(size=(n, k)) / np.sqrt(sum(widths))).astype(np.float32) for k in widths]
+    want = sum(x.astype(np.float64) @ w.T.astype(np.float64) for x, w in zip(xs, ws))
+    steps = fused_wide_f32.GEMM_CHAIN * fused_wide_f32.GEMM_K // 8
+    got = _gemm_3xtf32(xs, ws, steps)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-5, rel
+    one_pass = sum(_tf32_read(x).astype(np.float64) @ _tf32_read(w).T.astype(np.float64)
+                   for x, w in zip(xs, ws))
+    rel_one = np.linalg.norm(one_pass - want) / np.linalg.norm(want)
+    assert rel_one > 1e-5 > rel, (rel_one, rel)
+
+
+def test_gemm_split_is_exact_and_its_rest_loses_under_2_pow_20():
+    """hi + lo = x exactly for the kernel's split (hi = x as the tensor cores
+    read it, lo = x - hi, tf32_rest in wide_f32.cu), |lo| < 2^-10 |x|, and
+    lo as the tensor cores read it loses < 2^-20 |x|: seeded normals over 60
+    binades, signed."""
+    rng = np.random.default_rng(25)
+    x = (rng.normal(size=20_000) * 2.0 ** rng.integers(-30, 30, 20_000)).astype(np.float32)
+    hi = _tf32_read(x)
+    lo = x - hi
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo, x.astype(np.float64))
+    assert (np.abs(lo) < 2.0 ** -10 * np.abs(x)).all()
+    assert (np.abs(lo - _tf32_read(lo)) < 2.0 ** -20 * np.abs(x)).all()
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132, 10_000])
+@pytest.mark.parametrize("m,n", [(1, 5), (37, 576), (1_000, 1_024), (524_288, 1_024),
+                                 (20_011, 48), (786_432, 512)])
+def test_gemm_persistent_walk_covers_every_tile_once(m, n, grid):
+    """`gemm_walk` (the kernel's walk: CTA b takes tiles b, b + grid, ...)
+    gives every 128 x 128 output tile to exactly one CTA, the column tiles
+    of one point tile on neighbouring CTAs; `gemm_grid` never launches more
+    CTAs than tiles or than the card holds."""
+    tm, tn = fused_wide_f32.GEMM_TILE_M, fused_wide_f32.GEMM_TILE_N
+    ntm, ntn = -(-m // tm), -(-n // tn)
+    walk = fused_wide_f32.gemm_walk(m, n, grid)
+    tiles = [t for cta in walk for t in cta]
+    assert len(tiles) == len(set(tiles)) == ntm * ntn == fused_wide_f32.gemm_tiles(m, n)
+    assert set(tiles) == {(i * tm, j * tn) for i in range(ntm) for j in range(ntn)}
+    if grid >= ntn:
+        assert [walk[b][0] for b in range(ntn)] == [(0, j * tn) for j in range(ntn)]
+    launched = fused_wide_f32.gemm_grid(m, n, grid)
+    assert 1 <= launched <= min(grid, ntm * ntn)
+
+
+@pytest.mark.parametrize("n,cols,want", [(1024, 1024, (1024, 1024)), (1024, 1104, (1024, 1104)),
+                                         (512, 1102, (512, 1104)), (5, 512, (5, 512)),
+                                         (1024, 75, (1024, 76))])
+def test_gemm_wlo_scratch_holds_the_used_rows_at_a_16_byte_pitch(n, cols, want):
+    """The scratch for W's TF32 rests (`gemm_wlo_shape`): the n rows the
+    GEMM reads, each W's columns padded to 16 bytes (TMA's row pitch)."""
+    assert fused_wide_f32.gemm_wlo_shape(n, cols) == want
+
+
+def test_gemm_plan_fits_one_cta_an_sm():
+    """The plan the kernel checks: 128 x 128 tiles, 32-column k-stages (128
+    bytes of f32, the swizzle's row), 4 stages of three 16 KB boxes (A, W,
+    W's rests), chains of 2 k-stages; its shared memory fits the 232,448
+    bytes a CTA may take on an H100."""
+    plan = fused_wide_f32.gemm_plan_ints()
+    assert plan == [128, 128, 32, 4, 2, fused_wide_f32.GEMM_SMEM]
+    assert fused_wide_f32.GEMM_K * 4 == 128
+    assert fused_wide_f32.GEMM_SMEM == 4 * 3 * 16_384 + 64 + 1024 <= 232_448
+
+
+def _gemm_operands(case):
+    """Operands of one GEMM call on CPU tensors, `case` breaking one rule."""
+    from mega_nerf_tpu_torch.render.fused_train_wide import DX_MASK, DX_MASK_SIGMA
+
+    m, n = 40, 24
+    big = torch.zeros((m, 1032))
+    xs = [torch.zeros((m, 80)), big[:, :1024]]
+    w = torch.zeros((n, 1104))
+    kw = dict(xs=xs, w=w, n=n, mode=fused_wide_f32.EPI_LAYER_RELU,
+              out=torch.zeros((m, n)), cols=[0, 80], bias=torch.zeros(n))
+    if case == "bf16 segment":
+        kw["xs"] = [xs[0].bfloat16(), xs[1]]
+    elif case == "segment base off 16 B":
+        kw["xs"] = [xs[0], big[:, 1:1025]]
+    elif case == "row pitch off 16 B":
+        kw["xs"] = [torch.zeros((m, 82))[:, :80], xs[1]]
+    elif case == "segment past W":
+        kw["cols"] = [0, 96]
+    elif case == "column off 16 B":
+        kw["cols"] = [2, 80]
+    elif case == "weights off 16 B":
+        kw["w"] = torch.zeros((n, 1105))[:, 1:]
+    elif case == "too few weight rows":
+        kw["n"], kw["out"], kw["bias"] = n + 1, torch.zeros((m, n + 1)), torch.zeros(n + 1)
+    elif case == "four segments":
+        kw["xs"], kw["cols"] = [xs[0]] * 4, [0, 80, 160, 240]
+    elif case == "no bias":
+        kw["bias"] = None
+    elif case == "no mask":
+        kw["mode"] = DX_MASK
+    elif case == "sigma without g_heads":
+        kw.update(mode=DX_MASK_SIGMA, mask=torch.zeros((m, n)), w_sigma=torch.zeros(n))
+    elif case == "strided out":
+        kw["out"] = torch.zeros((m, 2 * n))[:, :n]
+    elif case == "unknown epilogue":
+        kw["mode"] = 6
+    return kw
+
+
+@pytest.mark.parametrize("case", [
+    "bf16 segment", "segment base off 16 B", "row pitch off 16 B", "segment past W",
+    "column off 16 B", "weights off 16 B", "too few weight rows", "four segments",
+    "no bias", "no mask", "sigma without g_heads", "strided out", "unknown epilogue"])
+def test_gemm_refuses_what_tma_and_its_epilogues_cannot_take(case):
+    """`check_gemm_operands` (run by `wide_f32_gemm` before any launch)
+    takes f32 segments and weights with 16-byte aligned bases and row
+    pitches inside W's columns, and refuses each broken rule with a
+    ValueError; the wrapper itself refuses CPU tensors (no plain fallback:
+    `wide_f32_layer` / `wide_f32_dx` pick the plain version by device)."""
+    fused_wide_f32.check_gemm_operands(**_gemm_operands("good"))
+    with pytest.raises(ValueError):
+        fused_wide_f32.check_gemm_operands(**_gemm_operands(case))
+    launches = fused_wide_f32.wide_f32_gemm.launches
+    with pytest.raises(ValueError):
+        fused_wide_f32.wide_f32_gemm(**_gemm_operands("good"))
+    assert fused_wide_f32.wide_f32_gemm.launches == launches
