@@ -40,6 +40,11 @@ Runs every phase, in order:
               relative; at the paper shapes the eval kernel equals the
               training forward without noise bit for bit; two weight-gradient
               launches give the same bits; every launch an f32 kernel's.
+              Then the weight gradient against f64 sums of its f32 rows, and
+              the forward (3xTF32 on wgmma) against an f64 forward of the
+              same f32 weights and inputs at the paper width: every saved
+              layer, rgb and sigma <= 1e-5 relative (FWD_F64_TOL), beside
+              the plain f32 forward's and one-pass TF32's errors.
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -254,7 +259,9 @@ each f32 kernel per launch at the main path's shapes (eval at the four passes
 of a 16,384-ray chunk, the plain version at fg fine in 1,048,576-point
 pieces; the training kernels at the four passes of a 1024-ray step, plain and
 bound at fg fine, the weight gradient beside torch.mm in f32 with TF32 off;
-bounds at 67 TFLOP/s of f32 FFMA).
+the forwards' and the weight gradient's bounds at 3xTF32 (three products a
+multiply-add at 495 TFLOP/s) with FFMA's beside, the backward-data's at 67
+TFLOP/s of f32 FFMA).
 
 Then f32 compute at widths 513-1024 (`csrc/wide_f32.cu` and the f32 weight
 gradient of `csrc/train_f32.cu`), TF32 off:
@@ -289,7 +296,7 @@ Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
 `{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}`,
 `{"resume_jax": ...}`, `{"training_f32": ...}`, `{"training_wide_f32": ...}`,
-`{"dw_f64": ...}` and `{"gemm_f64": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
+`{"dw_f64": ...}`, `{"fwd_f64": ...}` and `{"gemm_f64": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
 launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
 both ranks of multiproc, in resume_jax's resumed run and its eval, and in
 train_wide_f32's `train.main` and `eval.main`), the
@@ -318,6 +325,7 @@ TOL = 1e-2
 F32_TOL = 1e-4  # the f32 kernels against their plain versions (TF32 off)
 DW_F64_TOL = 1e-5  # the f32 weight gradient against f64 sums of its f32 rows
 GEMM_F64_TOL = 1e-5  # the f32 wide GEMM against f64 sums of its f32 rows
+FWD_F64_TOL = 1e-5  # the f32 forward against an f64 forward of its f32 inputs
 F32 = ["--compute_dtype", "float32"]
 # (name, source, the TPU kernel it replaces)
 KERNELS = (
@@ -347,8 +355,9 @@ KERNELS = (
     ("train_wide_dw", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
     # f32 compute (--compute_dtype float32) to width 512: the three TPU
-    # kernels' f32 range, in f32 (f32 sums; FFMA products, and in the weight
-    # gradient 3xTF32 split products on the tensor cores).
+    # kernels' f32 range, in f32 (f32 sums; 3xTF32 split products on the
+    # tensor cores in the forwards and the weight gradient, FFMA products in
+    # the backward-data kernel).
     ("fused_nerf_eval_f32", "mega_nerf_tpu_torch/render/csrc/eval_f32.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("fused_nerf_train_fwd_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
@@ -637,11 +646,88 @@ def phase_compare_f32(device, report):
         f"{errs['kernel']:.3e}, plain f32 (TF32 off) {errs['plain']:.3e}, one-pass TF32 "
         f"{errs['tf32']:.3e} -> {'ok' if dw_ok else 'FAIL'} (kernel <= {DW_F64_TOL})")
     all_ok &= dw_ok
+    fwd = forward_against_f64(device)
+    report["fwd_f64"] = fwd
+    fwd_ok = max(fwd["kernel"].values()) <= FWD_F64_TOL
+    for name in ("kernel", "plain", "tf32"):
+        log(f"  f32 forward against an f64 forward of its f32 inputs (paper width fg, "
+            f"{FWD_F64_POINTS} points; relative per saved layer, rgb, sigma), {name}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in fwd[name].items()))
+    log(f"  f32 forward (3xTF32 on wgmma) worst {max(fwd['kernel'].values()):.3e}, plain f32 "
+        f"(TF32 off) {max(fwd['plain'].values()):.3e}, one-pass TF32 "
+        f"{max(fwd['tf32'].values()):.3e} -> {'ok' if fwd_ok else 'FAIL'} (kernel <= "
+        f"{FWD_F64_TOL} at every layer)")
+    all_ok &= fwd_ok
     after = f32_launches()
     f32_new = {k: after[k] - before[k] for k in F32_KERNELS}
     bf16_new = sum(kernel_launches().values()) - bf16_before - sum(f32_new.values())
     log(f"  f32 kernel launches in this phase {f32_new}; other kernels' {bf16_new}")
     return bool(all_ok and all(v > 0 for v in f32_new.values()) and bf16_new == 0)
+
+
+FWD_F64_POINTS = 131_072
+
+
+def forward_against_f64(device):
+    """Relative errors (Frobenius) of every saved layer (h0 .. h7, final,
+    branch), rgb and sigma of the paper model's f32 forward against an f64
+    forward of the same f32 weights, encode and appearance rows
+    (`fused_mlp.forward_trace(acc=torch.float64)`), FWD_F64_POINTS seeded fg
+    points: the kernels (the training forward's rows without noise, the eval
+    kernel's output), the plain f32 forward with TF32 off and with TF32 on
+    (one-pass TF32 products) -> {"kernel": {...}, "plain": {...}, "tf32":
+    {...}}."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    bundle = seeded_bundle(paper_hparams(F32), 16, False, 34, device)
+    packed = fused_mlp.pack_params(bundle.module)
+    d, lay = packed.config.layer_dim, ft.act_layout(packed)
+    xyz, dirs, idx = mlp_inputs(bundle.config, FWD_F64_POINTS, 35, device)
+    counters = (fused_f32.fused_nerf_eval_f32, fused_f32.fused_nerf_train_fwd_f32)
+    launches = [f.launches for f in counters]
+
+    def parts(out, act):
+        got = {f"h{i}": act[:, lay["h0"] + i * d:lay["h0"] + (i + 1) * d]
+               for i in range(packed.config.layers)}
+        got["final"] = act[:, lay["final"]:lay["final"] + d]
+        got["branch"] = act[:, lay["branch"]:lay["width"]]
+        got["rgb"], got["sigma"] = out[:, :3], out[:, 3]
+        return got
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    errs = {}
+    with torch.no_grad():
+        app = bundle.module.appearance(idx).float().contiguous()
+        ref = fused_mlp.forward_trace(packed, xyz, dirs, app, acc=torch.float64)
+        out64 = ref.output(packed.config.shifted_softplus)
+        want = {f"h{i}": h for i, h in enumerate(ref.hs)}
+        want["final"] = ref.branch_in[:, :d]
+        want["branch"] = ref.branch
+        want["rgb"], want["sigma"] = out64[:, :3], out64[:, 3]
+        del ref, out64
+        try:
+            for name, tf32 in (("kernel", False), ("plain", False), ("tf32", True)):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                if name == "kernel":
+                    out = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+                    _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, None)
+                else:
+                    out, act = ft.fused_nerf_train_fwd_plain(packed, xyz, dirs, app, None)
+                torch.cuda.synchronize()
+                got = parts(out, act)
+                errs[name] = {k: (got[k].double() - want[k]).norm().item()
+                              / want[k].norm().item() for k in want}
+                del out, act, got
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+    for f, n in zip(counters, launches):  # checks, not main-path launches
+        f.launches = n
+    del want, xyz, dirs, app
+    torch.cuda.empty_cache()
+    return errs
 
 
 def dw_f64_errors(jobs, n_out, kernel, plain):
@@ -5263,15 +5349,19 @@ def time_f32_kernels(device, report):
             plain_ms = cuda_ms(plain, 1, 1)
         flops = fused_mlp.flops_per_point(cfg) * m
         nbytes = fused_mlp.io_bytes_per_point(cfg) * m
-        bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        # Three TF32 tensor-core products a multiply-add (the kernel's);
+        # FFMA's bound beside.
+        bms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        ffma_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
         kernels["fused_nerf_eval_f32"].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                               bound_by=by)
+        plan = fused_f32.f32_fwd_plan(cfg)
         log(f"  fused_nerf_eval_f32 at fg fine: {ms:.3f} ms/launch = "
-            f"{flops / ms / 1e9:.1f} TFLOP/s of {PEAK_F32_FLOPS / 1e12:.0f} f32; plain "
-            f"{plain_ms:.3f} ms ({len(pieces)} pieces); bound {bms:.3f} ms ({by}: "
-            f"{flops:.4g} FLOP, {nbytes:.4g} B); tile "
-            f"{fused_f32.f32_fwd_plan(cfg).tm} points, "
-            f"{fused_f32.f32_fwd_plan(cfg).smem_bytes} B shared memory")
+            f"{3 * flops / ms / 1e9:.1f} TFLOP/s of TF32 products ({flops / ms / 1e9:.1f} "
+            f"f32); plain {plain_ms:.3f} ms ({len(pieces)} pieces); bound {bms:.3f} ms "
+            f"({by}: {3 * flops:.4g} FLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s of TF32, "
+            f"{nbytes:.4g} B; FFMA {ffma_ms:.3f} ms); tile {plan.tm} points, ring "
+            f"{plan.stages} stages, {plan.smem_bytes} B shared memory")
         del xyz, dirs, app
         torch.cuda.empty_cache()
     out["eval_chunk_ms"] = chunk_ms
@@ -5333,8 +5423,13 @@ def time_f32_kernels(device, report):
         log(f"  weight_grad_f32 bounds at fg fine: FFMA {ffma[0]:.3f} ms ({ffma[1]}), 3xTF32 "
             f"{tf32[0]:.3f} ms ({tf32[1]}: {3 * flops:.4g} FLOP at "
             f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {wg_b:.4g} B); the row takes 3xTF32's")
+        fwd_tf32 = bound(3 * flops, fwd_b, PEAK_TF32_FLOPS)
+        log(f"  fused_nerf_train_fwd_f32 bounds at fg fine: FFMA "
+            f"{bound(flops, fwd_b, PEAK_F32_FLOPS)[0]:.3f} ms, 3xTF32 {fwd_tf32[0]:.3f} ms "
+            f"({fwd_tf32[1]}); the row takes 3xTF32's")
         for k, (ms, plain_ms, fl, nb, peak) in rows.items():
-            bms, by = tf32 if k == "weight_grad_f32" else bound(fl, nb, peak)
+            bms, by = {"weight_grad_f32": tf32, "fused_nerf_train_fwd_f32": fwd_tf32}.get(
+                k, bound(fl, nb, peak))
             kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
             log(f"  {k} at fg fine: {ms:.3f} ms/launch = {fl / ms / 1e9:.1f} TFLOP/s; "
                 f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, "
@@ -6147,6 +6242,7 @@ def main() -> int:
     log(json.dumps({"training_f32": report["training_f32"]}))
     log(json.dumps({"training_wide_f32": report["training_wide_f32"]}))
     log(json.dumps({"dw_f64": report["dw_f64"]}))
+    log(json.dumps({"fwd_f64": report["fwd_f64"]}))
     log(json.dumps({"gemm_f64": report["gemm_f64"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

@@ -6,53 +6,43 @@
 // dirs (cos as sin(x 2^k + pi/2), precise sinf), the ReLU trunk with the
 // skip concat [enc | h], the sigma head with shifted softplus or ReLU, and
 // with the branch trunk_final, dir_a over [final | dir enc | app] and the
-// rgb head with a sigmoid. True f32: f32 weights and activations, FFMA
-// products, f32 sums (no TF32, no bf16 tensor-core product), as the JAX
-// package computes it in f32. Output (M, 4) f32 [r, g, b, sigma].
+// rgb head with a sigmoid. f32 accuracy: f32 weights and activations, the
+// layer products as 3xTF32 split products on the tensor cores (within
+// ~2^-21 of each f32 product; no one-pass TF32, no bf16 product), f32 sums,
+// as the JAX package computes it in f32. Output (M, 4) f32 [r, g, b, sigma].
 //
 // What bounds it on an H100: ~1.21 MFLOP per point at the paper width
-// against ~190 B of inputs and outputs, so the f32 FMA pipes: the fg-fine
-// launch of one 16,384-ray chunk (8,388,608 points) is ~152 ms at 67 TFLOP/s
-// of f32 FFMA, its boundary bytes ~0.5 ms at 3.35 TB/s.
+// against ~190 B of inputs and outputs, so the tensor cores: the fg-fine
+// launch of one 16,384-ray chunk (8,388,608 points) is 10.16 TFLOP of TF32
+// products (three a multiply-add), ~61.6 ms at 495 TFLOP/s (~152 ms of f32
+// FFMA at 67 TFLOP/s, the chain this replaced); its boundary bytes ~0.5 ms
+// at 3.35 TB/s. The weights and their rests are read from L2 once per
+// 64-point tile (~4.9 MB at the paper width: ~640 GB over that launch,
+// ~29 ms at the ~22 TB/s the card's L2 gives when every SM reads the same
+// weights), the design's own traffic.
 //
-// Design (f32_chain.cuh, shared with the training forward of train_f32.cu,
-// so the two agree bit for bit without noise): a CTA of 256 threads per
-// tile of tm points (fused_f32.py::f32_fwd_plan: 64, or 32 where two
-// 64-point activation tiles do not fit), every activation resident in
-// shared memory as f32, two activation
-// tiles in turn, the weights (transposed copies of the packed matrices,
-// read along their rows) streamed from L2 in 16-row chunks through two
-// shared buffers, a register tile of (tm / 8) points x 8 columns a thread.
-// The weights are read once per tile (4 x ~0.6 M floats at the paper
-// width), so the tile size sets the L2 traffic: ~32 FLOP per L2 byte at 64
-// points. Left for later work (the redesign queue): 3xTF32 split products
-// or wgmma, TMA weight boxes, persistent CTAs, the heads spread over more
-// threads.
+// Design: f32_forward.cuh, shared with the training forward of
+// train_f32.cu, so that the two agree bit for bit without noise (warp-
+// specialised CTAs of 384 threads: a TMA ring of W boxes and of their TF32
+// rests, two consumer warpgroups on wgmma m64n64k8 over activations
+// resident in shared memory). Where the time goes, and the designs tried
+// beside it, is scripts/f32_fwd_probe.py's to measure: the products run at
+// ~70% of the card's TF32 rate, the encode, heads and epilogues take ~20%
+// of a CTA with the tensor cores idle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
-#include "f32_chain.cuh"
+#include "f32_forward.cuh"
 
 namespace {
 
-using namespace f32chain;
+using namespace f32fwd;
 
-template <int TP>
-__global__ void __launch_bounds__(NT, 1) eval_f32_kernel(const __grid_constant__ FwdParams p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  forward_tile<TP>(p, smem);
-}
-
-template <int TP>
-int launch(const FwdParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      eval_f32_kernel<TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (p.M + p.tm - 1) / p.tm;
-  eval_f32_kernel<TP><<<grid, NT, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(NT, 1)
+eval_f32_kernel(const __grid_constant__ FwdMaps maps, const __grid_constant__ FwdParams p) {
+  forward_tile(maps, p);
 }
 
 }  // namespace
@@ -60,62 +50,24 @@ int launch(const FwdParams& p, int smem, cudaStream_t stream) {
 extern "C" {
 
 // ptrs, dims: fused_mlp.py::launch_tables (xyz, dirs, app, out, w_sigma,
-//   b_sigma, w_rgb, b_rgb, then (matrix, bias) per matmul layer; M, xyz_dim,
-//   nf_xyz, nf_dir, layers, D, app_dim, skip_mask, has_branch,
-//   shifted_softplus, EP, DP, AP).
-// plan: tm, enc_off, dir_off, app_off, x_off, y_off, w_off, sig_off,
+//   b_sigma, w_rgb, b_rgb, then (matrix, bias) per matmul layer, the packed
+//   (N, Ktot) matrices; M, xyz_dim, nf_xyz, nf_dir, layers, D, app_dim,
+//   skip_mask, has_branch, shifted_softplus, EP, DP, AP).
+// plan: tm, stages, ring, x, y, enc, dir, app and barrier offsets,
 //   smem_bytes (fused_f32.py::f32_fwd_plan).
-//   The matrix pointers are the transposed (Ktot, N) copies.
 // shapes: (N, Ktot) per matmul layer.
-// Returns 0 or a cudaError_t (eval_f32_error_string).
+// rests: per matmul layer, its TF32 rests (N, Ktot) (fused_f32.py::w_rests).
+// Returns 0, a cudaError_t or a tensor-map failure (eval_f32_error_string).
 int eval_f32_launch(const long long* ptrs, const int* dims, const int* plan,
-                    const int* shapes, void* stream) {
-  FwdParams p = {};
-  p.xyz = reinterpret_cast<const float*>(ptrs[0]);
-  p.dirs = reinterpret_cast<const float*>(ptrs[1]);
-  p.app = reinterpret_cast<const float*>(ptrs[2]);
-  p.out = reinterpret_cast<float*>(ptrs[3]);
-  p.w_sigma = reinterpret_cast<const float*>(ptrs[4]);
-  p.b_sigma = reinterpret_cast<const float*>(ptrs[5]);
-  p.w_rgb = reinterpret_cast<const float*>(ptrs[6]);
-  p.b_rgb = reinterpret_cast<const float*>(ptrs[7]);
-  p.M = dims[0];
-  p.xyz_dim = dims[1];
-  p.nf_xyz = dims[2];
-  p.nf_dir = dims[3];
-  p.layers = dims[4];
-  p.D = dims[5];
-  p.app_dim = dims[6];
-  p.skip_mask = dims[7];
-  p.has_branch = dims[8];
-  p.shifted_softplus = dims[9];
-  p.EP = dims[10];
-  p.DP = dims[11];
-  p.AP = dims[12];
-  p.tm = plan[0];
-  p.enc_off = plan[1];
-  p.dir_off = plan[2];
-  p.app_off = plan[3];
-  p.x_off = plan[4];
-  p.y_off = plan[5];
-  p.w_off = plan[6];
-  p.sig_off = plan[7];
-  const int smem = plan[8];
-  const int nmat = p.layers + (p.has_branch ? 2 : 0);
-  if (nmat > MAX_MATS || (p.tm != 64 && p.tm != 32) || p.xyz_dim > 4 || p.D % 16)
-    return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < nmat; ++i) {
-    p.w[i] = reinterpret_cast<const float*>(ptrs[8 + 2 * i]);
-    p.bias[i] = reinterpret_cast<const float*>(ptrs[9 + 2 * i]);
-    p.kt[i] = shapes[2 * i + 1];
-  }
-  if (p.M <= 0) return 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return p.tm == 64 ? launch<8>(p, smem, s) : launch<4>(p, smem, s);
+                    const int* shapes, const long long* rests, void* stream) {
+  FwdParams p;
+  FwdMaps maps;
+  int smem = 0;
+  const int err = fwd_setup(ptrs, dims, plan, shapes, rests, p, maps, smem);
+  if (err || p.M <= 0) return err;
+  return fwd_launch(eval_f32_kernel, maps, p, smem, reinterpret_cast<cudaStream_t>(stream));
 }
 
-const char* eval_f32_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* eval_f32_error_string(int code) { return fwd_error_string(code); }
 
 }  // extern "C"

@@ -6,21 +6,22 @@
 // `fused_nerf_train_apply`) in f32 compute (`--compute_dtype float32`) at
 // layer widths up to 512, and the dW half of the latter past 512. f32
 // throughout: f32 weights, activations and gradients, f32 sums, as the JAX
-// package computes it in f32. The forward and backward-data products are
-// FFMA; the weight gradient's run on the tensor cores as 3xTF32 split
-// products, which keep f32-class accuracy (a single TF32 product keeps ~3
-// decimal digits and is not used).
+// package computes it in f32. The forward's and the weight gradient's
+// products run on the tensor cores as 3xTF32 split products, which keep
+// f32-class accuracy (a single TF32 product keeps ~3 decimal digits and is
+// not used); the backward-data products are FFMA.
 //
-// - train_f32_fwd: the eval chain of eval_f32.cu (the same f32_chain.cuh
-//   code, so without noise its output equals the eval kernel's bit for
-//   bit) plus the sigma noise before the activation; it also writes every
-//   activation of a point into one f32 row (fused_train.py::act_layout).
+// - train_f32_fwd: the eval kernel's forward (f32_forward.cuh, 3xTF32 on
+//   wgmma: the same device path, so without noise its output equals the
+//   eval kernel's bit for bit) plus the sigma noise before the activation;
+//   it also writes every activation of a point into one f32 row
+//   (fused_train.py::act_layout) from the epilogues.
 // - train_f32_bwd (backward-data, the dX half of _train_bwd_kernel): from
 //   the f32 rows and the (M, 4) cotangent, the heads' derivatives (sigma
 //   and rgb recomputed from the rows), then the chain backwards: d_a and
 //   d_app, d_final, and per trunk layer d_pre = (d_pre' W) * (h > 0), each
-//   product the same FFMA register tile as the forward's, reading the
-//   packed matrices along their rows; the ReLU masks come from the rows in
+//   product an FFMA register tile (f32_chain.cuh), reading the packed
+//   matrices along their rows; the ReLU masks come from the rows in
 //   the epilogue. Writes f32 gradient rows (fused_train.py::grad_layout)
 //   and d_app.
 // - weight_grad_f32 (the dW half): per job, dW = D^T X and the bias sums
@@ -44,9 +45,11 @@
 //   past width 512, the wide f32 route (wide_f32.cu; each dW step of
 //   fused_train_wide.py::train_wide_plan on the tensors it names).
 //
-// What bounds them on an H100: the forward and backward-data, f32 FMAs at
-// 67 TFLOP/s of FFMA. At the paper width a training pass of 524,288 points
-// is ~0.63 TFLOP forward, ~0.59 dX and ~0.63 dW (~9.5 and 8.8 ms of FFMA);
+// What bounds them on an H100: the forward, three TF32 products a
+// multiply-add at 495 TFLOP/s; the backward-data, f32 FMAs at 67 TFLOP/s
+// of FFMA. At the paper width a training pass of 524,288 points is ~0.63
+// TFLOP forward (~3.85 ms of 3xTF32, ~9.5 of FFMA), ~0.59 dX (~8.8 ms of
+// FFMA) and ~0.63 dW;
 // the saved rows (~10 KB of f32 a point) and the gradient rows (~9.8 KB)
 // are this design's own traffic, ~1.6 ms each at 3.35 TB/s. The weight
 // gradient's three TF32 products a multiply-add at 495 TFLOP/s take ~3.85
@@ -61,6 +64,7 @@
 #include <stdio.h>
 
 #include "f32_chain.cuh"
+#include "f32_forward.cuh"
 
 namespace {
 
@@ -68,10 +72,10 @@ using namespace f32chain;
 
 // ------------------------------------------------------------- forward
 
-template <int TP>
-__global__ void __launch_bounds__(NT, 1) train_f32_fwd_kernel(const __grid_constant__ FwdParams p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  forward_tile<TP>(p, smem);
+__global__ void __launch_bounds__(f32fwd::NT, 1)
+train_f32_fwd_kernel(const __grid_constant__ f32fwd::FwdMaps maps,
+                     const __grid_constant__ f32fwd::FwdParams p) {
+  f32fwd::forward_tile(maps, p);
 }
 
 // --------------------------------------------------------- backward-data
@@ -606,44 +610,18 @@ int launch_fwd_like(K kernel, const P& p, int smem, int grid, cudaStream_t strea
 
 extern "C" {
 
-// ptrs, dims, plan, shapes: as eval_f32_launch (fused_mlp.py::launch_tables
-//   with the transposed matrices, fused_f32.py::f32_fwd_plan); extra: noise
-//   (or 0), the saved rows;
+// ptrs, dims, plan, shapes, rests: as eval_f32_launch (fused_mlp.py::
+//   launch_tables, fused_f32.py::f32_fwd_plan, w_rests); extra: noise (or
+//   0), the saved rows;
 //   cols: act_width, final, dir, app, branch (fused_train.py::act_layout).
 int train_f32_fwd_launch(const long long* ptrs, const int* dims, const int* plan,
-                         const int* shapes, const long long* extra, const int* cols,
-                         void* stream) {
-  FwdParams p = {};
-  p.xyz = reinterpret_cast<const float*>(ptrs[0]);
-  p.dirs = reinterpret_cast<const float*>(ptrs[1]);
-  p.app = reinterpret_cast<const float*>(ptrs[2]);
-  p.out = reinterpret_cast<float*>(ptrs[3]);
-  p.w_sigma = reinterpret_cast<const float*>(ptrs[4]);
-  p.b_sigma = reinterpret_cast<const float*>(ptrs[5]);
-  p.w_rgb = reinterpret_cast<const float*>(ptrs[6]);
-  p.b_rgb = reinterpret_cast<const float*>(ptrs[7]);
-  p.M = dims[0];
-  p.xyz_dim = dims[1];
-  p.nf_xyz = dims[2];
-  p.nf_dir = dims[3];
-  p.layers = dims[4];
-  p.D = dims[5];
-  p.app_dim = dims[6];
-  p.skip_mask = dims[7];
-  p.has_branch = dims[8];
-  p.shifted_softplus = dims[9];
-  p.EP = dims[10];
-  p.DP = dims[11];
-  p.AP = dims[12];
-  p.tm = plan[0];
-  p.enc_off = plan[1];
-  p.dir_off = plan[2];
-  p.app_off = plan[3];
-  p.x_off = plan[4];
-  p.y_off = plan[5];
-  p.w_off = plan[6];
-  p.sig_off = plan[7];
-  const int smem = plan[8];
+                         const int* shapes, const long long* rests, const long long* extra,
+                         const int* cols, void* stream) {
+  f32fwd::FwdParams p;
+  f32fwd::FwdMaps maps;
+  int smem = 0;
+  const int err = f32fwd::fwd_setup(ptrs, dims, plan, shapes, rests, p, maps, smem);
+  if (err) return err;
   p.noise = reinterpret_cast<const float*>(extra[0]);
   p.act = reinterpret_cast<float*>(extra[1]);
   p.act_width = cols[0];
@@ -651,20 +629,12 @@ int train_f32_fwd_launch(const long long* ptrs, const int* dims, const int* plan
   p.act_dir = cols[2];
   p.act_app = cols[3];
   p.act_branch = cols[4];
-  const int nmat = p.layers + (p.has_branch ? 2 : 0);
-  if (nmat > MAX_MATS || (p.tm != 64 && p.tm != 32) || p.xyz_dim > 4 || p.D % 16 ||
-      p.act == nullptr)
+  // The epilogues store pairs of columns: even row widths and columns.
+  if (p.act == nullptr || p.act_width % 2 || p.act_final % 2 || p.act_branch % 2)
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < nmat; ++i) {
-    p.w[i] = reinterpret_cast<const float*>(ptrs[8 + 2 * i]);
-    p.bias[i] = reinterpret_cast<const float*>(ptrs[9 + 2 * i]);
-    p.kt[i] = shapes[2 * i + 1];
-  }
   if (p.M <= 0) return 0;
-  const int grid = (p.M + p.tm - 1) / p.tm;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return p.tm == 64 ? launch_fwd_like(train_f32_fwd_kernel<8>, p, smem, grid, s)
-                    : launch_fwd_like(train_f32_fwd_kernel<4>, p, smem, grid, s);
+  return f32fwd::fwd_launch(train_f32_fwd_kernel, maps, p, smem,
+                            reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ptrs: act, grad, g, noise (or 0), d_app (or 0), w_sigma, b_sigma, w_rgb,
@@ -751,8 +721,6 @@ int weight_grad_f32_launch(const long long* ptrs, const int* dims, void* stream)
   return (int)cudaGetLastError();
 }
 
-const char* train_f32_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* train_f32_error_string(int code) { return f32fwd::fwd_error_string(code); }
 
 }  // extern "C"

@@ -5,23 +5,26 @@ Counterparts of the JAX package's Pallas kernels in f32 compute
 (`render/pallas_mlp.py::_mlp_kernel`, `render/pallas_train.py::
 _train_fwd_kernel` and `::_train_bwd_kernel`, which run f32 to width 1024).
 The hand-written Hopper kernels compute in f32: f32 operands and f32 sums;
-FFMA products in the eval, forward and backward-data kernels; in the
-weight gradient, 3xTF32 split products on the tensor cores (each operand
-x = hi + lo, hi rounded to TF32 and lo read as TF32; hi*hi + hi*lo +
-lo*hi summed in f32), within ~2^-21 of each f32 product. No single-pass
-TF32 and no bf16 product, so an f32 run gets the numbers of the port's f32
-eager module and of the JAX package's f32 kernels, to summation order.
+in the eval kernel, the training forward and the weight gradient, 3xTF32
+split products on the tensor cores (each operand x = hi + lo, lo the rest
+of x past its TF32 part, read as TF32; hi*hi + hi*lo + lo*hi summed in
+f32), within ~2^-21 of each f32 product; FFMA products in the
+backward-data kernel. No single-pass TF32 and no bf16 product, so an f32
+run gets the numbers of the port's f32 eager module and of the JAX
+package's f32 kernels, to summation order and ~2^-21.
 
-- `csrc/eval_f32.cu` (`fused_nerf_eval_f32`): the eval chain.
+- `csrc/eval_f32.cu` (`fused_nerf_eval_f32`): the eval forward.
 - `csrc/train_f32.cu`: the training forward (`fused_nerf_train_fwd_f32`,
-  the eval chain plus sigma noise, writing the f32 saved rows of
+  the eval forward plus sigma noise, writing the f32 saved rows of
   `fused_train.act_layout`), backward-data (`train_bwd_data_f32`: f32
-  gradient rows of `fused_train.grad_layout` and d_app) and the weight
-  gradient (`weight_grad_f32`: dW and bias sums per job of
-  `fused_train.weight_grad_jobs` on `mma.sync` through a `cp.async` ring,
-  fixed-order split sums, no float atomics).
-- Both sources walk the layer chain with `csrc/f32_chain.cuh`, so the eval
-  kernel equals the training forward without noise bit for bit.
+  gradient rows of `fused_train.grad_layout` and d_app, over
+  `csrc/f32_chain.cuh`) and the weight gradient (`weight_grad_f32`: dW
+  and bias sums per job of `fused_train.weight_grad_jobs` on `mma.sync`
+  through a `cp.async` ring, fixed-order split sums, no float atomics).
+- Both forwards run one device path, `csrc/f32_forward.cuh` (`wgmma` over
+  a TMA ring of W boxes read from the packed (N, Ktot) matrices beside the
+  same boxes of W's TF32 rests, `w_rests`), so the eval kernel equals the
+  training forward without noise bit for bit.
 
 `fused_mlp.fused_nerf_eval` and the wrappers of `fused_train.py` call these
 on CUDA tensors when the packed weights are f32; CPU tensors run the plain
@@ -30,7 +33,8 @@ versions there, for either dtype. Each wrapper here counts its launches in
 launch raises, nothing falls back.
 
 `f32_fwd_plan(cfg)` and `f32_bwd_plan(cfg)` give a CTA's tile and shared
-memory (the kernels take them as launch arguments); `f32_wg_plan(packed,
+memory (the kernels take them as launch arguments), the forward's also its
+ring's stages; `f32_wg_plan(packed,
 m)` the weight gradient's output tiles and point ranges, `f32_wg_job_rows`
 its job table with each operand's copy width (`f32_wg_copy`).
 """
@@ -55,10 +59,19 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     supports_fused_kernel,
 )
 
-F32_COLS = 256  # output columns of one pass of a product (NB)
-F32_KS = 16  # k rows of a weight chunk (KS)
-F32_TILES = (64, 32)  # points of a CTA, the first that fits
+F32_COLS = 256  # output columns of one pass of a backward product (NB)
+F32_KS = 16  # k rows of a backward weight chunk (KS)
+F32_TILES = (64, 32)  # points of a backward CTA, the first that fits
 F32_SMEM_LIMIT = 232_448  # shared memory one CTA may use on an H100
+# The forward (f32_forward.cuh): 64 points a CTA written in place to width
+# 256, 32 (the wgmma rows 32-63 zero) with two activation tiles past it; a
+# ring stage = a W box of 128 rows x 32 columns and the same box of its
+# TF32 rests (`w_rests`).
+F32_FWD_INPLACE_WIDTH = 256
+F32_FWD_BOX = 128 * 32 * 4
+F32_FWD_STAGE = 2 * F32_FWD_BOX
+F32_FWD_STAGES = (4, 3, 2)  # the most that fit
+F32_FWD_ALIGN = 1024  # the 128-byte swizzle's period; the ring's alignment
 F32_WG_TILE = 128  # weight-gradient output tile: 128 (n) x 128 (k) (WG_T)
 F32_WG_CHUNK = 64  # points of one stage of the weight gradient's ring (WG_P)
 F32_WG_ELEMS = F32_WG_TILE * F32_WG_TILE + F32_WG_TILE
@@ -69,9 +82,8 @@ _WIDE_WHY = "layer_dim past 512 (the f32 kernels take widths to 512)"
 
 
 class F32Plan(NamedTuple):
-    """A CTA's tile of `tm` points and its shared memory: `offsets` in bytes
-    (forward: enc, dir, app, x, y, w, sig; backward: x, y, w, heads) and
-    `smem_bytes` in all."""
+    """The backward-data CTA's tile of `tm` points and its shared memory:
+    `offsets` in bytes (x, y, w, heads) and `smem_bytes` in all."""
     tm: int
     offsets: Dict[str, int]
     smem_bytes: int
@@ -97,19 +109,53 @@ def _fit(cfg: NeRFConfig, kind: str, widths) -> F32Plan:
                      f"for {cfg}")
 
 
-@functools.lru_cache(maxsize=None)
-def f32_fwd_plan(cfg: NeRFConfig) -> F32Plan:
-    """The f32 forward's tile (eval and training forward): 64 points where
-    the encode, direction, appearance and two activation tiles and the two
-    weight chunks fit, else 32. Raises NotImplementedError where the
-    kernels do not cover the architecture, ValueError where no tile fits."""
+class F32FwdPlan(NamedTuple):
+    """The f32 forward's CTA: a tile of `tm` points, a ring of `stages`,
+    byte `offsets` (ring, x, y, enc, dir, app, sig, bar) from a 1024-aligned
+    base (x == y: each layer written in place) and `smem_bytes` in all (with
+    the alignment's slack)."""
+    tm: int
+    stages: int
+    offsets: Dict[str, int]
+    smem_bytes: int
+
+
+def _fwd_layout(cfg: NeRFConfig, tm: int, stages: int) -> Tuple[Dict[str, int], int]:
     ep = _round_up(cfg.enc_in, MMA_K)
     dp = _round_up(cfg.dir_in, MMA_K)
     ap = _round_up(cfg.appearance_dim, MMA_K)
-    return _fit(cfg, "forward", lambda tm: {
-        "enc": 4 * ep * tm, "dir": 4 * dp * tm, "app": 4 * ap * tm,
-        "x": 4 * cfg.layer_dim * tm, "y": 4 * cfg.layer_dim * tm,
-        "w": 4 * 2 * F32_KS * F32_COLS, "sig": 4 * tm})
+    row = lambda width: 4 * tm * (width + 4) if width else 0  # noqa: E731
+    act = row(cfg.layer_dim)
+    inplace = cfg.layer_dim <= F32_FWD_INPLACE_WIDTH
+    # dir_a's direction and appearance tiles take the encode's room once
+    # the trunk is done with it.
+    o = {"ring": 0, "x": stages * F32_FWD_STAGE}
+    o["y"] = o["x"] + (0 if inplace else act)
+    o["enc"] = o["y"] + act
+    o["dir"] = o["enc"]
+    o["app"] = o["dir"] + row(dp)
+    o["sig"] = o["enc"] + _round_up(max(row(ep), row(dp) + row(ap)), 16)
+    o["bar"] = o["sig"] + _round_up(4 * tm, 16)
+    return o, o["bar"] + 2 * 8 * stages + F32_FWD_ALIGN
+
+
+@functools.lru_cache(maxsize=None)
+def f32_fwd_plan(cfg: NeRFConfig) -> F32FwdPlan:
+    """The f32 forward's CTA (eval and training forward): 64 points with
+    each layer written in place to width 256, 32 with two activation tiles
+    past it; the deepest ring of F32_FWD_STAGES that fits. Raises
+    NotImplementedError where the kernels do not cover the architecture,
+    ValueError where no ring fits."""
+    ok, why = supports_fused_kernel(cfg, train=True)
+    if not ok or is_wide(cfg):
+        raise NotImplementedError(f"fused kernel does not cover: {why or _WIDE_WHY}")
+    tm = 64 if cfg.layer_dim <= F32_FWD_INPLACE_WIDTH else 32
+    for stages in F32_FWD_STAGES:
+        offsets, total = _fwd_layout(cfg, tm, stages)
+        if total <= F32_SMEM_LIMIT:
+            return F32FwdPlan(tm, stages, offsets, total)
+    raise ValueError(f"f32 forward: no ring fits {F32_SMEM_LIMIT} B of shared memory "
+                     f"for {cfg}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,11 +237,11 @@ def _library(name: str, exports):
 
 
 def _eval_lib():
-    return _library("eval_f32", [("eval_f32_launch", 5)])
+    return _library("eval_f32", [("eval_f32_launch", 6)])
 
 
 def _train_lib():
-    return _library("train_f32", [("train_f32_fwd_launch", 7),
+    return _library("train_f32", [("train_f32_fwd_launch", 8),
                                   ("train_f32_bwd_launch", 5),
                                   ("weight_grad_f32_launch", 3)])
 
@@ -223,25 +269,33 @@ def _check_packed(packed: PackedMLP) -> None:
             raise ValueError("the f32 kernels take float32 packed weights")
 
 
-def transposed(packed: PackedMLP) -> List[torch.Tensor]:
-    """(Ktot, N) copies of the packed matrices: the forward kernels read a
-    chunk of 16 input columns as 16 contiguous rows."""
-    return [w.t().contiguous() for w in packed.mats]
+def tf32_rest(w: torch.Tensor) -> torch.Tensor:
+    """w - (w with its low 13 bits cleared): what the tensor cores leave of
+    an f32 operand read as TF32, exact in f32 (f32_forward.cuh's
+    `tf32_rest`, the split's lo)."""
+    return w - (w.view(torch.int32) & -8192).view(torch.float32)
 
 
-def _fwd_tables(packed: PackedMLP, xyz, dirs, app, out, wts):
-    """`fused_mlp.launch_tables` with the transposed matrices in place of
-    the packed ones (`wts` keeps them alive through the launch)."""
-    c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
-    for i, w in enumerate(wts):
-        c_ptrs[8 + 2 * i] = w.data_ptr()
-    return c_ptrs, c_dims
+def w_rests(packed: PackedMLP) -> List[torch.Tensor]:
+    """The TF32 rests of the packed matrices (`tf32_rest`, (N, Ktot) each),
+    which the f32 forward reads beside W: made once per set of packed
+    weights and kept on `packed`, keyed by each matrix's storage and
+    version, so the launches of a chunk and the views of a run share them
+    and an in-place update of the weights (which bumps the version) makes
+    them anew."""
+    key = [(w.data_ptr(), w._version, tuple(w.shape)) for w in packed.mats]
+    cached = getattr(packed, "_f32_rests", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, [tf32_rest(w).contiguous() for w in packed.mats])
+        packed._f32_rests = cached
+    return cached[1]
 
 
-def _fwd_plan_ints(plan: F32Plan) -> List[int]:
+def _fwd_plan_ints(plan: F32FwdPlan) -> List[int]:
     o = plan.offsets
-    return [plan.tm, o["enc"], o["dir"], o["app"], o["x"], o["y"], o["w"], o["sig"],
-            plan.smem_bytes]
+    return [plan.tm, plan.stages, o["ring"], o["x"], o["y"], o["enc"], o["dir"], o["app"],
+            o["sig"], o["bar"], plan.smem_bytes]
 
 
 def fused_nerf_eval_f32(packed: PackedMLP, xyz, dirs, app) -> torch.Tensor:
@@ -254,11 +308,11 @@ def fused_nerf_eval_f32(packed: PackedMLP, xyz, dirs, app) -> torch.Tensor:
     if m == 0:
         return out
     lib = _eval_lib()
-    wts = transposed(packed)
-    c_ptrs, c_dims = _fwd_tables(packed, xyz, dirs, app, out, wts)
+    c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
     shapes = [v for w in packed.mats for v in w.shape]
+    rests = _ptrs(w.data_ptr() for w in w_rests(packed))
     err = lib.eval_f32_launch(c_ptrs, c_dims, _ints(_fwd_plan_ints(plan)),
-                              _ints(shapes), _stream(xyz))
+                              _ints(shapes), rests, _stream(xyz))
     fused_nerf_eval_f32.launches += 1
     _raise_if(lib, err, "fused_nerf_eval_f32")
     return out
@@ -281,13 +335,14 @@ def fused_nerf_train_fwd_f32(packed: PackedMLP, xyz, dirs, app, noise):
     if m == 0:
         return out, act
     lib = _train_lib()
-    wts = transposed(packed)
-    c_ptrs, c_dims = _fwd_tables(packed, xyz, dirs, app, out, wts)
+    c_ptrs, c_dims = launch_tables(packed, xyz, dirs, app, out)
     shapes = [v for w in packed.mats for v in w.shape]
+    rests = _ptrs(w.data_ptr() for w in w_rests(packed))
     extra = [0 if noise is None else noise.data_ptr(), act.data_ptr()]
     cols = [lay["width"], lay["final"], lay["dir"], lay["app"], lay["branch"]]
     err = lib.train_f32_fwd_launch(c_ptrs, c_dims, _ints(_fwd_plan_ints(plan)),
-                                   _ints(shapes), _ptrs(extra), _ints(cols), _stream(xyz))
+                                   _ints(shapes), rests, _ptrs(extra), _ints(cols),
+                                   _stream(xyz))
     fused_nerf_train_fwd_f32.launches += 1
     _raise_if(lib, err, "fused_nerf_train_fwd_f32")
     return out, act
@@ -445,9 +500,9 @@ F32_KERNELS = (fused_nerf_eval_f32, fused_nerf_train_fwd_f32, train_bwd_data_f32
                weight_grad_f32)
 
 __all__ = [
-    "F32Plan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
+    "F32Plan", "F32FwdPlan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
     "f32_wg_tiles", "f32_wg_split", "f32_wg_copy", "f32_wg_job_rows", "WgJob",
-    "weight_grad_f32_jobs",
+    "weight_grad_f32_jobs", "tf32_rest", "w_rests",
     "fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
     "weight_grad_f32", "F32_KERNELS",
 ]

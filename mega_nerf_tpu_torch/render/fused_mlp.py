@@ -259,16 +259,19 @@ def forward_trace(
     dirs: Optional[torch.Tensor],
     app: Optional[torch.Tensor],
     noise: Optional[torch.Tensor] = None,
+    acc: torch.dtype = torch.float32,
 ) -> ForwardTrace:
     """The kernels' forward arithmetic in PyTorch: the same encode form
     (cos as sin(x 2^k + pi/2)), operands rounded to the compute dtype,
     float32 accumulation and bias, rounding after each layer; `noise`
-    (M,) f32 is added to the sigma pre-activation."""
+    (M,) f32 is added to the sigma pre-activation. `acc=torch.float64`
+    gives an f32 model's reference: the same f32 encode, weights and rows
+    in, every product, sum and activation in f64."""
     cfg = packed.config
-    dt = cfg.dtype
+    dt = cfg.dtype if acc == torch.float32 else acc
 
     def lin(x, w, b):
-        return x.float() @ w.float().T + b
+        return x.to(acc) @ w.to(acc).T + b.to(acc)
 
     enc = encode(xyz, cfg.pos_xyz_dim, packed.ep).to(dt)
     h = enc
@@ -278,9 +281,9 @@ def forward_trace(
         h = torch.relu(lin(inp, w, b)).to(dt)
         hs.append(h)
 
-    sigma_pre = h.float() @ packed.sigma_w.float() + packed.sigma_b
+    sigma_pre = h.to(acc) @ packed.sigma_w.to(acc) + packed.sigma_b.to(acc)
     if noise is not None:
-        sigma_pre = sigma_pre + noise.float()
+        sigma_pre = sigma_pre + noise.to(acc)
 
     branch_in = branch = None
     if packed.has_branch:

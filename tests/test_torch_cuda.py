@@ -422,6 +422,70 @@ def test_f32_train_kernels_match_plain(cuda_device, bg, kw):
     assert torch.isfinite(ev).all() and torch.equal(ev, clean)
 
 
+FWD_F64_TOL = 1e-5  # the f32 forward (3xTF32) against an f64 forward of its f32 inputs
+
+
+@pytest.mark.parametrize("width", [256, 512])
+@pytest.mark.parametrize("bg", [False, True])
+def test_f32_forward_holds_f64_accuracy(cuda_device, bg, width):
+    """The f32 forward (3xTF32 on wgmma; 64-point tiles in place at 256,
+    32-point tiles with two activation tiles at 512) against an f64 run of
+    the plain forward on the same f32 weights, encode and appearance rows
+    (`fused_mlp.forward_trace(acc=torch.float64)`), 4,099 points: every
+    saved layer (the training forward's rows, no noise), rgb and sigma
+    (the eval kernel's output) within FWD_F64_TOL relative, as the plain
+    f32 forward (TF32 off) is."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ft, packed, xyz, dirs, app, _, _ = _train_case(
+        cuda_device, bg, {"appearance_dim": 48, "layer_dim": width}, 4099, "float32")
+    with torch.no_grad():
+        out = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, None)
+        ref = fused_mlp.forward_trace(packed, xyz, dirs, app, acc=torch.float64)
+    torch.cuda.synchronize()
+    lay, d = ft.act_layout(packed), width
+    want = {f"h{i}": h for i, h in enumerate(ref.hs)}
+    want["final"] = ref.branch_in[:, :d]
+    want["branch"] = ref.branch
+    got = {f"h{i}": act[:, lay["h0"] + i * d:lay["h0"] + (i + 1) * d]
+           for i in range(len(ref.hs))}
+    got["final"] = act[:, lay["final"]:lay["final"] + d]
+    got["branch"] = act[:, lay["branch"]:lay["width"]]
+    final = ref.output(packed.config.shifted_softplus)
+    got["rgb"], want["rgb"] = out[:, :3], final[:, :3]
+    got["sigma"], want["sigma"] = out[:, 3], final[:, 3]
+    errs = {k: (got[k].double() - want[k]).norm().item() / want[k].norm().item()
+            for k in want}
+    assert all(e <= FWD_F64_TOL for e in errs.values()), errs
+
+
+def test_f32_forward_follows_in_place_weight_updates(cuda_device):
+    """The f32 forward makes W's TF32 rests on chip from each W box, with no
+    cache: after the packed matrices and biases are updated in place, the
+    next eval and training-forward launches match the plain version on the
+    new weights (1e-4, as test_f32_eval_kernel_matches_plain), and the
+    outputs moved."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ft, packed, xyz, dirs, app, noise, _ = _train_case(
+        cuda_device, False, {"appearance_dim": 48, "layer_dim": 256}, 5000, "float32")
+    with torch.no_grad():
+        before = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+        for w, b in zip(packed.mats, packed.biases):
+            w.mul_(1.25)
+            b.add_(0.05)
+        got = fused_mlp.fused_nerf_eval(packed, xyz, dirs, app)
+        out, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        want = fused_mlp.fused_nerf_eval_plain(packed, xyz, dirs, app)
+        want_t, want_act = ft.fused_nerf_train_fwd_plain(packed, xyz, dirs, app, noise)
+    torch.cuda.synchronize()
+    assert (got - before).abs().max().item() > 1e-2
+    for a, b in ((got, want), (out, want_t)):
+        err = (a - b).abs()
+        assert err[:, :3].max().item() <= 1e-4
+        assert (err[:, 3] / (1 + b[:, 3].abs())).max().item() <= 1e-4
+    assert _rel(act, want_act) <= 1e-4
+
+
 def test_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
     """f32 packed weights with bf16 inputs (appearance rows, saved rows)
     raise, and so does a compute dtype no kernel has; nothing launches."""

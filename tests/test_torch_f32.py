@@ -19,8 +19,9 @@ numpy-seeded points, appearance rows and sigma noise:
 Cases: widths 48 (no dirs), 64 (the bg model, xyz_dim 4) and 128 (no
 appearance), a skip layer in each; 200 points, not a multiple of the JAX
 block of 256.
-Also the f32 tile plans: every width to 512 fits a CTA's 227 KB, 513 and 528
-are refused.
+Also the f32 plans (every width to 512 fits a CTA's 227 KB, 513 and 528
+are refused), the forward's launch tables and W-rests cache, and the 3xTF32
+arithmetic of the forward and of the weight gradient in numpy against f64.
 """
 
 import jax
@@ -167,23 +168,112 @@ def _cfg(width, bg, **kw):
 
 @pytest.mark.parametrize("bg", [False, True])
 def test_f32_plans_fit_every_width_to_512(bg):
-    """The f32 forward and backward plans admit every width 16 .. 512 (in
-    steps of 16) within 227 KB of shared memory: 64-point tiles at the
-    paper width (256), 32-point tiles at 512, where two 64-point activation
-    tiles alone take 256 KB; offsets on 16 bytes, in the order the kernels
-    read them."""
+    """The f32 backward-data plan admits every width 16 .. 512 (in steps of
+    16) within 227 KB of shared memory: 64-point tiles at the paper width
+    (256), 32-point tiles at 512, where two 64-point gradient tiles alone
+    take 256 KB; offsets on 16 bytes, in the order the kernel reads them,
+    the two tiles back to back."""
     for width in range(16, 513, 16):
         cfg = _cfg(width, bg)
-        for plan in (fused_f32.f32_fwd_plan(cfg), fused_f32.f32_bwd_plan(cfg)):
-            assert plan.smem_bytes <= fused_f32.F32_SMEM_LIMIT == 232_448
-            assert plan.tm in fused_f32.F32_TILES
-            if width in (256, 512):
-                assert plan.tm == (64 if width == 256 else 32), (width, plan.tm)
-            offs = list(plan.offsets.values())
-            assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
-        fwd = fused_f32.f32_fwd_plan(cfg)
-        assert fwd.offsets["y"] - fwd.offsets["x"] == 4 * width * fwd.tm
-        assert fwd.offsets["w"] - fwd.offsets["y"] == 4 * width * fwd.tm
+        plan = fused_f32.f32_bwd_plan(cfg)
+        assert plan.smem_bytes <= fused_f32.F32_SMEM_LIMIT == 232_448
+        assert plan.tm in fused_f32.F32_TILES
+        if width in (256, 512):
+            assert plan.tm == (64 if width == 256 else 32), (width, plan.tm)
+        offs = list(plan.offsets.values())
+        assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
+        assert plan.offsets["y"] - plan.offsets["x"] == 4 * width * plan.tm
+        assert plan.offsets["w"] - plan.offsets["y"] == 4 * width * plan.tm
+
+
+@pytest.mark.parametrize("bg", [False, True])
+def test_f32_fwd_plan_fits_every_width_to_512(bg):
+    """The f32 forward's plan (f32_forward.cuh) at every width 16 .. 512 (in
+    steps of 16): within 232,448 B with the 1024 B of alignment slack; 64
+    points written in place (x == y) to width 256, 32 points with two
+    activation tiles past it; the ring at offset 0 (1024-aligned, as TMA's
+    128-byte swizzle and wgmma's descriptors need) in stages of 32 KB (a
+    W box of 128 rows x 32 columns and its rests), each a multiple of 1024
+    B; 4 stages at the paper width fg and bg, at least 2 everywhere; the
+    tiles of `width + 4` columns a point (4 mod 8: the fragment reads hit
+    32 banks) on 16 B; dir enc and app in the encode's room, then sigma a
+    point, the full and empty barriers on 8 B past all of it."""
+    for width in range(16, 513, 16):
+        cfg = _cfg(width, bg)
+        plan = fused_f32.f32_fwd_plan(cfg)
+        o, tm = plan.offsets, plan.tm
+        assert plan.smem_bytes <= fused_f32.F32_SMEM_LIMIT == 232_448
+        assert tm == (64 if width <= 256 else 32)
+        assert (o["x"] == o["y"]) == (width <= 256)
+        assert o["ring"] == 0 and fused_f32.F32_FWD_STAGE == 32 * 1024
+        assert o["x"] == plan.stages * fused_f32.F32_FWD_STAGE and plan.stages >= 2
+        if width == 256:
+            assert plan.stages == 4
+        act = 4 * tm * (width + 4)
+        assert (width + 4) % 8 == 4
+        assert o["enc"] - o["y"] == act and (o["y"] == o["x"] or o["y"] - o["x"] == act)
+        ep, dp, ap = (fused_mlp._round_up(v, 16) for v in (cfg.enc_in, cfg.dir_in,
+                                                             cfg.appearance_dim))
+        assert o["dir"] == o["enc"] and o["app"] - o["dir"] == 4 * tm * (dp + 4)
+        room = max(4 * tm * (ep + 4), 4 * tm * (dp + 4 + ap + 4))
+        assert o["sig"] >= o["enc"] + room and o["bar"] >= o["sig"] + 4 * tm
+        assert o["bar"] % 8 == 0
+        assert all(v % 16 == 0 for v in o.values())
+        assert plan.smem_bytes == o["bar"] + 2 * 8 * plan.stages + 1024
+
+
+def test_f32_forward_reads_the_packed_matrices_and_cached_rests(monkeypatch):
+    """The f32 forward wrappers hand the kernels the packed (N, Ktot)
+    matrices themselves (K-major, as TF32 wgmma reads B; no transposed
+    copy) and, beside them, their TF32 rests (`w_rests`: x - trunc(x), the
+    split's lo, exactly `_tf32_trunc`'s complement), made once per set of
+    weights: a second launch reuses the same rests tensors, and after an
+    in-place weight update the next launch gets rests made from the new
+    weights. The plan's ints and the (N, Ktot) shapes go with them. A
+    stand-in library records the tables (no card here)."""
+    cfg = _cfg(64, False)
+    packed = fused_mlp.pack_tensors(cfg, {k: v for k, v in NeRF(cfg).named_parameters()})
+    seen = []
+
+    class Lib:
+        def eval_f32_launch(self, ptrs, dims, plan, shapes, rests, stream):
+            seen.append((list(ptrs), list(plan), list(shapes), list(rests)))
+            return 0
+
+        def train_f32_fwd_launch(self, ptrs, dims, plan, shapes, rests, extra, cols, stream):
+            return self.eval_f32_launch(ptrs, dims, plan, shapes, rests, stream)
+
+    monkeypatch.setattr(fused_f32, "_eval_lib", Lib)
+    monkeypatch.setattr(fused_f32, "_train_lib", Lib)
+    monkeypatch.setattr(fused_f32, "_stream", lambda t: None)
+    m = 100
+    xyz, dirs = torch.zeros((m, 3)), torch.zeros((m, 3))
+    app = torch.zeros((m, cfg.appearance_dim))
+    launches = [f.launches for f in fused_f32.F32_KERNELS]
+    fused_f32.fused_nerf_eval_f32(packed, xyz, dirs, app)
+    first = fused_f32.w_rests(packed)
+    fused_f32.fused_nerf_train_fwd_f32(packed, xyz, dirs, app, None)
+    assert fused_f32.w_rests(packed) is first
+    with torch.no_grad():
+        for w in packed.mats:
+            w.mul_(1.0 + 2.0 ** -15)
+    fused_f32.fused_nerf_eval_f32(packed, xyz, dirs, app)
+    fresh = fused_f32.w_rests(packed)
+    assert [f.launches for f in fused_f32.F32_KERNELS] == [launches[0] + 2,
+                                                           launches[1] + 1, *launches[2:]]
+    plan = fused_f32.f32_fwd_plan(cfg)
+    for ptrs, ints, shapes, _ in seen:
+        assert ptrs[8::2][:len(packed.mats)] == [w.data_ptr() for w in packed.mats]
+        assert ints == fused_f32._fwd_plan_ints(plan)
+        assert shapes == [v for w in packed.mats for v in w.shape]
+    assert seen[0][3] == seen[1][3] == [r.data_ptr() for r in first]
+    assert seen[2][3] == [r.data_ptr() for r in fresh]
+    for w, old, new in zip(packed.mats, first, fresh):
+        want = w.numpy() - _tf32_trunc(w.numpy())
+        np.testing.assert_array_equal(new.numpy(), want)
+        assert new.shape == w.shape and new.is_contiguous()
+        assert not np.array_equal(old.numpy(), new.numpy())
+    assert not hasattr(fused_f32, "transposed")
 
 
 @pytest.mark.parametrize("width", [513, 528, 1024])
@@ -340,3 +430,61 @@ def test_f32_weight_grad_plan_copy_widths(width, bg):
     assert sum(job[0] == heads + 1 for job in plan.jobs) == 1
     view = fused_f32.WgJob(grad[:, 1:], act, 0, 3, 0, 8, 0, 8, -1)
     assert fused_f32.f32_wg_job_rows([view])[0][-1] == fused_f32.WG_COPY_X16
+
+
+CHAIN = 4  # k-stages of 32 columns a chain of the f32 forward (f32_forward.cuh)
+
+
+def _fwd_layer_3xtf32(x, w, b, relu):
+    """The f32 forward's layer in its own order (f32_forward.cuh): x (m, K)
+    f32 points, w (N, K) f32 packed rows; K in k-stages of 32 columns
+    (zeros past K), 8-column k-steps; per k-step the three products A_lo
+    W_hi, A_hi W_lo, A_hi W_hi of the split hi = x (read truncated to TF32),
+    lo = x - trunc(x) (read truncated too), each k-step's 8 products summed
+    in f64 and rounded to f32 once (the tensor cores' sums are wider than
+    f32), added into a chain in f32; a chain from zero every CHAIN
+    k-stages (f32_forward.cuh's CHAIN_STAGES), added into the f32 totals,
+    which start from the bias; then ReLU."""
+    k = x.shape[1]
+    pad = -k % 32
+    x = np.pad(x, ((0, 0), (0, pad)))
+    w = np.pad(w, ((0, 0), (0, pad)))
+    xh, wh = _tf32_trunc(x), _tf32_trunc(w)
+    xl, wl = _tf32_trunc(x - xh), _tf32_trunc(w - wh)
+    acc = np.broadcast_to(b, (x.shape[0], w.shape[0])).astype(np.float32)
+    for c0 in range(0, x.shape[1], 32 * CHAIN):
+        ch = np.zeros_like(acc)
+        for k0 in range(c0, min(c0 + 32 * CHAIN, x.shape[1]), 8):
+            ks = slice(k0, k0 + 8)
+            for a, bb in ((xl, wh), (xh, wl), (xh, wh)):
+                ch = ch + (a[:, ks].astype(np.float64) @ bb[:, ks].T).astype(np.float32)
+        acc = acc + ch
+    return np.maximum(acc, 0) if relu else acc
+
+
+def test_3xtf32_forward_chain_holds_f32_accuracy_and_one_pass_tf32_does_not():
+    """The f32 forward's arithmetic (`_fwd_layer_3xtf32`: split, k-stages,
+    chains of CHAIN k-stages into f32 totals) over a deep chain of random ReLU
+    layers at the paper width (256 points, an 80-wide encode-like input,
+    then 8 layers of 256 x 256, He-scaled weights, small biases), seeded:
+    every layer's output within 1e-5 of the f64 chain (relative,
+    Frobenius), as the card's FWD_F64_TOL asks; the same chain with one-pass
+    TF32 products (trunc(x) trunc(w), summed in f64) misses that bound by
+    the last layer."""
+    rng = np.random.default_rng(13)
+    m, widths = 256, [80] + [256] * 8
+    x = rng.uniform(-1, 1, size=(m, widths[0])).astype(np.float32)
+    x64, x1 = x.astype(np.float64), x
+    worst, worst_one = 0.0, 0.0
+    for k, n in zip(widths[:-1], widths[1:]):
+        w = (rng.normal(size=(n, k)) * np.sqrt(2.0 / k)).astype(np.float32)
+        b = (0.1 * rng.normal(size=n)).astype(np.float32)
+        x = _fwd_layer_3xtf32(x, w, b, True)
+        x64 = np.maximum(x64 @ w.T.astype(np.float64) + b, 0)
+        x1 = np.maximum((_tf32_trunc(x1).astype(np.float64) @ _tf32_trunc(w).T)
+                        .astype(np.float32) + b, 0)
+        rel = np.linalg.norm(x - x64) / np.linalg.norm(x64)
+        worst = max(worst, rel)
+        worst_one = max(worst_one, np.linalg.norm(x1 - x64) / np.linalg.norm(x64))
+        assert rel <= 1e-5, rel
+    assert worst_one > 1e-5 > worst, (worst_one, worst)
