@@ -44,7 +44,12 @@ Runs every phase, in order:
               the forward (3xTF32 on wgmma) against an f64 forward of the
               same f32 weights and inputs at the paper width: every saved
               layer, rgb and sigma <= 1e-5 relative (FWD_F64_TOL), beside
-              the plain f32 forward's and one-pass TF32's errors.
+              the plain f32 forward's and one-pass TF32's errors; and the
+              backward-data kernel (3xTF32 on wgmma over the transposed
+              weights) against the plain version's f64 sums of the same
+              f32 rows: every gradient-row segment, each heads column and
+              d_app <= 1e-5 relative (BWD_F64_TOL), two launches bit-equal,
+              beside the plain f32 and one-pass TF32 errors.
 3. serve    - the serving path end to end: a small dataset in the reference
               layout (one 128x128 val view), a paper-config fg+bg
               checkpoint with seeded random weights, then
@@ -259,9 +264,8 @@ each f32 kernel per launch at the main path's shapes (eval at the four passes
 of a 16,384-ray chunk, the plain version at fg fine in 1,048,576-point
 pieces; the training kernels at the four passes of a 1024-ray step, plain and
 bound at fg fine, the weight gradient beside torch.mm in f32 with TF32 off;
-the forwards' and the weight gradient's bounds at 3xTF32 (three products a
-multiply-add at 495 TFLOP/s) with FFMA's beside, the backward-data's at 67
-TFLOP/s of f32 FFMA).
+every f32 kernel's bound at 3xTF32 (three products a multiply-add at 495
+TFLOP/s) with FFMA's beside).
 
 Then f32 compute at widths 513-1024 (`csrc/wide_f32.cu` and the f32 weight
 gradient of `csrc/train_f32.cu`), TF32 off:
@@ -296,7 +300,8 @@ Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
 `{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}`,
 `{"resume_jax": ...}`, `{"training_f32": ...}`, `{"training_wide_f32": ...}`,
-`{"dw_f64": ...}`, `{"fwd_f64": ...}` and `{"gemm_f64": ...}` lines, a `{"kernels": [...]}` line (with each kernel's
+`{"dw_f64": ...}`, `{"fwd_f64": ...}`, `{"bwd_f64": ...}` and `{"gemm_f64": ...}`
+lines, a `{"kernels": [...]}` line (with each kernel's
 launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
 both ranks of multiproc, in resume_jax's resumed run and its eval, and in
 train_wide_f32's `train.main` and `eval.main`), the
@@ -326,6 +331,7 @@ F32_TOL = 1e-4  # the f32 kernels against their plain versions (TF32 off)
 DW_F64_TOL = 1e-5  # the f32 weight gradient against f64 sums of its f32 rows
 GEMM_F64_TOL = 1e-5  # the f32 wide GEMM against f64 sums of its f32 rows
 FWD_F64_TOL = 1e-5  # the f32 forward against an f64 forward of its f32 inputs
+BWD_F64_TOL = 1e-5  # the f32 backward-data against f64 sums of its f32 rows
 F32 = ["--compute_dtype", "float32"]
 # (name, source, the TPU kernel it replaces)
 KERNELS = (
@@ -355,9 +361,8 @@ KERNELS = (
     ("train_wide_dw", "mega_nerf_tpu_torch/render/csrc/train_wide.cu",
      "mega_nerf_tpu/render/pallas_train.py:171"),
     # f32 compute (--compute_dtype float32) to width 512: the three TPU
-    # kernels' f32 range, in f32 (f32 sums; 3xTF32 split products on the
-    # tensor cores in the forwards and the weight gradient, FFMA products in
-    # the backward-data kernel).
+    # kernels' f32 range, in f32 (f32 sums; every layer product as 3xTF32
+    # split products on the tensor cores).
     ("fused_nerf_eval_f32", "mega_nerf_tpu_torch/render/csrc/eval_f32.cu",
      "mega_nerf_tpu/render/pallas_mlp.py:401"),
     ("fused_nerf_train_fwd_f32", "mega_nerf_tpu_torch/render/csrc/train_f32.cu",
@@ -658,6 +663,19 @@ def phase_compare_f32(device, report):
         f"{max(fwd['tf32'].values()):.3e} -> {'ok' if fwd_ok else 'FAIL'} (kernel <= "
         f"{FWD_F64_TOL} at every layer)")
     all_ok &= fwd_ok
+    bwd = backward_against_f64(device)
+    report["bwd_f64"] = bwd
+    bwd_ok = max(bwd["kernel"].values()) <= BWD_F64_TOL and bwd["repeats_bitwise"]
+    for name in ("kernel", "plain", "tf32"):
+        log(f"  f32 backward-data against f64 sums of its f32 rows (paper width fg, "
+            f"{FWD_F64_POINTS} points; relative per gradient-row segment, heads column, "
+            f"d_app), {name}: " + ", ".join(f"{k} {v:.3e}" for k, v in bwd[name].items()))
+    log(f"  f32 backward-data (3xTF32 on wgmma) worst {max(bwd['kernel'].values()):.3e}, "
+        f"plain f32 (TF32 off) {max(bwd['plain'].values()):.3e}, one-pass TF32 "
+        f"{max(bwd['tf32'].values()):.3e}; two launches bitwise equal "
+        f"{bwd['repeats_bitwise']} -> {'ok' if bwd_ok else 'FAIL'} (kernel <= {BWD_F64_TOL} "
+        f"at every segment)")
+    all_ok &= bwd_ok
     after = f32_launches()
     f32_new = {k: after[k] - before[k] for k in F32_KERNELS}
     bf16_new = sum(kernel_launches().values()) - bf16_before - sum(f32_new.values())
@@ -726,6 +744,80 @@ def forward_against_f64(device):
     for f, n in zip(counters, launches):  # checks, not main-path launches
         f.launches = n
     del want, xyz, dirs, app
+    torch.cuda.empty_cache()
+    return errs
+
+
+def bwd_parts(packed, grad, d_app):
+    """The gradient rows cut into their segments (`fused_train.grad_layout`:
+    d_pre_0 .. d_pre_{L-1}, d_final, d_a, each heads column g_sigma, g_r,
+    g_g, g_b) and d_app."""
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    cfg, gl = packed.config, ft.grad_layout(packed)
+    d = cfg.layer_dim
+    got = {f"d_pre{i}": grad[:, i * d:(i + 1) * d] for i in range(cfg.layers)}
+    if packed.has_branch:
+        got["d_final"] = grad[:, gl["dfinal"]:gl["dfinal"] + d]
+        got["d_a"] = grad[:, gl["da"]:gl["heads"]]
+    for i, name in enumerate(("g_sigma", "g_r", "g_g", "g_b")):
+        got[name] = grad[:, gl["heads"] + i]
+    if d_app is not None:
+        got["d_app"] = d_app
+    return got
+
+
+def backward_against_f64(device):
+    """Relative errors (Frobenius) of every gradient-row segment, heads
+    column and d_app of the paper model's f32 backward-data against the
+    plain version's f64 sums of the same f32 saved rows (the f32 training
+    forward's, with sigma noise), weights and cotangent
+    (`fused_train.train_bwd_data_plain(acc=torch.float64)`), FWD_F64_POINTS
+    seeded fg points: the kernel, the plain version with TF32 off and with
+    TF32 on (one-pass TF32 products) -> {"kernel": {...}, "plain": {...},
+    "tf32": {...}, "repeats_bitwise": two kernel launches equal}."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32, fused_mlp
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    bundle = seeded_bundle(paper_hparams(F32), 16, False, 36, device)
+    packed = fused_mlp.pack_params(bundle.module)
+    m = FWD_F64_POINTS
+    xyz, dirs, idx = mlp_inputs(bundle.config, m, 37, device)
+    gen = torch.Generator(device=device).manual_seed(38)
+    noise = torch.rand((m,), generator=gen, device=device)
+    g = torch.randn((m, 4), generator=gen, device=device)
+    counters = (fused_f32.fused_nerf_train_fwd_f32, fused_f32.train_bwd_data_f32)
+    launches = [f.launches for f in counters]
+    allow = torch.backends.cuda.matmul.allow_tf32
+    errs = {}
+    with torch.no_grad():
+        app = bundle.module.appearance(idx).float().contiguous()
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        del xyz, dirs, app
+        want = bwd_parts(packed, *ft.train_bwd_data_plain(packed, act, g, noise,
+                                                          acc=torch.float64))
+        try:
+            for name, tf32 in (("kernel", False), ("plain", False), ("tf32", True)):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                if name == "kernel":
+                    grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+                    again, _ = ft.train_bwd_data(packed, act, g, noise)
+                    torch.cuda.synchronize()
+                    errs["repeats_bitwise"] = torch.equal(grad, again)
+                    del again
+                else:
+                    grad, d_app = ft.train_bwd_data_plain(packed, act, g, noise)
+                got = bwd_parts(packed, grad, d_app)
+                errs[name] = {k: ((got[k].double() - w).norm() / w.norm()).item()
+                              for k, w in want.items()}
+                del grad, d_app, got
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+    for f, n in zip(counters, launches):  # checks, not main-path launches
+        f.launches = n
+    del want, act, g, noise
     torch.cuda.empty_cache()
     return errs
 
@@ -5415,9 +5507,9 @@ def time_f32_kernels(device, report):
         # writes the flat gradients: FFMA bound and, the row's, 3xTF32 bound
         # (three tensor-core products a multiply-add).
         wg_b = 4.0 * (act.numel() + grad.numel() + n_params)
-        rows = {"fused_nerf_train_fwd_f32": (t_fwd, p_fwd, flops, fwd_b, PEAK_F32_FLOPS),
-                "train_bwd_data_f32": (t_bwd, p_bwd, dx_flops, bwd_b, PEAK_F32_FLOPS),
-                "weight_grad_f32": (t_wg, p_wg, flops, wg_b, PEAK_F32_FLOPS)}
+        rows = {"fused_nerf_train_fwd_f32": (t_fwd, p_fwd, flops, fwd_b),
+                "train_bwd_data_f32": (t_bwd, p_bwd, dx_flops, bwd_b),
+                "weight_grad_f32": (t_wg, p_wg, flops, wg_b)}
         ffma = bound(flops, wg_b, PEAK_F32_FLOPS)
         tf32 = bound(3 * flops, wg_b, PEAK_TF32_FLOPS)
         log(f"  weight_grad_f32 bounds at fg fine: FFMA {ffma[0]:.3f} ms ({ffma[1]}), 3xTF32 "
@@ -5427,17 +5519,24 @@ def time_f32_kernels(device, report):
         log(f"  fused_nerf_train_fwd_f32 bounds at fg fine: FFMA "
             f"{bound(flops, fwd_b, PEAK_F32_FLOPS)[0]:.3f} ms, 3xTF32 {fwd_tf32[0]:.3f} ms "
             f"({fwd_tf32[1]}); the row takes 3xTF32's")
-        for k, (ms, plain_ms, fl, nb, peak) in rows.items():
-            bms, by = {"weight_grad_f32": tf32, "fused_nerf_train_fwd_f32": fwd_tf32}.get(
-                k, bound(fl, nb, peak))
+        bwd_tf32 = bound(3 * dx_flops, bwd_b, PEAK_TF32_FLOPS)
+        log(f"  train_bwd_data_f32 bounds at fg fine: FFMA "
+            f"{bound(dx_flops, bwd_b, PEAK_F32_FLOPS)[0]:.3f} ms, 3xTF32 {bwd_tf32[0]:.3f} ms "
+            f"({bwd_tf32[1]}: {3 * dx_flops:.4g} FLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); "
+            f"the row takes 3xTF32's")
+        for k, (ms, plain_ms, fl, nb) in rows.items():
+            bms, by = {"weight_grad_f32": tf32, "fused_nerf_train_fwd_f32": fwd_tf32,
+                       "train_bwd_data_f32": bwd_tf32}[k]
             kernels[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
             log(f"  {k} at fg fine: {ms:.3f} ms/launch = {fl / ms / 1e9:.1f} TFLOP/s; "
                 f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, "
                 f"{nb:.4g} B); saved rows {act.numel() * 4:.4g} B, gradient rows "
                 f"{grad.numel() * 4:.4g} B")
         wplan = fused_f32.f32_wg_plan(packed, m)
+        bplan = fused_f32.f32_bwd_plan(cfg)
         log(f"  f32 plans at fg fine: forward tile {fused_f32.f32_fwd_plan(cfg).tm}, "
-            f"backward tile {fused_f32.f32_bwd_plan(cfg).tm} points; weight gradient "
+            f"backward tile {bplan.tm} points, ring {bplan.stages} stages, "
+            f"{bplan.smem_bytes} B; weight gradient "
             f"{len(wplan.tiles)} tiles x {wplan.splits} splits of {wplan.split_len} points")
         del act, grad
         torch.cuda.empty_cache()
@@ -6243,6 +6342,7 @@ def main() -> int:
     log(json.dumps({"training_wide_f32": report["training_wide_f32"]}))
     log(json.dumps({"dw_f64": report["dw_f64"]}))
     log(json.dumps({"fwd_f64": report["fwd_f64"]}))
+    log(json.dumps({"bwd_f64": report["bwd_f64"]}))
     log(json.dumps({"gemm_f64": report["gemm_f64"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)

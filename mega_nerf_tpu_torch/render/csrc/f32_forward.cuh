@@ -1,7 +1,10 @@
 // The f32 forward of the fused NeRF MLP on Hopper's tensor cores: the one
 // device path of eval_f32.cu (the eval kernel) and train_f32.cu's training
 // forward, so that the two agree bit for bit without noise. The training
-// forward adds only the saved-row stores and the sigma noise.
+// forward adds only the saved-row stores and the sigma noise. train_f32.cu's
+// backward-data kernel runs its products through the same `layer` /
+// `products` (a product over one gradient tile, `OneSrc`, B the transposed
+// matrices; its own epilogue: masks from the saved rows).
 //
 // f32 accuracy from TF32 tensor cores: every layer product is 3xTF32 on
 // wgmma m64n64k8. Each operand x splits into hi, the raw f32 (the tensor
@@ -317,21 +320,45 @@ struct Tiles {
   }
 };
 
+// One K-segment of a product's A operand: a resident tile (point p's
+// column c at p * S + c) and its width K.
+struct ASeg {
+  const float* tile;
+  int S, K;
+};
+
+// The A segments of forward matrix li (`segment`, the tiles by kind).
+struct FwdSrc {
+  const FwdParams& p;
+  int li;
+  const Tiles& tl;
+  __device__ __forceinline__ int count() const { return nsegments(p, li); }
+  __device__ __forceinline__ ASeg seg(int s) const {
+    const Seg g = segment(p, li, s);
+    return {tl.tile(g.kind), tl.stride(g.kind), g.K};
+  }
+};
+
+// A product over one resident tile (train_f32.cu's backward-data chain).
+struct OneSrc {
+  ASeg a;
+  __device__ __forceinline__ int count() const { return 1; }
+  __device__ __forceinline__ ASeg seg(int) const { return a; }
+};
+
 // The walk over a product's k-stages: segment s, its box j.
 struct Walk {
   int s, j;
-  Seg sg;
-  const float* tile;
-  int S;
-  __device__ __forceinline__ void start(const FwdParams& p, int li, const Tiles& tl, int s_) {
+  ASeg a;
+  template <class Src>
+  __device__ __forceinline__ void start(const Src& src, int s_) {
     s = s_;
     j = 0;
-    sg = segment(p, li, s);
-    tile = tl.tile(sg.kind);
-    S = tl.stride(sg.kind);
+    a = src.seg(s);
   }
-  __device__ __forceinline__ void next(const FwdParams& p, int li, const Tiles& tl) {
-    if (++j * BK >= sg.K) start(p, li, tl, s + 1);
+  template <class Src>
+  __device__ __forceinline__ void next(const Src& src) {
+    if (++j * BK >= a.K) start(src, s + 1);
   }
 };
 
@@ -340,14 +367,14 @@ struct Walk {
 // the segment read zero (from a valid address: a select, not a branch).
 __device__ __forceinline__ void load_frags(uint32_t (&ah)[BK / 8][4], uint32_t (&al)[BK / 8][4],
                                            const Walk& w, const Place& pl) {
-  const float* a0 = w.tile + pl.r0 * w.S + pl.q;
+  const float* a0 = w.a.tile + pl.r0 * w.a.S + pl.q;
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk) {
     const int col = w.j * BK + 8 * kk;
-    const bool live = pl.rows && col < w.sg.K;
+    const bool live = pl.rows && col < w.a.K;
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
-      const float raw = *(live ? a0 + (v & 1) * 8 * w.S + col + 4 * (v >> 1) : w.tile);
+      const float raw = *(live ? a0 + (v & 1) * 8 * w.a.S + col + 4 * (v >> 1) : w.a.tile);
       const float x = live ? raw : 0.f;
       ah[kk][v] = __float_as_uint(x);
       al[kk][v] = __float_as_uint(tf32_rest(x));
@@ -381,39 +408,32 @@ __device__ __forceinline__ void hold(const uint32_t (&ah)[BK / 8][4],
                  "r"(al[kk][0]), "r"(al[kk][1]), "r"(al[kk][2]), "r"(al[kk][3]));
 }
 
-// acc = the bias plus the product of matrix li's segments with W's rows
-// [128 nb + 64 wg, + 64) (this warpgroup's 64 output columns of block nb),
-// over the stages the producer issues for it, in chains of CHAIN_STAGES. The
-// totals start from the bias (loaded here, under the first chain's
-// products, not in the epilogue, where its latency stood alone).
-__device__ __forceinline__ void products(float (&acc)[32], float (&ch)[32], const FwdParams& p,
-                                         int li, int nb, const Tiles& tl, Ring& ring,
-                                         const Place& pl, int lane) {
-  {
-    const int N = out_width(p, li);
-    const float* __restrict__ bias = p.bias[li];
-    const int n0 = BN * nb + 64 * pl.wg + 2 * pl.q;
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      acc[i] = __ldg(bias + min(n0 + 8 * (i / 4) + i % 2, N - 1));
-  }
-  const int nseg = nsegments(p, li);
+// acc += the product of the segments of `src` with B's rows [128 nb + 64
+// wg, + 64) (this warpgroup's 64 output columns of block nb), over the
+// stages the producer issues for it, in chains of CHAIN k-stages (even;
+// the forward's CHAIN_STAGES). The caller seeds the totals (the forward
+// with the bias, loaded just before: under the first chain's products, not
+// in the epilogue, where its latency stood alone).
+template <int CHAIN, class Src>
+__device__ __forceinline__ void products(float (&acc)[32], float (&ch)[32], const Src& src,
+                                         Ring& ring, const Place& pl, int lane) {
+  const int nseg = src.count();
   int nk = 0;
-  for (int s = 0; s < nseg; ++s) nk += (segment(p, li, s).K + BK - 1) / BK;
+  for (int s = 0; s < nseg; ++s) nk += (src.seg(s).K + BK - 1) / BK;
   const uint32_t half = pl.wg * (BOX_BYTES / 2);  // this warpgroup's 64 rows of a box
   Walk w;
-  w.start(p, li, tl, 0);
+  w.start(src, 0);
   uint32_t ah0[BK / 8][4], al0[BK / 8][4], ah1[BK / 8][4], al1[BK / 8][4];
   mbar_wait(ring.full + ring.st, ring.phase);
   load_frags(ah0, al0, w, pl);
   int pending = -1;  // the ring slot of a set-1 stage whose products may be in flight
   for (int c = 0; c < nk; c += 2) {
     // Set 0 holds stage c's fragments (loaded under the previous stage's
-    // products); stage c starts a chain every CHAIN_STAGES stages.
+    // products); stage c starts a chain every CHAIN stages.
     const int st0 = ring.st;
-    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN_STAGES == 0);
+    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN == 0);
     ring.advance();
-    w.next(p, li, tl);
+    w.next(src);
     if (pending >= 0) {
       // Stage c - 1 done: its slot back to the producer, set 1 free.
       wgmma_wait_one();
@@ -428,7 +448,7 @@ __device__ __forceinline__ void products(float (&acc)[32], float (&ch)[32], cons
       load_frags(ah1, al1, w, pl);
       issue(ch, ah1, al1, ring.base + st1 * STAGE_BYTES + half, false);
       ring.advance();
-      w.next(p, li, tl);
+      w.next(src);
       wgmma_wait_one();
     } else {
       wgmma_wait_all();
@@ -441,7 +461,7 @@ __device__ __forceinline__ void products(float (&acc)[32], float (&ch)[32], cons
       mbar_wait(ring.full + ring.st, ring.phase);
       load_frags(ah0, al0, w, pl);
     }
-    if ((c + 2) % CHAIN_STAGES == 0 || c + 2 >= nk) {
+    if ((c + 2) % CHAIN == 0 || c + 2 >= nk) {
       // The chain ends: every product done, the chain into the totals.
       wgmma_wait_all();
       if (two) hold(ah1, al1);
@@ -495,24 +515,51 @@ __device__ __forceinline__ void epilogue(const float (&acc)[32], const FwdParams
   }
 }
 
-// Matrix li over the tile: its output blocks of 128 columns in pairs, a
-// pair's totals in registers; written in place after a barrier, or to the
-// other tile. Ends with a barrier: the output is in its tile.
+// The forward's epilogue of matrix li (for `layer`): totals seeded with the
+// bias, then `epilogue` into the tile `dst` and the saved rows from `col`.
+struct FwdEpi {
+  const FwdParams& p;
+  int li, col, m0;
+  float* dst;
+  const Place& pl;
+  __device__ __forceinline__ void start(float (&acc)[32], int nb) const {
+    const int N = out_width(p, li);
+    const float* __restrict__ bias = p.bias[li];
+    const int n0 = BN * nb + 64 * pl.wg + 2 * pl.q;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = __ldg(bias + min(n0 + 8 * (i / 4) + i % 2, N - 1));
+  }
+  __device__ __forceinline__ void finish(float (&)[32], int) const {}
+  __device__ __forceinline__ void store(const float (&acc)[32], int nb) const {
+    epilogue(acc, p, li, nb, dst, p.D + 4, col, m0, pl);
+  }
+};
+
+// A product of N output columns over the tile: its blocks of 128 columns in
+// pairs, a pair's totals in registers. The epilogue `e` seeds a block's
+// totals (`start`), acts on them before the barrier of an in-place layer
+// (`finish`: its loads wait there) and writes them (`store`): in place
+// after that barrier (every read of the input done), or to another tile.
+// Chains of CHAIN k-stages. Ends with a barrier: the output is in its tile.
+template <int CHAIN, class Src, class E>
 __device__ __forceinline__ void layer(float (&acc0)[32], float (&acc1)[32], float (&ch)[32],
-                                      const FwdParams& p, int li, uint8_t* smem,
-                                      const Tiles& tl, Ring& ring, const Place& pl, int lane,
-                                      int m0) {
-  const int N = out_width(p, li);
+                                      const Src& src, int N, bool in_place, const E& e,
+                                      Ring& ring, const Place& pl, int lane) {
   const int nblocks = (N + BN - 1) / BN;
-  float* dst = out_tile(p, smem, li);
-  const int col = li < p.layers ? p.EP + li * p.D
-                                : (li == p.layers ? p.act_final : p.act_branch);
   for (int nb = 0; nb < nblocks; nb += 2) {
-    products(acc0, ch, p, li, nb, tl, ring, pl, lane);
-    if (nb + 1 < nblocks) products(acc1, ch, p, li, nb + 1, tl, ring, pl, lane);
-    if (p.x_off == p.y_off) consumer_sync();  // every read of the input done
-    epilogue(acc0, p, li, nb, dst, p.D + 4, col, m0, pl);
-    if (nb + 1 < nblocks) epilogue(acc1, p, li, nb + 1, dst, p.D + 4, col, m0, pl);
+    const bool two = nb + 1 < nblocks;
+    e.start(acc0, nb);
+    products<CHAIN>(acc0, ch, src, ring, pl, lane);
+    if (two) {
+      e.start(acc1, nb + 1);
+      products<CHAIN>(acc1, ch, src, ring, pl, lane);
+    }
+    e.finish(acc0, nb);
+    if (two) e.finish(acc1, nb + 1);
+    if (in_place) consumer_sync();
+    e.store(acc0, nb);
+    if (two) e.store(acc1, nb + 1);
   }
   consumer_sync();
 }
@@ -711,7 +758,10 @@ __device__ __forceinline__ void forward_tile(const FwdMaps& maps, const FwdParam
   float acc0[32], acc1[32], ch[32];
   for (int li = 0; li < nmat; ++li) {
     const Tiles tl = {enc, out_tile(p, smem, li - 1), dirt, appt, p.EP, p.D, p.DP, p.AP};
-    layer(acc0, acc1, ch, p, li, smem, tl, ring, pl, lane, m0);
+    const int col = li < p.layers ? p.EP + li * p.D
+                                  : (li == p.layers ? p.act_final : p.act_branch);
+    layer<CHAIN_STAGES>(acc0, acc1, ch, FwdSrc{p, li, tl}, out_width(p, li), p.x_off == p.y_off,
+                        FwdEpi{p, li, col, m0, out_tile(p, smem, li), pl}, ring, pl, lane);
     if (li != p.layers - 1) continue;
     sigma_head(p, out_tile(p, smem, li), m0, sig, threadIdx.x);
     // dir_a's direction and appearance tiles, in the encode's room (no

@@ -6,10 +6,9 @@
 // `fused_nerf_train_apply`) in f32 compute (`--compute_dtype float32`) at
 // layer widths up to 512, and the dW half of the latter past 512. f32
 // throughout: f32 weights, activations and gradients, f32 sums, as the JAX
-// package computes it in f32. The forward's and the weight gradient's
-// products run on the tensor cores as 3xTF32 split products, which keep
-// f32-class accuracy (a single TF32 product keeps ~3 decimal digits and is
-// not used); the backward-data products are FFMA.
+// package computes it in f32. Every layer product runs on the tensor cores
+// as 3xTF32 split products, which keep f32-class accuracy (a single TF32
+// product keeps ~3 decimal digits and is not used).
 //
 // - train_f32_fwd: the eval kernel's forward (f32_forward.cuh, 3xTF32 on
 //   wgmma: the same device path, so without noise its output equals the
@@ -18,12 +17,23 @@
 //   (fused_train.py::act_layout) from the epilogues.
 // - train_f32_bwd (backward-data, the dX half of _train_bwd_kernel): from
 //   the f32 rows and the (M, 4) cotangent, the heads' derivatives (sigma
-//   and rgb recomputed from the rows), then the chain backwards: d_a and
-//   d_app, d_final, and per trunk layer d_pre = (d_pre' W) * (h > 0), each
-//   product an FFMA register tile (f32_chain.cuh), reading the packed
-//   matrices along their rows; the ReLU masks come from the rows in
-//   the epilogue. Writes f32 gradient rows (fused_train.py::grad_layout)
-//   and d_app.
+//   and rgb recomputed from the rows), the elementwise start (d_a, or
+//   d_pre_{L-1} without the branch), then the chain backwards: d_app,
+//   d_final, d_pre_{L-1} = (d_final W_final + g_sigma w_sigma) * (h > 0)
+//   and per trunk layer d_pre_{i-1} = (d_pre_i W_i[:, h]) * (h_{i-1} > 0).
+//   Writes f32 gradient rows (fused_train.py::grad_layout) and d_app. Its
+//   products are the forward's (f32_forward.cuh `layer` / `products`: the
+//   TMA ring, register-A split, two fragment sets held until their waits,
+//   chains of 2 k-stages into f32 totals, 64-point tiles in place
+//   to width 256 and 32-point ping-pong tiles past it) with B = the
+//   transposed matrices (Ktot, N) (fused_train.py::transposed_weights),
+//   which are K-major for the backward's reduction over N, beside their
+//   TF32 rests (fused_f32.py::t_rests; TF32 wgmma takes no transposed
+//   operand). A product's rows of a transposed matrix start at its box
+//   coordinate: EP at a skip layer; 0, or D + DP for d_app, in dir_a's.
+//   The gradient tile holds the branch rows, then d_a in place, then each
+//   product's output; the masks (h > 0) come from the saved rows in the
+//   epilogue, every load issued before the barrier and the first store.
 // - weight_grad_f32 (the dW half): per job, dW = D^T X and the bias sums
 //   of D, in output tiles of 128 x 128 over fixed point ranges
 //   (fused_f32.py::f32_wg_plan, f32_wg_split). A CTA (one an SM) streams
@@ -45,40 +55,47 @@
 //   past width 512, the wide f32 route (wide_f32.cu; each dW step of
 //   fused_train_wide.py::train_wide_plan on the tensors it names).
 //
-// What bounds them on an H100: the forward, three TF32 products a
-// multiply-add at 495 TFLOP/s; the backward-data, f32 FMAs at 67 TFLOP/s
-// of FFMA. At the paper width a training pass of 524,288 points is ~0.63
-// TFLOP forward (~3.85 ms of 3xTF32, ~9.5 of FFMA), ~0.59 dX (~8.8 ms of
-// FFMA) and ~0.63 dW;
-// the saved rows (~10 KB of f32 a point) and the gradient rows (~9.8 KB)
-// are this design's own traffic, ~1.6 ms each at 3.35 TB/s. The weight
-// gradient's three TF32 products a multiply-add at 495 TFLOP/s take ~3.85
-// ms at that pass (~6.7 ms for a 1024 x 1024 wide layer), against ~3.1 ms
-// of reading both row sets; mma.sync's own TF32 rate on the card is about
-// half of that peak (scripts/f32_wide_probe.py measures it), and that sets
-// the pace. Left for later work: wgmma products (a split pass writing
-// K-major hi / lo tiles), TMA, persistent CTAs.
+// What bounds them on an H100: three TF32 products a multiply-add at 495
+// TFLOP/s. At the paper width a training pass of 524,288 points is ~0.63
+// TFLOP forward (~3.85 ms of 3xTF32, ~9.5 of FFMA), ~0.59 dX (~3.58 ms,
+// ~8.8 of FFMA) and ~0.63 dW (~3.85 ms); the saved rows (~10 KB of f32 a
+// point) and the gradient rows (~9.8 KB) are this design's own traffic,
+// ~1.6 ms each at 3.35 TB/s, and the backward-data also reads ~8.5 KB a
+// point of masks. mma.sync's own TF32 rate on the card is about half of
+// wgmma's (scripts/f32_wide_probe.py measures it), and that sets the
+// weight gradient's pace. Left for later work: the weight gradient on
+// wgmma (a split pass writing K-major hi / lo tiles), persistent CTAs.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
-#include "f32_chain.cuh"
 #include "f32_forward.cuh"
 
 namespace {
 
-using namespace f32chain;
+using namespace f32fwd;
 
 // ------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(f32fwd::NT, 1)
-train_f32_fwd_kernel(const __grid_constant__ f32fwd::FwdMaps maps,
-                     const __grid_constant__ f32fwd::FwdParams p) {
-  f32fwd::forward_tile(maps, p);
+__global__ void __launch_bounds__(NT, 1)
+train_f32_fwd_kernel(const __grid_constant__ FwdMaps maps, const __grid_constant__ FwdParams p) {
+  forward_tile(maps, p);
 }
 
 // --------------------------------------------------------- backward-data
+
+// What a product's epilogue does: d_app (to global memory only), d_final
+// (no mask), trunk_final (totals seeded with g_sigma w_sigma, masked) or a
+// trunk layer (masked).
+constexpr int BWD_APP = 0, BWD_FINAL = 1, BWD_MASK_SIGMA = 2, BWD_MASK = 3;
+// k-stages of a chain (the forward's CHAIN_STAGES is 4): the tensor cores'
+// f32 adds truncate, and the backward carries that error through every
+// product of the chain; with chains of 2 its worst gradient-row segment at
+// the paper width sits at 5.3e-6 of f64 sums, with 4 at 8.5e-6 (against
+// a 1e-5 limit), for 1.6% more time (scripts/f32_fwd_probe.py, an H100).
+constexpr int BWD_CHAIN_STAGES = 2;
 
 struct BwdParams {
   const float* act;    // (M, act_width) saved rows
@@ -90,207 +107,392 @@ struct BwdParams {
   const float* b_sigma;
   const float* w_rgb;  // (3, rgb_in)
   const float* b_rgb;
-  const float* w[MAX_MATS];  // packed (N, Ktot)
-  int ld[MAX_MATS];
+  int ktot[MAX_MATS];  // rows of each transposed matrix
   int M, D, layers, has_branch, shifted_softplus, app_dim, skip_mask, EP, DP, KB;
   int act_width, grad_width, act_h0, act_branch, g_dfinal, g_da, g_heads;
-  // The plan (fused_f32.py::f32_bwd_plan).
-  int tm, x_off, y_off, w_off, heads_off;
+  // The plan (fused_f32.py::f32_bwd_plan): the tile, the ring's stages and
+  // byte offsets from the 1024-aligned base (x_off == y_off: in place).
+  int tm, stages, ring_off, x_off, y_off, heads_off, bar_off;
 };
 
-// Columns [col, col + width) of the rows m0 .. m0 + tm - 1 into rows of a
-// tile (zero past M).
-__device__ __forceinline__ void rows_to_tile(const float* rows, int ld, int col, int width,
-                                             int m0, int M, float* tile, int tm) {
-  for (int idx = threadIdx.x; idx < tm * width; idx += NT) {
-    const int pt = idx / width;
-    const int c = idx - pt * width;
-    const int m = m0 + pt;
-    tile[tix(tm, c, pt)] = m < M ? __ldg(rows + (size_t)m * ld + col + c) : 0.f;
-  }
+// Tensor maps of the transposed matrices (Ktot, N) and of their TF32
+// rests, as the forward's of the packed ones: boxes of min(Ktot, 128) rows
+// x 32 columns, 128-byte swizzle, zeros past the matrix.
+struct BwdMaps {
+  CUtensorMap w[MAX_MATS];
+  CUtensorMap wlo[MAX_MATS];
+};
+
+// One product of the chain: rows [row0, row0 + N) of transposed matrix
+// `mat` over the gradient tile's first K columns; `gcol` the gradient-row
+// column its output goes to, `mcol` the saved-row column of its mask (-1:
+// none).
+struct BwdProd {
+  int mat, row0, N, K, kind, gcol, mcol;
+};
+
+__device__ __forceinline__ int bwd_count(const BwdParams& p) {
+  return (p.has_branch ? 2 + (p.app_dim > 0) : 0) + p.layers - 1;
 }
 
-// Zero the sums whose activation (the rows' column col + n) is not > 0.
-template <int TP>
-__device__ __forceinline__ void relu_mask(float (&v)[TP][8], const float* act, int ld,
-                                          int col, int m0, int M, int n0, int nlim, int p0,
-                                          int c0) {
-#pragma unroll
-  for (int i = 0; i < TP; ++i) {
-    const int m = m0 + p0 + i;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + col_of(c0, 4 * h);
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m < M && n < nlim)
-        a = __ldg(reinterpret_cast<const float4*>(act + (size_t)m * ld + col + n));
-      v[i][4 * h] = a.x > 0.f ? v[i][4 * h] : 0.f;
-      v[i][4 * h + 1] = a.y > 0.f ? v[i][4 * h + 1] : 0.f;
-      v[i][4 * h + 2] = a.z > 0.f ? v[i][4 * h + 2] : 0.f;
-      v[i][4 * h + 3] = a.w > 0.f ? v[i][4 * h + 3] : 0.f;
-    }
-  }
-}
-
-template <int TP>
-__global__ void __launch_bounds__(NT, 1) train_f32_bwd_kernel(const __grid_constant__ BwdParams p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* tx = reinterpret_cast<float*>(smem + p.x_off);
-  float* ty = reinterpret_cast<float*>(smem + p.y_off);
-  float* wbuf = reinterpret_cast<float*>(smem + p.w_off);
-  float* hd = reinterpret_cast<float*>(smem + p.heads_off);  // (tm, 4) [g_sig, g_rgb]
-  const int tm = p.tm;
-  const int m0 = blockIdx.x * tm;
-  const int t = threadIdx.x;
-  int p0, c0;
-  place<TP>(p0, c0);
-  const int D = p.D, L = p.layers;
-  const int half = D / 2;
-  const int h_last = p.act_h0 + (L - 1) * D;
-
-  rows_to_tile(p.act, p.act_width, h_last, D, m0, p.M, tx, tm);
-  if (p.has_branch) rows_to_tile(p.act, p.act_width, p.act_branch, half, m0, p.M, ty, tm);
-  __syncthreads();
-
-  // The heads' derivatives: a thread per point, sigma and rgb recomputed
-  // from the rows.
-  if (t < tm) {
-    const int m = m0 + t;
-    float s = 0.f;
-    for (int n = 0; n < D; ++n) s = fmaf(tx[tix(tm, n, t)], __ldg(p.w_sigma + n), s);
-    s = s + p.b_sigma[0];
-    if (p.noise != nullptr && m < p.M) s = s + __ldg(p.noise + m);
-    const float* src = p.has_branch ? ty : tx;
-    const int rin = p.has_branch ? half : D;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int n = 0; n < rin; ++n) {
-      const float x = src[tix(tm, n, t)];
-      a0 = fmaf(x, __ldg(p.w_rgb + n), a0);
-      a1 = fmaf(x, __ldg(p.w_rgb + rin + n), a1);
-      a2 = fmaf(x, __ldg(p.w_rgb + 2 * rin + n), a2);
-    }
-    const float4 g = m < p.M ? __ldg(reinterpret_cast<const float4*>(p.g) + m)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float s0 = 1.f / (1.f + expf(-(a0 + p.b_rgb[0])));
-    const float s1 = 1.f / (1.f + expf(-(a1 + p.b_rgb[1])));
-    const float s2 = 1.f / (1.f + expf(-(a2 + p.b_rgb[2])));
-    const float gr = g.x * s0 * (1.f - s0);
-    const float gg = g.y * s1 * (1.f - s1);
-    const float gb = g.z * s2 * (1.f - s2);
-    const float gs = p.shifted_softplus ? g.w * (1.f / (1.f + expf(-(s - 1.f))))
-                                        : (s > 0.f ? g.w : 0.f);
-    reinterpret_cast<float4*>(hd)[t] = make_float4(gs, gr, gg, gb);
-    if (m < p.M) {
-      float4* row = reinterpret_cast<float4*>(p.grad + (size_t)m * p.grad_width + p.g_heads);
-      row[0] = make_float4(gs, gr, gg, gb);
-      row[1] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __syncthreads();
-
-  float* cur;
+// Product q, in the order the kernel runs them: with the branch, d_app
+// (where the model has appearance), d_final and trunk_final; then trunk
+// layers L - 1 .. 1.
+__device__ __forceinline__ BwdProd bwd_product(const BwdParams& p, int q) {
+  const int L = p.layers, D = p.D;
   if (p.has_branch) {
-    // d_a = (g_rgb w_rgb) * (branch > 0), zero from D / 2 to KB, in place
-    // over the branch tile.
-    for (int idx = t; idx < tm * p.KB; idx += NT) {
-      const int pt = idx / p.KB;
-      const int j = idx - pt * p.KB;
-      float v = 0.f;
-      if (j < half) {
-        const float4 h4 = reinterpret_cast<const float4*>(hd)[pt];
-        float u = h4.y * __ldg(p.w_rgb + j);
-        u = fmaf(h4.z, __ldg(p.w_rgb + half + j), u);
-        u = fmaf(h4.w, __ldg(p.w_rgb + 2 * half + j), u);
-        v = ty[tix(tm, j, pt)] > 0.f ? u : 0.f;
-      }
-      ty[tix(tm, j, pt)] = v;
-      const int m = m0 + pt;
-      if (m < p.M) p.grad[(size_t)m * p.grad_width + p.g_da + j] = v;
-    }
-    const Seg sa[1] = {{ty, p.KB, 0}};
-    const int a = L + 1;
     if (p.app_dim > 0) {
-      const Wts wt = {p.w[a], p.ld[a], D + p.DP, p.app_dim, half};
-      for (int n0 = 0; n0 < p.app_dim; n0 += NB) {
-        float acc[TP][8];
-        product<TP>(acc, sa, 1, wt, n0, wbuf, p0, c0);
+      if (q == 0) return {L + 1, D + p.DP, p.app_dim, p.KB, BWD_APP, 0, -1};
+      --q;
+    }
+    if (q == 0) return {L + 1, 0, D, p.KB, BWD_FINAL, p.g_dfinal, -1};
+    if (q == 1) return {L, 0, D, D, BWD_MASK_SIGMA, (L - 1) * D, p.act_h0 + (L - 1) * D};
+    q -= 2;
+  }
+  const int i = L - 1 - q;
+  return {i, ((p.skip_mask >> i) & 1) ? p.EP : 0, D, D, BWD_MASK, (i - 1) * D,
+          p.act_h0 + (i - 1) * D};
+}
+
+// Where p holds, store v at a (a predicated instruction, not a branch).
+__device__ __forceinline__ void st_global1_if(float* a, float v, bool p) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.s32 q, %2, 0;\n@q st.global.f32 [%0], %1;\n}\n" ::"l"(a),
+      "f"(v), "r"((int)p)
+      : "memory");
+}
+
+// The epilogue of product `pr` (for f32_forward.cuh's `layer`): totals
+// seeded with zero, or with g_sigma w_sigma for trunk_final; the mask
+// (h > 0) of the saved rows applied before the barrier, every load issued
+// before the first store; then the tile `dst` and the gradient rows, or
+// d_app's rows only.
+struct BwdEpi {
+  const BwdParams& p;
+  BwdProd pr;
+  float* dst;
+  int m0;
+  const float* hd;  // (tm, 4): g_sigma, g_rgb a point
+  const Place& pl;
+
+  __device__ __forceinline__ int col0(int nb) const { return BN * nb + 64 * pl.wg + 2 * pl.q; }
+
+  // Accumulator i: row r0 + 8 ((i / 2) % 2), column col0 + 8 (i / 4) + i % 2.
+  __device__ __forceinline__ void start(float (&acc)[32], int nb) const {
+    const bool sigma = pr.kind == BWD_MASK_SIGMA;
+    const int n0 = col0(nb);
+    const float gs0 = sigma ? hd[4 * min(pl.r0, p.tm - 1)] : 0.f;
+    const float gs1 = sigma ? hd[4 * min(pl.r0 + 8, p.tm - 1)] : 0.f;
 #pragma unroll
-        for (int i = 0; i < TP; ++i) {
-          const int m = m0 + p0 + i;
+    for (int i = 0; i < 32; ++i) {
+      const float ws = sigma ? __ldg(p.w_sigma + min(n0 + 8 * (i / 4) + i % 2, p.D - 1)) : 0.f;
+      acc[i] = ((i >> 1) & 1 ? gs1 : gs0) * ws;
+    }
+  }
+
+  __device__ __forceinline__ void finish(float (&acc)[32], int nb) const {
+    if (pr.mcol < 0) return;  // a branch on the product, the same for every thread
+    const int n0 = col0(nb);
+    float2 mk[2][8];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = n0 + col_of(c0, j);
-            if (m < p.M && n < p.app_dim) p.d_app[(size_t)m * p.app_dim + n] = acc[i][j];
+    for (int rr = 0; rr < 2; ++rr) {
+      const int m = min(m0 + pl.r0 + 8 * rr, p.M - 1);
+      const float* row = p.act + (size_t)m * p.act_width + pr.mcol;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mk[rr][j] = __ldg(reinterpret_cast<const float2*>(row + min(n0 + 8 * j, pr.N - 2)));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float& v0 = acc[4 * j + 2 * rr];
+        float& v1 = acc[4 * j + 2 * rr + 1];
+        v0 = mk[rr][j].x > 0.f ? v0 : 0.f;
+        v1 = mk[rr][j].y > 0.f ? v1 : 0.f;
+      }
+  }
+
+  __device__ __forceinline__ void store(const float (&acc)[32], int nb) const {
+    const int n0 = col0(nb);
+    if (pr.kind == BWD_APP) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int m = m0 + pl.r0 + 8 * rr;
+        float* row = p.d_app + (size_t)min(m, p.M - 1) * p.app_dim;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + 8 * j + e;
+            st_global1_if(row + min(n, p.app_dim - 1), acc[4 * j + 2 * rr + e],
+                          pl.rows && m < p.M && n < p.app_dim);
+          }
+      }
+      return;
+    }
+    const int S = p.D + 4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + 8 * j;
+      const bool live = pl.rows && n < pr.N;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        st_shared2_if(dst + (live ? (pl.r0 + 8 * rr) * S + n : 0), acc[4 * j + 2 * rr],
+                      acc[4 * j + 2 * rr + 1], live);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int m = m0 + pl.r0 + 8 * rr;
+      float* row = p.grad + (size_t)min(m, p.M - 1) * p.grad_width + pr.gcol;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 8 * j;
+        st_global2_if(row + min(n, pr.N - 2), acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1],
+                      pl.rows && n < pr.N && m < p.M);
+      }
+    }
+  }
+};
+
+// Columns [col, col + width) of the saved rows of the tile's points into
+// the tile (stride D + 4), float4s, each consumer thread's loads of a batch
+// of ROW_BATCH issued together, then stored (zero past M).
+constexpr int ROW_BATCH = 8;
+__device__ __forceinline__ void rows_to_tile(const BwdParams& p, int col, int width, int m0,
+                                             float* tile) {
+  const int w4 = width / 4, total = p.tm * w4;
+  for (int base = threadIdx.x; base < total; base += ROW_BATCH * CONSUMERS) {
+    float4 v[ROW_BATCH];
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k) {
+      const int idx = base + k * CONSUMERS;
+      const int pt = idx / w4, m = m0 + pt;
+      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx < total && m < p.M)
+        v[k] = __ldg(reinterpret_cast<const float4*>(p.act + (size_t)m * p.act_width + col +
+                                                     4 * (idx - pt * w4)));
+    }
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k) {
+      const int idx = base + k * CONSUMERS;
+      const int pt = idx / w4;
+      if (idx < total)
+        *reinterpret_cast<float4*>(tile + pt * (p.D + 4) + 4 * (idx - pt * w4)) = v[k];
+    }
+  }
+}
+
+// Sigma's pre-activation of point t (consumer thread t < tm) from h_{L-1}
+// in the tile: the sum over the columns in order, the bias, the point's
+// noise nz.
+__device__ __forceinline__ float sigma_pre(const BwdParams& p, const float* tile, float nz,
+                                           int t) {
+  const float4* hr = reinterpret_cast<const float4*>(tile + t * (p.D + 4));
+  const float4* ws = reinterpret_cast<const float4*>(p.w_sigma);
+  float s = 0.f;
+#pragma unroll 4
+  for (int n = 0; n < p.D / 4; ++n) {
+    const float4 hv = hr[n], wv = __ldg(ws + n);
+    s = fmaf(hv.x, wv.x, s);
+    s = fmaf(hv.y, wv.y, s);
+    s = fmaf(hv.z, wv.z, s);
+    s = fmaf(hv.w, wv.w, s);
+  }
+  s = s + p.b_sigma[0];
+  if (p.noise != nullptr) s = s + nz;
+  return s;
+}
+
+// The heads' derivatives of point t (consumer thread t < tm) from sigma's
+// pre-activation s, the point's cotangent g and the rgb head recomputed
+// from the tile (the branch rows, or h_{L-1}; the sums over the columns in
+// order): into hd and the gradient row's heads [g_sigma, g_rgb, 0 x 4].
+__device__ __forceinline__ void heads(const BwdParams& p, const float* tile, float s,
+                                      float4 g, float* hd, int m0, int t) {
+  if (t >= p.tm) return;
+  const int rin = p.has_branch ? p.D / 2 : p.D;
+  const float4* xr = reinterpret_cast<const float4*>(tile + t * (p.D + 4));
+  const float4* w0 = reinterpret_cast<const float4*>(p.w_rgb);
+  const float4* w1 = reinterpret_cast<const float4*>(p.w_rgb + rin);
+  const float4* w2 = reinterpret_cast<const float4*>(p.w_rgb + 2 * rin);
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll 2
+  for (int n = 0; n < rin / 4; ++n) {
+    const float4 x = xr[n], u0 = __ldg(w0 + n), u1 = __ldg(w1 + n), u2 = __ldg(w2 + n);
+    a0 = fmaf(x.x, u0.x, a0);
+    a1 = fmaf(x.x, u1.x, a1);
+    a2 = fmaf(x.x, u2.x, a2);
+    a0 = fmaf(x.y, u0.y, a0);
+    a1 = fmaf(x.y, u1.y, a1);
+    a2 = fmaf(x.y, u2.y, a2);
+    a0 = fmaf(x.z, u0.z, a0);
+    a1 = fmaf(x.z, u1.z, a1);
+    a2 = fmaf(x.z, u2.z, a2);
+    a0 = fmaf(x.w, u0.w, a0);
+    a1 = fmaf(x.w, u1.w, a1);
+    a2 = fmaf(x.w, u2.w, a2);
+  }
+  const int m = m0 + t;
+  const float s0 = 1.f / (1.f + expf(-(a0 + p.b_rgb[0])));
+  const float s1 = 1.f / (1.f + expf(-(a1 + p.b_rgb[1])));
+  const float s2 = 1.f / (1.f + expf(-(a2 + p.b_rgb[2])));
+  const float gr = g.x * s0 * (1.f - s0);
+  const float gg = g.y * s1 * (1.f - s1);
+  const float gb = g.z * s2 * (1.f - s2);
+  const float gs = p.shifted_softplus ? g.w * (1.f / (1.f + expf(-(s - 1.f))))
+                                      : (s > 0.f ? g.w : 0.f);
+  reinterpret_cast<float4*>(hd)[t] = make_float4(gs, gr, gg, gb);
+  if (m < p.M) {
+    float4* row = reinterpret_cast<float4*>(p.grad + (size_t)m * p.grad_width + p.g_heads);
+    row[0] = make_float4(gs, gr, gg, gb);
+    row[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The chain's elementwise start, in place over the tile and into the
+// gradient rows: d_a = (g_rgb w_rgb) * (branch > 0), zero from D / 2 to KB;
+// without the branch d_pre_{L-1} = (g_sigma w_sigma + g_rgb w_rgb) *
+// (h_{L-1} > 0). Four columns a thread (D / 2 and KB are multiples of 8),
+// each column's sum in one order: g_r w_r, + g_g w_g, + g_b w_b (FMAs),
+// then g_sigma w_sigma + that.
+__device__ __forceinline__ void first(const BwdParams& p, float* tile, const float* hd,
+                                      int m0) {
+  const int w4 = (p.has_branch ? p.KB : p.D) / 4;
+  const int live = p.has_branch ? p.D / 2 : p.D;
+  const int col = p.has_branch ? p.g_da : (p.layers - 1) * p.D;
+  const float4* wr = reinterpret_cast<const float4*>(p.w_rgb);
+  const float4* ws = reinterpret_cast<const float4*>(p.w_sigma);
+  for (int idx = threadIdx.x; idx < p.tm * w4; idx += CONSUMERS) {
+    const int pt = idx / w4, c4 = idx - pt * w4;
+    float4* at = reinterpret_cast<float4*>(tile + pt * (p.D + 4)) + c4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (4 * c4 < live) {
+      const float4 h4 = reinterpret_cast<const float4*>(hd)[pt];
+      const float4 r = __ldg(wr + c4), gg = __ldg(wr + live / 4 + c4);
+      const float4 b = __ldg(wr + live / 2 + c4), a = *at;
+      float u[4] = {h4.y * r.x, h4.y * r.y, h4.y * r.z, h4.y * r.w};
+      const float gv[4] = {gg.x, gg.y, gg.z, gg.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        u[e] = fmaf(h4.z, gv[e], u[e]);
+        u[e] = fmaf(h4.w, bv[e], u[e]);
+      }
+      if (!p.has_branch) {
+        const float4 s = __ldg(ws + c4);
+        const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[e] = h4.x * sv[e] + u[e];
+      }
+      v = make_float4(av[0] > 0.f ? u[0] : 0.f, av[1] > 0.f ? u[1] : 0.f,
+                      av[2] > 0.f ? u[2] : 0.f, av[3] > 0.f ? u[3] : 0.f);
+    }
+    *at = v;
+    const int m = m0 + pt;
+    if (m < p.M) reinterpret_cast<float4*>(p.grad + (size_t)m * p.grad_width + col)[c4] = v;
+  }
+}
+
+// The backward-data of the CTA's tile of tm points (the warp-specialised
+// CTA of f32_forward.cuh: one producer thread keeps the ring full of the
+// products' transposed-W boxes and rests, two consumer warpgroups take the
+// heads, the start and the products).
+__global__ void __launch_bounds__(NT, 1)
+train_f32_bwd_kernel(const __grid_constant__ BwdMaps maps, const __grid_constant__ BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 B: the ring starts on it.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  uint64_t* empty = full + p.stages;
+  const int nprod = bwd_count(p);
+  const int m0 = blockIdx.x * p.tm;
+  // Read from lane 0, so the compiler knows the warp (and warpgroup) index
+  // is uniform: wgmma under a branch it cannot prove uniform is serialised.
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      int st = 0, use = 0;
+      for (int q = 0; q < nprod; ++q) {
+        const BwdProd pr = bwd_product(p, q);
+        const int bytes = min(p.ktot[pr.mat], BN) * BK * 4;
+        for (int nb = 0; nb * BN < pr.N; ++nb) {
+          for (int j = 0; j * BK < pr.K; ++j) {
+            if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+            mbar_expect_tx(full + st, 2 * bytes);
+            const uint32_t stage = smem_u32(smem + p.ring_off + st * STAGE_BYTES);
+            tma_load_keep(stage, &maps.w[pr.mat], j * BK, pr.row0 + BN * nb, full + st);
+            tma_load_keep(stage + BOX_BYTES, &maps.wlo[pr.mat], j * BK, pr.row0 + BN * nb,
+                          full + st);
+            if (++st == p.stages) st = 0, ++use;
           }
         }
       }
     }
-    {  // d_final = d_a W_a[:, :D] into the h tile and the rows
-      const Wts wt = {p.w[a], p.ld[a], 0, D, half};
-      for (int n0 = 0; n0 < D; n0 += NB) {
-        float acc[TP][8];
-        product<TP>(acc, sa, 1, wt, n0, wbuf, p0, c0);
-        store_tile<TP>(acc, tx, tm, n0, D, p0, c0);
-        store_rows<TP>(acc, p.grad, p.grad_width, p.g_dfinal, m0, p.M, n0, D, p0, c0);
-      }
-    }
-    {  // d_pre_{L-1} = (d_final W_final + g_sigma w_sigma) * (h_{L-1} > 0)
-      const Seg sf[1] = {{tx, D, 0}};
-      const Wts wt = {p.w[L], p.ld[L], 0, D, D};
-      for (int n0 = 0; n0 < D; n0 += NB) {
-        float acc[TP][8];
-        product<TP>(acc, sf, 1, wt, n0, wbuf, p0, c0);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = n0 + col_of(c0, j);
-          const float ws = n < D ? __ldg(p.w_sigma + n) : 0.f;
-#pragma unroll
-          for (int i = 0; i < TP; ++i) acc[i][j] = acc[i][j] + hd[4 * (p0 + i)] * ws;
-        }
-        relu_mask<TP>(acc, p.act, p.act_width, h_last, m0, p.M, n0, D, p0, c0);
-        store_tile<TP>(acc, ty, tm, n0, D, p0, c0);
-        store_rows<TP>(acc, p.grad, p.grad_width, (L - 1) * D, m0, p.M, n0, D, p0, c0);
-      }
-    }
-    cur = ty;
-  } else {
-    // d_pre_{L-1} = (g_sigma w_sigma + g_rgb w_rgb) * (h_{L-1} > 0), in
-    // place over the h tile.
-    for (int idx = t; idx < tm * D; idx += NT) {
-      const int pt = idx / D;
-      const int n = idx - pt * D;
-      const float4 h4 = reinterpret_cast<const float4*>(hd)[pt];
-      float u = h4.y * __ldg(p.w_rgb + n);
-      u = fmaf(h4.z, __ldg(p.w_rgb + D + n), u);
-      u = fmaf(h4.w, __ldg(p.w_rgb + 2 * D + n), u);
-      u = h4.x * __ldg(p.w_sigma + n) + u;
-      const float v = tx[tix(tm, n, pt)] > 0.f ? u : 0.f;
-      tx[tix(tm, n, pt)] = v;
-      const int m = m0 + pt;
-      if (m < p.M) p.grad[(size_t)m * p.grad_width + (L - 1) * D + n] = v;
-    }
-    cur = tx;
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
-  // Down the trunk: d_pre_{i-1} = (d_pre_i W_i[:, h columns]) * (h_{i-1} > 0).
-  for (int i = L - 1; i >= 1; --i) {
-    float* dst = cur == tx ? ty : tx;
-    const Seg sc[1] = {{cur, D, 0}};
-    const Wts wt = {p.w[i], p.ld[i], ((p.skip_mask >> i) & 1) ? p.EP : 0, D, D};
-    const int hcol = p.act_h0 + (i - 1) * D;
-    for (int n0 = 0; n0 < D; n0 += NB) {
-      float acc[TP][8];
-      product<TP>(acc, sc, 1, wt, n0, wbuf, p0, c0);
-      relu_mask<TP>(acc, p.act, p.act_width, hcol, m0, p.M, n0, D, p0, c0);
-      if (i > 1) store_tile<TP>(acc, dst, tm, n0, D, p0, c0);
-      store_rows<TP>(acc, p.grad, p.grad_width, (i - 1) * D, m0, p.M, n0, D, p0, c0);
-    }
+  Place pl;
+  pl.wg = warp >> 2;
+  pl.g = lane >> 2;
+  pl.q = lane & 3;
+  pl.r0 = 16 * (warp & 3) + pl.g;
+  pl.rows = 16 * (warp & 3) < p.tm;
+  Ring ring = {smem_u32(smem + p.ring_off), full, empty, p.stages, 0, 0};
+  float* x = reinterpret_cast<float*>(smem + p.x_off);
+  float* y = reinterpret_cast<float*>(smem + p.y_off);
+  float* hd = reinterpret_cast<float*>(smem + p.heads_off);
+  const int t = threadIdx.x;
+
+  // The heads' inputs of point t (thread t < tm) first, so that their
+  // latency runs under the row loads; sigma from h_{L-1}, then the rgb head
+  // from the branch rows (which take the tile's place) or from h_{L-1}.
+  const bool mine = t < p.tm && m0 + t < p.M;
+  const float4 g = mine ? __ldg(reinterpret_cast<const float4*>(p.g) + m0 + t)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float nz = mine && p.noise != nullptr ? __ldg(p.noise + m0 + t) : 0.f;
+  rows_to_tile(p, p.act_h0 + (p.layers - 1) * p.D, p.D, m0, x);
+  consumer_sync();
+  const float s = t < p.tm ? sigma_pre(p, x, nz, t) : 0.f;
+  if (p.has_branch) {
+    consumer_sync();
+    rows_to_tile(p, p.act_branch, p.D / 2, m0, x);
+    consumer_sync();
+  }
+  heads(p, x, s, g, hd, m0, t);
+  consumer_sync();
+  first(p, x, hd, m0);
+  consumer_sync();
+
+  float acc0[32], acc1[32], ch[32];
+  const bool in_place = p.x_off == p.y_off;
+  float* cur = x;
+  for (int q = 0; q < nprod; ++q) {
+    const BwdProd pr = bwd_product(p, q);
+    const bool app = pr.kind == BWD_APP;
+    float* dst = in_place || app ? cur : (cur == x ? y : x);
+    layer<BWD_CHAIN_STAGES>(acc0, acc1, ch, OneSrc{{cur, p.D + 4, pr.K}}, pr.N,
+                            in_place && !app, BwdEpi{p, pr, dst, m0, hd, pl}, ring, pl, lane);
     cur = dst;
   }
 }
 
 // ------------------------------------------------------- weight gradient
 
+constexpr int WG_NT = 256;  // threads of a weight-gradient CTA: 8 warps
 constexpr int WG_T = 128;  // output tile: 128 (n) x 128 (k)
 constexpr int WG_P = 64;   // points a ring stage holds: 8 k-steps of the mma
 constexpr int WG_S = 3;    // ring stages
@@ -354,8 +556,8 @@ __device__ __forceinline__ void stage_rows(float* st, const float* src, int ld, 
   const uint32_t base = smem_addr(st);
   if (vec) {
 #pragma unroll
-    for (int r = 0; r < WG_P * WG_T / 4 / NT; ++r) {
-      const int e = r * NT + threadIdx.x;
+    for (int r = 0; r < WG_P * WG_T / 4 / WG_NT; ++r) {
+      const int e = r * WG_NT + threadIdx.x;
       const int pt = e >> 5, c = 4 * (e & 31);
       const int m = p0 + pt;
       const int bytes = m < end ? 4 * max(0, min(4, live - c)) : 0;
@@ -364,8 +566,8 @@ __device__ __forceinline__ void stage_rows(float* st, const float* src, int ld, 
     }
   } else {
 #pragma unroll 4
-    for (int r = 0; r < WG_P * WG_T / NT; ++r) {
-      const int e = r * NT + threadIdx.x;
+    for (int r = 0; r < WG_P * WG_T / WG_NT; ++r) {
+      const int e = r * WG_NT + threadIdx.x;
       const int pt = e >> 7, c = e & 127;
       const int m = p0 + pt;
       const int bytes = m < end && c < live ? 4 : 0;
@@ -488,7 +690,7 @@ __device__ __forceinline__ void flush_chains(float (&acc)[4][4][4], float (&ch)[
 // a launch repeats bit for bit. Where the tile has a bias, thread t sums
 // column t % 128 over the first (t < 128) or second half of every stage's
 // points in point order, and the two halves are added at the end.
-__global__ void __launch_bounds__(NT, 1) wg_tf32x3_kernel(const __grid_constant__ WgParams p) {
+__global__ void __launch_bounds__(WG_NT, 1) wg_tf32x3_kernel(const __grid_constant__ WgParams p) {
   extern __shared__ __align__(16) float ring[];  // WG_S x [d rows | x rows]
   const int tile = blockIdx.x, split = blockIdx.y;
   const long long* tl = p.tiles + 3 * tile;
@@ -573,9 +775,9 @@ __global__ void __launch_bounds__(NT, 1) wg_tf32x3_kernel(const __grid_constant_
 }
 
 // Each live output element: its tile's partials added in split order.
-__global__ void __launch_bounds__(NT) wg_reduce_kernel(const __grid_constant__ WgParams p,
+__global__ void __launch_bounds__(WG_NT) wg_reduce_kernel(const __grid_constant__ WgParams p,
                                                        int splits) {
-  const int e = blockIdx.x * NT + threadIdx.x;
+  const int e = blockIdx.x * WG_NT + threadIdx.x;
   const int tile = blockIdx.y;
   if (e >= WG_ELEMS) return;
   const long long* tl = p.tiles + 3 * tile;
@@ -596,16 +798,6 @@ __global__ void __launch_bounds__(NT) wg_reduce_kernel(const __grid_constant__ W
   *dst = s;
 }
 
-
-template <typename K, typename P>
-int launch_fwd_like(K kernel, const P& p, int smem, int grid, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -617,10 +809,10 @@ extern "C" {
 int train_f32_fwd_launch(const long long* ptrs, const int* dims, const int* plan,
                          const int* shapes, const long long* rests, const long long* extra,
                          const int* cols, void* stream) {
-  f32fwd::FwdParams p;
-  f32fwd::FwdMaps maps;
+  FwdParams p;
+  FwdMaps maps;
   int smem = 0;
-  const int err = f32fwd::fwd_setup(ptrs, dims, plan, shapes, rests, p, maps, smem);
+  const int err = fwd_setup(ptrs, dims, plan, shapes, rests, p, maps, smem);
   if (err) return err;
   p.noise = reinterpret_cast<const float*>(extra[0]);
   p.act = reinterpret_cast<float*>(extra[1]);
@@ -633,20 +825,25 @@ int train_f32_fwd_launch(const long long* ptrs, const int* dims, const int* plan
   if (p.act == nullptr || p.act_width % 2 || p.act_final % 2 || p.act_branch % 2)
     return (int)cudaErrorInvalidValue;
   if (p.M <= 0) return 0;
-  return f32fwd::fwd_launch(train_f32_fwd_kernel, maps, p, smem,
-                            reinterpret_cast<cudaStream_t>(stream));
+  return fwd_launch(train_f32_fwd_kernel, maps, p, smem, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ptrs: act, grad, g, noise (or 0), d_app (or 0), w_sigma, b_sigma, w_rgb,
-//   b_rgb, then the packed matrices in fused_mlp.py::mat_layout order.
+//   b_rgb, then the transposed matrices (fused_train.py::transposed_weights)
+//   in fused_mlp.py::mat_layout order.
 // dims: M, D, layers, has_branch, shifted_softplus, app_dim, skip_mask, EP,
 //   DP, KB, act_width, grad_width, act h0, act branch, grad dfinal, grad da,
 //   grad heads (fused_train.py::act_layout, grad_layout).
-// plan: tm, x_off, y_off, w_off, heads_off, smem_bytes (f32_bwd_plan).
-// shapes: (N, Ktot) per matmul layer.
+// plan: tm, stages, ring, x, y, heads and barrier offsets, smem_bytes
+//   (fused_f32.py::f32_bwd_plan).
+// shapes: (Ktot, N) per transposed matrix.
+// rests: per transposed matrix, its TF32 rests (fused_f32.py::t_rests).
+// Returns 0, a cudaError_t or a tensor-map failure (train_f32_error_string).
 int train_f32_bwd_launch(const long long* ptrs, const int* dims, const int* plan,
-                         const int* shapes, void* stream) {
+                         const int* shapes, const long long* rests, void* stream) {
   BwdParams p = {};
+  BwdMaps maps;
+  memset(&maps, 0, sizeof maps);
   p.act = reinterpret_cast<const float*>(ptrs[0]);
   p.grad = reinterpret_cast<float*>(ptrs[1]);
   p.g = reinterpret_cast<const float*>(ptrs[2]);
@@ -674,24 +871,55 @@ int train_f32_bwd_launch(const long long* ptrs, const int* dims, const int* plan
   p.g_da = dims[15];
   p.g_heads = dims[16];
   p.tm = plan[0];
-  p.x_off = plan[1];
-  p.y_off = plan[2];
-  p.w_off = plan[3];
-  p.heads_off = plan[4];
-  const int smem = plan[5];
+  p.stages = plan[1];
+  p.ring_off = plan[2];
+  p.x_off = plan[3];
+  p.y_off = plan[4];
+  p.heads_off = plan[5];
+  p.bar_off = plan[6];
+  const int smem = plan[7];
   const int nmat = p.layers + (p.has_branch ? 2 : 0);
-  if (nmat > MAX_MATS || (p.tm != 64 && p.tm != 32) || p.D % 16 || p.KB > p.D ||
+  // tm = 64 writes in place (x == y) to width 256; the rows read, the heads
+  // and the start's gradient rows move as float4s, the products' as pairs.
+  if (nmat > MAX_MATS || p.layers < 1 || p.D % 16 || p.D < 16 || p.KB % 16 || p.KB > p.D ||
+      p.stages < 2 || p.ring_off % 1024 ||
+      !((p.tm == 64 && p.x_off == p.y_off && p.D <= 2 * BN) ||
+        (p.tm == 32 && p.x_off != p.y_off)) ||
+      p.act_width % 4 || p.act_h0 % 4 || p.act_branch % 4 || p.grad_width % 4 ||
+      p.g_heads % 4 || p.g_dfinal % 2 || p.g_da % 4 ||
       (p.app_dim > 0 && p.d_app == nullptr))
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < nmat; ++i) {
-    p.w[i] = reinterpret_cast<const float*>(ptrs[9 + i]);
-    p.ld[i] = shapes[2 * i + 1];
+    const void* w = reinterpret_cast<const void*>(ptrs[9 + i]);
+    const void* wlo = reinterpret_cast<const void*>(rests[i]);
+    const int kt = shapes[2 * i], n = shapes[2 * i + 1];
+    // TMA reads both: 16-byte aligned bases and row pitches.
+    if ((reinterpret_cast<uintptr_t>(w) & 15) || (reinterpret_cast<uintptr_t>(wlo) & 15) ||
+        n % 4 || kt < 1)
+      return (int)cudaErrorInvalidValue;
+    p.ktot[i] = kt;
+    if (p.M <= 0) continue;
+    if (!encode_tiled()) return ERR_NO_ENCODE;
+    const cuuint64_t gdims[2] = {(cuuint64_t)n, (cuuint64_t)kt};
+    const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+    const cuuint32_t box[2] = {BK, (cuuint32_t)(kt < BN ? kt : BN)};
+    const cuuint32_t estr[2] = {1, 1};
+    for (int h = 0; h < 2; ++h) {
+      const CUresult r = encode_tiled()(
+          h ? &maps.wlo[i] : &maps.w[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+          const_cast<void*>(h ? wlo : w), gdims, strides, box, estr,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return -(int)r;
+    }
   }
   if (p.M <= 0) return 0;
-  const int grid = (p.M + p.tm - 1) / p.tm;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return p.tm == 64 ? launch_fwd_like(train_f32_bwd_kernel<8>, p, smem, grid, s)
-                    : launch_fwd_like(train_f32_bwd_kernel<4>, p, smem, grid, s);
+  cudaError_t err =
+      cudaFuncSetAttribute(train_f32_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  train_f32_bwd_kernel<<<(p.M + p.tm - 1) / p.tm, NT, smem,
+                         reinterpret_cast<cudaStream_t>(stream)>>>(maps, p);
+  return (int)cudaGetLastError();
 }
 
 // ptrs: out, scratch, table (device: jobs x WG_JOB, then tiles x 3, int64,
@@ -714,10 +942,10 @@ int weight_grad_f32_launch(const long long* ptrs, const int* dims, void* stream)
       wg_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  wg_tf32x3_kernel<<<dim3(p.ntiles, splits), NT, WG_SMEM, s>>>(p);
+  wg_tf32x3_kernel<<<dim3(p.ntiles, splits), WG_NT, WG_SMEM, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wg_reduce_kernel<<<dim3((WG_ELEMS + NT - 1) / NT, p.ntiles), NT, 0, s>>>(p, splits);
+  wg_reduce_kernel<<<dim3((WG_ELEMS + WG_NT - 1) / WG_NT, p.ntiles), WG_NT, 0, s>>>(p, splits);
   return (int)cudaGetLastError();
 }
 

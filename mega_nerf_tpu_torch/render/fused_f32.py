@@ -4,27 +4,30 @@ layer width 512: plans and wrappers.
 Counterparts of the JAX package's Pallas kernels in f32 compute
 (`render/pallas_mlp.py::_mlp_kernel`, `render/pallas_train.py::
 _train_fwd_kernel` and `::_train_bwd_kernel`, which run f32 to width 1024).
-The hand-written Hopper kernels compute in f32: f32 operands and f32 sums;
-in the eval kernel, the training forward and the weight gradient, 3xTF32
-split products on the tensor cores (each operand x = hi + lo, lo the rest
-of x past its TF32 part, read as TF32; hi*hi + hi*lo + lo*hi summed in
-f32), within ~2^-21 of each f32 product; FFMA products in the
-backward-data kernel. No single-pass TF32 and no bf16 product, so an f32
-run gets the numbers of the port's f32 eager module and of the JAX
-package's f32 kernels, to summation order and ~2^-21.
+The hand-written Hopper kernels compute in f32: f32 operands and f32 sums,
+every layer product as 3xTF32 split products on the tensor cores (each
+operand x = hi + lo, lo the rest of x past its TF32 part, read as TF32;
+hi*hi + hi*lo + lo*hi summed in f32), within ~2^-21 of each f32 product.
+No single-pass TF32 and no bf16 product, so an f32 run gets the numbers of
+the port's f32 eager module and of the JAX package's f32 kernels, to
+summation order and ~2^-21.
 
 - `csrc/eval_f32.cu` (`fused_nerf_eval_f32`): the eval forward.
 - `csrc/train_f32.cu`: the training forward (`fused_nerf_train_fwd_f32`,
   the eval forward plus sigma noise, writing the f32 saved rows of
   `fused_train.act_layout`), backward-data (`train_bwd_data_f32`: f32
-  gradient rows of `fused_train.grad_layout` and d_app, over
-  `csrc/f32_chain.cuh`) and the weight gradient (`weight_grad_f32`: dW
-  and bias sums per job of `fused_train.weight_grad_jobs` on `mma.sync`
-  through a `cp.async` ring, fixed-order split sums, no float atomics).
+  gradient rows of `fused_train.grad_layout` and d_app) and the weight
+  gradient (`weight_grad_f32`: dW and bias sums per job of
+  `fused_train.weight_grad_jobs` on `mma.sync` through a `cp.async` ring,
+  fixed-order split sums, no float atomics).
 - Both forwards run one device path, `csrc/f32_forward.cuh` (`wgmma` over
   a TMA ring of W boxes read from the packed (N, Ktot) matrices beside the
   same boxes of W's TF32 rests, `w_rests`), so the eval kernel equals the
-  training forward without noise bit for bit.
+  training forward without noise bit for bit. The backward-data kernel
+  runs its products through the same layer code, B the transposed (Ktot,
+  N) matrices of `fused_train.transposed_weights` beside their rests
+  (`t_rests`): TF32 `wgmma` takes B only K-major, and the backward reduces
+  over N.
 
 `fused_mlp.fused_nerf_eval` and the wrappers of `fused_train.py` call these
 on CUDA tensors when the packed weights are f32; CPU tensors run the plain
@@ -32,11 +35,11 @@ versions there, for either dtype. Each wrapper here counts its launches in
 `.launches` (apart from the bf16 kernels' counts); a failed build or
 launch raises, nothing falls back.
 
-`f32_fwd_plan(cfg)` and `f32_bwd_plan(cfg)` give a CTA's tile and shared
-memory (the kernels take them as launch arguments), the forward's also its
-ring's stages; `f32_wg_plan(packed,
-m)` the weight gradient's output tiles and point ranges, `f32_wg_job_rows`
-its job table with each operand's copy width (`f32_wg_copy`).
+`f32_fwd_plan(cfg)` and `f32_bwd_plan(cfg)` give a CTA's tile, its ring's
+stages and shared memory (the kernels take them as launch arguments);
+`f32_wg_plan(packed, m)` the weight gradient's output tiles and point
+ranges, `f32_wg_job_rows` its job table with each operand's copy width
+(`f32_wg_copy`).
 """
 
 from __future__ import annotations
@@ -59,14 +62,11 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
     supports_fused_kernel,
 )
 
-F32_COLS = 256  # output columns of one pass of a backward product (NB)
-F32_KS = 16  # k rows of a backward weight chunk (KS)
-F32_TILES = (64, 32)  # points of a backward CTA, the first that fits
 F32_SMEM_LIMIT = 232_448  # shared memory one CTA may use on an H100
-# The forward (f32_forward.cuh): 64 points a CTA written in place to width
-# 256, 32 (the wgmma rows 32-63 zero) with two activation tiles past it; a
-# ring stage = a W box of 128 rows x 32 columns and the same box of its
-# TF32 rests (`w_rests`).
+# The forward and backward-data kernels (f32_forward.cuh): 64 points a CTA
+# written in place to width 256, 32 (the wgmma rows 32-63 zero) with two
+# activation or gradient tiles past it; a ring stage = a B box of 128 rows
+# x 32 columns and the same box of its TF32 rests (`w_rests`, `t_rests`).
 F32_FWD_INPLACE_WIDTH = 256
 F32_FWD_BOX = 128 * 32 * 4
 F32_FWD_STAGE = 2 * F32_FWD_BOX
@@ -82,42 +82,25 @@ _WIDE_WHY = "layer_dim past 512 (the f32 kernels take widths to 512)"
 
 
 class F32Plan(NamedTuple):
-    """The backward-data CTA's tile of `tm` points and its shared memory:
-    `offsets` in bytes (x, y, w, heads) and `smem_bytes` in all."""
-    tm: int
-    offsets: Dict[str, int]
-    smem_bytes: int
-
-
-def _layout(widths: Dict[str, int]) -> Tuple[Dict[str, int], int]:
-    offsets, o = {}, 0
-    for name, nbytes in widths.items():
-        offsets[name] = o
-        o += _round_up(nbytes, 16)
-    return offsets, o
-
-
-def _fit(cfg: NeRFConfig, kind: str, widths) -> F32Plan:
-    ok, why = supports_fused_kernel(cfg, train=True)
-    if not ok or is_wide(cfg):
-        raise NotImplementedError(f"fused kernel does not cover: {why or _WIDE_WHY}")
-    for tm in F32_TILES:
-        offsets, total = _layout(widths(tm))
-        if total <= F32_SMEM_LIMIT:
-            return F32Plan(tm, offsets, total)
-    raise ValueError(f"f32 {kind}: no tile fits {F32_SMEM_LIMIT} B of shared memory "
-                     f"for {cfg}")
-
-
-class F32FwdPlan(NamedTuple):
-    """The f32 forward's CTA: a tile of `tm` points, a ring of `stages`,
-    byte `offsets` (ring, x, y, enc, dir, app, sig, bar) from a 1024-aligned
-    base (x == y: each layer written in place) and `smem_bytes` in all (with
-    the alignment's slack)."""
+    """The CTA of the f32 forward or backward-data kernel (f32_forward.cuh's
+    ring and layer code): a tile of `tm` points, a ring of `stages`, byte
+    `offsets` from a 1024-aligned base (the forward's ring, x, y, enc, dir,
+    app, sig, bar; the backward's ring, x, y, heads, bar; x == y: each layer
+    written in place) and `smem_bytes` in all (with the alignment's
+    slack)."""
     tm: int
     stages: int
     offsets: Dict[str, int]
     smem_bytes: int
+
+
+def _tiles(cfg: NeRFConfig, tm: int, stages: int) -> Tuple[Dict[str, int], int]:
+    """The ring, then the x and y tiles of `layer_dim + 4` floats a point (x
+    == y to F32_FWD_INPLACE_WIDTH)."""
+    act = 4 * tm * (cfg.layer_dim + 4)
+    o = {"ring": 0, "x": stages * F32_FWD_STAGE}
+    o["y"] = o["x"] + (0 if cfg.layer_dim <= F32_FWD_INPLACE_WIDTH else act)
+    return o, o["y"] + act
 
 
 def _fwd_layout(cfg: NeRFConfig, tm: int, stages: int) -> Tuple[Dict[str, int], int]:
@@ -125,47 +108,54 @@ def _fwd_layout(cfg: NeRFConfig, tm: int, stages: int) -> Tuple[Dict[str, int], 
     dp = _round_up(cfg.dir_in, MMA_K)
     ap = _round_up(cfg.appearance_dim, MMA_K)
     row = lambda width: 4 * tm * (width + 4) if width else 0  # noqa: E731
-    act = row(cfg.layer_dim)
-    inplace = cfg.layer_dim <= F32_FWD_INPLACE_WIDTH
+    o, end = _tiles(cfg, tm, stages)
     # dir_a's direction and appearance tiles take the encode's room once
     # the trunk is done with it.
-    o = {"ring": 0, "x": stages * F32_FWD_STAGE}
-    o["y"] = o["x"] + (0 if inplace else act)
-    o["enc"] = o["y"] + act
-    o["dir"] = o["enc"]
+    o["enc"] = o["dir"] = end
     o["app"] = o["dir"] + row(dp)
     o["sig"] = o["enc"] + _round_up(max(row(ep), row(dp) + row(ap)), 16)
     o["bar"] = o["sig"] + _round_up(4 * tm, 16)
     return o, o["bar"] + 2 * 8 * stages + F32_FWD_ALIGN
 
 
-@functools.lru_cache(maxsize=None)
-def f32_fwd_plan(cfg: NeRFConfig) -> F32FwdPlan:
-    """The f32 forward's CTA (eval and training forward): 64 points with
-    each layer written in place to width 256, 32 with two activation tiles
-    past it; the deepest ring of F32_FWD_STAGES that fits. Raises
-    NotImplementedError where the kernels do not cover the architecture,
-    ValueError where no ring fits."""
+def _bwd_layout(cfg: NeRFConfig, tm: int, stages: int) -> Tuple[Dict[str, int], int]:
+    o, end = _tiles(cfg, tm, stages)
+    o["heads"] = end  # g_sigma, g_rgb a point
+    o["bar"] = o["heads"] + 16 * tm
+    return o, o["bar"] + 2 * 8 * stages + F32_FWD_ALIGN
+
+
+def _ring_plan(cfg: NeRFConfig, kind: str, layout) -> F32Plan:
     ok, why = supports_fused_kernel(cfg, train=True)
     if not ok or is_wide(cfg):
         raise NotImplementedError(f"fused kernel does not cover: {why or _WIDE_WHY}")
     tm = 64 if cfg.layer_dim <= F32_FWD_INPLACE_WIDTH else 32
     for stages in F32_FWD_STAGES:
-        offsets, total = _fwd_layout(cfg, tm, stages)
+        offsets, total = layout(cfg, tm, stages)
         if total <= F32_SMEM_LIMIT:
-            return F32FwdPlan(tm, stages, offsets, total)
-    raise ValueError(f"f32 forward: no ring fits {F32_SMEM_LIMIT} B of shared memory "
+            return F32Plan(tm, stages, offsets, total)
+    raise ValueError(f"f32 {kind}: no ring fits {F32_SMEM_LIMIT} B of shared memory "
                      f"for {cfg}")
 
 
 @functools.lru_cache(maxsize=None)
+def f32_fwd_plan(cfg: NeRFConfig) -> F32Plan:
+    """The f32 forward's CTA (eval and training forward): 64 points with
+    each layer written in place to width 256, 32 with two activation tiles
+    past it; the deepest ring of F32_FWD_STAGES that fits. Raises
+    NotImplementedError where the kernels do not cover the architecture,
+    ValueError where no ring fits."""
+    return _ring_plan(cfg, "forward", _fwd_layout)
+
+
+@functools.lru_cache(maxsize=None)
 def f32_bwd_plan(cfg: NeRFConfig) -> F32Plan:
-    """The f32 backward-data kernel's tile: two gradient tiles, the two
-    weight chunks and the heads' four derivatives a point; 64 points where
-    they fit, else 32."""
-    return _fit(cfg, "backward", lambda tm: {
-        "x": 4 * cfg.layer_dim * tm, "y": 4 * cfg.layer_dim * tm,
-        "w": 4 * 2 * F32_KS * F32_COLS, "heads": 16 * tm})
+    """The f32 backward-data kernel's CTA: the forward's tiles (64 points,
+    one gradient tile written in place, to width 256; 32 points with two
+    past it), the heads' four derivatives a point, the deepest ring of
+    F32_FWD_STAGES that fits. The branch rows and d_a live in the gradient
+    tile: no tile of their own."""
+    return _ring_plan(cfg, "backward", _bwd_layout)
 
 
 class F32WgPlan(NamedTuple):
@@ -242,7 +232,7 @@ def _eval_lib():
 
 def _train_lib():
     return _library("train_f32", [("train_f32_fwd_launch", 8),
-                                  ("train_f32_bwd_launch", 5),
+                                  ("train_f32_bwd_launch", 6),
                                   ("weight_grad_f32_launch", 3)])
 
 
@@ -276,23 +266,41 @@ def tf32_rest(w: torch.Tensor) -> torch.Tensor:
     return w - (w.view(torch.int32) & -8192).view(torch.float32)
 
 
-def w_rests(packed: PackedMLP) -> List[torch.Tensor]:
-    """The TF32 rests of the packed matrices (`tf32_rest`, (N, Ktot) each),
-    which the f32 forward reads beside W: made once per set of packed
-    weights and kept on `packed`, keyed by each matrix's storage and
-    version, so the launches of a chunk and the views of a run share them
-    and an in-place update of the weights (which bumps the version) makes
-    them anew."""
+def _cached(packed: PackedMLP, attr: str, make):
+    """`make()` kept on `packed` under `attr`, keyed by each packed matrix's
+    storage and version: made once per set of packed weights, so the
+    launches of a chunk and the views of a run share it, and made anew
+    after an in-place update of the weights (which bumps the version)."""
     key = [(w.data_ptr(), w._version, tuple(w.shape)) for w in packed.mats]
-    cached = getattr(packed, "_f32_rests", None)
+    cached = getattr(packed, attr, None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, [tf32_rest(w).contiguous() for w in packed.mats])
-        packed._f32_rests = cached
+            cached = (key, make())
+        setattr(packed, attr, cached)
     return cached[1]
 
 
-def _fwd_plan_ints(plan: F32FwdPlan) -> List[int]:
+def w_rests(packed: PackedMLP) -> List[torch.Tensor]:
+    """The TF32 rests of the packed matrices (`tf32_rest`, (N, Ktot) each),
+    which the f32 forward reads beside W (`_cached`)."""
+    return _cached(packed, "_f32_rests",
+                   lambda: [tf32_rest(w).contiguous() for w in packed.mats])
+
+
+def t_rests(packed: PackedMLP) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """(the transposed matrices, their TF32 rests): `fused_train.
+    transposed_weights` ((Ktot, N) each, dir_a's columns padded to
+    `branch_k`), which the f32 backward-data kernel reads as B (`_cached`)."""
+    from mega_nerf_tpu_torch.render.fused_train import transposed_weights
+
+    def make():
+        wts = transposed_weights(packed)
+        return wts, [tf32_rest(w).contiguous() for w in wts]
+
+    return _cached(packed, "_f32_t_rests", make)
+
+
+def _fwd_plan_ints(plan: F32Plan) -> List[int]:
     o = plan.offsets
     return [plan.tm, plan.stages, o["ring"], o["x"], o["y"], o["enc"], o["dir"], o["app"],
             o["sig"], o["bar"], plan.smem_bytes]
@@ -351,6 +359,12 @@ def fused_nerf_train_fwd_f32(packed: PackedMLP, xyz, dirs, app, noise):
 fused_nerf_train_fwd_f32.launches = 0
 
 
+def _bwd_plan_ints(plan: F32Plan) -> List[int]:
+    o = plan.offsets
+    return [plan.tm, plan.stages, o["ring"], o["x"], o["y"], o["heads"], o["bar"],
+            plan.smem_bytes]
+
+
 def train_bwd_data_f32(packed: PackedMLP, act, g, noise):
     """The f32 backward-data kernel (`csrc/train_f32.cu`) on CUDA tensors ->
     (gradient rows (M, grad width) f32, d_app (M, appearance_dim) f32 or
@@ -370,22 +384,22 @@ def train_bwd_data_f32(packed: PackedMLP, act, g, noise):
     if m == 0:
         return grad, d_app
     lib = _train_lib()
+    wts, rests = t_rests(packed)
     ptrs = [act.data_ptr(), grad.data_ptr(), g.data_ptr(),
             0 if noise is None else noise.data_ptr(),
             0 if d_app is None else d_app.data_ptr(),
             packed.sigma_w.data_ptr(), packed.sigma_b.data_ptr(),
             packed.rgb_w.data_ptr(), packed.rgb_b.data_ptr()]
-    ptrs += [w.data_ptr() for w in packed.mats]
+    ptrs += [w.data_ptr() for w in wts]
     dims = [m, cfg.layer_dim, cfg.layers, int(packed.has_branch),
             int(cfg.shifted_softplus), cfg.appearance_dim, skip_mask(cfg), packed.ep,
             packed.dp, branch_k(cfg), al["width"], gl["width"], al["h0"],
             al["branch"] if packed.has_branch else 0,
             gl["dfinal"] if packed.has_branch else 0,
             gl["da"] if packed.has_branch else 0, gl["heads"]]
-    o = plan.offsets
-    ints = [plan.tm, o["x"], o["y"], o["w"], o["heads"], plan.smem_bytes]
-    shapes = [v for w in packed.mats for v in w.shape]
-    err = lib.train_f32_bwd_launch(_ptrs(ptrs), _ints(dims), _ints(ints), _ints(shapes),
+    shapes = [v for w in wts for v in w.shape]
+    err = lib.train_f32_bwd_launch(_ptrs(ptrs), _ints(dims), _ints(_bwd_plan_ints(plan)),
+                                   _ints(shapes), _ptrs(w.data_ptr() for w in rests),
                                    _stream(act))
     train_bwd_data_f32.launches += 1
     _raise_if(lib, err, "train_bwd_data_f32")
@@ -500,9 +514,9 @@ F32_KERNELS = (fused_nerf_eval_f32, fused_nerf_train_fwd_f32, train_bwd_data_f32
                weight_grad_f32)
 
 __all__ = [
-    "F32Plan", "F32FwdPlan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
+    "F32Plan", "F32WgPlan", "f32_fwd_plan", "f32_bwd_plan", "f32_wg_plan",
     "f32_wg_tiles", "f32_wg_split", "f32_wg_copy", "f32_wg_job_rows", "WgJob",
-    "weight_grad_f32_jobs", "tf32_rest", "w_rests",
+    "weight_grad_f32_jobs", "tf32_rest", "w_rests", "t_rests",
     "fused_nerf_eval_f32", "fused_nerf_train_fwd_f32", "train_bwd_data_f32",
     "weight_grad_f32", "F32_KERNELS",
 ]

@@ -7,7 +7,7 @@ compute): the training forward's `wgmma` layer chain without noise or
 saved rows, one persistent CTA per SM walking the point tiles, its tile and
 shared memory from `fused_train.py::train_fwd_plan`. In f32 compute to
 width 512 the wrapper launches `csrc/eval_f32.cu` instead (`fused_f32.py`:
-true f32 FFMA products). Past width 512 eval runs the wide route,
+f32 sums, 3xTF32 split products on the tensor cores). Past width 512 eval runs the wide route,
 `fused_wide.py` (one layer GEMM at a time: `csrc/eval_wide.cu` in bf16
 compute, `csrc/wide_f32.cu` in f32 through `fused_wide_f32.py`), on the
 same packed weights; training past 512 runs `fused_train_wide.py` on that
@@ -95,8 +95,8 @@ def supports_fused_kernel(cfg: NeRFConfig, train: bool = False) -> Tuple[bool, s
       wide training route (`fused_train_wide.py`) to 1024, with layer_dim
       a multiple of 64, as the JAX gate trains through Pallas to 1024.
       Past 1024 the eager module trains, as JAX falls back to XLA.
-    - f32 compute: to width 512 the f32 kernels (`fused_f32.py`, true f32
-      FFMA products) take eval and training; past it the wide route's f32
+    - f32 compute: to width 512 the f32 kernels (`fused_f32.py`, f32 sums
+      of 3xTF32 split products) take eval and training; past it the wide route's f32
       kernels (`fused_wide_f32.py`) to 1024, eval and training alike, as
       the JAX gate keeps f32 (every compute dtype but bf16) at 1024 in
       eval: its resident f32 weights of a 2048-wide model would not fit.

@@ -182,72 +182,77 @@ fused_nerf_train_fwd_plain.calls = 0
 
 
 def trace_from_rows(packed: PackedMLP, act: torch.Tensor,
-                    noise: Optional[torch.Tensor]) -> ForwardTrace:
+                    noise: Optional[torch.Tensor],
+                    acc: torch.dtype = torch.float32) -> ForwardTrace:
     """A ForwardTrace read from the saved rows; the sigma and rgb
-    pre-activations are recomputed from them as the backward kernel does."""
+    pre-activations are recomputed from them as the backward kernel does,
+    in `acc` (f32, or f64 for a reference)."""
     cfg = packed.config
     d, lay = cfg.layer_dim, act_layout(packed)
     hs = [act[:, lay["h0"] + i * d:lay["h0"] + (i + 1) * d]
           for i in range(cfg.layers)]
-    sigma_pre = hs[-1].float() @ packed.sigma_w.float() + packed.sigma_b
+    sigma_pre = hs[-1].to(acc) @ packed.sigma_w.to(acc) + packed.sigma_b.to(acc)
     if noise is not None:
-        sigma_pre = sigma_pre + noise.float()
+        sigma_pre = sigma_pre + noise.to(acc)
     branch_in = branch = None
     h = hs[-1]
     if packed.has_branch:
         branch_in = act[:, lay["final"]:lay["branch"]]
         branch = h = act[:, lay["branch"]:lay["width"]]
-    rgb_pre = h.float() @ packed.rgb_w.float().T + packed.rgb_b
+    rgb_pre = h.to(acc) @ packed.rgb_w.to(acc).T + packed.rgb_b.to(acc)
     return ForwardTrace(act[:, :packed.ep], branch_in, hs, sigma_pre, branch,
                         rgb_pre)
 
 
 def train_bwd_data_plain(packed: PackedMLP, act: torch.Tensor, g: torch.Tensor,
-                         noise: Optional[torch.Tensor]):
+                         noise: Optional[torch.Tensor],
+                         acc: torch.dtype = torch.float32):
     """Plain version of the backward-data kernel -> (gradient rows (M, grad
     width) in the compute dtype, d_app (M, appearance_dim) f32 or None).
 
     `_train_bwd_kernel`'s steps: the cotangent rounded to the compute
     dtype, output derivatives in f32, then per layer d_pre = round(d_h *
-    (h > 0)) and d_h = d_pre @ W in f32."""
+    (h > 0)) and d_h = d_pre @ W in f32. `acc=torch.float64` gives an f32
+    model's reference: the same f32 rows, weights and cotangent in, every
+    product, sum and derivative in f64 (rows and d_app in f64)."""
     train_bwd_data_plain.calls += 1
     cfg = packed.config
-    dt = cfg.dtype
+    dt = cfg.dtype if acc == torch.float32 else acc
     n_layers, d = cfg.layers, cfg.layer_dim
-    tr = trace_from_rows(packed, act, noise)
+    tr = trace_from_rows(packed, act, noise, acc)
 
     def rnd(x):
-        return x.to(dt).float()
+        return x.to(dt).to(acc)
 
-    g = rnd(g.float())
+    g = rnd(g.to(acc))
     s = torch.sigmoid(tr.rgb_pre)
     g_rgb = rnd(g[:, :3] * s * (1.0 - s))
     if cfg.shifted_softplus:
         g_sig = rnd(g[:, 3] * torch.sigmoid(tr.sigma_pre - 1.0))
     else:
-        g_sig = rnd(g[:, 3] * (tr.sigma_pre > 0).float())
+        g_sig = rnd(g[:, 3] * (tr.sigma_pre > 0).to(acc))
     heads = F.pad(torch.cat([g_sig[:, None], g_rgb], -1), (0, 4))
 
-    d_h_sig = g_sig[:, None] * packed.sigma_w.float()[None]
+    d_h_sig = g_sig[:, None] * packed.sigma_w.to(acc)[None]
     d_app = None
     tail = []
     if packed.has_branch:
-        d_a = rnd((g_rgb @ packed.rgb_w.float()) * (tr.branch.float() > 0))
-        w_a = packed.mats[n_layers + 1].float()
+        d_a = rnd((g_rgb @ packed.rgb_w.to(acc)) * (tr.branch.to(acc) > 0))
+        w_a = packed.mats[n_layers + 1].to(acc)
         if packed.ap:
             col = d + packed.dp
             d_app = d_a @ w_a[:, col:col + cfg.appearance_dim]
         d_final = rnd(d_a @ w_a[:, :d])
-        d_h = d_final @ packed.mats[n_layers].float() + d_h_sig
+        d_h = d_final @ packed.mats[n_layers].to(acc) + d_h_sig
         tail = [d_final, F.pad(d_a, (0, branch_k(cfg) - d // 2))]
     else:
-        d_h = d_h_sig + g_rgb @ packed.rgb_w.float()
+        d_h = d_h_sig + g_rgb @ packed.rgb_w.to(acc)
 
     d_pres = [None] * n_layers
     for i in reversed(range(n_layers)):
-        d_pres[i] = rnd(d_h * (tr.hs[i].float() > 0))
+        d_pres[i] = rnd(d_h * (tr.hs[i].to(acc) > 0))
         if i > 0:
-            w = packed.mats[i].float()
+            w = packed.mats[i].to(acc)
             d_h = d_pres[i] @ (w[:, packed.ep:] if i in cfg.skip_layers else w)
     rows = torch.cat([*d_pres, *tail, heads], -1).to(dt)
     return rows, d_app
@@ -622,8 +627,10 @@ def train_bwd_data(packed: PackedMLP, act: torch.Tensor, g: torch.Tensor,
     """The backward-data kernel -> (gradient rows (M, grad width) in the
     compute dtype, d_app (M, appearance_dim) f32 or None). CPU tensors run
     `train_bwd_data_plain`; CUDA tensors launch the kernel of
-    `csrc/train_bwd.cu` (bf16 compute) or of `csrc/train_f32.cu` (f32
-    compute), or raise."""
+    `csrc/train_bwd.cu` (bf16 compute, `wgmma` over `transposed_weights`)
+    or of `csrc/train_f32.cu` (f32 compute: 3xTF32 split products on
+    `wgmma` over the same transposed matrices and their TF32 rests,
+    `fused_f32.t_rests`), or raise."""
     if act.device.type == "cpu":
         return train_bwd_data_plain(packed, act, g, noise)
     _cuda_only("train_bwd_data", act)

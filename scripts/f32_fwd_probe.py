@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Probe of the PyTorch/CUDA port's f32 forward (the eval kernel and the
-training forward of `--compute_dtype float32`, 3xTF32 on wgmma) on one
-NVIDIA GPU.
+"""Probe of the PyTorch/CUDA port's f32 layer chain (the eval kernel, the
+training forward and the backward-data kernel of `--compute_dtype float32`,
+3xTF32 on wgmma) on one NVIDIA GPU.
 
     python3 scripts/f32_fwd_probe.py [--parent DIR]
 
@@ -21,14 +21,22 @@ NVIDIA GPU.
    stamps %globaltimer at each phase of the first STAMP_TILES CTAs
    (FWD_STAMPS): the encode, each layer's products beside their time at
    495 TFLOP/s, barrier waits, epilogues, the heads.
-4. With --parent DIR (a checkout of a commit whose f32 forward is the FFMA
-   chain over transposed weights, e.g. the commit before the tensor-core
-   forward): the parent's `eval_f32_kernel` and training forward, built
-   from DIR's sources and called through DIR's `render/fused_f32.py`, and
-   this checkout's, in turns (tree, parent, parent, tree; three rounds) at
-   the paper model's fg-fine shapes: eval 8,388,608 points, training
-   forward 524,288 points (one 1024-ray step); the relative difference of
-   the two outputs.
+4. The same for the backward-data kernel at the fg-fine pass of a 1024-ray
+   step (524,288 points, on the tree's training-forward rows): its copies
+   (BWD_VARIANTS, edits of `csrc/train_f32.cu` and `csrc/f32_forward.cuh`)
+   in turns, the worst gradient-row segment of each (not a diagnostic)
+   against the plain version's f64 sums; then a stamped copy (BWD_STAMPS):
+   the heads and elementwise start, each product's products, barrier wait
+   and epilogue.
+5. With --parent DIR (a checkout of an earlier commit, e.g. the parent of
+   a change to these kernels): the parent's `eval_f32_kernel`, training
+   forward and backward-data kernel, built from DIR's sources and called
+   through DIR's `render/fused_f32.py`, and this checkout's, in turns
+   (tree, parent, parent, tree; three rounds) at the paper model's fg-fine
+   shapes: eval 8,388,608 points, training forward and backward-data
+   524,288 points (one 1024-ray step), and the backward-data of the model
+   at width 512 on as many points; the relative difference of the two
+   outputs.
 
 Copies are built with nvcc for sm_90a under `.exp/f32_fwd_probe/`; the
 script prints each kernel's ptxas lines, the times (ms a launch, CUDA
@@ -172,18 +180,18 @@ FWD_VARIANTS = {
     # Diagnostics.
     "no_heads": ([("  if (tid >= p.tm) return;\n", "  if (tid >= 0) return;\n"),
                   ("  if (t >= p.tm) return;\n", "  if (t >= 0) return;\n")], None, True),
-    "no_products": ([("    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN_STAGES == 0);\n",
+    "no_products": ([("    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN == 0);\n",
                       ""),
                      ("      issue(ch, ah1, al1, ring.base + st1 * STAGE_BYTES + half, false);\n",
                       "")], None, True),
-    "no_products_w_only": ([("    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN_STAGES == 0);\n",
+    "no_products_w_only": ([("    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN == 0);\n",
                       ""),
                             ("      issue(ch, ah1, al1, ring.base + st1 * STAGE_BYTES + half, false);\n",
                              ""),
                             ("mbar_expect_tx(full + st, 2 * bytes);", "mbar_expect_tx(full + st, bytes);"),
                             ("""tma_load_keep(stage + BOX_BYTES, &maps.wlo[li], sg.kw + j * BK, BN * nb,
                             full + st);""", "")], None, True),
-    "no_products_no_frags": ([("    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN_STAGES == 0);\n",
+    "no_products_no_frags": ([("    issue(ch, ah0, al0, ring.base + st0 * STAGE_BYTES + half, c % CHAIN == 0);\n",
                       ""),
                               ("      issue(ch, ah1, al1, ring.base + st1 * STAGE_BYTES + half, false);\n",
                                ""),
@@ -229,10 +237,15 @@ extern "C" int fwd_read_stamps(unsigned long long* out) {
 
 namespace f32fwd {
 """ % STAMP_TILES),
-    ("    if (p.x_off == p.y_off) consumer_sync();  // every read of the input done\n",
-     "    stamp(m0 / p.tm, 3 + 3 * li);\n    if (p.x_off == p.y_off) consumer_sync();\n"
-     "    stamp(m0 / p.tm, 4 + 3 * li);\n"),
-    ("  }\n  consumer_sync();\n}\n", "  }\n  consumer_sync();\n  stamp(m0 / p.tm, 5 + 3 * li);\n}\n"),
+    # `layer` marks 3 + 3 li (+ 1, + 2 for the backward's product q) through
+    # its epilogue's `mark`.
+    ("    if (in_place) consumer_sync();\n",
+     "    e.mark(0);\n    if (in_place) consumer_sync();\n    e.mark(1);\n"),
+    ("  }\n  consumer_sync();\n}\n", "  }\n  consumer_sync();\n  e.mark(2);\n}\n"),
+    ("  __device__ __forceinline__ void finish(float (&)[32], int) const {}\n",
+     "  __device__ __forceinline__ void finish(float (&)[32], int) const {}\n"
+     "  __device__ __forceinline__ void mark(int k) const {"
+     " stamp(blockIdx.x, 3 + 3 * li + k); }\n"),
     ("  float* sig = reinterpret_cast<float*>(smem + p.sig_off);\n\n",
      "  float* sig = reinterpret_cast<float*>(smem + p.sig_off);\n  stamp(blockIdx.x, 0);\n\n"),
     ("  consumer_sync();\n\n  float acc0[32], acc1[32], ch[32];",
@@ -241,6 +254,54 @@ namespace f32fwd {
      "      if (p.AP) app_tile(p, m0, appt);\n    }\n    stamp(blockIdx.x, 60);\n  }\n"),
     ("           p.has_branch ? p.D / 2 : p.D, sig, m0, threadIdx.x);\n}\n",
      "           p.has_branch ? p.D / 2 : p.D, sig, m0, threadIdx.x);\n  stamp(blockIdx.x, 61);\n}\n"),
+]
+
+
+# Copies of the backward-data kernel: (edits of f32_forward.cuh, edits of
+# train_f32.cu, ring stages or None for the plan's, diagnostic).
+BWD_VARIANTS = {
+    "stages3": ([], [], 3, False),
+    "stages2": ([], [], 2, False),
+    # Chains of 4 k-stages, the forward's (the tree: BWD_CHAIN_STAGES = 2):
+    # another order of sums, more of the tensor cores' truncation in a chain.
+    "chain4": ([], [("constexpr int BWD_CHAIN_STAGES = 2;",
+                     "constexpr int BWD_CHAIN_STAGES = 4;")], None, False),
+    # Diagnostics.
+    "no_products": (FWD_VARIANTS["no_products"][0], [], None, True),
+    "no_masks": ([], [("    if (pr.mcol < 0) return;  // a branch on the product, the same for "
+                       "every thread\n", "    return;\n")], None, True),
+    # Every tile's masks read from the first tile's rows (hot in L2).
+    "masks_hot": ([], [("      const int m = min(m0 + pl.r0 + 8 * rr, p.M - 1);\n"
+                        "      const float* row = p.act",
+                        "      const int m = pl.r0 + 8 * rr;\n      const float* row = p.act")],
+                  None, True),
+    "no_row_stores": ([], [("                      pl.rows && n < pr.N && m < p.M);",
+                            "                      false);")], None, True),
+}
+
+# The backward's stamps (with FWD_STAMPS' `stamp` and `layer` marks): 0 the
+# consumers' start, 60 h_{L-1}'s rows in, 62 sigma and the branch rows in,
+# 61 the heads, 1 the elementwise start, then 3 + 3 q (+ 1, + 2) for product
+# q: products done, after the barrier, after the epilogue. (The paper model
+# has the branch.)
+BWD_STAMPS = [
+    ("  const Place& pl;\n\n  __device__ __forceinline__ int col0(int nb)",
+     "  const Place& pl;\n  int q;\n"
+     "  __device__ __forceinline__ void mark(int k) const {"
+     " stamp(blockIdx.x, 3 + 3 * q + k); }\n"
+     "\n  __device__ __forceinline__ int col0(int nb)"),
+    ("BwdEpi{p, pr, dst, m0, hd, pl}", "BwdEpi{p, pr, dst, m0, hd, pl, q}"),
+    ("  const int t = threadIdx.x;\n\n", "  const int t = threadIdx.x;\n  stamp(blockIdx.x, 0);\n\n"),
+    ("  rows_to_tile(p, p.act_h0 + (p.layers - 1) * p.D, p.D, m0, x);\n  consumer_sync();\n",
+     "  rows_to_tile(p, p.act_h0 + (p.layers - 1) * p.D, p.D, m0, x);\n  consumer_sync();\n"
+     "  stamp(blockIdx.x, 60);\n"),
+    ("    rows_to_tile(p, p.act_branch, p.D / 2, m0, x);\n    consumer_sync();\n  }\n",
+     "    rows_to_tile(p, p.act_branch, p.D / 2, m0, x);\n    consumer_sync();\n"
+     "    stamp(blockIdx.x, 62);\n  }\n"),
+    ("  heads(p, x, s, g, hd, m0, t);\n  consumer_sync();\n",
+     "  heads(p, x, s, g, hd, m0, t);\n  consumer_sync();\n  stamp(blockIdx.x, 61);\n"),
+    ("  first(p, x, hd, m0);\n  consumer_sync();\n",
+     "  first(p, x, hd, m0);\n  consumer_sync();\n  stamp(blockIdx.x, 1);\n"),
 ]
 
 
@@ -258,7 +319,8 @@ def ptxas_lines(name: str, log: str) -> None:
     """Print the ptxas lines of the forward kernels in an nvcc log."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Function properties" in line and ("f32_fwd" in line or "eval_f32" in line):
+        if "Function properties" in line and any(k in line for k in ("f32_fwd", "eval_f32",
+                                                                     "f32_bwd")):
             print(f"{name}: {line.strip()[:90]} {' '.join(x.strip() for x in lines[i + 1:i + 3])}")
         if "(C75" in line:  # ptxas on the wgmma pipeline
             print(f"{name}: {line.strip()[:160]}")
@@ -320,62 +382,74 @@ def rates(lib) -> None:
               f"CTA an SM ({sms} SMs): {got}")
 
 
-def edited(edits, what: str, once: bool = False) -> str:
-    """f32_forward.cuh with `edits` applied (every occurrence, or exactly
-    one with `once`); exits naming `what` where an edit no longer
-    matches."""
+def edited(edits, what: str, once: bool = False, name: str = "f32_forward.cuh") -> str:
+    """csrc/`name` with `edits` applied (every occurrence, or exactly one
+    with `once`); exits naming `what` where an edit no longer matches."""
     from mega_nerf_tpu_torch.render import _build
 
-    text = (_build.CSRC / "f32_forward.cuh").read_text()
+    text = (_build.CSRC / name).read_text()
     for old, new in edits:
         if old not in text or (once and text.count(old) != 1):
-            raise SystemExit(f"f32_fwd_probe: {what} no longer matches f32_forward.cuh: "
-                             f"{old[:60]!r}")
+            raise SystemExit(f"f32_fwd_probe: {what} no longer matches {name}: {old[:60]!r}")
         text = text.replace(old, new)
     return text
 
 
-def start_variants():
-    """Start one nvcc per FWD_VARIANTS copy of eval_f32.cu (beside the
-    checkout's headers, f32_forward.cuh edited) -> [(name, proc)]."""
+def start_copy(label: str, source: str, texts) -> tuple:
+    """Start nvcc on a copy of csrc/`source`.cu beside the checkout's
+    headers, with `texts` ({file name: text}) in place of the tree's, under
+    OUT / label -> (name, proc)."""
     from mega_nerf_tpu_torch.render import _build
 
-    jobs = []
-    texts = {name: edited(edits, f"variant {name}") for name, (edits, _, _) in
-             FWD_VARIANTS.items()}
-    edited(FWD_STAMPS, "the stamps", once=True)  # every edit checked before any build
-    for name, text in texts.items():
-        out = OUT / f"var_{name}"
-        shutil.rmtree(out, ignore_errors=True)
-        out.mkdir(parents=True)
-        for src in _build.CSRC.glob("*.cuh"):
-            shutil.copy(src, out / src.name)
-        shutil.copy(_build.CSRC / "eval_f32.cu", out / "eval_f32.cu")
-        (out / "f32_forward.cuh").write_text(text)
-        jobs.append(nvcc(f"var {name}", [out / "eval_f32.cu"], out / "libeval_f32.so"))
-    return jobs
-
-
-def start_stamps():
-    """Start nvcc on the FWD_STAMPS copy of eval_f32.cu -> (name, proc)."""
-    from mega_nerf_tpu_torch.render import _build
-
-    text = edited(FWD_STAMPS, "the stamps", once=True)
-    out = OUT / "stamps"
+    out = OUT / label
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     for src in _build.CSRC.glob("*.cuh"):
         shutil.copy(src, out / src.name)
-    shutil.copy(_build.CSRC / "eval_f32.cu", out / "eval_f32.cu")
-    (out / "f32_forward.cuh").write_text(text)
-    return nvcc("stamps", [out / "eval_f32.cu"], out / "libeval_f32.so")
+    shutil.copy(_build.CSRC / f"{source}.cu", out / f"{source}.cu")
+    for name, text in texts.items():
+        (out / name).write_text(text)
+    return nvcc(label, [out / f"{source}.cu"], out / f"lib{source}.so")
+
+
+def start_copies():
+    """Start one nvcc per FWD_VARIANTS copy of eval_f32.cu, per BWD_VARIANTS
+    copy of train_f32.cu and per stamped copy; every edit is checked before
+    any build starts -> [(name, proc)]."""
+    fwd = {name: edited(edits, f"variant {name}") for name, (edits, _, _) in
+           FWD_VARIANTS.items()}
+    bwd = {name: {"f32_forward.cuh": edited(fe, f"variant {name}"),
+                  "train_f32.cu": edited(be, f"variant {name}", name="train_f32.cu")}
+           for name, (fe, be, _, _) in BWD_VARIANTS.items()}
+    fwd_stamps = edited(FWD_STAMPS, "the stamps", once=True)
+    bwd_stamps = edited(BWD_STAMPS, "the backward's stamps", once=True, name="train_f32.cu")
+    jobs = [start_copy(f"var_{name}", "eval_f32", {"f32_forward.cuh": text})
+            for name, text in fwd.items()]
+    jobs += [start_copy(f"bwd_{name}", "train_f32", texts) for name, texts in bwd.items()]
+    jobs.append(start_copy("stamps", "eval_f32", {"f32_forward.cuh": fwd_stamps}))
+    jobs.append(start_copy("bwd_stamps", "train_f32", {"f32_forward.cuh": fwd_stamps,
+                                                       "train_f32.cu": bwd_stamps}))
+    return jobs
+
+
+def read_stamps(lib, run):
+    """Run `run` (a launch of a stamped copy) once, and read its stamps ->
+    (ms, (STAMP_TILES, 64) array of us)."""
+    import numpy as np
+
+    lib.fwd_read_stamps.argtypes = [ctypes.c_void_p]
+    lib.fwd_read_stamps.restype = ctypes.c_int
+    t = ms(run, 1)
+    buf = np.zeros(STAMP_TILES * 64, np.uint64)
+    if lib.fwd_read_stamps(buf.ctypes.data):
+        raise RuntimeError("fwd_read_stamps failed")
+    return t, buf.reshape(STAMP_TILES, 64).astype(np.float64) / 1e3  # ns -> us
 
 
 def stamps() -> None:
     """The stamped copy at fg fine: each phase's mean time over the first
     STAMP_TILES tiles, beside each layer's products at the card's 495
     TFLOP/s of TF32 (an SM's share)."""
-    import numpy as np
     import torch
 
     from mega_nerf_tpu_torch.render import fused_f32
@@ -383,20 +457,14 @@ def stamps() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     packed, xyz, dirs, app, _ = paper_case(1024 * 8192)
     lib = bind_eval(OUT / "stamps" / "libeval_f32.so")
-    lib.fwd_read_stamps.argtypes = [ctypes.c_void_p]
-    lib.fwd_read_stamps.restype = ctypes.c_int
     tree = fused_f32._eval_lib
     fused_f32._eval_lib = lambda: lib
     try:
         with torch.no_grad():
-            fused_f32.fused_nerf_eval_f32(packed, xyz, dirs, app)
-            t = ms(lambda: fused_f32.fused_nerf_eval_f32(packed, xyz, dirs, app), 1)
+            t, st = read_stamps(lib, lambda: fused_f32.fused_nerf_eval_f32(packed, xyz, dirs,
+                                                                            app))
     finally:
         fused_f32._eval_lib = tree
-    buf = np.zeros(STAMP_TILES * 64, np.uint64)
-    if lib.fwd_read_stamps(buf.ctypes.data):
-        raise RuntimeError("fwd_read_stamps failed")
-    st = buf.reshape(STAMP_TILES, 64).astype(np.float64) / 1e3  # ns -> us
     cfg = packed.config
     nmat = cfg.layers + 2
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -415,17 +483,88 @@ def stamps() -> None:
             rows.append(("sigma head, dir/app tiles", st[:, 60] - prev, None))
             prev = st[:, 60]
     rows.append(("rgb head", st[:, 61] - prev, None))
-    total = st[:, 61] - st[:, 0]
-    per_tile = t * 1e3 / (-(-xyz.shape[0] // 64) / sms)
-    print(f"f32 eval fg fine, stamped copy: {t:.3f} ms; a CTA {total.mean():.2f} us from its "
-          f"first stamp to its last (mean of {STAMP_TILES}), {per_tile:.2f} us of an SM's "
-          f"time a CTA")
+    report(f"f32 eval fg fine, stamped copy: {t:.3f} ms", rows, st[:, 61] - st[:, 0],
+           t * 1e3 / (-(-xyz.shape[0] // 64) / sms))
+
+
+def report(head: str, rows, total, per_tile: float) -> None:
+    """Print a stamped copy's phases: each one's mean over the tiles, its
+    share of a CTA and, for products, their time at 495 TFLOP/s."""
+    print(f"{head}; a CTA {total.mean():.2f} us from its first stamp to its last (mean of "
+          f"{STAMP_TILES}), {per_tile:.2f} us of an SM's time a CTA")
     products = sum(r[1].mean() for r in rows if "products" in r[0])
     ideal_all = sum(r[2] for r in rows if r[2] is not None)
     for name, d, ideal in rows:
         extra = "" if ideal is None else f" (at 495 TFLOP/s: {ideal:.2f} us)"
         print(f"  {name}: {d.mean():.2f} us ({d.mean() / total.mean():.1%}){extra}")
     print(f"  all products {products:.2f} us against {ideal_all:.2f} us at 495 TFLOP/s")
+
+
+def bwd_products(packed):
+    """(name, N, K) of the backward-data kernel's products in its order
+    (train_f32.cu `bwd_product`)."""
+    from mega_nerf_tpu_torch.render.fused_train import branch_k
+
+    cfg = packed.config
+    d, kb = cfg.layer_dim, branch_k(cfg)
+    out = []
+    if packed.has_branch:
+        if cfg.appearance_dim:
+            out.append(("d_app", cfg.appearance_dim, kb))
+        out += [("d_final", d, kb), ("trunk_final", d, d)]
+    return out + [(f"trunk {i}", d, d) for i in range(cfg.layers - 1, 0, -1)]
+
+
+def bwd_case(m: int, seed: int = 5, width: int = 256):
+    """paper_case(m, seed, width) with the tree's training-forward rows and
+    a seeded cotangent -> (packed, act, g, noise)."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    packed, xyz, dirs, app, noise = paper_case(m, seed, width)
+    g = torch.randn((m, 4), generator=torch.Generator(device="cuda").manual_seed(seed + 2),
+                    device="cuda")
+    with torch.no_grad():
+        _, act = fused_f32.fused_nerf_train_fwd_f32(packed, xyz, dirs, app, noise)
+    return packed, act, g, noise
+
+
+def bwd_stamps() -> None:
+    """The backward's stamped copy at fg fine (524,288 points): the heads
+    and start, each product's products (beside 495 TFLOP/s), barrier wait
+    and epilogue, mean over the first STAMP_TILES tiles."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed, act, g, noise = bwd_case(1024 * 512)
+    lib = bind_train(OUT / "bwd_stamps" / "libtrain_f32.so")
+    tree = fused_f32._train_lib
+    fused_f32._train_lib = lambda: lib
+    try:
+        with torch.no_grad():
+            t, st = read_stamps(lib, lambda: fused_f32.train_bwd_data_f32(packed, act, g, noise))
+    finally:
+        fused_f32._train_lib = tree
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_rate = 495e12 / sms
+    tm = fused_f32.f32_bwd_plan(packed.config).tm
+    rows = [("h_{L-1} rows in", st[:, 60] - st[:, 0], None),
+            ("sigma, branch rows in", st[:, 62] - st[:, 60], None),
+            ("heads", st[:, 61] - st[:, 62], None),
+            ("elementwise start", st[:, 1] - st[:, 61], None)]
+    prev = st[:, 1]
+    prods = bwd_products(packed)
+    for q, (name, n, k) in enumerate(prods):
+        ideal = 2 * 3 * 64 * (-(-n // 128) * 128) * (-(-k // 32) * 32) / sm_rate * 1e6
+        rows.append((f"{name} products", st[:, 3 + 3 * q] - prev, ideal))
+        rows.append((f"{name} wait", st[:, 4 + 3 * q] - st[:, 3 + 3 * q], None))
+        rows.append((f"{name} epilogue", st[:, 5 + 3 * q] - st[:, 4 + 3 * q], None))
+        prev = st[:, 5 + 3 * q]
+    report(f"f32 backward-data fg fine, stamped copy: {t:.3f} ms", rows, prev - st[:, 0],
+           t * 1e3 / (-(-act.shape[0] // tm) / sms))
 
 
 def _seg_widths(packed, li):
@@ -450,10 +589,23 @@ def bind_eval(path: Path):
     return lib
 
 
-def paper_case(m: int, seed: int = 5):
-    """The paper model's fg MLP in f32 (seeded weights, small random biases)
-    on the card, packed, and m seeded points -> (packed, xyz, dirs, app,
-    noise)."""
+def bind_train(path: Path):
+    """A built copy of train_f32.cu, bound as fused_f32._train_lib binds it."""
+    lib = ctypes.CDLL(str(path))
+    for fn, nargs in (("train_f32_fwd_launch", 8), ("train_f32_bwd_launch", 6),
+                      ("weight_grad_f32_launch", 3)):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p] * nargs
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.error_string = lib.train_f32_error_string
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def paper_case(m: int, seed: int = 5, width: int = 256):
+    """The paper model's fg MLP in f32 (seeded weights, small random biases;
+    layer width `width`) on the card, packed, and m seeded points ->
+    (packed, xyz, dirs, app, noise)."""
     import torch
 
     from mega_nerf_tpu_torch.eval import get_eval_opts
@@ -462,7 +614,8 @@ def paper_case(m: int, seed: int = 5):
 
     hp = get_eval_opts(["--exp_name", "unused", "--dataset_path", "unused",
                         "--pos_xyz_dim", "12", "--pos_dir_dim", "4", "--layers", "8",
-                        "--skip_layers", "4", "--layer_dim", "256", "--bg_layer_dim", "256",
+                        "--skip_layers", "4", "--layer_dim", str(width),
+                        "--bg_layer_dim", str(width),
                         "--appearance_dim", "48", "--compute_dtype", "float32"])
     bundle = make_nerf(hp, 16)
     gen = torch.Generator().manual_seed(seed)
@@ -527,47 +680,117 @@ def variants() -> None:
               f"{med / tree:.3f}x the tree's); {kind}")
 
 
+def worst_f64(packed, rows, ref) -> float:
+    """The largest relative error (Frobenius) of a gradient-row segment of
+    `rows` (each d_pre, d_final, d_a) against f64 rows `ref`."""
+    from mega_nerf_tpu_torch.render.fused_train import grad_layout
+
+    d, gl = packed.config.layer_dim, grad_layout(packed)
+    cuts = [(i * d, (i + 1) * d) for i in range(packed.config.layers)]
+    if packed.has_branch:
+        cuts += [(gl["dfinal"], gl["dfinal"] + d), (gl["da"], gl["heads"])]
+    return max(((rows[:, a:b].double() - ref[:, a:b]).norm() / ref[:, a:b].norm()).item()
+               for a, b in cuts)
+
+
+def bwd_variants() -> None:
+    """4: the backward-data kernel against BWD_VARIANTS' copies, in turns, at
+    fg fine (524,288 points)."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_f32, fused_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed, act, g, noise = bwd_case(1024 * 512)
+    tree_lib, plan_ints = fused_f32._train_lib(), fused_f32._bwd_plan_ints
+    libs = {"tree": (tree_lib, None)}
+    for name, (_, _, stages, _) in BWD_VARIANTS.items():
+        libs[name] = (bind_train(OUT / f"bwd_{name}" / "libtrain_f32.so"), stages)
+
+    def run(name):
+        lib, stages = libs[name]
+        fused_f32._train_lib = lambda: lib
+        fused_f32._bwd_plan_ints = (plan_ints if stages is None else
+                                    lambda plan: [plan.tm, stages, *plan_ints(plan)[2:]])
+        try:
+            return fused_f32.train_bwd_data_f32(packed, act, g, noise)[0]
+        finally:
+            fused_f32._train_lib, fused_f32._bwd_plan_ints = lambda: tree_lib, plan_ints
+
+    with torch.no_grad():
+        ref = fused_train.train_bwd_data_plain(packed, act, g, noise, acc=torch.float64)[0]
+        want = run("tree")
+        f64 = {"tree": worst_f64(packed, want, ref)}
+        same = {}
+        for name, (_, _, _, diag) in BWD_VARIANTS.items():
+            if not diag:
+                got = run(name)
+                same[name] = torch.equal(got, want)
+                f64[name] = worst_f64(packed, got, ref)
+                del got
+        del want, ref
+        order = list(libs)
+        got = {k: [] for k in order}
+        for r in range(3):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                got[name].append(round(ms(lambda: run(name)), 3))
+    tree = statistics.median(got["tree"])
+    for name in order:
+        med = statistics.median(got[name])
+        kind = ("tree" if name == "tree" else
+                "diagnostic" if BWD_VARIANTS[name][3] else
+                f"equals the tree bit for bit: {same[name]}")
+        err = f"; worst segment against f64 {f64[name]:.3e}" if name in f64 else ""
+        print(f"f32 backward-data fg fine, {name}: {got[name]} ms (median {med:.3f}, "
+              f"{med / tree:.3f}x the tree's); {kind}{err}")
+
+
 def load_parent(parent: Path):
-    """DIR's render/fused_f32.py as module `parent_fused_f32`, its kernel
-    libraries built from DIR's sources (started by the caller)."""
+    """DIR's render/fused_f32.py as module `parent_fused_f32`, bound by its
+    own code to its kernel libraries built from DIR's sources (started by
+    the caller)."""
+    from mega_nerf_tpu_torch.render import _build
+
     spec = importlib.util.spec_from_file_location(
         "parent_fused_f32", parent / "mega_nerf_tpu_torch" / "render" / "fused_f32.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    libs = {}
-    for name, exports in (("eval_f32", [("eval_f32_launch", 5)]),
-                          ("train_f32", [("train_f32_fwd_launch", 7),
-                                         ("train_f32_bwd_launch", 5),
-                                         ("weight_grad_f32_launch", 3)])):
-        lib = ctypes.CDLL(str(OUT / "parent" / f"lib{name}.so"))
-        for fn, nargs in exports:
-            getattr(lib, fn).argtypes = [ctypes.c_void_p] * nargs
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.error_string = getattr(lib, f"{name}_error_string")
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+    built = {n: ctypes.CDLL(str(OUT / "parent" / f"lib{n}.so")) for n in ("eval_f32",
+                                                                         "train_f32")}
+    tree = _build.load_library
+    _build.load_library = lambda name: built[name]
+    try:
+        libs = {"eval_f32": mod._eval_lib(), "train_f32": mod._train_lib()}
+    finally:
+        _build.load_library = tree
     mod._eval_lib = lambda: libs["eval_f32"]
     mod._train_lib = lambda: libs["train_f32"]
     return mod
 
 
 def turns(parent_mod) -> None:
-    """4: the tree's and the parent's forwards in turns at fg fine."""
+    """5: the tree's and the parent's f32 kernels in turns at fg fine."""
     import torch
 
     from mega_nerf_tpu_torch.render import fused_f32
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    for kind, m in (("eval", 1024 * 8192), ("training forward", 1024 * 512)):
-        packed, xyz, dirs, app, noise = paper_case(m)
+    for kind, m in (("eval", 1024 * 8192), ("training forward", 1024 * 512),
+                    ("backward-data", 1024 * 512), ("backward-data at width 512", 1024 * 512)):
         fns = {}
-        for label, mod in (("tree", fused_f32), ("parent", parent_mod)):
-            if kind == "eval":
-                fns[label] = (lambda mod=mod: mod.fused_nerf_eval_f32(packed, xyz, dirs, app))
-            else:
-                fns[label] = (lambda mod=mod: mod.fused_nerf_train_fwd_f32(
-                    packed, xyz, dirs, app, noise)[0])
+        if kind.startswith("backward-data"):
+            packed, act, g, noise = bwd_case(m, width=512 if kind.endswith("512") else 256)
+            for label, mod in (("tree", fused_f32), ("parent", parent_mod)):
+                fns[label] = (lambda mod=mod: mod.train_bwd_data_f32(packed, act, g, noise)[0])
+        else:
+            packed, xyz, dirs, app, noise = paper_case(m)
+            for label, mod in (("tree", fused_f32), ("parent", parent_mod)):
+                if kind == "eval":
+                    fns[label] = (lambda mod=mod: mod.fused_nerf_eval_f32(packed, xyz, dirs,
+                                                                          app))
+                else:
+                    fns[label] = (lambda mod=mod: mod.fused_nerf_train_fwd_f32(
+                        packed, xyz, dirs, app, noise)[0])
         with torch.no_grad():
             outs = {k: f() for k, f in fns.items()}
             diff = ((outs["tree"] - outs["parent"]).norm() / outs["parent"].norm()).item()
@@ -580,14 +803,14 @@ def turns(parent_mod) -> None:
               f"{got['tree']} (median {statistics.median(got['tree']):.3f}) ms, parent "
               f"{got['parent']} (median {statistics.median(got['parent']):.3f}) ms; output "
               f"relative difference {diff:.3e}")
-        del packed, xyz, dirs, app, noise
+        del fns, packed
         torch.cuda.empty_cache()
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a checkout whose f32 forward is the FFMA chain: timed in "
+                        help="a checkout of an earlier commit: its f32 kernels timed in "
                              "turns beside this checkout's")
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -600,7 +823,7 @@ def main() -> int:
 
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "probe.cu").write_text(PROBE_CU)
-    jobs = [*start_variants(), start_stamps(), nvcc("probe", [OUT / "probe.cu"], OUT / "probe.so")]
+    jobs = [*start_copies(), nvcc("probe", [OUT / "probe.cu"], OUT / "probe.so")]
     if args.parent is not None:
         src = OUT / "parent"
         shutil.rmtree(src, ignore_errors=True)
@@ -622,6 +845,8 @@ def main() -> int:
     rates(lib)
     variants()
     stamps()
+    bwd_variants()
+    bwd_stamps()
     if args.parent is not None:
         turns(load_parent(args.parent))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",

@@ -460,11 +460,12 @@ def test_f32_forward_holds_f64_accuracy(cuda_device, bg, width):
 
 
 def test_f32_forward_follows_in_place_weight_updates(cuda_device):
-    """The f32 forward makes W's TF32 rests on chip from each W box, with no
-    cache: after the packed matrices and biases are updated in place, the
-    next eval and training-forward launches match the plain version on the
-    new weights (1e-4, as test_f32_eval_kernel_matches_plain), and the
-    outputs moved."""
+    """The f32 forward reads W's TF32 rests from `fused_f32.w_rests`, which
+    caches them on the packed object by each matrix's storage and version:
+    after the packed matrices and biases are updated in place (the version
+    moves, so the rests are made anew), the next eval and training-forward
+    launches match the plain version on the new weights (1e-4, as
+    test_f32_eval_kernel_matches_plain), and the outputs moved."""
     torch.backends.cuda.matmul.allow_tf32 = False
     ft, packed, xyz, dirs, app, noise, _ = _train_case(
         cuda_device, False, {"appearance_dim": 48, "layer_dim": 256}, 5000, "float32")
@@ -484,6 +485,105 @@ def test_f32_forward_follows_in_place_weight_updates(cuda_device):
         assert err[:, :3].max().item() <= 1e-4
         assert (err[:, 3] / (1 + b[:, 3].abs())).max().item() <= 1e-4
     assert _rel(act, want_act) <= 1e-4
+
+
+BWD_F64_TOL = 1e-5  # the f32 backward-data (3xTF32) against f64 sums of its f32 rows
+
+
+def _bwd_segments(ft, packed, grad, d_app):
+    """The gradient rows cut into their segments (fused_train.grad_layout:
+    d_pre_0 .. d_pre_{L-1}, d_final and d_a with the branch, the heads), and
+    d_app where the model has appearance."""
+    cfg, gl = packed.config, ft.grad_layout(packed)
+    d = cfg.layer_dim
+    seg = {f"d_pre{i}": grad[:, i * d:(i + 1) * d] for i in range(cfg.layers)}
+    if packed.has_branch:
+        seg["d_final"] = grad[:, gl["dfinal"]:gl["dfinal"] + d]
+        seg["d_a"] = grad[:, gl["da"]:gl["heads"]]
+    seg["heads"] = grad[:, gl["heads"]:]
+    if d_app is not None:
+        seg["d_app"] = d_app
+    return seg
+
+
+def _bwd_f64_errors(ft, packed, act, g, noise, grad, d_app):
+    """Relative errors (Frobenius; 0 where both are 0) of every segment of
+    the kernel's gradient rows and of d_app against the plain version's f64
+    sums of the same f32 rows, weights and cotangent."""
+    want = _bwd_segments(ft, packed, *ft.train_bwd_data_plain(packed, act, g, noise,
+                                                              acc=torch.float64))
+    got = _bwd_segments(ft, packed, grad, d_app)
+    return {k: ((got[k].double() - w).norm() / w.norm().clamp_min(1e-300)).item()
+            for k, w in want.items()}
+
+
+@pytest.mark.parametrize("width", [256, 512])
+@pytest.mark.parametrize("bg", [False, True])
+def test_f32_backward_holds_f64_accuracy(cuda_device, bg, width):
+    """The f32 backward-data kernel (3xTF32 on wgmma over the transposed
+    matrices and their rests; 64-point tiles in place at 256, 32-point
+    ping-pong tiles at 512) on the f32 forward's saved rows of 4,099 points
+    and a seeded cotangent with sigma noise: every gradient-row segment
+    (each d_pre, d_final, d_a, the heads) and d_app within BWD_F64_TOL of
+    the plain version's f64 sums on the same f32 rows and weights
+    (`train_bwd_data_plain(acc=torch.float64)`). One launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ft, packed, xyz, dirs, app, noise, g = _train_case(
+        cuda_device, bg, {"appearance_dim": 48, "layer_dim": width}, 4099, "float32")
+    from mega_nerf_tpu_torch.render import fused_f32
+
+    with torch.no_grad():
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        before = fused_f32.train_bwd_data_f32.launches
+        grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+        torch.cuda.synchronize()
+        assert fused_f32.train_bwd_data_f32.launches == before + 1
+        errs = _bwd_f64_errors(ft, packed, act, g, noise, grad, d_app)
+    assert torch.isfinite(grad).all()
+    assert all(e <= BWD_F64_TOL for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("m", [4_099, 37, 1])
+@pytest.mark.parametrize("width", [48, 256, 512])
+@pytest.mark.parametrize("bg", [False, True])
+def test_f32_backward_takes_ragged_tiles_and_repeats_bitwise(cuda_device, bg, width, m):
+    """The f32 backward-data kernel with M not a multiple of its tile
+    (4,099), within one tile (37) and one point: two launches give the same
+    bits (one fixed order of sums), and every segment and d_app holds
+    BWD_F64_TOL against f64 sums."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ft, packed, xyz, dirs, app, noise, g = _train_case(
+        cuda_device, bg, {"appearance_dim": 48, "layer_dim": width}, m, "float32")
+    with torch.no_grad():
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+        again, d_app2 = ft.train_bwd_data(packed, act, g, noise)
+        torch.cuda.synchronize()
+        errs = _bwd_f64_errors(ft, packed, act, g, noise, grad, d_app)
+    assert torch.equal(grad, again) and torch.equal(d_app, d_app2)
+    assert all(e <= BWD_F64_TOL for e in errs.values()), errs
+
+
+def test_f32_backward_follows_in_place_weight_updates(cuda_device):
+    """The f32 backward-data kernel reads the transposed matrices and their
+    rests from `fused_f32.t_rests`, cached on the packed object by each
+    matrix's storage and version: after the packed matrices are updated in
+    place, the next launch matches the plain version on the new weights
+    (1e-4 relative, as test_f32_train_kernels_match_plain) and its output
+    moved."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ft, packed, xyz, dirs, app, noise, g = _train_case(
+        cuda_device, False, {"appearance_dim": 48, "layer_dim": 256}, 5000, "float32")
+    with torch.no_grad():
+        _, act = ft.fused_nerf_train_fwd(packed, xyz, dirs, app, noise)
+        before, _ = ft.train_bwd_data(packed, act, g, noise)
+        for w in packed.mats:
+            w.mul_(1.25)
+        grad, d_app = ft.train_bwd_data(packed, act, g, noise)
+        want, want_app = ft.train_bwd_data_plain(packed, act, g, noise)
+    torch.cuda.synchronize()
+    assert _rel(grad, before) > 1e-2
+    assert _rel(grad, want) <= 1e-4 and _rel(d_app, want_app) <= 1e-4
 
 
 def test_f32_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):

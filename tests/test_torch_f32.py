@@ -168,22 +168,34 @@ def _cfg(width, bg, **kw):
 
 @pytest.mark.parametrize("bg", [False, True])
 def test_f32_plans_fit_every_width_to_512(bg):
-    """The f32 backward-data plan admits every width 16 .. 512 (in steps of
-    16) within 227 KB of shared memory: 64-point tiles at the paper width
-    (256), 32-point tiles at 512, where two 64-point gradient tiles alone
-    take 256 KB; offsets on 16 bytes, in the order the kernel reads them,
-    the two tiles back to back."""
+    """The f32 backward-data plan (the forward's CTA, f32_forward.cuh) at
+    every width 16 .. 512 (in steps of 16) within 232,448 B with the 1024 B
+    of alignment slack: 64 points with one gradient tile written in place
+    (x == y) to width 256, 32 points with two tiles past it; the ring at
+    offset 0 (1024-aligned for TMA's 128-byte swizzle and wgmma's
+    descriptors) in 32 KB stages (a box of 128 transposed-W rows x 32
+    columns and its rests), at least 2 everywhere: 4 at the paper width
+    (256, where the branch rows and d_a share the gradient tile), 3 at 512;
+    tiles of `width + 4` floats a point (4 mod 8), then the heads' four
+    derivatives a point, the full and empty barriers on 8 B past them."""
     for width in range(16, 513, 16):
         cfg = _cfg(width, bg)
         plan = fused_f32.f32_bwd_plan(cfg)
+        o, tm = plan.offsets, plan.tm
         assert plan.smem_bytes <= fused_f32.F32_SMEM_LIMIT == 232_448
-        assert plan.tm in fused_f32.F32_TILES
+        assert tm == (64 if width <= 256 else 32)
+        assert (o["x"] == o["y"]) == (width <= 256)
+        assert o["ring"] == 0 and fused_f32.F32_FWD_STAGE == 32 * 1024
+        assert o["x"] == plan.stages * fused_f32.F32_FWD_STAGE and plan.stages >= 2
         if width in (256, 512):
-            assert plan.tm == (64 if width == 256 else 32), (width, plan.tm)
-        offs = list(plan.offsets.values())
-        assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
-        assert plan.offsets["y"] - plan.offsets["x"] == 4 * width * plan.tm
-        assert plan.offsets["w"] - plan.offsets["y"] == 4 * width * plan.tm
+            assert plan.stages == (4 if width == 256 else 3), (width, plan.stages)
+        tile = 4 * tm * (width + 4)
+        assert (width + 4) % 8 == 4
+        assert o["heads"] - o["y"] == tile and (o["y"] == o["x"] or o["y"] - o["x"] == tile)
+        assert o["bar"] == o["heads"] + 16 * tm and o["bar"] % 8 == 0
+        assert all(v % 16 == 0 for v in o.values())
+        assert list(o) == ["ring", "x", "y", "heads", "bar"]
+        assert plan.smem_bytes == o["bar"] + 2 * 8 * plan.stages + 1024
 
 
 @pytest.mark.parametrize("bg", [False, True])
@@ -274,6 +286,60 @@ def test_f32_forward_reads_the_packed_matrices_and_cached_rests(monkeypatch):
         assert new.shape == w.shape and new.is_contiguous()
         assert not np.array_equal(old.numpy(), new.numpy())
     assert not hasattr(fused_f32, "transposed")
+
+
+def test_f32_backward_reads_the_transposed_matrices_and_cached_rests(monkeypatch):
+    """The f32 backward-data wrapper hands the kernel the transposed (Ktot,
+    N) matrices (`fused_train.transposed_weights`: K-major for the
+    backward's reduction over N, as TF32 wgmma reads B; dir_a's columns
+    padded to branch_k) and, beside them, their TF32 rests (`t_rests`: x -
+    trunc(x), exactly `_tf32_trunc`'s complement), made once per set of
+    weights: a second launch reuses the same tensors, and after an in-place
+    weight update the next launch gets both made from the new weights. The
+    plan's ints and the (Ktot, N) shapes go with them. A stand-in library
+    records the tables (no card here)."""
+    cfg = _cfg(64, False)
+    packed = fused_mlp.pack_tensors(cfg, {k: v for k, v in NeRF(cfg).named_parameters()})
+    seen = []
+
+    class Lib:
+        def train_f32_bwd_launch(self, ptrs, dims, plan, shapes, rests, stream):
+            seen.append((list(ptrs), list(plan), list(shapes), list(rests)))
+            return 0
+
+    monkeypatch.setattr(fused_f32, "_train_lib", Lib)
+    monkeypatch.setattr(fused_f32, "_stream", lambda t: None)
+    m = 100
+    act = torch.zeros((m, fused_train.act_layout(packed)["width"]))
+    g = torch.zeros((m, 4))
+    launches = [f.launches for f in fused_f32.F32_KERNELS]
+    fused_f32.train_bwd_data_f32(packed, act, g, None)
+    first = fused_f32.t_rests(packed)
+    fused_f32.train_bwd_data_f32(packed, act, g, None)
+    assert fused_f32.t_rests(packed) is first
+    with torch.no_grad():
+        for w in packed.mats:
+            w.mul_(1.0 + 2.0 ** -15)
+    fused_f32.train_bwd_data_f32(packed, act, g, None)
+    fresh = fused_f32.t_rests(packed)
+    assert [f.launches for f in fused_f32.F32_KERNELS] == [*launches[:2], launches[2] + 3,
+                                                           launches[3]]
+    plan = fused_f32.f32_bwd_plan(cfg)
+    for (ptrs, ints, shapes, rests), (wts, los) in zip(seen, (first, first, fresh)):
+        assert ptrs[9:] == [w.data_ptr() for w in wts]
+        assert rests == [r.data_ptr() for r in los]
+        assert ints == fused_f32._bwd_plan_ints(plan)
+        assert shapes == [v for w in wts for v in w.shape]
+    for old, new in zip(first[0] + first[1], fresh[0] + fresh[1]):
+        assert not np.array_equal(old.numpy(), new.numpy())
+    for w, want, lo in zip(fresh[0], fused_train.transposed_weights(packed), fresh[1]):
+        np.testing.assert_array_equal(w.numpy(), want.numpy())
+        np.testing.assert_array_equal(lo.numpy(), w.numpy() - _tf32_trunc(w.numpy()))
+        assert w.is_contiguous() and lo.is_contiguous() and lo.shape == w.shape
+    kb = fused_train.branch_k(cfg)
+    assert [tuple(w.shape) for w in fresh[0]] == [(w.shape[1], w.shape[0]) for w in
+                                                  packed.mats[:-1]] + [
+        (packed.mats[-1].shape[1], kb)]
 
 
 @pytest.mark.parametrize("width", [513, 528, 1024])
@@ -433,16 +499,17 @@ def test_f32_weight_grad_plan_copy_widths(width, bg):
 
 
 CHAIN = 4  # k-stages of 32 columns a chain of the f32 forward (f32_forward.cuh)
+BWD_CHAIN = 2  # and of the backward-data kernel (train_f32.cu BWD_CHAIN_STAGES)
 
 
-def _fwd_layer_3xtf32(x, w, b, relu):
+def _fwd_layer_3xtf32(x, w, b, relu, chain=CHAIN):
     """The f32 forward's layer in its own order (f32_forward.cuh): x (m, K)
     f32 points, w (N, K) f32 packed rows; K in k-stages of 32 columns
     (zeros past K), 8-column k-steps; per k-step the three products A_lo
     W_hi, A_hi W_lo, A_hi W_hi of the split hi = x (read truncated to TF32),
     lo = x - trunc(x) (read truncated too), each k-step's 8 products summed
     in f64 and rounded to f32 once (the tensor cores' sums are wider than
-    f32), added into a chain in f32; a chain from zero every CHAIN
+    f32), added into a chain in f32; a chain from zero every `chain`
     k-stages (f32_forward.cuh's CHAIN_STAGES), added into the f32 totals,
     which start from the bias; then ReLU."""
     k = x.shape[1]
@@ -452,9 +519,9 @@ def _fwd_layer_3xtf32(x, w, b, relu):
     xh, wh = _tf32_trunc(x), _tf32_trunc(w)
     xl, wl = _tf32_trunc(x - xh), _tf32_trunc(w - wh)
     acc = np.broadcast_to(b, (x.shape[0], w.shape[0])).astype(np.float32)
-    for c0 in range(0, x.shape[1], 32 * CHAIN):
+    for c0 in range(0, x.shape[1], 32 * chain):
         ch = np.zeros_like(acc)
-        for k0 in range(c0, min(c0 + 32 * CHAIN, x.shape[1]), 8):
+        for k0 in range(c0, min(c0 + 32 * chain, x.shape[1]), 8):
             ks = slice(k0, k0 + 8)
             for a, bb in ((xl, wh), (xh, wl), (xh, wh)):
                 ch = ch + (a[:, ks].astype(np.float64) @ bb[:, ks].T).astype(np.float32)
@@ -487,4 +554,34 @@ def test_3xtf32_forward_chain_holds_f32_accuracy_and_one_pass_tf32_does_not():
         worst = max(worst, rel)
         worst_one = max(worst_one, np.linalg.norm(x1 - x64) / np.linalg.norm(x64))
         assert rel <= 1e-5, rel
+    assert worst_one > 1e-5 > worst, (worst_one, worst)
+
+
+def test_3xtf32_backward_chain_holds_f32_accuracy_and_one_pass_tf32_does_not():
+    """The f32 backward-data kernel's arithmetic: its products are the
+    forward's (`_fwd_layer_3xtf32` over the transposed matrix: split,
+    k-stages of 32 along the reduction over N, chains of BWD_CHAIN k-stages
+    from zero into f32 totals), each output then masked by the given rows
+    (h > 0). Over a deep chain of 8 random masked 256 x 256 layers at 256 points
+    (He-scaled weights, half the mask zeros, seeded), every layer's
+    gradient stays within 1e-5 of the f64 chain (relative, Frobenius), as
+    the card's BWD_F64_TOL asks; the same chain with one-pass TF32 products
+    (trunc(d) trunc(w), summed in f64) misses that bound by the last
+    layer."""
+    rng = np.random.default_rng(17)
+    m, n = 256, 256
+    d = rng.normal(size=(m, n)).astype(np.float32)
+    d64, d1 = d.astype(np.float64), d
+    worst, worst_one = 0.0, 0.0
+    for _ in range(8):
+        w = (rng.normal(size=(n, n)) * np.sqrt(2.0 / n)).astype(np.float32)  # W (N, K)
+        mask = rng.uniform(size=(m, n)) > 0.5
+        d = _fwd_layer_3xtf32(d, np.ascontiguousarray(w.T), np.zeros(n, np.float32),
+                              False, BWD_CHAIN) * mask
+        d64 = (d64 @ w.astype(np.float64)) * mask
+        d1 = (_tf32_trunc(d1).astype(np.float64) @ _tf32_trunc(w)).astype(np.float32) * mask
+        rel = np.linalg.norm(d - d64) / np.linalg.norm(d64)
+        worst = max(worst, rel)
+        worst_one = max(worst_one, np.linalg.norm(d1 - d64) / np.linalg.norm(d64))
+        assert d.dtype == np.float32 and rel <= 1e-5, rel
     assert worst_one > 1e-5 > worst, (worst_one, worst)
