@@ -288,7 +288,8 @@ gradient of `csrc/train_f32.cu`), TF32 off:
   (mean of the last 3 steps below the first 3), a finite PSNR; then ms a
   step and peak memory over 3 chained steps, the f32 wide kernels' share of
   a profiled step, s/view of `eval.main`'s val view, each kernel per launch
-  at the fg-fine pass (plain, bound, F.linear / torch.mm in f32; the GEMM's
+  at the fg-fine pass (the encode also at the bg shape, each with the share
+  of its byte bound; plain, bound, F.linear / torch.mm in f32; the GEMM's
   and the dW's bound at 3xTF32 with FFMA's beside), and, a
   record and not a check, the f32 eager module (`--no_pallas`, and with
   `--remat`) for a step after a warm-up one: ms and memory, or its
@@ -6004,7 +6005,8 @@ def wide_f32_steps(report, tmp: Path, ckpt: Path) -> None:
 
 def time_wide_f32_kernels(device, report):
     """Each f32 wide kernel per launch at the main path's shapes: training
-    at the fg-fine pass (524,288 points, 8x1024): the encode, the GEMM as a
+    at the fg-fine pass (524,288 points, 8x1024): the encode (at the fg and
+    the bg shape, with the share of its byte bound), the GEMM as a
     1024 x 1024 trunk layer and as that layer's masked dX job, the heads
     forward and backward, the f32 weight gradient of that layer; with the
     plain versions, the bounds (67 TFLOP/s of f32 FFMA, 3.35 TB/s) and the
@@ -6035,8 +6037,19 @@ def time_wide_f32_kernels(device, report):
     with torch.no_grad():
         _, saved = ftw.fused_nerf_train_wide_fwd(packed, xyz, dirs, app, noise)
         h, branch, h1 = saved[f"h{cfg.layers - 1}"], saved["branch"], saved["h1"]
-        t_enc = cuda_ms(lambda: fw.eval_wide_encode(packed, xyz, dirs), 10)
-        p_enc = cuda_ms(lambda: fw.eval_wide_encode_plain(packed, xyz, dirs), 3, 1)
+        # The encode at the fg shape, then the bg shape (xyz_dim 4: 112 enc
+        # columns), each into given outputs, as the wide route's passes.
+        bg_packed = fused_mlp.pack_params(seeded_bundle(hp, 16, True, 64, device).module)
+        bg_xyz, bg_dirs, _ = mlp_inputs(bg_packed.config, m, 65, device)
+        encode_times = {}
+        for shape, pk, sx, sd in (("fg", packed, xyz, dirs), ("bg", bg_packed, bg_xyz, bg_dirs)):
+            outs = fw.eval_wide_encode(pk, sx, sd)
+            encode_times[shape] = (
+                pk, sx.shape[0], cuda_ms(lambda: fw.eval_wide_encode(pk, sx, sd, *outs), 20),
+                cuda_ms(lambda: fw.eval_wide_encode_plain(pk, sx, sd), 3, 1))
+            del outs
+        del bg_xyz, bg_dirs
+        t_enc, p_enc = encode_times["fg"][2:]
         w2, b2 = packed.mats[2], packed.biases[2]
         layer_out = torch.empty((m, d), device=device)
         t_layer = cuda_ms(lambda: fw.eval_wide_layer([h1], w2, b2, True, layer_out), 5)
@@ -6090,6 +6103,16 @@ def time_wide_f32_kernels(device, report):
         log(f"  {k} at fg fine ({m} points, width {d}): {ms:.3f} ms/launch = "
             f"{fl / ms / 1e9:.2f} TFLOP/s, {nb / ms / 1e9:.3f} TB/s; plain {plain_ms:.3f} ms; "
             f"bound {bms:.3f} ms ({by}: {fl:.4g} FLOP, {nb:.4g} B){lib}")
+    for shape, (pk, n, t, tp) in encode_times.items():
+        c = pk.config
+        nb = 4.0 * n * (c.xyz_dim + 3 + pk.ep + pk.dp)
+        bms, by = bound(2.0 * n * (c.xyz_dim * 2 * c.pos_xyz_dim + 3 * 2 * c.pos_dir_dim), nb,
+                        PEAK_F32_FLOPS)
+        log(f"  wide_f32_encode, {shape} shape (xyz_dim {c.xyz_dim}, {pk.ep} + {pk.dp} columns) "
+            f"on {n} points: {t:.4f} ms/launch ({nb / t / 1e9:.3f} TB/s, {100 * bms / t:.1f}% of "
+            f"its bound); plain {tp:.3f} ms; bound {bms:.4f} ms ({by}: {nb:.4g} B)")
+        out[f"encode_{shape}_ms"] = t
+        out[f"encode_{shape}_bound_share"] = bms / t
     dx_bytes = 4.0 * (3 * m * d + d * d)
     dx_ffma = bound(gemm, dx_bytes, PEAK_F32_FLOPS)
     dx_bound = bound(3 * gemm, dx_bytes, PEAK_TF32_FLOPS)

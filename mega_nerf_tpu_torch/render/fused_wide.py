@@ -89,9 +89,10 @@ WIDE_SMEM_BYTES = (WIDE_STAGES * WIDE_STAGE_BYTES + WIDE_OUT_BYTES + WIDE_PARAMS
 # train_wide_dx runs without clusters.
 WIDE_CLUSTER = 2
 DX_CLUSTER = 1
-# The encode kernel: 256 threads (8 warps) per CTA walk tiles of at most
-# ENCODE_TILE points, a lane per point; the tile halves (to 32) while its
-# shared memory (coordinates and staged rows) exceeds ENCODE_SMEM_TARGET.
+# The encode kernels (bf16 rows in eval_wide.cu, f32 rows in wide_f32.cu):
+# 256 threads (8 warps) per CTA walk tiles of at most ENCODE_TILE points, a
+# lane per point; the tile halves (to 32) while its shared memory
+# (coordinates and staged rows) exceeds ENCODE_SMEM_TARGET.
 ENCODE_TILE = 128
 ENCODE_WARPS = 8
 ENCODE_SMEM_TARGET = 96 * 1024
@@ -191,27 +192,32 @@ def wide_resident_ctas(lib: ctypes.CDLL, name: str, device: torch.device) -> int
     return _resident_ctas(lib, device, WIDE_SMEM_BYTES, f"{name}_resident_ctas")
 
 
-def encode_smem(tile: int, xyz_dim: int, ep: int, dp: int) -> int:
+def encode_smem(tile: int, xyz_dim: int, ep: int, dp: int, itemsize: int = 2) -> int:
     """Shared memory of an encode tile: the f32 xyz and dirs rows, the
-    staged enc and dir rows at 2 EP + 4 and 2 DP + 4 bytes (an odd number
-    of words, so the 32 lanes' stores at one column fall in 32 banks)."""
-    return tile * (xyz_dim + 3) * 4 + tile * (2 * ep + 4) + (tile * (2 * dp + 4) if dp else 0)
+    staged enc and dir rows at `itemsize` EP + 4 and `itemsize` DP + 4
+    bytes (2 in bf16, `eval_wide.cu`; 4 in f32, `wide_f32.cu`): an odd
+    number of words, so the 32 lanes' stores at one column fall in 32
+    banks."""
+    return (tile * (xyz_dim + 3) * 4 + tile * (itemsize * ep + 4)
+            + (tile * (itemsize * dp + 4) if dp else 0))
 
 
-def encode_plan(xyz_dim: int, ep: int, dp: int) -> Tuple[int, int]:
-    """(points per tile, shared-memory bytes) of the encode kernel: ENCODE_TILE
-    points, halved down to 32 while the tile needs more than
-    ENCODE_SMEM_TARGET (at 12 / 4 frequencies a tile takes 33-41 KB)."""
+def encode_plan(xyz_dim: int, ep: int, dp: int, itemsize: int = 2) -> Tuple[int, int]:
+    """(points per tile, shared-memory bytes) of the encode kernel of rows of
+    `itemsize` bytes an element: ENCODE_TILE points, halved down to 32
+    while the tile needs more than ENCODE_SMEM_TARGET (at 12 / 4
+    frequencies a tile takes 33-41 KB in bf16, 61-78 KB in f32)."""
     tile = ENCODE_TILE
-    while tile > 32 and encode_smem(tile, xyz_dim, ep, dp) > ENCODE_SMEM_TARGET:
+    while tile > 32 and encode_smem(tile, xyz_dim, ep, dp, itemsize) > ENCODE_SMEM_TARGET:
         tile //= 2
-    return tile, encode_smem(tile, xyz_dim, ep, dp)
+    return tile, encode_smem(tile, xyz_dim, ep, dp, itemsize)
 
 
 def encode_walk(xyz_dim: int, nf_xyz: int, nf_dir: int, has_dir: bool,
                 tile: int = ENCODE_TILE) -> dict:
-    """What each thread of the encode kernel writes into a tile's staged
-    rows, in its order, mirroring its loops -> {(warp, lane): [(operand,
+    """What each thread of the encode kernels (`eval_wide.cu`'s bf16 one and
+    `wide_f32.cu`'s f32 one walk alike) writes into a tile's staged rows,
+    in its order, mirroring their loops -> {(warp, lane): [(operand,
     point, column, coordinate, k, phase), ...]}: operand 0 is enc, 1 dir;
     k = -1 marks the identity column; phase 1 the cos column (argument
     x 2^k + pi/2). Warp w takes tasks w, w + ENCODE_WARPS, ... of the

@@ -11,7 +11,12 @@ where one-pass TF32 is not), so an f32 run gets the numbers of the port's
 f32 eager module and of the JAX package's f32 kernels, to summation order
 and that split's last bits.
 
-- `wide_f32_encode`: the f32 encodes (M, EP) and (M, DP);
+- `wide_f32_encode`: the f32 encodes (M, EP) and (M, DP), by `eval_wide.cu`'s
+  encode design carried to f32 rows: persistent CTAs over tiles of
+  `fused_wide.encode_plan(..., 4)` points, a lane per point walking one
+  coordinate's frequencies (`fused_wide.encode_walk`), each sine through
+  one Cody-Waite reduction (bit for bit sinf), rows staged in shared memory
+  and stored as one contiguous range;
 - `wide_f32_gemm`: Y = epilogue(sum_s X_s W[:, seg_s]^T) in two forms:
   `wide_f32_layer` (a forward layer: bias, optional ReLU) and `wide_f32_dx`
   (a backward-data job on `fused_train.transposed_weights`, the epilogues
@@ -54,9 +59,11 @@ from mega_nerf_tpu_torch.render.fused_mlp import (
 )
 from mega_nerf_tpu_torch.render.fused_train import _ints, _stream
 from mega_nerf_tpu_torch.render.fused_wide import (
+    ENCODE_MAX_SMEM,
     WIDE_MAX_SEGMENTS,
     _device_rule,
     _longs,
+    encode_plan,
     eval_wide_encode_plain,
     eval_wide_layer_plain,
     segment_columns,
@@ -131,9 +138,12 @@ def wide_f32_encode(packed: PackedMLP, xyz: torch.Tensor, dirs: Optional[torch.T
                     enc: Optional[torch.Tensor] = None,
                     dir_enc: Optional[torch.Tensor] = None):
     """-> (enc (M, EP), dir enc (M, DP) or None), f32, in the column form of
-    `fused_mlp.encode` (cos as sin(x 2^k + pi/2), precise sinf). On CUDA
-    tensors the kernel writes into `enc` / `dir_enc` when given
-    (contiguous), else into new tensors."""
+    `fused_mlp.encode` (cos as sin(x 2^k + pi/2), sinf's results). On CUDA
+    tensors the kernel writes into `enc` / `dir_enc` when given (contiguous,
+    16-byte aligned: the kernel stores 16-byte chunks), else into new
+    tensors; xyz_dim 1-4, with dirs or without. Its tile and shared memory
+    are `fused_wide.encode_plan` at 4 bytes an element, which the launcher
+    checks against its own copy."""
     if not _device_rule("wide_f32_encode", xyz):
         return eval_wide_encode_plain(packed, xyz, dirs)
     cfg = packed.config
@@ -141,6 +151,10 @@ def wide_f32_encode(packed: PackedMLP, xyz: torch.Tensor, dirs: Optional[torch.T
         raise ValueError(f"wide_f32_encode: f32 compute only, got {cfg.compute_dtype}")
     if not 1 <= cfg.xyz_dim <= 4:
         raise ValueError(f"wide_f32_encode: xyz_dim {cfg.xyz_dim} (the kernel takes 1-4)")
+    tile, smem = encode_plan(cfg.xyz_dim, packed.ep, packed.dp, 4)
+    if smem > ENCODE_MAX_SMEM:
+        raise ValueError(f"wide_f32_encode: {cfg.pos_xyz_dim} / {cfg.pos_dir_dim} "
+                         f"frequencies need {smem} bytes of shared memory per tile")
     m = xyz.shape[0]
     _check("xyz", xyz, F32, (m, cfg.xyz_dim))
     if enc is None:
@@ -153,12 +167,16 @@ def wide_f32_encode(packed: PackedMLP, xyz: torch.Tensor, dirs: Optional[torch.T
         _check("dir_enc", dir_enc, F32, (m, packed.dp))
     else:
         dir_enc = None
+    for name, t in (("enc", enc), ("dir_enc", dir_enc)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"wide_f32_encode: {name} is not 16-byte aligned")
     if m == 0:
         return enc, dir_enc
     lib = _library()
     ptrs = [xyz.data_ptr(), dirs.data_ptr() if packed.dp else 0, enc.data_ptr(),
             dir_enc.data_ptr() if packed.dp else 0]
-    dims = [m, cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim, packed.ep, packed.dp]
+    dims = [m, cfg.xyz_dim, cfg.pos_xyz_dim, cfg.pos_dir_dim, packed.ep, packed.dp,
+            tile, smem]
     err = lib.wide_f32_encode_launch(_longs(ptrs), _ints(dims), _stream(xyz))
     wide_f32_encode.launches += 1
     _raise_if(lib, err, "wide_f32_encode")

@@ -763,14 +763,15 @@ def test_wide_eval_kernels_match_plain(cuda_device, width, bg, kw, m):
         assert (err[:, 3] / (1 + ref[:, 3].abs())).max().item() <= 1e-2
 
 
-def _encode_case(cuda_device, bg, pos_xyz_dim, pos_dir_dim, m, spread=1.0, seed=11):
+def _encode_case(cuda_device, bg, pos_xyz_dim, pos_dir_dim, m, spread=1.0, seed=11,
+                 compute_dtype="bfloat16"):
     """A 16-wide model's packed encode (only its encode widths matter) and m
     seeded points: the renderer's ranges (fg xyz in [-1.5, 1.5], bg a unit
     vector and an inverse depth in [0, 1], unit dirs) times `spread`."""
     from mega_nerf_tpu_torch.render import fused_wide
 
     hp = tiny_hparams(pos_xyz_dim=pos_xyz_dim, pos_dir_dim=pos_dir_dim,
-                      compute_dtype="bfloat16")
+                      compute_dtype=compute_dtype)
     bundle = (make_bg_nerf if bg else make_nerf)(hp, 1)
     packed = fused_mlp.pack_params(bundle.module.to(cuda_device))
     gen = torch.Generator().manual_seed(seed)
@@ -856,6 +857,114 @@ def test_wide_encode_refuses_misaligned_outputs(cuda_device):
     fw.eval_wide_encode(packed, xyz, dirs, enc=enc, dir_enc=dir_enc)  # aligned: fine
     torch.cuda.synchronize()
     assert fw.eval_wide_encode.launches == launches + 1
+    assert fw.eval_wide_encode_plain.calls == calls
+
+
+def _f32_encode_case(cuda_device, xyz_dim, pos_xyz_dim, pos_dir_dim, m, spread=1.0):
+    """`_encode_case` in f32 compute at xyz_dim 1-4: xyz_dim 1 and 2 take the
+    fg model's first coordinates, its packed config and enc width cut to
+    them (the encode reads nothing else)."""
+    import dataclasses
+
+    fw, packed, xyz, dirs = _encode_case(cuda_device, xyz_dim == 4, pos_xyz_dim, pos_dir_dim,
+                                         m, spread, compute_dtype="float32")
+    if xyz_dim < 3:
+        cfg = dataclasses.replace(packed.config, xyz_dim=xyz_dim)
+        packed = dataclasses.replace(
+            packed, config=cfg, ep=fused_mlp._round_up(cfg.enc_in, fused_mlp.MMA_K))
+        xyz = xyz[:, :xyz_dim].contiguous()
+    return fw, packed, xyz, dirs
+
+
+def _assert_f32_encode_agrees(got, want):
+    """The f32 encode kernel against its plain version: the kernel's sines
+    are sinf's own (one Cody-Waite reduction each, or sinf past it), the
+    plain version's torch.sin on the same f32 arguments; they differ in the
+    last bits of a few elements: within 1e-6 (1 + |x|) (a few f32 ulps of a
+    sine), at least 99% of the elements bit-equal."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    assert _close(got, want) <= 1e-6
+    assert (got == want).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("m", [1, 37, 129, 1000, 200_003])
+@pytest.mark.parametrize("pos_dir_dim", [4, 0])
+@pytest.mark.parametrize("pos_xyz_dim", [12, 64])
+@pytest.mark.parametrize("xyz_dim", [1, 2, 3, 4])
+def test_wide_f32_encode_kernel_matches_plain(cuda_device, xyz_dim, pos_xyz_dim, pos_dir_dim,
+                                              m, given):
+    """The f32 encode kernel (`wide_f32.cu`) against its plain version
+    (`_assert_f32_encode_agrees`) at xyz_dim 1-4, 12 xyz frequencies (64:
+    the tile halves, to 64 points at xyz_dim 2 and 32 at 3 and 4), with and
+    without dirs; M = 1, 37, one tile + 1 and 1,000, and 200,003 (CTAs walk
+    several tiles); outputs allocated by the wrapper or given, pre-filled
+    with NaN, so every column, pads included, must be written. A second
+    launch gives the same bits; no bf16 kernel launches."""
+    fw, packed, xyz, dirs = _f32_encode_case(cuda_device, xyz_dim, pos_xyz_dim, pos_dir_dim, m)
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    tile = fw.encode_plan(xyz_dim, packed.ep, packed.dp, 4)[0]
+    assert (tile == fw.ENCODE_TILE) == (pos_xyz_dim == 12 or xyz_dim == 1)
+    outs = {}
+    if given:
+        outs["enc"] = torch.full((m, packed.ep), float("nan"), device=cuda_device)
+        if packed.dp:
+            outs["dir_enc"] = torch.full((m, packed.dp), float("nan"), device=cuda_device)
+    launches, bf16 = fwf.wide_f32_encode.launches, fw.eval_wide_encode.launches
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs, **outs)
+        again = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+    torch.cuda.synchronize()
+    assert fwf.wide_f32_encode.launches == launches + 2
+    assert fw.eval_wide_encode.launches == bf16
+    if given:
+        assert enc.data_ptr() == outs["enc"].data_ptr()
+    _assert_f32_encode_agrees(enc, p_enc)
+    assert torch.equal(enc.view(torch.int32), again[0].view(torch.int32))
+    assert (dir_enc is None) == (p_dir is None) == (pos_dir_dim == 0)
+    if p_dir is not None:
+        _assert_f32_encode_agrees(dir_enc, p_dir)
+        assert torch.equal(dir_enc.view(torch.int32), again[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("pos_xyz_dim", [12, 16])
+@pytest.mark.parametrize("xyz_dim", [1, 3, 4])
+def test_wide_f32_encode_kernel_takes_sinf_past_the_reduction_limit(cuda_device, xyz_dim,
+                                                                    pos_xyz_dim):
+    """The renderer's ranges times 6,667 (fg coordinates up to 1e4): x 2^k
+    passes sinf's Cody-Waite limit (105,615) from k = 4 on, and those lanes
+    take sinf itself; the same agreement as in the renderer's ranges."""
+    fw, packed, xyz, dirs = _f32_encode_case(cuda_device, xyz_dim, pos_xyz_dim, 4, 1000,
+                                             spread=1e4 / 1.5)
+    assert xyz.abs().max().item() * 2 ** (pos_xyz_dim - 1) > 105_615
+    with torch.no_grad():
+        enc, dir_enc = fw.eval_wide_encode(packed, xyz, dirs)
+        p_enc, p_dir = fw.eval_wide_encode_plain(packed, xyz, dirs)
+    torch.cuda.synchronize()
+    _assert_f32_encode_agrees(enc, p_enc)
+    _assert_f32_encode_agrees(dir_enc, p_dir)
+
+
+def test_wide_f32_encode_refuses_misaligned_outputs(cuda_device):
+    """A given f32 enc or dir_enc off 16-byte alignment (the kernel stores
+    16-byte chunks) raises, without a launch or a plain call."""
+    from mega_nerf_tpu_torch.render import fused_wide_f32 as fwf
+
+    fw, packed, xyz, dirs = _f32_encode_case(cuda_device, 3, 12, 4, 64)
+    enc = torch.empty(64 * packed.ep + 4, device=cuda_device)[4:].view(64, packed.ep)
+    dir_enc = torch.empty(64 * packed.dp + 4, device=cuda_device)[4:].view(64, packed.dp)
+    launches, calls = fwf.wide_f32_encode.launches, fw.eval_wide_encode_plain.calls
+    for given in ({"enc": torch.empty(64 * packed.ep + 1, device=cuda_device)[1:].view(
+                       64, packed.ep)},
+                  {"dir_enc": torch.empty(64 * packed.dp + 1, device=cuda_device)[1:].view(
+                       64, packed.dp)}):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fw.eval_wide_encode(packed, xyz, dirs, **given)
+    fw.eval_wide_encode(packed, xyz, dirs, enc=enc, dir_enc=dir_enc)  # aligned: fine
+    torch.cuda.synchronize()
+    assert fwf.wide_f32_encode.launches == launches + 1
     assert fw.eval_wide_encode_plain.calls == calls
 
 

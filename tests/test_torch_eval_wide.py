@@ -302,20 +302,34 @@ def test_config_encodes_are_the_paper_ones():
     assert len(ENCODES) == 7
 
 
-@pytest.mark.parametrize("xyz_dim,nf_xyz,nf_dir", ENCODES)
-def test_encode_walk_matches_the_jax_encode_layout(xyz_dim, nf_xyz, nf_dir):
-    """The encode kernel's column assignment, mirrored (`encode_walk`):
-    within a tile every live column of every point's enc and dir rows is
-    written exactly once, by the lane of that point, and carries the JAX
-    package's `encode_layout` column (source coordinate, scale 2^k, kind,
-    pi/2 phase on the cos columns); no pad column is written (the kernel
-    zeroes them once per CTA). Also the staged rows' odd word strides and
-    the tile's shared memory."""
+def _itemsize_cases(cases, f32_only=()):
+    """Each case in bf16 rows (itemsize 2, `eval_wide.cu`, the case's own id)
+    and in f32 rows (itemsize 4, `wide_f32.cu`, id "f32-..."), then the
+    `f32_only` cases (the f32 kernel alone takes xyz_dim 1 and 2)."""
+    ids = lambda case: "-".join(map(str, case))  # noqa: E731
+    return ([pytest.param(*case, 2, id=ids(case)) for case in cases]
+            + [pytest.param(*case, 4, id="f32-" + ids(case))
+               for case in [*cases, *f32_only]])
+
+
+@pytest.mark.parametrize("xyz_dim,nf_xyz,nf_dir,itemsize",
+                         _itemsize_cases(ENCODES, [(1, 12, 4), (2, 12, 0), (1, 0, 4)]))
+def test_encode_walk_matches_the_jax_encode_layout(xyz_dim, nf_xyz, nf_dir, itemsize):
+    """The encode kernels' column assignment, mirrored (`encode_walk`; the
+    bf16 kernel of `eval_wide.cu` and the f32 one of `wide_f32.cu` walk
+    alike): within a tile every live column of every point's enc and dir
+    rows is written exactly once, by the lane of that point, and carries
+    the JAX package's `encode_layout` column (source coordinate, scale 2^k,
+    kind, pi/2 phase on the cos columns); no pad column is written (the
+    kernel zeroes them once per CTA). Also the staged rows' odd word
+    strides and the tile's shared memory at the rows' element size."""
     ep = fused_mlp._round_up(xyz_dim * (1 + 2 * nf_xyz), fused_mlp.MMA_K)
     dp = fused_mlp._round_up(3 * (1 + 2 * nf_dir), fused_mlp.MMA_K) if nf_dir else 0
-    tile, smem = fused_wide.encode_plan(xyz_dim, ep, dp)
+    tile, smem = fused_wide.encode_plan(xyz_dim, ep, dp, itemsize)
     assert tile == fused_wide.ENCODE_TILE and smem == fused_wide.encode_smem(
-        tile, xyz_dim, ep, dp) <= fused_wide.ENCODE_SMEM_TARGET
+        tile, xyz_dim, ep, dp, itemsize) <= fused_wide.ENCODE_SMEM_TARGET
+    assert smem == tile * ((xyz_dim + 3) * 4 + itemsize * ep + 4
+                           + (itemsize * dp + 4 if dp else 0))
     walk = fused_wide.encode_walk(xyz_dim, nf_xyz, nf_dir, dp > 0, tile)
     assert set(walk) == {(w, lane) for w in range(fused_wide.ENCODE_WARPS)
                          for lane in range(32)}
@@ -331,7 +345,7 @@ def test_encode_walk_matches_the_jax_encode_layout(xyz_dim, nf_xyz, nf_dir):
             assert (operand, point, col) not in seen
             seen[operand, point, col] = (coord, k, phase)
     for operand, (layout, width) in enumerate(zip(layouts, widths)):
-        assert (2 * width + 4) // 4 % 2 == 1  # odd words: 32 lanes, 32 banks
+        assert (itemsize * width + 4) // 4 % 2 == 1  # odd words: 32 lanes, 32 banks
         colsrc, scale, phase, kind = layout.np_arrays()
         for point in range(tile):
             for col in range(width):
@@ -347,18 +361,28 @@ def test_encode_walk_matches_the_jax_encode_layout(xyz_dim, nf_xyz, nf_dir):
     assert len(seen) == tile * sum(lay.live_cols for lay in layouts)
 
 
-@pytest.mark.parametrize("xyz_dim,nf_xyz,tile", [(4, 12, 128), (4, 16, 128), (4, 64, 64),
-                                                 (3, 64, 64), (4, 128, 32)])
-def test_encode_plan_halves_the_tile_for_many_frequencies(xyz_dim, nf_xyz, tile):
-    """The encode tile: 128 points while its coordinates and staged rows fit
-    ENCODE_SMEM_TARGET, halved down to 32 past it, within a CTA's shared
-    memory; `ENCODE_MAX_SMEM` and the warps are the kernel's own constants."""
+@pytest.mark.parametrize("xyz_dim,nf_xyz,tile,itemsize", [
+    pytest.param(4, 12, 128, 2, id="4-12-128"), pytest.param(4, 16, 128, 2, id="4-16-128"),
+    pytest.param(4, 64, 64, 2, id="4-64-64"), pytest.param(3, 64, 64, 2, id="3-64-64"),
+    pytest.param(4, 128, 32, 2, id="4-128-32"),
+    # f32 rows: the same rule halves sooner (4 bytes an element).
+    pytest.param(4, 12, 128, 4, id="f32-4-12-128"), pytest.param(4, 16, 128, 4, id="f32-4-16-128"),
+    pytest.param(4, 64, 32, 4, id="f32-4-64-32"), pytest.param(3, 64, 32, 4, id="f32-3-64-32"),
+    pytest.param(4, 128, 32, 4, id="f32-4-128-32"), pytest.param(1, 12, 128, 4, id="f32-1-12-128"),
+    pytest.param(2, 64, 64, 4, id="f32-2-64-64"), pytest.param(1, 64, 128, 4, id="f32-1-64-128"),
+])
+def test_encode_plan_halves_the_tile_for_many_frequencies(xyz_dim, nf_xyz, tile, itemsize):
+    """The encode tile: 128 points while its coordinates and staged rows (of
+    `itemsize` bytes an element) fit ENCODE_SMEM_TARGET, halved down to 32
+    past it, within a CTA's shared memory; `ENCODE_MAX_SMEM` and the warps
+    are the kernel's own constants (`eval_wide.cu` in bf16, `wide_f32.cu`
+    in f32)."""
     ep = fused_mlp._round_up(xyz_dim * (1 + 2 * nf_xyz), fused_mlp.MMA_K)
-    got, smem = fused_wide.encode_plan(xyz_dim, ep, 32)
-    assert got == tile and smem == fused_wide.encode_smem(tile, xyz_dim, ep, 32)
+    got, smem = fused_wide.encode_plan(xyz_dim, ep, 32, itemsize)
+    assert got == tile and smem == fused_wide.encode_smem(tile, xyz_dim, ep, 32, itemsize)
     assert smem <= fused_wide.ENCODE_SMEM_TARGET or tile == 32
     assert smem <= fused_wide.ENCODE_MAX_SMEM
-    c = cu_constants("eval_wide")
+    c = cu_constants("eval_wide" if itemsize == 2 else "wide_f32")
     assert c["ENCODE_MAX_SMEM"] == fused_wide.ENCODE_MAX_SMEM
     assert c["ENCODE_THREADS"] == 32 * fused_wide.ENCODE_WARPS
 

@@ -465,6 +465,34 @@ def test_gemm_plan_fits_one_cta_an_sm():
     assert fused_wide_f32.GEMM_SMEM == 4 * 3 * 16_384 + 64 + 1024 <= 232_448
 
 
+@pytest.mark.parametrize("source,itemsize", [("eval_wide", 2), ("wide_f32", 4)])
+def test_encode_launcher_matches_the_host_plan(source, itemsize):
+    """What each encode launcher checks against the host's plan: its CTA
+    (`ENCODE_THREADS` = ENCODE_WARPS warps), its shared-memory ceiling, and
+    its own `encode_smem` (the C expression, evaluated) against
+    `fused_wide.encode_smem` at the rows' element size, over tiles 32-128,
+    xyz_dim 1-4 and the frequencies' padded widths, with dirs and without."""
+    import re
+    from pathlib import Path
+
+    from tests.test_torch_eval_wide import cu_constants
+
+    c = cu_constants(source)
+    assert c["ENCODE_THREADS"] == 32 * fused_wide.ENCODE_WARPS
+    assert c["ENCODE_MAX_SMEM"] == fused_wide.ENCODE_MAX_SMEM
+    src = (Path(fused_wide.__file__).parent / "csrc" / f"{source}.cu").read_text()
+    body = re.search(r"int encode_smem\(int tile, int d, int ep, int dp\) \{\s*return ([^;]+);",
+                     src).group(1)
+    expr = re.sub(r"\((\w+) \? (.+) : 0\)", r"((\2) if \1 else 0)", body)
+    for tile in (32, 64, 128):
+        for d in (1, 2, 3, 4):
+            for ep in (16, 80, 112, 400):
+                for dp in (0, 32, 48):
+                    env = dict(tile=tile, d=d, ep=ep, dp=dp)
+                    assert eval(expr, {}, env) == fused_wide.encode_smem(  # noqa: S307
+                        tile, d, ep, dp, itemsize), (env, expr)
+
+
 def _gemm_operands(case):
     """Operands of one GEMM call on CPU tensors, `case` breaking one rule."""
     from mega_nerf_tpu_torch.render.fused_train_wide import DX_MASK, DX_MASK_SIGMA
