@@ -143,6 +143,24 @@ Runs every phase, in order:
               uninterrupted one in every cell, `scripts.merge_submodules` of
               the 8 cells and `eval.main --container_path` on the val view
               (32 `eval_fwd` launches, finite PSNR, s/view).
+4f. converge - the port's `scripts.convergence_run` at the paper config on
+              the analytic ring scene (`data/synthetic.py`: 28 train and 2
+              val views of 128x128, masks on a 2x1 grid, the chunk store),
+              cell 0 for 2,500 steps, val PSNR at 1,250 and 2,500: 4
+              launches a step of each narrow training kernel, eval launches
+              in the validations only, no other kernel, plain or eager call;
+              every val PSNR finite, the curve rising, the last >= 20 dB;
+              the curve beside the JAX package's 28.32 dB at 2,500 (its TPU
+              run's quality), median rays/s, each stage's seconds.
+4g. converge_cells - `scripts.cell_convergence_run --grid 2 1 --steps 1250
+              --bake` on the same scene, then `scripts.cell_diagnostics
+              --synthetic` on its `merged.pt`: per stage (scene, masks,
+              training, merge, merged eval, octree, flythrough, diagnostics)
+              seconds and launches; 4 x K training launches a grid step; a
+              merged PSNR >= 20 dB beside `converge`'s at 1,250; K eval
+              launches a probe call of the depth-6 octree, its leaves and
+              bytes; two frames; K launches and finite rows in the
+              diagnostics, its floater and missing voxels.
 4e. multiproc - 2 ranks on the one card through torchrun and gloo (this
               script again, `--multiproc_worker`): the first global batch's
               gradients averaged over the ranks against one process's
@@ -169,9 +187,12 @@ Runs every phase, in order:
               kernels' part), `eval.main --train_mega_nerf --ckpt_path`
               (finite PSNR), every kernel's counter set to 0 before
               `train.main` and read after `eval.main`; then one joint step
-              at the paper width through the training kernels and through
-              their plain versions on the same batch (loss and every
-              gradient relative 1e-2).
+              at the paper width: its loss against the plain step's, each
+              MLP call's kernels against their plain versions on the
+              call's own inputs (outputs, rows, d_app, every gradient),
+              the step's gradients against its calls' sums (each relative
+              1e-2); its gradients against a plain and an f64 step
+              printed.
 5. time     - eval kernel ms per launch and its persistent grid at the
               serving path's four shapes (fg 16,384 x 256 and x 512, bg
               16,384 x 128 and x 256 points), its TFLOP/s, plain ms and bound
@@ -298,14 +319,16 @@ gradient of `csrc/train_f32.cu`), TF32 off:
 Prints `{"serving": ...}`, `{"serving_mega": ...}`, `{"serving_dense": ...}`,
 `{"training": ...}`, `{"training_fs": ...}`, `{"training_wide": ...}`,
 `{"serving_cascade": ...}`, `{"training_cascade": ...}`, `{"training_sh": ...}`,
-`{"remat": ...}`, `{"training_cells": ...}`, `{"baking": ...}`,
+`{"remat": ...}`, `{"training_cells": ...}`, `{"converge": ...}`,
+`{"converge_cells": ...}`, `{"baking": ...}`,
 `{"serving_routed": ...}`, `{"training_mega": ...}`, `{"multiproc": ...}`,
 `{"resume_jax": ...}`, `{"training_f32": ...}`, `{"training_wide_f32": ...}`,
 `{"dw_f64": ...}`, `{"fwd_f64": ...}`, `{"bwd_f64": ...}` and `{"gemm_f64": ...}`
 lines, a `{"kernels": [...]}` line (with each kernel's
 launches in serve_routed, in train_mega's `train.main` and `eval.main`, over
-both ranks of multiproc, in resume_jax's resumed run and its eval, and in
-train_wide_f32's `train.main` and `eval.main`), the
+both ranks of multiproc, in resume_jax's resumed run and its eval, in
+train_wide_f32's `train.main` and `eval.main`, and in converge and
+converge_cells), the
 nvidia-smi name/power-limit line,
 and as its last line `{"ok": true, "device": {...}}`. Exits non-zero, with
 no result line, when a phase fails, when CUDA is unavailable, or when the
@@ -2724,6 +2747,254 @@ def phase_train_cells(device, report, tmp: Path):
     return bool(ok)
 
 
+CONVERGE_STEPS = 2500  # cut from the JAX run's 20,000; the width is the paper's
+CONVERGE_VAL = 1250  # --val_interval: val PSNR at 1,250 and 2,500
+CONVERGE_CELL_STEPS = 1250  # cut from the JAX run's 8,000
+CONVERGE_MIN_PSNR = 20.0  # a model whose gradients are broken stays near 10-12 dB
+# The JAX package's val PSNR at step 2,500 of the same run on a TPU v5e
+# (PERF_TPU_HISTORY.md:46): a quality yardstick, not a time.
+JAX_PSNR_2500 = 28.32
+
+
+class Stages:
+    """Seconds and kernel launches of named stages: `wrap(owner, attr,
+    label)` replaces a function or method with one that also records, for
+    each call, its wall time (with a synchronize at its end), every
+    kernel's launches during it, the eager module's calls (with an open
+    `EagerCalls` given) and its return value; `restore()` puts the
+    originals back."""
+
+    def __init__(self, eager=None):
+        self.rows = {}
+        self._saved = []
+        self._eager = eager
+
+    def wrap(self, owner, attr: str, label: str) -> None:
+        import torch
+
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            before, t0 = kernel_launches(), time.perf_counter()
+            eager0 = self._eager.count if self._eager else 0
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            row = self.rows.setdefault(label, {"seconds": 0.0, "launches": {}, "calls": 0,
+                                               "eager": 0})
+            row["seconds"] += time.perf_counter() - t0
+            row["calls"] += 1
+            row["eager"] += (self._eager.count if self._eager else 0) - eager0
+            for name, n in kernel_launches().items():
+                if n - before[name]:
+                    row["launches"][name] = row["launches"].get(name, 0) + n - before[name]
+            row["result"] = out
+            return out
+
+        self._saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def restore(self) -> None:
+        while self._saved:
+            owner, attr, fn = self._saved.pop()
+            setattr(owner, attr, fn)
+
+    def launches(self, label: str, name: str) -> int:
+        return self.rows.get(label, {}).get("launches", {}).get(name, 0)
+
+    def table(self):
+        """{label: {"seconds", "calls", "launches", "eager"}}, without the
+        results."""
+        return {k: {key: v[key] for key in ("seconds", "calls", "launches", "eager")}
+                for k, v in self.rows.items()}
+
+
+def only_narrow_launches(counts) -> bool:
+    """No kernel outside the narrow eval and training kernels launched."""
+    return all(n == 0 for name, n in counts.items() if name not in NARROW_KERNELS)
+
+
+def phase_converge(device, report, tmp: Path):
+    """The port's `scripts.convergence_run` at the paper config (fg and bg
+    8x256, 48-d appearance, 256 + 512 samples, 1024 rays a step, bf16) on
+    the analytic ring scene of `data/synthetic.py`: 28 train and 2 val
+    views of 128x128, masks on a 2x1 grid, the parquet chunk store, cell-0
+    training for CONVERGE_STEPS steps with right-half val PSNR every
+    CONVERGE_VAL. Every counter is set to 0 just before `main` and read
+    just after it. Checks: 4 launches a step of each narrow training kernel,
+    `fused_nerf_eval` launches in the validations only, no other kernel's
+    launch, no plain or eager-module call; every val PSNR finite, the curve
+    rising, the last at least CONVERGE_MIN_PSNR. Prints the curve beside the
+    JAX package's 28.32 dB at step 2,500 (its TPU run's quality, not a
+    time), the median rays/s and each stage's seconds with the card's name
+    and power limit."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+    from mega_nerf_tpu_torch.scripts import convergence_run
+
+    work = tmp / "converge"
+    stages = Stages()
+    stages.wrap(convergence_run, "build_scene", "scene")
+    stages.wrap(convergence_run, "build_masks", "masks")
+    stages.wrap(Runner, "train", "train")
+    stages.wrap(Runner, "_run_validation", "validation")
+    zero_all_counters()
+    t0 = time.perf_counter()
+    try:
+        with EagerCalls() as eager:
+            summary = convergence_run.main(
+                ["--steps", str(CONVERGE_STEPS), "--val_interval", str(CONVERGE_VAL),
+                 "--workdir", str(work)])
+            torch.cuda.synchronize()
+    finally:
+        stages.restore()
+    wall = time.perf_counter() - t0
+    counts = kernel_launches()
+    plain = train_counters()["plain"]
+    for name in NARROW_KERNELS:
+        report["kernels"][name]["launches_converge"] = counts[name]
+    curve = summary["val_psnr_curve"]
+    psnrs = [p for _, p in curve]
+    val_launches = stages.launches("validation", "fused_nerf_eval")
+    smi = report["device_line"]
+    log(f"  convergence_run: {CONVERGE_STEPS} steps at the paper config in {wall:.1f} s "
+        f"(Runner.train {summary['wall_seconds']} s with the chunk store and "
+        f"validations); stages " + ", ".join(
+            f"{k} {v['seconds']:.1f} s" for k, v in stages.table().items()))
+    log(f"  val PSNR curve (right half of the 2 val views): {curve}; the JAX package's "
+        f"run on a TPU v5e read {JAX_PSNR_2500} at step 2,500 (PERF_TPU_HISTORY.md:46)")
+    log(f"  median train rays/s {summary['median_sustained_rays_per_sec']} on {smi}")
+    log(f"  launches {counts} (expected {4 * CONVERGE_STEPS} of each training kernel; "
+        f"fused_nerf_eval {counts['fused_nerf_eval']}, of which in validation "
+        f"{val_launches}); plain calls {plain}, eager module calls {eager.count}")
+    ok = (len(curve) == CONVERGE_STEPS // CONVERGE_VAL
+          and [s for s, _ in curve] == list(range(CONVERGE_VAL, CONVERGE_STEPS + 1,
+                                                  CONVERGE_VAL))
+          and bool(np.isfinite(psnrs).all()) and psnrs[-1] > psnrs[0]
+          and psnrs[-1] >= CONVERGE_MIN_PSNR
+          and all(counts[name] == 4 * CONVERGE_STEPS for name in TRAIN_KERNELS)
+          and counts["fused_nerf_eval"] > 0 and val_launches == counts["fused_nerf_eval"]
+          and only_narrow_launches(counts) and plain == 0 and eager.count == 0)
+    report["converge"] = {
+        "steps": CONVERGE_STEPS, "val_interval": CONVERGE_VAL,
+        "val_psnr_curve": curve, "jax_tpu_psnr_2500": JAX_PSNR_2500,
+        "median_rays_per_s": summary["median_sustained_rays_per_sec"],
+        "train_wall_s": summary["wall_seconds"], "wall_s": wall,
+        "stages": stages.table(), "launches": counts, "device_line": smi}
+    return bool(ok)
+
+
+def phase_converge_cells(device, report, tmp: Path):
+    """The port's `scripts.cell_convergence_run --grid 2 1 --steps
+    CONVERGE_CELL_STEPS --bake` at the paper config on the same ring scene
+    (the same builder and flags as `converge`), then
+    `scripts.cell_diagnostics --synthetic` on its `merged.pt`. Every counter
+    is set to 0 just before and read just after the two. Checks, by stage:
+    training, 4 x K launches a grid step of each narrow training kernel and
+    no eval launch; the merge, none; the merged eval, `fused_nerf_eval`
+    launches and a finite PSNR of at least CONVERGE_MIN_PSNR; the octree
+    (weight mode, depth 6), K launches a probe call, its leaves and file
+    size; the flythrough, two frames and eval launches; the diagnostics, K
+    launches (one a submodule) and finite rows. No other kernel's launch, no
+    plain call, and no eager-module call but the merge's check on the CPU
+    (one forward of ones through each of the 2K submodules). Prints the merged PSNR beside `converge`'s
+    at step CONVERGE_CELL_STEPS, the floater and missing voxels, and each
+    stage's seconds."""
+    import numpy as np
+    import torch
+
+    from mega_nerf_tpu_torch.runtime.cell_runner import CellRunner
+    from mega_nerf_tpu_torch.runtime.runner import Runner
+    from mega_nerf_tpu_torch.scripts import cell_convergence_run as ccr
+    from mega_nerf_tpu_torch.scripts import cell_diagnostics, create_octree
+    from mega_nerf_tpu_torch.scripts import merge_submodules, render_images
+
+    work = tmp / "converge_cells"
+    k = 2
+    probes = []
+    probe = create_octree._probe
+
+    def counting_probe(bundle, settings, points, *args, **kwargs):
+        probes.append(points.shape[0])
+        return probe(bundle, settings, points, *args, **kwargs)
+
+    eager = EagerCalls()
+    stages = Stages(eager)
+    stages.wrap(ccr, "build_scene", "scene")
+    stages.wrap(ccr, "build_masks", "masks")
+    stages.wrap(CellRunner, "train", "train")
+    stages.wrap(merge_submodules, "main", "merge")
+    stages.wrap(Runner, "eval", "eval")
+    stages.wrap(create_octree, "main", "octree")
+    stages.wrap(render_images, "main", "flythrough")
+    stages.wrap(cell_diagnostics, "main", "diagnostics")
+    create_octree._probe = counting_probe
+    zero_all_counters()
+    t0 = time.perf_counter()
+    try:
+        with eager:
+            summary = ccr.main(["--grid", "2", "1", "--steps", str(CONVERGE_CELL_STEPS),
+                                "--bake", "--workdir", str(work)])
+            diag = cell_diagnostics.main(["--workdir", str(work), "--synthetic"])
+            torch.cuda.synchronize()
+    finally:
+        stages.restore()
+        create_octree._probe = probe
+    wall = time.perf_counter() - t0
+    counts = kernel_launches()
+    plain = train_counters()["plain"]
+    for name in NARROW_KERNELS:
+        report["kernels"][name]["launches_converge_cells"] = counts[name]
+    table = stages.table()
+    tree = stages.rows["octree"]["result"]
+    octree = work / "octree.npz"
+    leaves, octree_bytes = int(tree.n_leaves), octree.stat().st_size
+    single = dict(report.get("converge", {}).get("val_psnr_curve", []))
+    at_same = single.get(CONVERGE_CELL_STEPS)
+    rows, dsum = diag["cells"], diag["summary"]
+    launch = stages.launches
+    log(f"  cell_convergence_run --grid 2 1: {summary}")
+    log(f"  merged 2x1 val PSNR {summary['merged_val_psnr']} at step {CONVERGE_CELL_STEPS} "
+        f"beside converge's single cell-0 run at the same step: {at_same} (on {report['device_line']})")
+    log(f"  octree: {leaves} leaves, {octree_bytes} bytes, {len(probes)} probe calls; "
+        f"diagnostics: floater voxels {dsum.get('total_floater_voxels')}, missing voxels "
+        f"{dsum.get('total_missing_voxels')}, rows {rows}")
+    log("  stages: " + "; ".join(
+        f"{name} {row['seconds']:.1f} s, launches {row['launches']}"
+        for name, row in table.items()))
+    log(f"  launches {counts}; plain calls {plain}; eager module calls {eager.count}, "
+        f"expected {2 * k}: the merge's forward of ones through the fg and bg mixtures on "
+        f"the CPU; phase {wall:.1f} s")
+    train_each = 4 * k * CONVERGE_CELL_STEPS
+    ok = (summary["num_cells"] == k and np.isfinite(summary["merged_val_psnr"])
+          and summary["merged_val_psnr"] >= CONVERGE_MIN_PSNR
+          and all(launch("train", name) == counts[name] == train_each
+                  for name in TRAIN_KERNELS)
+          and launch("train", "fused_nerf_eval") == 0
+          and not table["merge"]["launches"]
+          and launch("eval", "fused_nerf_eval") > 0
+          and launch("octree", "fused_nerf_eval") == k * len(probes) > 0
+          and summary.get("flythrough_frames") == 2
+          and launch("flythrough", "fused_nerf_eval") > 0
+          and launch("diagnostics", "fused_nerf_eval") == k
+          and counts["fused_nerf_eval"] == sum(
+              launch(s, "fused_nerf_eval") for s in ("eval", "octree", "flythrough",
+                                                     "diagnostics"))
+          and leaves > 8 and octree_bytes > 0 and len(rows) == k
+          and all(np.isfinite(v).all() for r in rows for v in r.values()
+                  if isinstance(v, (int, float)))
+          and only_narrow_launches(counts) and plain == 0
+          and eager.count == table["merge"]["eager"] == 2 * k)
+    report["converge_cells"] = {
+        "grid": [2, 1], "steps": CONVERGE_CELL_STEPS, "summary": summary,
+        "single_cell_psnr_same_step": at_same, "octree_leaves": leaves,
+        "octree_bytes": octree_bytes, "probe_calls": len(probes),
+        "diagnostics": diag, "stages": table, "launches": counts, "wall_s": wall,
+        "device_line": report["device_line"]}
+    return bool(ok)
+
+
 MP_RANKS = 2  # ranks on the one card (gloo: NCCL refuses two ranks on one device)
 MP_STEPS = 20  # data-parallel Runner.train steps, then as many chained
 MP_GRID = (1, 3)  # K = 3 cells over --cell_axis 2: rank 1 holds cell 2 and a padding cell
@@ -3102,6 +3373,7 @@ def phase_multiproc(device, report, tmp: Path):
 MEGA_TRAIN_STEPS = 20
 MEGA_TIMED_STEPS = 20
 TRAIN_KERNELS = ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad")
+NARROW_KERNELS = ("fused_nerf_eval",) + TRAIN_KERNELS
 
 
 def chained_step_ms(step, batches, n: int) -> float:
@@ -3121,42 +3393,187 @@ def chained_step_ms(step, batches, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def joint_step_vs_plain(step, batch, device):
-    """One joint step's loss and gradients (fg and bg mixtures, every
-    parameter that gets a gradient) through the training kernels and
-    through their plain versions on the same batch and noise -> (loss
-    relative difference, gradient tensors, (worst relative norm difference,
-    its tensor's name)). The plain calls are comparisons, not launches."""
+def train_fwd_f64(packed, xyz, dirs, app, noise):
+    """The training forward in f64 (`forward_trace(acc=torch.float64)`: the
+    same weights, every product, sum and activation in f64, the saved rows
+    unrounded) -> ((M, 4) f32, f64 rows)."""
+    import torch
+
+    from mega_nerf_tpu_torch.render.fused_mlp import forward_trace
+
+    tr = forward_trace(packed, xyz, dirs, app, noise, acc=torch.float64)
+    parts = [tr.enc, *tr.hs] + ([tr.branch_in, tr.branch] if packed.has_branch else [])
+    return tr.output(packed.config.shifted_softplus).float(), torch.cat(parts, -1)
+
+
+def train_bwd_f64(packed, act, g, noise):
+    """The backward-data step in f64 (`train_bwd_data_plain(acc=torch.float64)`)."""
     import torch
 
     from mega_nerf_tpu_torch.render import fused_train as ft
 
-    def loss_and_grads():
+    rows, d_app = ft.train_bwd_data_plain(packed, act, g, noise, acc=torch.float64)
+    return rows, None if d_app is None else d_app.float()
+
+
+def weight_grad_f64(packed, act, grad):
+    """`weight_grad_plain`'s sums in f64 -> flat f32 gradients."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    out = torch.zeros(ft._offsets(ft.packed_shapes(packed))[-1], dtype=torch.float64,
+                      device=act.device)
+    for d_col, n, x_col, k, out_off, stride, bias_off in ft.weight_grad_jobs(packed):
+        dm = grad[:, d_col:d_col + n].double()
+        out[out_off:out_off + n * stride].view(n, stride)[:, :k] = \
+            dm.T @ act[:, x_col:x_col + k].double()
+        if bias_off >= 0:
+            out[bias_off:bias_off + n] = dm.sum(0)
+    return out.float()
+
+
+TRAIN_STEPS_FNS = ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad")
+
+
+def train_chain(name: str):
+    """The three training steps of a chain: "kernel", "plain" or "f64"."""
+    from mega_nerf_tpu_torch.render import fused_train as ft
+
+    return {"kernel": (ft.fused_nerf_train_fwd, ft.train_bwd_data, ft.weight_grad),
+            "plain": (ft.fused_nerf_train_fwd_plain, ft.train_bwd_data_plain,
+                      ft.weight_grad_plain),
+            "f64": (train_fwd_f64, train_bwd_f64, weight_grad_f64)}[name]
+
+
+def joint_step_through(step, batch, device, chain: str):
+    """One joint step's loss and gradients through `chain`'s three training
+    steps, on `batch` with the sigma noise and sample draws of generator
+    seed 5 -> (loss, {side.name: gradient}, the MLP calls: each call's
+    submodule, module, points, direction coordinates, appearance rows,
+    noise and the cotangent that reached its output)."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render import rendering
+
+    keys = {id(m): f"{side}.{i}" for side, b in (("fg", step.fg), ("bg", step.bg))
+            for i, m in enumerate(b.module)}
+    calls = []
+    apply = rendering.fused_nerf_train_apply
+
+    def recording_apply(module, xyz, coords, app, nz):
+        out = apply(module, xyz, coords, app, nz)
+        rec = {"key": keys[id(module)], "module": module, "xyz": xyz.detach(),
+               "coords": None if coords is None else coords.detach(),
+               "app": None if app is None else app.detach(),
+               "nz": None if nz is None else nz.detach()}
+        calls.append(rec)
+        out.register_hook(lambda g, rec=rec: rec.__setitem__("g", g.detach().clone()))
+        return out
+
+    saved = [getattr(ft, n) for n in TRAIN_STEPS_FNS]
+    rendering.fused_nerf_train_apply = recording_apply
+    try:
+        for n, fn in zip(TRAIN_STEPS_FNS, train_chain(chain)):
+            setattr(ft, n, fn)
         for opt in (step.fg_opt, step.bg_opt):
             opt.zero_grad(set_to_none=True)
         loss, _, _ = step.loss(batch, torch.Generator(device=device).manual_seed(5))
         loss.backward()
-        return loss.item(), {f"{side}.{name}": p.grad.detach().clone()
-                             for side, b in (("fg", step.fg), ("bg", step.bg))
-                             for name, p in b.module.named_parameters()
-                             if p.grad is not None}
-
-    k_loss, k_grads = loss_and_grads()
-    names = ("fused_nerf_train_fwd", "train_bwd_data", "weight_grad")
-    saved = [getattr(ft, n) for n in names]
-    try:
-        for n in names:
-            setattr(ft, n, getattr(ft, f"{n}_plain"))
-        p_loss, p_grads = loss_and_grads()
     finally:
-        for n, fn in zip(names, saved):
+        rendering.fused_nerf_train_apply = apply
+        for n, fn in zip(TRAIN_STEPS_FNS, saved):
             setattr(ft, n, fn)
+    grads = {f"{side}.{name}": p.grad.detach().clone()
+             for side, b in (("fg", step.fg), ("bg", step.bg))
+             for name, p in b.module.named_parameters() if p.grad is not None}
     for opt in (step.fg_opt, step.bg_opt):
         opt.zero_grad(set_to_none=True)
-    worst = (float("inf"), "a gradient missing on one side")
-    if set(k_grads) == set(p_grads) and p_grads:
-        worst = max((rel_err(k_grads[n], g), n) for n, g in p_grads.items())
-    return abs(k_loss - p_loss) / abs(p_loss), len(p_grads), worst
+    return loss.item(), grads, calls
+
+
+def joint_calls_vs_plain(calls):
+    """Each MLP call of a joint step through the training kernels against
+    their plain versions on that call's own inputs: the forward (outputs and
+    saved rows), the backward-data step on the kernel's saved rows and the
+    call's cotangent (gradient rows and d_app), the weight gradient on the
+    kernel's rows (every parameter's gradient) -> ((worst relative norm
+    difference, what), {side.sub.name: the kernel's gradient summed over the
+    calls})."""
+    import torch
+
+    from mega_nerf_tpu_torch.render import fused_train as ft
+    from mega_nerf_tpu_torch.render.fused_mlp import mlp_param_names, pack_tensors
+
+    errs, sums = [], {}
+    for i, rec in enumerate(calls):
+        cfg = rec["module"].config
+        names = mlp_param_names(cfg)
+        named = dict(rec["module"].named_parameters())
+        params = [named[n] for n in names]
+        packed = pack_tensors(cfg, dict(zip(names, params)))
+        args = (rec["xyz"], rec["coords"], rec["app"], rec["nz"])
+        g = rec["g"].float().contiguous()
+        where = f"call {i} ({rec['key']}, {rec['xyz'].shape[0]} points)"
+        with torch.no_grad():
+            out_k, act_k = ft.fused_nerf_train_fwd(packed, *args)
+            out_p, act_p = ft.fused_nerf_train_fwd_plain(packed, *args)
+            rows_k, app_k = ft.train_bwd_data(packed, act_k, g, rec["nz"])
+            rows_p, app_p = ft.train_bwd_data_plain(packed, act_k, g, rec["nz"])
+            flat_k = ft.weight_grad(packed, act_k, rows_k)
+            flat_p = ft.weight_grad_plain(packed, act_k, rows_k)
+        pairs = [("forward outputs", out_k, out_p), ("saved rows", act_k, act_p),
+                 ("backward-data rows", rows_k, rows_p)]
+        if app_p is not None:
+            pairs.append(("d_app", app_k, app_p))
+        grads_k = ft.unpack_grads(cfg, ft.split_grads(packed, flat_k), params)
+        grads_p = ft.unpack_grads(cfg, ft.split_grads(packed, flat_p), params)
+        pairs += [(f"dW {n}", a, b) for n, a, b in zip(names, grads_k, grads_p)]
+        errs += [(rel_err(a, b), f"{where}: {what}") for what, a, b in pairs]
+        for n, gk in zip(names, grads_k):
+            key = f"{rec['key']}.{n}"
+            sums[key] = sums.get(key, 0) + gk.double()
+    return max(errs, default=(float("inf"), "no call")), sums
+
+
+def joint_step_vs_plain(step, batch, device):
+    """One paper-width joint step (fg and bg mixtures) through the training
+    kernels, held to their plain versions -> {"loss_rel": the loss against
+    the plain step's, "stages": (worst, what) of `joint_calls_vs_plain` on
+    every MLP call of the kernel step, "sums": (worst, tensor) of the kernel
+    step's gradients against the sum of its calls' kernel gradients, "f64":
+    each gradient of the kernel, plain and f64 steps against each other's
+    (printed, not held)}.
+
+    The step's gradients are not held to the plain step's tensor by tensor:
+    a ReLU unit whose pre-activation sits within an f32 rounding of zero
+    flips between two equally right sums, and at a point with a large
+    cotangent that moves a small submodule's gradient by percents; both
+    steps sit as far from the f64 step, and a ray origin moved by one f32
+    ulp moves them as far (ROADMAP.md C.8). The plain calls are
+    comparisons, not launches."""
+    import torch
+
+    k_loss, k_grads, calls = joint_step_through(step, batch, device, "kernel")
+    p_loss, p_grads, _ = joint_step_through(step, batch, device, "plain")
+    _, r_grads, _ = joint_step_through(step, batch, device, "f64")
+    stages, sums = joint_calls_vs_plain(calls)
+    comp = max(((rel_err(k_grads[n], s), n) for n, s in sums.items()),
+               default=(float("inf"), "no gradient"))
+    if set(sums) - set(k_grads):
+        comp = (float("inf"), "a call's tensor has no gradient in the step")
+    f64 = {}
+    for pair, (a, b) in {"kernel_vs_plain": (k_grads, p_grads),
+                         "kernel_vs_f64": (k_grads, r_grads),
+                         "plain_vs_f64": (p_grads, r_grads)}.items():
+        errs = [(rel_err(a[n], b[n]), n) for n in b]
+        f64[pair] = {"worst": max(errs), "over_1e-2": sum(e > 1e-2 for e, _ in errs),
+                     "tensors": len(errs)}
+    del calls
+    torch.cuda.empty_cache()
+    return {"loss_rel": abs(k_loss - p_loss) / abs(p_loss), "stages": stages,
+            "sums": comp, "f64": f64}
 
 
 def phase_train_mega(device, report, tmp: Path):
@@ -3178,8 +3595,11 @@ def phase_train_mega(device, report, tmp: Path):
     PSNR; every kernel's counter is set to 0 before `train.main` and read
     after `eval.main` (`launches_train_mega`: the 20 steps, the final
     validation and the eval). Last, one joint step at the paper width on
-    one batch through the training kernels and through their plain
-    versions: the loss and every gradient relative 1e-2. Prints the
+    one batch (`joint_step_vs_plain`): its loss against the plain step's,
+    every MLP call's three kernels against their plain versions on the
+    call's own inputs (outputs, rows, d_app, every gradient), and the step's
+    gradients against its calls' sums, each relative 1e-2; the step's
+    gradients against the plain and f64 steps' printed. Prints the
     `{"training_mega": ...}` record."""
     import numpy as np
     import torch
@@ -3298,12 +3718,19 @@ def phase_train_mega(device, report, tmp: Path):
     else:
         log("  profiler: no device time recorded (the joint step's busy share not measured)")
 
-    # One joint step's loss and gradients, the kernels against the plain versions.
-    plain_loss, plain_grads, plain_worst = joint_step_vs_plain(step, batches[0], device)
-    log(f"  joint step vs the plain versions (K = {k}, 1024 rays): loss relative "
-        f"{plain_loss:.3e}, worst gradient relative {plain_worst[0]:.3e} ({plain_worst[1]}), "
-        f"{plain_grads} gradient tensors (limit {TOL})")
-    ok = ok and plain_loss <= TOL and plain_worst[0] <= TOL
+    # One joint step: the loss against the plain step's, every MLP call's
+    # kernels against their plain versions on the call's own inputs, the
+    # step's gradients against its calls' sums; the gradients against the
+    # plain and f64 steps' printed.
+    vs = joint_step_vs_plain(step, batches[0], device)
+    log(f"  joint step vs the plain versions (K = {k}, 1024 rays, limit {TOL}): loss "
+        f"relative {vs['loss_rel']:.3e}; each call's kernels on its own inputs, worst "
+        f"{vs['stages'][0]:.3e} ({vs['stages'][1]}); the step's gradients against its "
+        f"calls' sums, worst {vs['sums'][0]:.3e} ({vs['sums'][1]})")
+    for pair, e in vs["f64"].items():
+        log(f"    step gradients {pair}: worst {e['worst'][0]:.3e} ({e['worst'][1]}), "
+            f"{e['over_1e-2']} of {e['tensors']} tensors over 1e-2 (printed, not held)")
+    ok = ok and vs["loss_rel"] <= TOL and vs["stages"][0] <= TOL and vs["sums"][0] <= TOL
     report["training_mega"] = {
         "config": MEGA_CONFIG, "submodules": k, "steps": MEGA_TRAIN_STEPS,
         "train_main_s": wall, "run_peak_mem_gb": run_peak, "loss_first5": first,
@@ -3313,8 +3740,7 @@ def phase_train_mega(device, report, tmp: Path):
         "fine_pass_share_last_step": share, "step_ms": mega_ms,
         "single_model_step_ms": single_ms, "step_peak_mem_gb": step_peak,
         "profile": profile, "eval_metrics": e_metrics, "launches": launches,
-        "vs_plain": {"loss_rel": plain_loss, "grad_rel_worst": plain_worst[0],
-                     "grad_worst": plain_worst[1], "grad_tensors": plain_grads}}
+        "vs_plain": vs}
     return bool(ok)
 
 
@@ -6291,7 +6717,8 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "library_ms": None, "launches_serve_routed": None, "launches_train_mega": None,
         "launches_multiproc": None, "launches_resume_jax": None,
-        "launches_train_wide_f32": None}
+        "launches_train_wide_f32": None, "launches_converge": None,
+        "launches_converge_cells": None}
         for name, source, replaces in KERNELS}, "device_line": smi_line}
     ok = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6309,6 +6736,8 @@ def main() -> int:
             ("train", lambda: phase_train(device, report, Path(tmp))),
             ("train_fs", lambda: phase_train_fs(device, report, Path(tmp))),
             ("train_cells", lambda: phase_train_cells(device, report, Path(tmp))),
+            ("converge", lambda: phase_converge(device, report, Path(tmp))),
+            ("converge_cells", lambda: phase_converge_cells(device, report, Path(tmp))),
             ("multiproc", lambda: phase_multiproc(device, report, Path(tmp))),
             ("train_mega", lambda: phase_train_mega(device, report, Path(tmp))),
             ("train_wide", lambda: phase_train_wide(device, report, Path(tmp))),
@@ -6340,7 +6769,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_serve_routed", "launches_train_mega", "launches_multiproc",
-            "launches_resume_jax", "launches_train_wide_f32")
+            "launches_resume_jax", "launches_train_wide_f32", "launches_converge",
+            "launches_converge_cells")
     kernels = [{k: entry[k] for k in keys} for entry in report["kernels"].values()]
     serving = {k: report[k] for k in ("s_per_view", "rays_per_s",
                                       "render_rgb_diff", "eval_chunk_ms",
@@ -6356,6 +6786,8 @@ def main() -> int:
     log(json.dumps({"training_sh": report["training_sh"]}))
     log(json.dumps({"remat": report["remat"]}))
     log(json.dumps({"training_cells": report["training_cells"]}))
+    log(json.dumps({"converge": report["converge"]}))
+    log(json.dumps({"converge_cells": report["converge_cells"]}, default=str))
     log(json.dumps({"baking": report["baking"]}))
     log(json.dumps({"serving_routed": report["serving_routed"]}))
     log(json.dumps({"training_mega": report["training_mega"]}))

@@ -213,14 +213,24 @@ class NeRF(nn.Module):
         return torch.cat([rgb, sigma], dim=-1)
 
 
+# The standard deviation of a unit normal truncated to [-2, 2].
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: LeCun-normal weights (std 1/sqrt(fan_in)),
-    zero biases, embedding rows with std 1/sqrt(dim)."""
+    """Seeded initialisation with the JAX package's distributions (flax's
+    defaults): weights LeCun normal as `nn.initializers.lecun_normal` draws
+    it (a normal truncated at two standard deviations, scaled to variance
+    1/fan_in), zero biases, appearance embedding rows normal with variance
+    1/dim (`nn.Embed`'s default). The draws are the generator's, not JAX's."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
                 continue
-            fan_in = p.shape[-1]
-            noise = torch.randn(p.shape, generator=generator, dtype=p.dtype)
-            p.copy_(noise / fan_in ** 0.5)
+            if "embedding_a" in name:
+                noise = torch.randn(p.shape, generator=generator, dtype=p.dtype)
+            else:
+                noise = nn.init.trunc_normal_(torch.empty(p.shape, dtype=p.dtype),
+                                              generator=generator) / TRUNCATED_NORMAL_STD
+            p.copy_(noise / p.shape[-1] ** 0.5)

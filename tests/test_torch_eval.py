@@ -121,7 +121,10 @@ REQUIRED_MODULES = (
     "mega_nerf_tpu_torch.octree.grid_weight", "mega_nerf_tpu_torch.octree.render",
     "mega_nerf_tpu_torch.render.cell_cull", "mega_nerf_tpu_torch.render.ray_bounds",
     "mega_nerf_tpu_torch.scripts.create_octree", "mega_nerf_tpu_torch.scripts.bake_occupancy",
-    "mega_nerf_tpu_torch.scripts.render_octree",
+    "mega_nerf_tpu_torch.scripts.render_octree", "mega_nerf_tpu_torch.data.synthetic",
+    "mega_nerf_tpu_torch.scripts.convergence_run",
+    "mega_nerf_tpu_torch.scripts.cell_convergence_run",
+    "mega_nerf_tpu_torch.scripts.cell_diagnostics",
 )
 
 
